@@ -7,18 +7,32 @@ Run from the root of the repository, on a machine with one CUDA card and
 the run by raising:
 
 1. card: ``nvidia-smi`` name and power limit;
-2. build: every CUDA kernel of the main path, from ``csrc/`` with ``nvcc``;
-3. each kernel against its plain PyTorch version on the card, at the main
-   path's shapes and at full-utterance shapes, in float32 and bfloat16,
-   with kernel, plain, bound and library times;
-4. main path: ``entry()`` (wav2vec2-BASE, mean pooling, FC head; bf16,
-   B=48 x 48 000 samples), its launch counts, its speed, and a float32
+2. build: every CUDA kernel of the main paths, from ``csrc/`` with one
+   ``nvcc`` per source, all started together;
+3. each kernel against its plain PyTorch version on the card: the
+   attention forward (output and LSE, and the inference path at rate 0),
+   dq and dk/dv, at the training shape, a ragged 30 s shape and a 64 s
+   shape, in float32 and bfloat16, at dropout rates 0 and 0.1, with kernel,
+   plain, bound and library times;
+4. serving main path: ``entry()`` (wav2vec2-BASE, mean pooling, FC head;
+   bf16, B=48 x 48 000 samples), its launch counts, its speed, and a float32
    check of the same weights against the CPU on a small padded batch;
 5. serving: 12 utterances of 3.2-64 s through ``extract_embeddings``
    (buckets of 16 000 samples, batch 4), each embedding held against the
    utterance's own unpadded batch-1 embedding (``padding_ratio``), then 20
    pair scores;
-6. one JSON line with every kernel's numbers, then the result line.
+6. training main path: ``train_entry()`` (the ``speaker_wav2vec2_ce``
+   recipe at full BASE width, B=66 x 48 000, bf16 autocast over float32
+   parameters, every regularisation on): warm-up, then 12 timed steps,
+   the launches of each kernel against the layers each step kept, the
+   loss finite, the parameters moved, peak memory and the device profile;
+7. a float32 training step at full width (2 layers), card against CPU,
+   from the same weights and generator seed with dropout on: loss and
+   gradients agree;
+8. overfit: 30 steps on one batch at a constant learning rate; the loss
+   falls;
+9. one JSON line with every kernel's numbers, the card line, then the
+   result line.
 
 Exits non-zero, printing no result, without a CUDA device or outside a
 checkout of the repository.
@@ -36,25 +50,41 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from w2v2_speaker_tpu_torch.entry import BATCH, SAMPLES, build_model, entry
-from w2v2_speaker_tpu_torch.models.wav2vec2 import feat_extract_output_lengths
+from w2v2_speaker_tpu_torch.data.samples import SpeakerSample
+from w2v2_speaker_tpu_torch.entry import (
+    BATCH, SAMPLES, build_model, build_train_state, entry, synthetic_batch, train_entry,
+)
+from w2v2_speaker_tpu_torch.models.wav2vec2 import BASE_CONFIG, feat_extract_output_lengths
 from w2v2_speaker_tpu_torch.ops import _build
 from w2v2_speaker_tpu_torch.ops import flash_attention as fa
-from w2v2_speaker_tpu_torch.data.samples import SpeakerSample
+from w2v2_speaker_tpu_torch.runtime.experiment import SPEAKER_WAV2VEC2_CE, build_optimizer
 from w2v2_speaker_tpu_torch.runtime.predict import extract_embeddings, score_pairs
+from w2v2_speaker_tpu_torch.train.speaker_task import SpeakerTask
+from w2v2_speaker_tpu_torch.train.state import AdamTx, TrainState
+from w2v2_speaker_tpu_torch.train.steps import make_train_step
 
 # H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores, float32
-# outside the tensor cores (the f32 kernel runs scalar FMAs), HBM3
+# outside the tensor cores (the f32 kernels run scalar FMAs), HBM3
 PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 PEAK_BYTES = 3.35e12
 H, D = 12, 64  # wav2vec2-BASE attention
+KERNEL_SOURCES = ("flash_attention_fwd", "flash_attention_bwd")
+KERNELS = (  # (name in the kernels line, source, the TPU kernel it replaces)
+    ("flash_attention_fwd", "flash_attention_fwd", "w2v2_speaker_tpu/ops/flash_attention.py:204"),
+    ("flash_attention_bwd_dq", "flash_attention_bwd", "w2v2_speaker_tpu/ops/flash_attention.py:381"),
+    ("flash_attention_bwd_dkv", "flash_attention_bwd", "w2v2_speaker_tpu/ops/flash_attention.py:465"),
+)
 # kernel vs plain, on valid rows: fa.kernel_tolerance (f32: the JAX kernel
-# tests' 2e-4 / 2e-5; bf16: rtol 2e-2, atol 2^-5 of the outputs' RMS)
+# tests' 2e-4 / 2e-5 forward, 5e-4 / 5e-5 backward; bf16: rtol 2e-2, atol
+# 2^-5 of the outputs' RMS); the LSE is float32 in both types: 2e-4 / 2e-5
 ATTN_SHAPES = [  # (name, B, T, lengths)
-    ("main_3s", 48, 149, [149] * 48),
+    ("train_3s", 66, 149, [149] * 66),
     ("ragged_30s", 8, 1504, [1504, 1500, 1337, 1023, 777, 64, 1, 0]),
     ("long_64s", 2, 3200, [3200, 2911]),
 ]
+RATES = (0.0, 0.1)
+DROPOUT_SEED = -123456789
+LSE_RTOL, LSE_ATOL = 2e-4, 2e-5
 UTTERANCE_S = [3.2, 4.0, 4.7, 6.1, 7.8, 8.4, 11.9, 15.3, 19.8, 26.5, 38.0, 64.0]
 # bucketed vs unpadded batch-1 embeddings in bf16 (other batch shapes take
 # other GEMM and conv tilings, so bf16 roundings differ through 12 layers):
@@ -64,6 +94,9 @@ UTTERANCE_S = [3.2, 4.0, 4.7, 6.1, 7.8, 8.4, 11.9, 15.3, 19.8, 26.5, 38.0, 64.0]
 MAX_PAD_RATIO = 0.35  # read 0.13 as built, 1.02 swapped (tools/torch_fault_probe.py)
 # float32 card vs CPU: same math, other summation orders and conv algorithms
 F32_REL_TOL = 1e-3
+TRAIN_DISPATCHES = 3  # x 4 steps per dispatch, timed
+OVERFIT_STEPS, OVERFIT_BATCH, OVERFIT_LR = 30, 8, 3e-4
+OVERFIT_MIN_FALL = 1.0  # nats of CE, mean of the first 3 steps minus the last 3
 
 
 def cuda_ms(fn, reps: int, warmup: int = 3) -> float:
@@ -84,14 +117,21 @@ def cuda_ms(fn, reps: int, warmup: int = 3) -> float:
     return start.elapsed_time(stop) / reps
 
 
-def attention_bound(lengths, t, dtype):
-    """(ms, 'bytes' | 'operations'): the least time for this data: FLOPs
-    4*H*D*sum(len^2) over the peak for the dtype; bytes: the valid rows of
-    q, k and v read once, all of o written once."""
+def attention_bound(kind: str, lengths, t: int, dtype):
+    """(ms, 'bytes' | 'operations'): the least time for this data. FLOPs:
+    4 (fwd), 6 (dq) or 8 (dkv) x H*D*sum(len^2) over the dtype's peak.
+    Bytes: the valid rows of each input read once (q, k, v; the backward
+    also dO and the f32 lse and D), every row of each output written once
+    (o and, in training, the f32 lse; dq; dk and dv)."""
     lens = np.asarray(lengths, np.float64)
-    ops = 4 * H * D * float((lens**2).sum())
-    nbytes = (3 * lens.sum() + len(lens) * t) * H * D * torch.tensor([], dtype=dtype).element_size()
-    t_ops, t_bytes = ops / PEAK_OPS[dtype], nbytes / PEAK_BYTES
+    flops = dict(zip(("fwd", "dq", "dkv"), (4, 6, 8)))[kind] * H * D * float((lens**2).sum())
+    esz = torch.tensor([], dtype=dtype).element_size()
+    valid, rows = lens.sum(), len(lens) * t
+    if kind == "fwd":
+        nbytes = (3 * valid + rows) * H * D * esz + rows * H * 4
+    else:
+        nbytes = 4 * valid * H * D * esz + 2 * valid * H * 4 + (rows if kind == "dq" else 2 * rows) * H * D * esz
+    t_ops, t_bytes = flops / PEAK_OPS[dtype], nbytes / PEAK_BYTES
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops > t_bytes else "bytes")
 
 
@@ -103,39 +143,127 @@ def attention_inputs(b, t, lengths, dtype, gen):
     return q, k, v, torch.tensor(lengths, dtype=torch.int32, device="cuda")
 
 
-def attention_error(got, want, lens):
-    """Kernel output against the plain version's: (max abs error on valid
-    rows, the largest share of fa.kernel_tolerance that one element uses,
-    whether every padded row is exactly 0). The check passes at share <= 1."""
+def attention_error(got, want, lens, backward: bool = False):
+    """Kernel output against the plain version's ([B, T, ...] rows): (max
+    abs error on valid rows, the largest share of fa.kernel_tolerance that
+    one element uses, whether every row past the length is exactly 0). The
+    check passes at share <= 1."""
     valid = torch.arange(got.shape[1], device=got.device)[None, :] < lens[:, None]
     want_valid = want[valid].float()
-    rtol, atol = fa.kernel_tolerance(want[valid])
+    rtol, atol = fa.kernel_tolerance(want[valid], backward)
     err = (got[valid].float() - want_valid).abs()
-    share = (err / (atol + rtol * want_valid.abs())).max().item()
+    share = (err / (atol + rtol * want_valid.abs())).max().item() if err.numel() else 0.0
+    return (err.max().item() if err.numel() else 0.0), share, bool(torch.all(got[~valid] == 0))
+
+
+def lse_error(got, want, lens):
+    """(max abs error, share of the LSE limit, zeros past the length) for
+    [B, H, T] log-sum-exps."""
+    valid = (torch.arange(got.shape[-1], device=got.device)[None, :] < lens[:, None])[:, None, :]
+    valid = valid.expand_as(got)
+    err = (got[valid] - want[valid]).abs()
+    share = (err / (LSE_ATOL + LSE_RTOL * want[valid].abs())).max().item()
     return err.max().item(), share, bool(torch.all(got[~valid] == 0))
 
 
-def check_attention(name, b, t, lengths, dtype, gen):
+def kernel_errors(b, t, lengths, dtype, rate, gen):
+    """The three kernels and their plain versions on one random input:
+    ({output: (max abs err, share of its limit, zeros past the length)}
+    for o, lse, dq, dk and dv; the inputs; the forward's outputs)."""
     q, k, v, lens = attention_inputs(b, t, lengths, dtype, gen)
-    got = fa.flash_attention(q, k, v, lens)
-    want = fa.flash_attention_plain(q, k, v, lens)
-    max_err, share, zeros = attention_error(got, want, lens)
-    assert share <= 1, f"{name} {dtype}: max abs err {max_err}, {share:.3f} of the limit"
-    assert zeros, f"{name} {dtype}: padded rows are not 0"
-    valid = torch.arange(t, device="cuda")[None, :] < lens[:, None]
-    mask = valid[:, None, None, :]
-    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-    row = {
-        "shape": name, "dtype": str(dtype).removeprefix("torch."), "B": b, "T": t,
-        "max_abs_err": max_err, "limit_share": share,
-        "ms": cuda_ms(lambda: fa.flash_attention(q, k, v, lens), 20),
-        "plain_ms": cuda_ms(lambda: fa.flash_attention_plain(q, k, v, lens), 5),
-        "library_ms": cuda_ms(
-            lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask), 20
-        ),
+    seed = DROPOUT_SEED if rate > 0 else None
+    o, lse = fa.flash_attention_fwd(q, k, v, lens, rate, seed, return_lse=True)
+    want_o, want_lse = fa.flash_attention_plain(q, k, v, lens, rate, seed, return_lse=True)
+    errors = {"o": attention_error(o, want_o, lens), "lse": lse_error(lse, want_lse, lens)}
+    do = torch.randn(o.shape, generator=gen, device="cuda").to(dtype)
+    args = (q, k, v, do, lse, fa.attention_delta(o, do), lens, rate, seed)
+    dq = fa.flash_attention_bwd_dq(*args)
+    dk, dv = fa.flash_attention_bwd_dkv(*args)
+    for grad, got, want in zip(("dq", "dk", "dv"), (dq, dk, dv), fa.flash_attention_bwd_plain(*args)):
+        errors[grad] = attention_error(got, want, lens, backward=True)
+    return errors, args, o
+
+
+def check_kernels(name, b, t, lengths, dtype, rate, gen):
+    """The three kernels against their plain versions on one input; one
+    row of numbers per kernel."""
+    tag = f"{name} {str(dtype).removeprefix('torch.')} rate {rate}"
+    errors, args, o = kernel_errors(b, t, lengths, dtype, rate, gen)
+    for out, (err, share, zeros) in errors.items():
+        assert share <= 1 and zeros, f"{tag} {out}: err {err}, {share:.3f} of the limit, zeros past the length {zeros}"
+    q, k, v, do, lse, delta, lens, rate, seed = args
+    if rate == 0:  # the inference path (no LSE) gives the same output
+        assert torch.equal(fa.flash_attention(q, k, v, lens), o), f"{tag}: inference path differs"
+
+    # library yardstick: SDPA with a boolean key mask, forward and backward
+    mask = (torch.arange(t, device="cuda")[None, :] < lens[:, None])[:, None, None, :]
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
+    dot = do.transpose(1, 2)
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, dropout_p=rate)
+
+    def sdpa_fwd_bwd():
+        torch.autograd.grad(sdpa(), (qt, kt, vt), dot)
+
+    with torch.no_grad():
+        lib_fwd = cuda_ms(sdpa, 10)
+    lib_bwd = cuda_ms(sdpa_fwd_bwd, 10) - lib_fwd
+    plain_bwd = cuda_ms(lambda: fa.flash_attention_bwd_plain(*args), 2, warmup=1)
+    common = {"shape": name, "dtype": str(dtype).removeprefix("torch."), "rate": rate, "B": b, "T": t}
+    (err, share, _), (lerr, lshare, _) = errors["o"], errors["lse"]
+    dkv = max(errors["dk"][:2], errors["dv"][:2], key=lambda e: e[1])
+    rows = {
+        "flash_attention_fwd": dict(
+            common, max_abs_err=err, limit_share=share, lse_max_abs_err=lerr, lse_limit_share=lshare,
+            ms=cuda_ms(lambda: fa.flash_attention_fwd(q, k, v, lens, rate, seed, True), 20),
+            plain_ms=cuda_ms(lambda: fa.flash_attention_plain(q, k, v, lens, rate, seed, True), 2, warmup=1),
+            library_ms=lib_fwd),
+        "flash_attention_bwd_dq": dict(
+            common, max_abs_err=errors["dq"][0], limit_share=errors["dq"][1],
+            ms=cuda_ms(lambda: fa.flash_attention_bwd_dq(*args), 20),
+            plain_ms=plain_bwd, library_ms=lib_bwd),
+        "flash_attention_bwd_dkv": dict(
+            common, max_abs_err=dkv[0], limit_share=dkv[1],
+            ms=cuda_ms(lambda: fa.flash_attention_bwd_dkv(*args), 20),
+            plain_ms=plain_bwd, library_ms=lib_bwd),
     }
-    row["bound_ms"], row["bound_by"] = attention_bound(lengths, t, dtype)
-    print("attention", json.dumps(row), flush=True)
+    for kernel, kind in zip(rows, ("fwd", "dq", "dkv")):
+        rows[kernel]["bound_ms"], rows[kernel]["bound_by"] = attention_bound(kind, lengths, t, dtype)
+        print("kernel", kernel, json.dumps(rows[kernel]), flush=True)
+    return rows
+
+
+def conv_encoder_row(b: int = 66) -> dict:
+    """The TPU kernel still to port, ``ops/conv_encoder.py::_kernel`` (:120):
+    its function over BASE conv layers 1-6 (stride 2, k 3 or 2, 512 -> 512,
+    no bias, exact GELU) at the training main path's shapes (B=66 x 48 000
+    samples), bf16. Bound: 2*B*T_out*k*C^2 FLOPs per layer over the bf16
+    peak, or the input, weights and output moved once; library: ``F.conv1d``
+    + ``F.gelu`` per layer in the port's [B, C, T] layout."""
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    c = BASE_CONFIG.conv_dim[0]
+    t = (SAMPLES - BASE_CONFIG.conv_kernel[0]) // BASE_CONFIG.conv_stride[0] + 1  # conv_0's frames
+    layers, flops, nbytes = [], 0.0, 0.0
+    for k, stride in zip(BASE_CONFIG.conv_kernel[1:], BASE_CONFIG.conv_stride[1:]):
+        t_out = (t - k) // stride + 1
+        x = torch.randn(b, c, t, generator=gen, device="cuda").to(torch.bfloat16)
+        w = (torch.randn(c, c, k, generator=gen, device="cuda") * (c * k) ** -0.5).to(torch.bfloat16)
+        layers.append((x, w, stride))
+        flops += 2.0 * b * t_out * k * c * c
+        nbytes += 2.0 * (b * c * (t + t_out) + c * c * k)
+        t = t_out
+
+    def run():
+        for x, w, stride in layers:
+            F.gelu(F.conv1d(x, w, stride=stride))
+
+    t_ops, t_bytes = flops / PEAK_OPS[torch.bfloat16], nbytes / PEAK_BYTES
+    row = {"name": "conv_encoder (not ported)", "B": b, "layers": len(layers), "gflop": flops / 1e9,
+           "mbytes": nbytes / 1e6, "bound_ms": 1e3 * max(t_ops, t_bytes),
+           "bound_by": "operations" if t_ops > t_bytes else "bytes",
+           "library_ms": cuda_ms(run, 10)}
+    print("kernel conv_encoder", json.dumps(row), flush=True)
     return row
 
 
@@ -143,7 +271,10 @@ def kernel_category(name: str) -> str:
     low = name.lower()
     if "fwd_bf16_kernel" in low or "fwd_f32_kernel" in low:
         return "flash_attention_fwd (this repo)"
-    if "conv" in low or "fprop" in low or "cudnn" in low:
+    if "dq_bf16_kernel" in low or "dkv_bf16_kernel" in low or "dq_f32_kernel" in low \
+            or "dkv_f32_kernel" in low:
+        return "flash_attention_bwd (this repo)"
+    if "conv" in low or "fprop" in low or "dgrad" in low or "wgrad" in low or "cudnn" in low:
         return "convolution (cuDNN)"
     if any(k in low for k in ("gemm", "gemv", "xmma", "nvjet", "cutlass", "cublas")):
         return "dense matmul (cuBLAS)"
@@ -151,18 +282,22 @@ def kernel_category(name: str) -> str:
         return "layer_norm"
     if "gelu" in low:
         return "gelu"
+    if "adam" in low or "foreach" in low:
+        return "optimizer (foreach)"
     return "other elementwise / reduction"
 
 
-def profile_breakdown(fn, reps: int = 3) -> None:
+def profile_breakdown(fn, reps: int = 3, top_ops: int = 0) -> None:
     """Device time per kernel category over ``reps`` calls, and the share
     of the window in which the card ran any kernel (torch.profiler, CUPTI;
-    the profiler's own host cost widens the window)."""
+    the profiler's own host cost widens the window). With ``top_ops``, also
+    the PyTorch ops with the most device time, with their input shapes."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=top_ops > 0) as prof:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
@@ -187,6 +322,11 @@ def profile_breakdown(fn, reps: int = 3) -> None:
               f"{name[:140]}", flush=True)
     print(f"profile device busy {100 * busy / (end - spans[0][0]):.1f} % of the kernel window, "
           f"{len(spans) // reps} kernels/call", flush=True)
+    ops = sorted(prof.key_averages(group_by_input_shape=True),
+                 key=lambda a: -a.self_device_time_total)[:top_ops]
+    for a in ops:
+        print(f"profile op {a.self_device_time_total / reps / 1e3:.3f} ms/call {a.key} "
+              f"{str(a.input_shapes)[:200]}", flush=True)
 
 
 def cosine(a, b) -> np.ndarray:
@@ -226,41 +366,55 @@ def card_line() -> str:
     ).stdout.strip().splitlines()[0]
 
 
-def main() -> None:
-    if not torch.cuda.is_available():
-        raise SystemExit("chip_smoke: torch.cuda.is_available() is False; this run needs a card")
+def reset_launches() -> None:
+    fa.flash_attention.launches = 0
+    fa.flash_attention_bwd_dq.launches = 0
+    fa.flash_attention_bwd_dkv.launches = 0
 
-    # 1. card
-    card = card_line()
-    print(card, flush=True)
-    print("torch", torch.__version__, "cuda", torch.version.cuda, flush=True)
 
-    # 2. build
+def launches() -> dict:
+    return {
+        "flash_attention_fwd": fa.flash_attention.launches,
+        "flash_attention_bwd_dq": fa.flash_attention_bwd_dq.launches,
+        "flash_attention_bwd_dkv": fa.flash_attention_bwd_dkv.launches,
+    }
+
+
+def build_phase() -> None:
     t0 = time.perf_counter()
-    report = _build.build("flash_attention_fwd")
-    print(f"build_s {time.perf_counter() - t0:.2f}", flush=True)
-    for line in report.splitlines():
-        if "registers" in line or "spill" in line:
-            print("ptxas", line.strip(), flush=True)
+    reports = _build.build_all(KERNEL_SOURCES)
+    print(f"build_s {time.perf_counter() - t0:.2f} ({len(reports)} sources in parallel)", flush=True)
+    for name, report in reports.items():
+        for line in report.splitlines():
+            if "Compiling entry" in line or "registers" in line or "spill" in line:
+                print("ptxas", name, line.strip(), flush=True)
 
-    # 3. kernel against its plain version
+
+def kernel_phase() -> dict:
+    """Phase 3; returns the rows of the training shape, bf16, rate 0.1."""
     gen = torch.Generator(device="cuda").manual_seed(0)
-    rows = [
-        check_attention(name, b, t, lengths, dtype, gen)
-        for name, b, t, lengths in ATTN_SHAPES
-        for dtype in (torch.float32, torch.bfloat16)
-    ]
-    main_row = next(r for r in rows if r["shape"] == "main_3s" and r["dtype"] == "bfloat16")
+    main = None
+    for name, b, t, lengths in ATTN_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            for rate in RATES:
+                rows = check_kernels(name, b, t, lengths, dtype, rate, gen)
+                if name == "train_3s" and dtype == torch.bfloat16 and rate > 0:
+                    main = rows
+    conv_encoder_row()
+    return main
 
-    # 4. main path
+
+def serving_phase(card: str) -> None:
+    """Phases 4 and 5 (the serving main path and bucketed serving)."""
     forward, (model, example_wav) = entry()
     rng = np.random.default_rng(0)
     wav = torch.from_numpy(rng.normal(0, 0.1, (BATCH, SAMPLES)).astype(np.float32)).cuda()
-    fa.flash_attention.launches = 0
+    reset_launches()
     emb = forward(model, wav)
     torch.cuda.synchronize()
-    main_launches = fa.flash_attention.launches
-    assert main_launches == 12, f"main path launched the kernel {main_launches} times, not 12"
+    serve_launches = launches()
+    assert serve_launches == {"flash_attention_fwd": 12, "flash_attention_bwd_dq": 0,
+                              "flash_attention_bwd_dkv": 0}, f"serving launches {serve_launches}"
     assert emb.shape == (BATCH, 768) and emb.dtype == torch.float32
     assert torch.isfinite(emb).all(), "main path: non-finite embeddings"
     assert torch.isfinite(forward(model, example_wav)).all()
@@ -268,8 +422,9 @@ def main() -> None:
     torch.cuda.reset_peak_memory_stats()
     forward(model, wav)
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
-    print(f"main_path B={BATCH} x {SAMPLES} bf16: {ms:.3f} ms/batch, "
-          f"{BATCH / ms * 1e3:.1f} utt/s, peak {peak_gib:.2f} GiB [{card}]", flush=True)
+    print(f"serving main_path B={BATCH} x {SAMPLES} bf16: {ms:.3f} ms/batch, "
+          f"{BATCH / ms * 1e3:.1f} utt/s, peak {peak_gib:.2f} GiB, launches {serve_launches} "
+          f"[{card}]", flush=True)
     profile_breakdown(lambda: forward(model, wav))
 
     # the same weights in float32, card (f32 kernel) vs CPU (plain version)
@@ -291,18 +446,16 @@ def main() -> None:
     assert rel < F32_REL_TOL, f"f32 card vs cpu differ: {rel}"
     del model32
 
-    # 5. serving
     samples = serving_samples(rng)
     longest = max(len(s.wav) for s in samples)
     frames = feat_extract_output_lengths(-(-longest // 16000) * 16000)
     extract_embeddings(model, samples, pad_to_multiple=16000, batch_size=4)  # warm-up
-    fa.flash_attention.launches = 0
+    reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     served = extract_embeddings(model, samples, pad_to_multiple=16000, batch_size=4)
     serve_s = time.perf_counter() - t0
-    serve_launches = fa.flash_attention.launches
-    assert serve_launches == 12 * 3, f"serving launched the kernel {serve_launches} times"
+    assert launches()["flash_attention_fwd"] == 12 * 3, f"serving launched {launches()}"
     by_key = {e.sample_id: e.embedding for e in served}
     alone = unpadded_embeddings(forward, model, samples)
     cos = np.array([cosine(by_key[k], alone[k]) for k in alone])
@@ -319,20 +472,148 @@ def main() -> None:
     assert scores.shape == (20,) and np.all((scores >= 0) & (scores <= 1))
     print("scores", " ".join(f"{s:.4f}" for s in scores), flush=True)
 
-    # 6. kernels line, then the result line
-    print(json.dumps({"kernels": [{
-        "name": "flash_attention_fwd",
-        "route": "cuda",
-        "source": "w2v2_speaker_tpu_torch/csrc/flash_attention_fwd.cu",
-        "replaces": "w2v2_speaker_tpu/ops/flash_attention.py:204",
-        "launches": main_launches,
-        "max_abs_err": main_row["max_abs_err"],
-        "ms": main_row["ms"],
-        "plain_ms": main_row["plain_ms"],
-        "bound_ms": main_row["bound_ms"],
-        "bound_by": main_row["bound_by"],
-        "library_ms": main_row["library_ms"],
-    }]}), flush=True)
+
+def train_phase(card: str) -> dict:
+    """Phase 6; returns each kernel's launches over the timed steps."""
+    step, (state, batch) = train_entry()
+    b = batch["labels"].shape[1]
+    steps = batch["labels"].shape[0]
+    state, metrics = step(state, batch)  # warm-up dispatch
+    torch.cuda.synchronize()
+    watched = {n: p.detach().clone() for n, p in state.model.named_parameters()
+               if n in ("head.fc_out.weight", "wav2vec2.encoder.layers.0.attention.qkv_proj.weight",
+                        "wav2vec2.feature_encoder.conv_0.weight")}
+    # each step ends in one optimizer update: read the counters there
+    counts, update = [], state.apply_gradients
+    state.apply_gradients = lambda: (counts.append(launches()), update())
+    reset_launches()
+    losses, kept = [], []
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(TRAIN_DISPATCHES):
+        state, metrics = step(state, batch)
+        kept += metrics["layers_run"].tolist()
+        losses.append(metrics["loss"])
+    stop.record()
+    torch.cuda.synchronize()
+    state.apply_gradients = update
+    total = launches()
+    per_step = [{k: n - (counts[i - 1][k] if i else 0) for k, n in c.items()}
+                for i, c in enumerate(counts)]
+    for run, got in zip(kept, per_step, strict=True):
+        assert all(n == run for n in got.values()), f"a step kept {run} layers, launched {got}"
+    n_steps = TRAIN_DISPATCHES * steps
+    ms = start.elapsed_time(stop) / n_steps
+    losses = torch.cat(losses).cpu()
+    assert torch.isfinite(losses).all(), f"non-finite training loss {losses}"
+    moved = {n: float((p.detach() - watched[n]).abs().max()) for n, p in state.model.named_parameters()
+             if n in watched}
+    assert all(v > 0 for v in moved.values()), f"parameters did not move: {moved}"
+    print(f"train layers kept per step {kept}; launches per step "
+          f"{[list(c.values()) for c in per_step]} (fwd, dq, dk/dv); total {total}", flush=True)
+    torch.cuda.reset_peak_memory_stats()
+    step(state, batch)
+    torch.cuda.synchronize()
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    print(f"train main_path B={b} x {SAMPLES} bf16 autocast: {ms:.3f} ms/step, "
+          f"{b / ms * 1e3:.1f} utt/s, peak {peak_gib:.2f} GiB, loss {losses[0]:.4f} -> "
+          f"{losses[-1]:.4f}, max param change {moved} [{card}]", flush=True)
+    profile_breakdown(lambda: step(state, batch), reps=1, top_ops=8)
+    return total
+
+
+def grads_of(model) -> dict:
+    return {n: p.grad.detach().cpu().clone() for n, p in model.named_parameters()}
+
+
+def f32_train_phase() -> None:
+    """Phase 7: one float32 step, card against CPU, same weights and step
+    generator seed, dropout, layerdrop and SpecAugment on."""
+    cfg = SPEAKER_WAV2VEC2_CE
+    state, task = build_train_state(torch.device("cuda"), "f32", cfg, seed=1, num_layers=2)
+    cpu_model = copy.deepcopy(state.model).cpu()
+    cpu_state = TrainState.create(cpu_model, build_optimizer(cfg), seed=1)
+    cpu_task = SpeakerTask(cpu_model, "ce")
+    rng = np.random.default_rng(5)
+    lengths = np.array([32000, 21000, 9000])
+    wav = rng.normal(0, 0.1, (3, 32000)).astype(np.float32)
+    mask = np.arange(32000)[None, :] < lengths[:, None]
+    batch = {"features": torch.from_numpy(wav * mask), "mask": torch.from_numpy(mask),
+             "labels": torch.from_numpy(rng.integers(0, 5994, 3))}
+    _, on_card = make_train_step(task)(state, {k: v.cuda() for k, v in batch.items()})
+    _, on_cpu = make_train_step(cpu_task)(cpu_state, batch)
+    loss_rel = abs(float(on_card["loss"]) - float(on_cpu["loss"])) / abs(float(on_cpu["loss"]))
+    g_card, g_cpu = grads_of(state.model), grads_of(cpu_model)
+    worst, worst_name = 0.0, ""
+    for n, g in g_cpu.items():
+        scale = float(g.abs().max())
+        err = float((g_card[n] - g).abs().max())
+        rel = err / scale if scale > 0 else (0.0 if err == 0 else float("inf"))
+        if rel > worst:
+            worst, worst_name = rel, n
+    print(f"f32 train step card vs cpu (2 layers, dropout on, layers run "
+          f"{on_card['layers_run']}/{on_cpu['layers_run']}): loss {float(on_card['loss']):.6f} vs "
+          f"{float(on_cpu['loss']):.6f} (rel {loss_rel:.3e}); grads max err / max abs per "
+          f"parameter {worst:.3e} ({worst_name})", flush=True)
+    assert on_card["layers_run"] == on_cpu["layers_run"]
+    assert loss_rel < F32_REL_TOL and worst < F32_REL_TOL, "f32 train step: card vs cpu differ"
+
+
+def overfit_losses(lr: float, seed: int = 2) -> list:
+    """CE over ``OVERFIT_STEPS`` steps on one fixed batch (full BASE, the
+    recipe's regularisation, bf16 autocast) at a constant ``lr``."""
+    state, task = build_train_state(torch.device("cuda"), "bf16", seed=seed)
+    state.tx = AdamTx(lambda step: lr)
+    state.tx.init(state.named_params())
+    step = make_train_step(task)
+    batch = {k: v[0] for k, v in synthetic_batch(OVERFIT_BATCH, SAMPLES, torch.device("cuda"),
+                                                 seed=seed + 1).items()}
+    return [float(step(state, batch)[1]["loss"]) for _ in range(OVERFIT_STEPS)]
+
+
+def overfit_fall(losses) -> float:
+    return float(np.mean(losses[:3]) - np.mean(losses[-3:]))
+
+
+def overfit_phase() -> None:
+    losses = overfit_losses(OVERFIT_LR)
+    fall = overfit_fall(losses)
+    print(f"overfit {OVERFIT_STEPS} steps, B={OVERFIT_BATCH}, lr {OVERFIT_LR}: loss "
+          f"{losses[0]:.4f} -> {losses[-1]:.4f}, fall {fall:.4f} (limit {OVERFIT_MIN_FALL})",
+          flush=True)
+    assert fall >= OVERFIT_MIN_FALL, f"overfit: the loss fell only {fall}"
+
+
+def main() -> None:
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: torch.cuda.is_available() is False; this run needs a card")
+    t_start = time.perf_counter()
+
+    card = card_line()  # 1
+    print(card, flush=True)
+    print("torch", torch.__version__, "cuda", torch.version.cuda, flush=True)
+    build_phase()  # 2
+    main_rows = kernel_phase()  # 3
+    serving_phase(card)  # 4, 5
+    train_launches = train_phase(card)  # 6
+    f32_train_phase()  # 7
+    overfit_phase()  # 8
+
+    # 9. kernels line, card line, result line
+    kernels = []
+    for name, source, replaces in KERNELS:
+        row = main_rows[name]
+        assert train_launches[name] > 0, f"{name} was not launched on the training main path"
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"w2v2_speaker_tpu_torch/csrc/{source}.cu",
+            "replaces": replaces, "launches": train_launches[name],
+            **{k: row[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                                   "library_ms")},
+        })
+    print(f"chip_smoke total_s {time.perf_counter() - t_start:.1f}", flush=True)
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

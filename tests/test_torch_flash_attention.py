@@ -1,12 +1,13 @@
-"""The port's attention (its plain PyTorch version, which a CPU tensor runs)
-against the JAX package's Pallas forward kernel in interpret mode."""
+"""The port's attention forward (its plain PyTorch version, which a CPU
+tensor runs) against the JAX package's Pallas forward kernel in interpret
+mode: the inference path, and the training path with dropout and the LSE."""
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from w2v2_speaker_tpu.ops.flash_attention import flash_attention_kernel
+from w2v2_speaker_tpu.ops.flash_attention import _flash_fwd, flash_attention_kernel
 from w2v2_speaker_tpu_torch.ops import flash_attention as port
 
 # the JAX kernel tests' f32 tolerances (tests/test_flash_attention.py)
@@ -95,3 +96,57 @@ def test_kernel_tolerance_scales_bf16_to_the_outputs():
     assert rtol == 2e-2
     assert atol == pytest.approx(2.0**-5 * 0.03, rel=1e-2)  # bf16 rounds 0.03
     assert port.kernel_tolerance(small * 10)[1] == pytest.approx(10 * atol, rel=1e-2)
+
+
+CASES = [
+    (256, None),  # no mask
+    (300, [300, 137, 61]),  # ragged suffix mask
+    (200, [200, 0]),  # a zero-length row
+]
+CASE_IDS = ["no_mask", "ragged", "zero_length_row"]
+SEED = -123456789
+
+
+@pytest.mark.parametrize("t, lengths", CASES, ids=CASE_IDS)
+def test_plain_with_dropout_and_lse_matches_jax_kernel(t, lengths):
+    """Rate 0.1 at a fixed seed against the Pallas kernel's in-kernel
+    dropout, and the LSE against the residual ``_flash_fwd`` (:711) saves,
+    on valid rows."""
+    b = 1 if lengths is None else len(lengths)
+    q, k, v = _qkv(b, t, seed=t + 1)
+    lens = np.full(b, t) if lengths is None else np.asarray(lengths)
+    valid = np.arange(t)[None, :] < lens[:, None]
+    key_mask = None if lengths is None else jnp.asarray(valid)
+    seed = jnp.asarray([SEED], jnp.int32)
+    want = np.asarray(flash_attention_kernel(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), key_mask,
+        block_q=128, block_k=128, interpret=True, dropout_rate=0.1, dropout_seed=seed,
+    ))
+    _, (*_, lse_want, meta) = _flash_fwd(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(lens, jnp.int32),
+        seed, 128, 128, True, 0.1,
+    )
+    t_pad = meta[4]
+    lse_want = np.asarray(lse_want).reshape(b, 2, t_pad)[:, :, :t]
+    tq, tk, tv = (torch.from_numpy(x) for x in (q, k, v))
+    tl = None if lengths is None else torch.tensor(lengths, dtype=torch.int32)
+    got = port.flash_attention(tq, tk, tv, tl, dropout_rate=0.1, seed=SEED).detach().numpy()
+    np.testing.assert_allclose(got[valid], want[valid], rtol=RTOL, atol=ATOL)
+    assert np.all(got[~valid] == 0.0)
+    o, lse = port.flash_attention_fwd(tq, tk, tv, tl, 0.1, SEED, return_lse=True)
+    np.testing.assert_array_equal(o.numpy(), got)
+    rows = np.broadcast_to(valid[:, None, :], lse.shape)
+    np.testing.assert_allclose(lse.numpy()[rows], lse_want[rows], rtol=RTOL, atol=ATOL)
+    assert np.all(lse.numpy()[~rows] == 0.0)
+    # dropout changes the output; without it the LSE is the same
+    _, lse0 = port.flash_attention_fwd(tq, tk, tv, tl, 0.0, None, return_lse=True)
+    np.testing.assert_array_equal(lse0.numpy(), lse.numpy())
+    assert not np.allclose(got[valid], port.flash_attention(tq, tk, tv, tl).numpy()[valid])
+
+
+def test_dropout_needs_a_seed_and_a_rate_below_one():
+    q = torch.zeros(1, 4, 1, 64)
+    with pytest.raises(ValueError, match="requires a seed"):
+        port.flash_attention(q, q, q, dropout_rate=0.1)
+    with pytest.raises(ValueError, match=r"in \[0, 1\)"):
+        port.flash_attention(q, q, q, dropout_rate=1.0, seed=0)

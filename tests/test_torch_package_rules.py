@@ -1,6 +1,6 @@
 """Rules of the PyTorch port: it imports nothing of JAX or of the JAX
-package, its entry points need a card unless asked for the CPU, and this
-slice is eval only."""
+package, its entry points need a card unless asked for the CPU, training
+runs, and what is not ported yet raises."""
 
 import ast
 import pathlib
@@ -9,7 +9,7 @@ import pytest
 import torch
 
 from w2v2_speaker_tpu_torch import device as tdevice
-from w2v2_speaker_tpu_torch.entry import entry
+from w2v2_speaker_tpu_torch.entry import entry, train_entry
 from w2v2_speaker_tpu_torch.models import wav2vec2 as tw
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -48,6 +48,8 @@ def test_entry_points_need_a_card_unless_asked_for_the_cpu():
     with pytest.raises(RuntimeError, match="no CUDA device"):
         entry()
     with pytest.raises(RuntimeError, match="no CUDA device"):
+        train_entry()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
         tdevice.resolve_device()
     assert tdevice.resolve_device("cpu") == torch.device("cpu")
     with pytest.raises(ValueError, match="unsupported device"):
@@ -55,10 +57,18 @@ def test_entry_points_need_a_card_unless_asked_for_the_cpu():
 
 
 def test_train_and_fused_conv_raise():
+    """train=True runs (and raises only without the step's generator);
+    the fused conv and int8 still raise."""
     model = tw.Wav2Vec2Model(TINY)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 5"):
+    tw.init_parameters(model, torch.Generator().manual_seed(0))
+    x, _ = model(torch.randn(2, 400), train=True, generator=torch.Generator().manual_seed(0))
+    assert x.shape == (2, 79, 16) and torch.isfinite(x).all()
+    x.sum().backward()
+    assert model.feature_projection.projection.weight.grad is not None
+    with pytest.raises(ValueError, match="Generator"):
         model(torch.zeros(1, 400), train=True)
     with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 2 item 4"):
         tw.Wav2Vec2Model(tw.Wav2Vec2Config(conv_impl="fused_pallas"))
     with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 6"):
         tw.Wav2Vec2Model(tw.Wav2Vec2Config(int8_matmuls=True))
+

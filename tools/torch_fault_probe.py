@@ -7,15 +7,23 @@ Reads each limit twice: on the correct code (over several seeds), and on a
 deliberately wrong copy of it. A limit is worth keeping only where the
 first reading sits well under it and the second well over it.
 
-- Kernel vs plain version (``chip_smoke.attention_error``, the share of
-  ``fa.kernel_tolerance`` used), at the shapes of ``chip_smoke.ATTN_SHAPES``,
-  in float32 and bfloat16, for the kernel as built and for two mutants of
-  ``csrc/flash_attention_fwd.cu`` compiled into a temporary directory: one
-  that does not mask the boundary K/V tile, one that does not rescale the
-  accumulator when the running max grows.
+- Kernels vs plain versions (``chip_smoke.kernel_errors``: the share of
+  ``fa.kernel_tolerance`` used by the worst element of o, lse, dq, dk and
+  dv), at the shapes of ``chip_smoke.ATTN_SHAPES``, in float32 and
+  bfloat16, at dropout rates 0 and 0.1, for the kernels as built and for
+  mutants compiled into a temporary directory: the forward without the
+  boundary K/V tile mask or without the accumulator rescale; the dk/dv
+  kernel without the keep mask on dP, or without the division of dk by
+  log2 e; the dq kernel without its boundary handling (no key mask, and
+  the boundary tile loaded up to T instead of the length: with the tile's
+  keys past the length zero-filled, as the built kernel loads them, a
+  missing mask alone changes no dq, since those keys' rows of K are 0).
 - Padding invariance of bucketed serving (``chip_smoke.padding_ratio``), for
   the port as it is, with two embeddings handed back swapped (the closest
   pair), and with attention that ignores the key lengths.
+- The overfit check (``chip_smoke.overfit_fall``) on the training step as
+  built (two seeds) and with updates of size 0 (learning rate 0), where the
+  loss moves only with the dropout draws.
 
 Prints one JSON line per reading. Needs ``nvcc`` and one card.
 """
@@ -42,66 +50,78 @@ from w2v2_speaker_tpu_torch.ops import flash_attention as fa  # noqa: E402
 from w2v2_speaker_tpu_torch.runtime.predict import extract_embeddings  # noqa: E402
 
 SEEDS = (0, 1, 2, 3)
-# (old, new) text replacements, each of which must match exactly once
+# (source, [(old, new)]): each old text must occur in the source; every
+# occurrence is replaced
 MUTANTS = {
-    "no_boundary_mask": [
-        ("    if (k0 + kBlockK > len) {  // boundary tile: mask keys >= len\n",
-         "    if (false) {\n"),
+    "fwd_no_boundary_mask": ("flash_attention_fwd", [
+        ("    if (k0 + kBlockK > len) {  // boundary tile: mask keys >= len\n", "    if (false) {\n"),
         ("s[jj] = j0 + jj < n_valid ? dot : -INFINITY;", "s[jj] = dot;"),
-    ],
-    "no_acc_rescale": [
+    ]),
+    "fwd_no_acc_rescale": ("flash_attention_fwd", [
         ("      acc[n][0] *= alpha[0];\n      acc[n][1] *= alpha[0];\n"
          "      acc[n][2] *= alpha[1];\n      acc[n][3] *= alpha[1];\n", ""),
         ("for (int d = 0; d < kD; ++d) acc[d] *= alpha;", ""),
-    ],
+    ]),
+    "dkv_no_keep_mask_on_dp": ("flash_attention_bwd", [
+        ("          dpv = kp ? dpv * p.drop.inv_keep : 0.f;\n", ""),
+        ("        dp = kp ? dp * p.drop.inv_keep : 0.f;\n", ""),
+    ]),
+    "dkv_dk_not_divided_by_log2e": ("flash_attention_bwd", [
+        (" / kLog2e : 0.f", " : 0.f"),
+        ("acc_k[d] /= kLog2e;", ""),
+    ]),
+    "dq_no_boundary_mask": ("flash_attention_bwd", [
+        ("const bool valid = rv[r] && (!boundary || key < len);", "const bool valid = rv[r];"),
+        ("load_tile_bf16(k_s, kg + k0 * p.k_st, p.k_st, len - k0, tid);",
+         "load_tile_bf16(k_s, kg + k0 * p.k_st, p.k_st, p.T - k0, tid);"),
+        ("load_tile_bf16(v_s, vg + k0 * p.v_st, p.v_st, len - k0, tid);",
+         "load_tile_bf16(v_s, vg + k0 * p.v_st, p.v_st, p.T - k0, tid);"),
+        ("    const int n_valid = min(kBlockK, len - k0);\n    __syncthreads();\n"
+         "    load_tile_f32(k_s,",
+         "    const int n_valid = min(kBlockK, p.T - k0);\n    __syncthreads();\n"
+         "    load_tile_f32(k_s,"),
+    ]),
 }
 
 
-def build_mutant(name: str, edits, out_dir: pathlib.Path):
-    src = (_build.CSRC_DIR / "flash_attention_fwd.cu").read_text()
+def build_mutant(name: str, out_dir: pathlib.Path) -> None:
+    """Compile the mutant and put its entry points in place of the built
+    kernels' in ``fa``."""
+    source, edits = MUTANTS[name]
+    src = (_build.CSRC_DIR / f"{source}.cu").read_text()
     for old, new in edits:
-        assert src.count(old) == 1, f"{name}: {old!r} does not match once"
+        assert src.count(old) >= 1, f"{name}: {old!r} does not occur"
         src = src.replace(old, new)
     path = out_dir / f"{name}.cu"
     path.write_text(src)
     lib = out_dir / f"lib{name}.so"
     _build.compile_library(path, lib)
-    return fa.bind(ctypes.CDLL(str(lib)))
+    if source == "flash_attention_fwd":
+        fa._fwd_fn = fa.bind(ctypes.CDLL(str(lib)))
+    else:
+        fa._bwd_fns = fa.bind_bwd(ctypes.CDLL(str(lib)))
 
 
 def kernel_readings(variant: str, seeds) -> None:
     for name, b, t, lengths in chip_smoke.ATTN_SHAPES:
         for dtype in (torch.float32, torch.bfloat16):
-            shares, errs, zeros = [], [], True
-            for seed in seeds:
-                gen = torch.Generator(device="cuda").manual_seed(seed)
-                q, k, v, lens = chip_smoke.attention_inputs(b, t, lengths, dtype, gen)
-                got = fa.flash_attention(q, k, v, lens)
-                want = fa.flash_attention_plain(q, k, v, lens)
-                err, share, ok = chip_smoke.attention_error(got, want, lens)
-                errs.append(err)
-                shares.append(share)
-                zeros &= ok
-            print(json.dumps({
-                "limit": "kernel", "variant": variant, "shape": name,
-                "dtype": str(dtype).removeprefix("torch."), "seeds": len(seeds),
-                "max_abs_err": max(errs), "limit_share": max(shares),
-                "padded_rows_zero": zeros,
-            }), flush=True)
+            for rate in chip_smoke.RATES:
+                worst = {}
+                for seed in seeds:
+                    gen = torch.Generator(device="cuda").manual_seed(seed)
+                    errors, _, _ = chip_smoke.kernel_errors(b, t, lengths, dtype, rate, gen)
+                    for out, (err, share, zeros) in errors.items():
+                        e, s, z = worst.get(out, (0.0, 0.0, True))
+                        worst[out] = (max(e, err), max(s, share), z and zeros)
+                print(json.dumps({
+                    "limit": "kernel", "variant": variant, "shape": name,
+                    "dtype": str(dtype).removeprefix("torch."), "rate": rate, "seeds": len(seeds),
+                    **{out: {"max_abs_err": e, "limit_share": s, "zeros_past_length": z}
+                       for out, (e, s, z) in worst.items()},
+                }), flush=True)
 
 
-def main() -> None:
-    if not torch.cuda.is_available():
-        raise SystemExit("torch_fault_probe: needs a CUDA card")
-    print(chip_smoke.card_line(), flush=True)
-    _build.build("flash_attention_fwd")
-    kernel_readings("as_built", SEEDS)
-    with tempfile.TemporaryDirectory() as tmp:
-        for name, edits in MUTANTS.items():
-            fa._fwd_fn = build_mutant(name, edits, pathlib.Path(tmp))
-            kernel_readings(name, SEEDS[:1])
-    fa._fwd_fn = None  # the kernel as built again
-
+def padding_readings() -> None:
     forward, (model, _) = entry()
     samples = chip_smoke.serving_samples(np.random.default_rng(0))
     alone = chip_smoke.unpadded_embeddings(forward, model, samples)
@@ -115,8 +135,8 @@ def main() -> None:
     i, j = np.unravel_index(np.argmin(apart), apart.shape)
     swapped = dict(served, **{keys[i]: served[keys[j]], keys[j]: served[keys[i]]})
 
-    def keys_unmasked(q, k, v, lengths):
-        return fa.flash_attention(q, k, v, None)
+    def keys_unmasked(q, k, v, lengths, dropout_rate=0.0, seed=None):
+        return fa.flash_attention(q, k, v, None, dropout_rate, seed)
 
     tw.flash_attention = keys_unmasked
     leaked = {
@@ -131,6 +151,31 @@ def main() -> None:
             "distance_ratio": chip_smoke.padding_ratio(got, alone),
             "min_cosine": float(min(chip_smoke.cosine(got[key], alone[key]) for key in keys)),
         }), flush=True)
+
+
+def overfit_readings() -> None:
+    for variant, lr, seeds in (("as_built", chip_smoke.OVERFIT_LR, (2, 4)), ("no_update", 0.0, (2, 4))):
+        for seed in seeds:
+            losses = chip_smoke.overfit_losses(lr, seed=seed)
+            print(json.dumps({
+                "limit": "overfit", "variant": variant, "seed": seed, "lr": lr,
+                "fall": chip_smoke.overfit_fall(losses), "first": losses[0], "last": losses[-1],
+            }), flush=True)
+
+
+def main() -> None:
+    if not torch.cuda.is_available():
+        raise SystemExit("torch_fault_probe: needs a CUDA card")
+    print(chip_smoke.card_line(), flush=True)
+    _build.build_all(chip_smoke.KERNEL_SOURCES)
+    kernel_readings("as_built", SEEDS)
+    with tempfile.TemporaryDirectory() as tmp:
+        for name in MUTANTS:
+            build_mutant(name, pathlib.Path(tmp))
+            kernel_readings(name, SEEDS[:1])
+            fa._fwd_fn = fa._bwd_fns = None  # the kernels as built again
+    padding_readings()
+    overfit_readings()
 
 
 if __name__ == "__main__":

@@ -1,0 +1,543 @@
+// Flash-attention backward for Hopper, sm_90a: the dq kernel and the dk/dv
+// kernel.
+//
+// Replaces: w2v2_speaker_tpu/ops/flash_attention.py::_bwd_dq_kernel (:381)
+// and ::_bwd_dkv_kernel (:465), launched by _bwd_call (:560).
+//
+// Function, per (b, h) with len = len[b], qs = q * (d^-0.5 * log2 e) rounded
+// to the input type, lse and D = rowsum(dO * O) from the forward, keep() the
+// forward's counter-hash dropout mask (flash_attention_common.cuh):
+//   P[i, j]  = exp2(qs_i . k_j - lse_i) for i, j < len, else 0
+//   dP[i, j] = dO_i . v_j, times keep(i, j) / (1 - rate) (0 where dropped)
+//   dZ[i, j] = P[i, j] (dP[i, j] - D_i)
+//   dq_i = d^-0.5 sum_j dZ[i, j] k_j               (rows i >= len: 0)
+//   dk_j = (sum_i dZ[i, j] qs_i) / log2 e           (rows j >= len: 0)
+//   dv_j = sum_i P~[i, j] dO_i, P~ = P keep / (1 - rate)
+// dZ and P~ are rounded to the input type before their products, as the
+// JAX kernels do (:435, :528-537). Layout: q, k, v, dO [B, T, H, D] with
+// D = 64 read through element strides; lse, D f32 [B*H, T]; dq, dk, dv
+// contiguous [B, T, H, D].
+//
+// Bound (H100 SXM: 989 TFLOP/s bf16, 67 TFLOP/s f32 outside the tensor
+// cores, 3.35 TB/s): dq 6 and dk/dv 8 x H * D * sum_b len_b^2 FLOPs; bytes
+// the valid rows of the inputs read once, the outputs written once. At the
+// training shape (B=66, T=149, bf16) both are bound by bytes (~0.02 ms);
+// at 30 s and longer by operations.
+//
+// Design (first version: right and simple; no TMA, wgmma or cp.async yet).
+// Two kernels and no atomics, so the gradients are deterministic:
+// - dq: one block per (batch*head, 64-row q tile), four warps of 16 q rows;
+//   a loop over 64-row K/V tiles up to len, only the boundary tile masked.
+//   S = qs K^T and dP = dO V^T on the tensor cores (mma.sync m16n8k16, bf16
+//   in, f32 accumulate); dZ built in the accumulator fragments, repacked in
+//   registers as the A operand of dQ += dZ K.
+// - dk/dv: one block per (batch*head, 64-row k tile), four warps of 16 key
+//   rows; a loop over q tiles that stops at len. The transposed tiles
+//   S^T = K qs^T and dP^T = V dO^T put the per-q lse and D along the
+//   fragments' columns, and their fragments repack as the A operands of
+//   dV += P~^T dO and dK += dZ^T qs (the forward's P V trick).
+// - f32 inputs: scalar f32 FMAs (TF32 would miss the f32 tolerance), two
+//   threads per row, each holding half of d, the dot products completed
+//   with one shuffle.
+
+#include <cuda_runtime.h>
+#include <cuda_bf16.h>
+#include <math.h>
+#include <stdint.h>
+
+#include "flash_attention_common.cuh"
+
+namespace {
+
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kDqScale = 0.125f;  // d^-0.5 for d = 64, exact in any type
+
+struct BwdParams {
+  const void* q;
+  const void* k;
+  const void* v;
+  const void* dout;
+  const float* lse;    // [B*H, T]
+  const float* delta;  // [B*H, T]
+  void* dq;
+  void* dk;
+  void* dv;
+  const int* lengths;  // [B], or null for all T; clamped to [0, T] here
+  long long q_sb, q_st, q_sh;
+  long long k_sb, k_st, k_sh;
+  long long v_sb, v_st, v_sh;
+  long long do_sb, do_st, do_sh;
+  int B, T, H, n_t;
+  float scale;  // d^-0.5 * log2(e), already rounded to the input type
+  Dropout drop;
+};
+
+template <typename T>
+__device__ __forceinline__ const T* at(const void* base, long long sb,
+                                       long long sh, int b, int h) {
+  return static_cast<const T*>(base) + b * sb + h * sh;
+}
+
+// ------------------------------------------------------------------- bf16
+
+template <bool kDrop>
+__global__ void __launch_bounds__(128) dq_bf16_kernel(BwdParams p) {
+  __shared__ __align__(16) __nv_bfloat16 qs_s[kBlockQ * kLds];
+  __shared__ __align__(16) __nv_bfloat16 do_s[kBlockQ * kLds];
+  __shared__ __align__(16) __nv_bfloat16 k_s[kBlockK * kLds];
+  __shared__ __align__(16) __nv_bfloat16 v_s[kBlockK * kLds];
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int bh = blockIdx.x / p.n_t;
+  const int q0 = (blockIdx.x % p.n_t) * kBlockQ;
+  const int b = bh / p.H, h = bh % p.H;
+  const int len = clamp_length(p.lengths, b, p.T);
+  const long long o_st = static_cast<long long>(p.H) * kD;
+  __nv_bfloat16* dq = static_cast<__nv_bfloat16*>(p.dq) +
+                      (static_cast<long long>(b) * p.T + q0) * o_st +
+                      static_cast<long long>(h) * kD;
+
+  if (q0 >= len) {  // fully padded q tile: zero gradients, no K/V traffic
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int c = tid + i * 128;
+      const int r = c >> 3;
+      if (q0 + r < p.T)
+        *reinterpret_cast<uint4*>(dq + r * o_st + (c & 7) * 8) =
+            make_uint4(0u, 0u, 0u, 0u);
+    }
+    return;
+  }
+
+  load_tile_bf16(qs_s, at<__nv_bfloat16>(p.q, p.q_sb, p.q_sh, b, h) + q0 * p.q_st,
+                 p.q_st, len - q0, tid, p.scale);
+  load_tile_bf16(do_s,
+                 at<__nv_bfloat16>(p.dout, p.do_sb, p.do_sh, b, h) + q0 * p.do_st,
+                 p.do_st, len - q0, tid);
+  __syncthreads();
+  uint32_t qa[4][4], da[4][4];
+  load_a_frags(qa, qs_s, warp * 16, g, t4);
+  load_a_frags(da, do_s, warp * 16, g, t4);
+
+  // rows g and g + 8 of this warp: validity, lse, D
+  int q_abs[2];
+  bool rv[2];
+  float lse[2], dlt[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    q_abs[r] = q0 + warp * 16 + g + r * 8;
+    rv[r] = q_abs[r] < len;
+    const long long i = static_cast<long long>(bh) * p.T + q_abs[r];
+    lse[r] = rv[r] ? p.lse[i] : 0.f;
+    dlt[r] = rv[r] ? p.delta[i] : 0.f;
+  }
+
+  float acc[8][4];
+#pragma unroll
+  for (int n = 0; n < 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+
+  const __nv_bfloat16* kg = at<__nv_bfloat16>(p.k, p.k_sb, p.k_sh, b, h);
+  const __nv_bfloat16* vg = at<__nv_bfloat16>(p.v, p.v_sb, p.v_sh, b, h);
+  for (int k0 = 0; k0 < len; k0 += kBlockK) {
+    __syncthreads();  // the previous tile's readers are done
+    load_tile_bf16(k_s, kg + k0 * p.k_st, p.k_st, len - k0, tid);
+    load_tile_bf16(v_s, vg + k0 * p.v_st, p.v_st, len - k0, tid);
+    __syncthreads();
+
+    float s[8][4], dp[8][4];
+    mma_frags_tile_t(s, qa, k_s, g, t4);   // qs K^T
+    mma_frags_tile_t(dp, da, v_s, g, t4);  // dO V^T
+    const bool boundary = k0 + kBlockK > len;
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = e >> 1, key = k0 + n * 8 + t4 * 2 + (e & 1);
+        const bool valid = rv[r] && (!boundary || key < len);
+        const float pv = valid ? exp2f(s[n][e] - lse[r]) : 0.f;
+        const float dpv = kDrop ? p.drop.apply(dp[n][e], bh, q_abs[r], key) : dp[n][e];
+        s[n][e] = pv * (dpv - dlt[r]);  // dZ
+      }
+    mma_frags_tile(acc, s, k_s, g, t4);  // dQ += dZ K
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = warp * 16 + g + r * 8;
+    if (q0 + row >= p.T) continue;
+    __nv_bfloat16* out = dq + row * o_st + t4 * 2;
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+      *reinterpret_cast<__nv_bfloat162*>(out + n * 8) = __floats2bfloat162_rn(
+          rv[r] ? acc[n][2 * r] * kDqScale : 0.f,
+          rv[r] ? acc[n][2 * r + 1] * kDqScale : 0.f);
+  }
+}
+
+template <bool kDrop>
+__global__ void __launch_bounds__(128) dkv_bf16_kernel(BwdParams p) {
+  __shared__ __align__(16) __nv_bfloat16 k_s[kBlockK * kLds];
+  __shared__ __align__(16) __nv_bfloat16 v_s[kBlockK * kLds];
+  __shared__ __align__(16) __nv_bfloat16 qs_s[kBlockQ * kLds];
+  __shared__ __align__(16) __nv_bfloat16 do_s[kBlockQ * kLds];
+  __shared__ float lse_s[kBlockQ], dlt_s[kBlockQ];
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int bh = blockIdx.x / p.n_t;
+  const int k0 = (blockIdx.x % p.n_t) * kBlockK;
+  const int b = bh / p.H, h = bh % p.H;
+  const int len = clamp_length(p.lengths, b, p.T);
+  const long long o_st = static_cast<long long>(p.H) * kD;
+  const long long off = (static_cast<long long>(b) * p.T + k0) * o_st +
+                        static_cast<long long>(h) * kD;
+  __nv_bfloat16* dk = static_cast<__nv_bfloat16*>(p.dk) + off;
+  __nv_bfloat16* dv = static_cast<__nv_bfloat16*>(p.dv) + off;
+
+  if (k0 >= len) {  // key tile past the length: zero gradients
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int c = tid + i * 128;
+      const int r = c >> 3;
+      if (k0 + r < p.T) {
+        *reinterpret_cast<uint4*>(dk + r * o_st + (c & 7) * 8) = make_uint4(0u, 0u, 0u, 0u);
+        *reinterpret_cast<uint4*>(dv + r * o_st + (c & 7) * 8) = make_uint4(0u, 0u, 0u, 0u);
+      }
+    }
+    return;
+  }
+
+  load_tile_bf16(k_s, at<__nv_bfloat16>(p.k, p.k_sb, p.k_sh, b, h) + k0 * p.k_st,
+                 p.k_st, len - k0, tid);
+  load_tile_bf16(v_s, at<__nv_bfloat16>(p.v, p.v_sb, p.v_sh, b, h) + k0 * p.v_st,
+                 p.v_st, len - k0, tid);
+  __syncthreads();
+  uint32_t ka[4][4], va[4][4];
+  load_a_frags(ka, k_s, warp * 16, g, t4);
+  load_a_frags(va, v_s, warp * 16, g, t4);
+
+  int key[2];
+  bool kv[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    key[r] = k0 + warp * 16 + g + r * 8;
+    kv[r] = key[r] < len;
+  }
+
+  float acc_k[8][4], acc_v[8][4];
+#pragma unroll
+  for (int n = 0; n < 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc_k[n][e] = acc_v[n][e] = 0.f;
+
+  const __nv_bfloat16* qg = at<__nv_bfloat16>(p.q, p.q_sb, p.q_sh, b, h);
+  const __nv_bfloat16* dog = at<__nv_bfloat16>(p.dout, p.do_sb, p.do_sh, b, h);
+  const long long stat = static_cast<long long>(bh) * p.T;
+  for (int q0 = 0; q0 < len; q0 += kBlockQ) {
+    __syncthreads();  // the previous tile's readers are done
+    load_tile_bf16(qs_s, qg + q0 * p.q_st, p.q_st, len - q0, tid, p.scale);
+    load_tile_bf16(do_s, dog + q0 * p.do_st, p.do_st, len - q0, tid);
+    if (tid < kBlockQ) {
+      const bool ok = q0 + tid < len;
+      lse_s[tid] = ok ? p.lse[stat + q0 + tid] : 0.f;
+      dlt_s[tid] = ok ? p.delta[stat + q0 + tid] : 0.f;
+    }
+    __syncthreads();
+
+    // transposed tiles: rows are this warp's keys, columns the 64 queries
+    float st[8][4], dpt[8][4];
+    mma_frags_tile_t(st, ka, qs_s, g, t4);   // K qs^T
+    mma_frags_tile_t(dpt, va, do_s, g, t4);  // V dO^T
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = e >> 1, qc = n * 8 + t4 * 2 + (e & 1);
+        const bool valid = kv[r] && q0 + qc < len;
+        const float pv = valid ? exp2f(st[n][e] - lse_s[qc]) : 0.f;
+        float ptv = pv, dpv = dpt[n][e];
+        if (kDrop) {
+          const bool kp = p.drop.keep(bh, q0 + qc, key[r]);
+          ptv = kp ? pv * p.drop.inv_keep : 0.f;
+          dpv = kp ? dpv * p.drop.inv_keep : 0.f;
+        }
+        st[n][e] = ptv;                      // P~^T
+        dpt[n][e] = pv * (dpv - dlt_s[qc]);  // dZ^T
+      }
+    mma_frags_tile(acc_v, st, do_s, g, t4);   // dV += P~^T dO
+    mma_frags_tile(acc_k, dpt, qs_s, g, t4);  // dK += dZ^T qs
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = warp * 16 + g + r * 8;
+    if (k0 + row >= p.T) continue;
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      const long long c = row * o_st + n * 8 + t4 * 2;
+      *reinterpret_cast<__nv_bfloat162*>(dk + c) = __floats2bfloat162_rn(
+          kv[r] ? acc_k[n][2 * r] / kLog2e : 0.f,
+          kv[r] ? acc_k[n][2 * r + 1] / kLog2e : 0.f);
+      *reinterpret_cast<__nv_bfloat162*>(dv + c) = __floats2bfloat162_rn(
+          kv[r] ? acc_v[n][2 * r] : 0.f, kv[r] ? acc_v[n][2 * r + 1] : 0.f);
+    }
+  }
+}
+
+// -------------------------------------------------------------------- f32
+// 128 threads per 64-row tile: thread pairs share a row, each owning 32 of
+// the 64 head dims.
+
+constexpr int kHalf = kD / 2;
+
+// this thread's half of a row of a [B, T, H, D] f32 tensor (0 past n_rows)
+__device__ __forceinline__ void load_half_row(float x[kHalf], const float* row,
+                                              bool ok, float scale) {
+#pragma unroll
+  for (int j = 0; j < kHalf / 4; ++j) {
+    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (ok) v = reinterpret_cast<const float4*>(row)[j];
+    x[4 * j] = v.x * scale;
+    x[4 * j + 1] = v.y * scale;
+    x[4 * j + 2] = v.z * scale;
+    x[4 * j + 3] = v.w * scale;
+  }
+}
+
+// 64 rows x 64 f32 from global into shared memory (row stride kD), rows >=
+// n_rows zero-filled, each value times `scale`
+__device__ __forceinline__ void load_tile_f32(float* dst, const float* src,
+                                              long long st, int n_rows, int tid,
+                                              float scale) {
+  for (int c = tid; c < 64 * kD / 4; c += 128) {
+    const int r = c / (kD / 4), j = c % (kD / 4);
+    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (r < n_rows) v = reinterpret_cast<const float4*>(src + r * st)[j];
+    reinterpret_cast<float4*>(dst)[c] =
+        make_float4(v.x * scale, v.y * scale, v.z * scale, v.w * scale);
+  }
+}
+
+__device__ __forceinline__ float half_dot(const float x[kHalf], const float* y) {
+  float acc = 0.f;
+#pragma unroll
+  for (int d = 0; d < kHalf; ++d) acc = fmaf(x[d], y[d], acc);
+  return acc + __shfl_xor_sync(0xffffffffu, acc, 1);
+}
+
+__device__ __forceinline__ void store_half_row(float* row, const float x[kHalf],
+                                               float scale) {
+#pragma unroll
+  for (int j = 0; j < kHalf / 4; ++j)
+    reinterpret_cast<float4*>(row)[j] =
+        make_float4(x[4 * j] * scale, x[4 * j + 1] * scale,
+                    x[4 * j + 2] * scale, x[4 * j + 3] * scale);
+}
+
+template <bool kDrop>
+__global__ void __launch_bounds__(128) dq_f32_kernel(BwdParams p) {
+  __shared__ __align__(16) float k_s[kBlockK * kD];
+  __shared__ __align__(16) float v_s[kBlockK * kD];
+
+  const int tid = threadIdx.x;
+  const int half = (tid & 1) * kHalf;
+  const int bh = blockIdx.x / p.n_t;
+  const int q0 = (blockIdx.x % p.n_t) * kBlockQ;
+  const int b = bh / p.H, h = bh % p.H;
+  const int len = clamp_length(p.lengths, b, p.T);
+  const int row = q0 + (tid >> 1);
+  const bool rv = row < len;
+  float* out = static_cast<float*>(p.dq) +
+               (static_cast<long long>(b) * p.T + row) * p.H * kD +
+               static_cast<long long>(h) * kD + half;
+  float acc[kHalf];
+#pragma unroll
+  for (int d = 0; d < kHalf; ++d) acc[d] = 0.f;
+  if (q0 >= len) {
+    if (row < p.T) store_half_row(out, acc, 0.f);
+    return;
+  }
+
+  float qr[kHalf], dr[kHalf];
+  load_half_row(qr, at<float>(p.q, p.q_sb, p.q_sh, b, h) + row * p.q_st + half,
+                rv, p.scale);
+  load_half_row(dr, at<float>(p.dout, p.do_sb, p.do_sh, b, h) + row * p.do_st + half,
+                rv, 1.f);
+  const long long stat = static_cast<long long>(bh) * p.T + row;
+  const float lse = rv ? p.lse[stat] : 0.f;
+  const float dlt = rv ? p.delta[stat] : 0.f;
+
+  const float* kg = at<float>(p.k, p.k_sb, p.k_sh, b, h);
+  const float* vg = at<float>(p.v, p.v_sb, p.v_sh, b, h);
+  for (int k0 = 0; k0 < len; k0 += kBlockK) {
+    const int n_valid = min(kBlockK, len - k0);
+    __syncthreads();
+    load_tile_f32(k_s, kg + k0 * p.k_st, p.k_st, n_valid, tid, 1.f);
+    load_tile_f32(v_s, vg + k0 * p.v_st, p.v_st, n_valid, tid, 1.f);
+    __syncthreads();
+    for (int j = 0; j < n_valid; ++j) {
+      const float* kr = k_s + j * kD + half;
+      const float s = half_dot(qr, kr);
+      float dp = half_dot(dr, v_s + j * kD + half);
+      if (kDrop) dp = p.drop.apply(dp, bh, row, k0 + j);
+      const float dz = rv ? exp2f(s - lse) * (dp - dlt) : 0.f;
+#pragma unroll
+      for (int d = 0; d < kHalf; ++d) acc[d] = fmaf(dz, kr[d], acc[d]);
+    }
+  }
+  if (row < p.T) store_half_row(out, acc, rv ? kDqScale : 0.f);
+}
+
+template <bool kDrop>
+__global__ void __launch_bounds__(128) dkv_f32_kernel(BwdParams p) {
+  __shared__ __align__(16) float qs_s[kBlockQ * kD];
+  __shared__ __align__(16) float do_s[kBlockQ * kD];
+  __shared__ float lse_s[kBlockQ], dlt_s[kBlockQ];
+
+  const int tid = threadIdx.x;
+  const int half = (tid & 1) * kHalf;
+  const int bh = blockIdx.x / p.n_t;
+  const int k0 = (blockIdx.x % p.n_t) * kBlockK;
+  const int b = bh / p.H, h = bh % p.H;
+  const int len = clamp_length(p.lengths, b, p.T);
+  const int key = k0 + (tid >> 1);
+  const bool kv = key < len;
+  const long long off = (static_cast<long long>(b) * p.T + key) * p.H * kD +
+                        static_cast<long long>(h) * kD + half;
+  float* dk = static_cast<float*>(p.dk) + off;
+  float* dv = static_cast<float*>(p.dv) + off;
+  float acc_k[kHalf], acc_v[kHalf];
+#pragma unroll
+  for (int d = 0; d < kHalf; ++d) acc_k[d] = acc_v[d] = 0.f;
+  if (k0 >= len) {
+    if (key < p.T) {
+      store_half_row(dk, acc_k, 0.f);
+      store_half_row(dv, acc_v, 0.f);
+    }
+    return;
+  }
+
+  float kr[kHalf], vr[kHalf];
+  load_half_row(kr, at<float>(p.k, p.k_sb, p.k_sh, b, h) + key * p.k_st + half, kv, 1.f);
+  load_half_row(vr, at<float>(p.v, p.v_sb, p.v_sh, b, h) + key * p.v_st + half, kv, 1.f);
+
+  const float* qg = at<float>(p.q, p.q_sb, p.q_sh, b, h);
+  const float* dog = at<float>(p.dout, p.do_sb, p.do_sh, b, h);
+  const long long stat = static_cast<long long>(bh) * p.T;
+  for (int q0 = 0; q0 < len; q0 += kBlockQ) {
+    const int n_valid = min(kBlockQ, len - q0);
+    __syncthreads();
+    load_tile_f32(qs_s, qg + q0 * p.q_st, p.q_st, n_valid, tid, p.scale);
+    load_tile_f32(do_s, dog + q0 * p.do_st, p.do_st, n_valid, tid, 1.f);
+    if (tid < kBlockQ) {
+      const bool ok = tid < n_valid;
+      lse_s[tid] = ok ? p.lse[stat + q0 + tid] : 0.f;
+      dlt_s[tid] = ok ? p.delta[stat + q0 + tid] : 0.f;
+    }
+    __syncthreads();
+    for (int i = 0; i < n_valid; ++i) {
+      const float* qrow = qs_s + i * kD + half;
+      const float* drow = do_s + i * kD + half;
+      const float s = half_dot(kr, qrow);
+      float dp = half_dot(vr, drow);
+      const float pv = kv ? exp2f(s - lse_s[i]) : 0.f;
+      float ptv = pv;
+      if (kDrop) {
+        const bool kp = p.drop.keep(bh, q0 + i, key);
+        ptv = kp ? pv * p.drop.inv_keep : 0.f;
+        dp = kp ? dp * p.drop.inv_keep : 0.f;
+      }
+      const float dz = pv * (dp - dlt_s[i]);
+#pragma unroll
+      for (int d = 0; d < kHalf; ++d) {
+        acc_v[d] = fmaf(ptv, drow[d], acc_v[d]);
+        acc_k[d] = fmaf(dz, qrow[d], acc_k[d]);
+      }
+    }
+  }
+  if (key < p.T) {
+#pragma unroll
+    for (int d = 0; d < kHalf; ++d) acc_k[d] /= kLog2e;
+    store_half_row(dk, acc_k, kv ? 1.f : 0.f);
+    store_half_row(dv, acc_v, kv ? 1.f : 0.f);
+  }
+}
+
+BwdParams make_params(const void* q, const void* k, const void* v,
+                      const void* dout, const float* lse, const float* delta,
+                      void* dq, void* dk, void* dv, const int* lengths,
+                      const long long* st, int B, int T, int H, float scale,
+                      unsigned seed, unsigned thresh, float inv_keep) {
+  return BwdParams{q,     k,     v,     dout,  lse,   delta,
+                   dq,    dk,    dv,    lengths,
+                   st[0], st[1], st[2], st[3], st[4], st[5],
+                   st[6], st[7], st[8], st[9], st[10], st[11],
+                   B,     T,     H,     (T + kBlockQ - 1) / kBlockQ,
+                   scale, Dropout{seed, thresh, inv_keep}};
+}
+
+}  // namespace
+
+// dtype: 0 = bfloat16, 1 = float32. Strides (q, k, v, dout: batch, time,
+// head) are in elements. lse and delta are device f32 [B*H, T]. lengths is
+// a device int32 [B] (clamped to [0, T] in the kernel) or null (all T).
+// dropout != 0 regenerates the forward's mask: keep(seed, bh, q, k) >=
+// thresh, kept entries scaled by inv_keep. Each returns cudaGetLastError()
+// after the launch (0 = launched).
+#define BWD_ARGS                                                              \
+  const void *q, const void *k, const void *v, const void *dout,             \
+      const float *lse, const float *delta
+#define BWD_TAIL                                                              \
+  const int *lengths, long long q_sb, long long q_st, long long q_sh,        \
+      long long k_sb, long long k_st, long long k_sh, long long v_sb,        \
+      long long v_st, long long v_sh, long long do_sb, long long do_st,      \
+      long long do_sh, int B, int T, int H, float scale, int dtype,          \
+      unsigned seed, unsigned thresh, float inv_keep, int dropout,           \
+      void *stream
+
+extern "C" int flash_attention_bwd_dq(BWD_ARGS, void* dq, BWD_TAIL) {
+  const long long st[12] = {q_sb, q_st, q_sh, k_sb, k_st, k_sh,
+                            v_sb, v_st, v_sh, do_sb, do_st, do_sh};
+  const BwdParams p = make_params(q, k, v, dout, lse, delta, dq, nullptr,
+                                  nullptr, lengths, st, B, T, H, scale, seed,
+                                  thresh, inv_keep);
+  const unsigned grid = static_cast<unsigned>(B) * H * p.n_t;
+  if (grid == 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) {
+    if (dropout) dq_bf16_kernel<true><<<grid, 128, 0, s>>>(p);
+    else dq_bf16_kernel<false><<<grid, 128, 0, s>>>(p);
+  } else {
+    if (dropout) dq_f32_kernel<true><<<grid, 128, 0, s>>>(p);
+    else dq_f32_kernel<false><<<grid, 128, 0, s>>>(p);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int flash_attention_bwd_dkv(BWD_ARGS, void* dk, void* dv, BWD_TAIL) {
+  const long long st[12] = {q_sb, q_st, q_sh, k_sb, k_st, k_sh,
+                            v_sb, v_st, v_sh, do_sb, do_st, do_sh};
+  const BwdParams p = make_params(q, k, v, dout, lse, delta, nullptr, dk, dv,
+                                  lengths, st, B, T, H, scale, seed, thresh,
+                                  inv_keep);
+  const unsigned grid = static_cast<unsigned>(B) * H * p.n_t;
+  if (grid == 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) {
+    if (dropout) dkv_bf16_kernel<true><<<grid, 128, 0, s>>>(p);
+    else dkv_bf16_kernel<false><<<grid, 128, 0, s>>>(p);
+  } else {
+    if (dropout) dkv_f32_kernel<true><<<grid, 128, 0, s>>>(p);
+    else dkv_f32_kernel<false><<<grid, 128, 0, s>>>(p);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" const char* flash_attention_bwd_error(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}

@@ -1,7 +1,8 @@
-// Flash-attention forward (inference) for Hopper, sm_90a.
+// Flash-attention forward for Hopper, sm_90a.
 //
 // Replaces: w2v2_speaker_tpu/ops/flash_attention.py::_fwd_kernel (:204),
-// launched by _fwd_call (:299), with save_lse=False and dropout rate 0.
+// launched by _fwd_call (:299): the inference path (no LSE, rate 0) and the
+// training path (save_lse, in-kernel dropout on P).
 //
 // Function: o[b, i, h] = sum_j softmax_j(qs[b, i, h] . k[b, j, h]) v[b, j, h]
 // over keys j < len[b], in the exp2 domain: qs = q * bf16/f32(d^-0.5 * log2 e)
@@ -10,6 +11,16 @@
 // as exact zeros. Layout [B, T, H, D] with D = 64, read through element
 // strides (batch, time, head; the last dim contiguous), so the q/k/v views
 // of the fused qkv projection need no repack. o is a contiguous [B, T, H, D].
+//
+// Training outputs and options:
+// - lse (optional, f32 [B*H, T]): the log2-domain log-sum-exp m + log2(l) of
+//   each valid row, 0 on rows >= len[b] (as _fwd_kernel :289-296 writes 0
+//   where l == 0); the backward kernels recompute P = exp2(qs.k - lse);
+// - dropout on the post-softmax P: P[i, j] is kept, and scaled by
+//   1 / (1 - rate), where keep(seed, b*H + h, i, j) -- the murmur3 finalizer
+//   over the absolute coordinates, bit-identical to _dropout_keep (:83) --
+//   is >= thresh; the normalizer l sums the undropped P (:249-257). The
+//   inference path (no dropout) is a separate instantiation with no hash.
 //
 // Bound at the main path's shapes (H100 SXM: 989 TFLOP/s bf16 dense,
 // 3.35 TB/s HBM). FLOPs = 4 * H * D * sum_b len_b^2; bytes = q, k, v valid
@@ -38,66 +49,30 @@
 #include <math.h>
 #include <stdint.h>
 
-namespace {
+#include "flash_attention_common.cuh"
 
-constexpr int kD = 64;
-constexpr int kBlockQ = 64;
-constexpr int kBlockK = 64;
-constexpr int kLds = kD + 8;  // padded shared-memory row stride (bf16)
+namespace {
 
 struct Params {
   const void* q;
   const void* k;
   const void* v;
   void* o;
+  float* lse;          // [B*H, T] f32, or null (inference)
   const int* lengths;  // [B], or null for all T; clamped to [0, T] here
   long long q_sb, q_st, q_sh;
   long long k_sb, k_st, k_sh;
   long long v_sb, v_st, v_sh;
   int B, T, H, n_qt;
   float scale;  // d^-0.5 * log2(e), already rounded to the input type
+  Dropout drop;
 };
 
 __device__ __forceinline__ int row_length(const Params& p, int b) {
-  return p.lengths ? min(max(p.lengths[b], 0), p.T) : p.T;
+  return clamp_length(p.lengths, b, p.T);
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t pack_raw(uint16_t lo, uint16_t hi) {
-  return static_cast<uint32_t>(lo) | (static_cast<uint32_t>(hi) << 16);
-}
-
-// D = A(16x16, row) * B(16x8, col) + D, bf16 inputs, f32 accumulators
-__device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// 64 rows x 64 bf16 from global (row stride `st` elements) into padded
-// shared memory; rows >= n_rows are zero-filled. 128 threads, 16 B each.
-__device__ __forceinline__ void load_tile_bf16(__nv_bfloat16* dst,
-                                               const __nv_bfloat16* src,
-                                               long long st, int n_rows,
-                                               int tid) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int c = tid + i * 128;
-    const int r = c >> 3;
-    const int col = (c & 7) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (r < n_rows) val = *reinterpret_cast<const uint4*>(src + r * st + col);
-    *reinterpret_cast<uint4*>(dst + r * kLds + col) = val;
-  }
-}
-
+template <bool kDrop>
 __global__ void __launch_bounds__(128) fwd_bf16_kernel(Params p) {
   __shared__ __align__(16) __nv_bfloat16 qs_s[kBlockQ * kLds];
   __shared__ __align__(16) __nv_bfloat16 k_s[kBlockK * kLds];
@@ -124,46 +99,20 @@ __global__ void __launch_bounds__(128) fwd_bf16_kernel(Params p) {
         *reinterpret_cast<uint4*>(o + r * o_st + (c & 7) * 8) =
             make_uint4(0u, 0u, 0u, 0u);
     }
+    if (p.lse && tid < kBlockQ && q0 + tid < p.T)
+      p.lse[static_cast<long long>(bh) * p.T + q0 + tid] = 0.f;
     return;
   }
 
-  // Q tile, prescaled and rounded to bf16 (qs = q * scale in the input type)
-  {
-    const __nv_bfloat16* q = static_cast<const __nv_bfloat16*>(p.q) +
-                             b * p.q_sb + q0 * p.q_st + h * p.q_sh;
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int c = tid + i * 128;
-      const int r = c >> 3;
-      const int col = (c & 7) * 8;
-      uint4 val = make_uint4(0u, 0u, 0u, 0u);
-      if (q0 + r < p.T) {
-        val = *reinterpret_cast<const uint4*>(q + r * p.q_st + col);
-        __nv_bfloat162* e = reinterpret_cast<__nv_bfloat162*>(&val);
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const float2 f = __bfloat1622float2(e[j]);
-          e[j] = __floats2bfloat162_rn(f.x * p.scale, f.y * p.scale);
-        }
-      }
-      *reinterpret_cast<uint4*>(qs_s + r * kLds + col) = val;
-    }
-  }
+  // Q tile, prescaled and rounded to bf16 (qs = q * scale in the input type),
+  // and this warp's 16 rows of it as mma A fragments
+  load_tile_bf16(qs_s,
+                 static_cast<const __nv_bfloat16*>(p.q) + b * p.q_sb +
+                     q0 * p.q_st + h * p.q_sh,
+                 p.q_st, p.T - q0, tid, p.scale);
   __syncthreads();
-
-  // this warp's 16 rows of qs as mma A fragments, one per 16-wide d step
   uint32_t qa[4][4];
-  {
-    const __nv_bfloat16* base = qs_s + (warp * 16 + g) * kLds + t4 * 2;
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      qa[kk][0] = *reinterpret_cast<const uint32_t*>(base + kk * 16);
-      qa[kk][1] = *reinterpret_cast<const uint32_t*>(base + 8 * kLds + kk * 16);
-      qa[kk][2] = *reinterpret_cast<const uint32_t*>(base + kk * 16 + 8);
-      qa[kk][3] =
-          *reinterpret_cast<const uint32_t*>(base + 8 * kLds + kk * 16 + 8);
-    }
-  }
+  load_a_frags(qa, qs_s, warp * 16, g, t4);
 
   float m_run[2] = {-INFINITY, -INFINITY};  // rows g and g + 8
   float l_run[2] = {0.f, 0.f};              // this thread's partial row sums
@@ -177,7 +126,6 @@ __global__ void __launch_bounds__(128) fwd_bf16_kernel(Params p) {
                             b * p.k_sb + h * p.k_sh;
   const __nv_bfloat16* vg = static_cast<const __nv_bfloat16*>(p.v) +
                             b * p.v_sb + h * p.v_sh;
-  const uint16_t* v_raw = reinterpret_cast<const uint16_t*>(v_s);
 
   for (int k0 = 0; k0 < len; k0 += kBlockK) {
     __syncthreads();  // the previous tile's readers are done
@@ -188,16 +136,7 @@ __global__ void __launch_bounds__(128) fwd_bf16_kernel(Params p) {
     // S = qs K^T for 16 rows x 64 keys: s[n] holds keys n*8 + t4*2 + {0,1}
     // of rows g ({0,1}) and g + 8 ({2,3})
     float s[8][4];
-#pragma unroll
-    for (int n = 0; n < 8; ++n) {
-      s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-      const __nv_bfloat16* kr = k_s + (n * 8 + g) * kLds + t4 * 2;
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk)
-        mma_bf16(s[n], qa[kk],
-                 *reinterpret_cast<const uint32_t*>(kr + kk * 16),
-                 *reinterpret_cast<const uint32_t*>(kr + kk * 16 + 8));
-    }
+    mma_frags_tile_t(s, qa, k_s, g, t4);
     if (k0 + kBlockK > len) {  // boundary tile: mask keys >= len
 #pragma unroll
       for (int n = 0; n < 8; ++n)
@@ -238,6 +177,15 @@ __global__ void __launch_bounds__(128) fwd_bf16_kernel(Params p) {
     }
 #pragma unroll
     for (int r = 0; r < 2; ++r) l_run[r] = l_run[r] * alpha[r] + rs[r];
+    if (kDrop) {  // drop after the row sum: l keeps the undropped P
+      const int q_abs = q0 + warp * 16 + g;
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          s[n][e] = p.drop.apply(s[n][e], bh, q_abs + (e >> 1) * 8,
+                                 k0 + n * 8 + t4 * 2 + (e & 1));
+    }
 #pragma unroll
     for (int n = 0; n < 8; ++n) {
       acc[n][0] *= alpha[0];
@@ -247,21 +195,7 @@ __global__ void __launch_bounds__(128) fwd_bf16_kernel(Params p) {
     }
 
     // O += P V: the S fragments of keys kk*16 .. kk*16+15 form the A operand
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      uint32_t pa[4];
-      pa[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-      pa[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-      pa[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      pa[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-      const uint16_t* vr = v_raw + (kk * 16 + t4 * 2) * kLds + g;
-#pragma unroll
-      for (int n = 0; n < 8; ++n) {
-        const uint16_t* c = vr + n * 8;
-        mma_bf16(acc[n], pa, pack_raw(c[0], c[kLds]),
-                 pack_raw(c[8 * kLds], c[9 * kLds]));
-      }
-    }
+    mma_frags_tile(acc, s, v_s, g, t4);
   }
 
   // finalize: full row sums across the quad, zeros for rows >= len
@@ -275,6 +209,9 @@ __global__ void __launch_bounds__(128) fwd_bf16_kernel(Params p) {
     const int row = warp * 16 + g + r * 8;
     if (q0 + row >= p.T) continue;
     const bool valid = q0 + row < len && l_run[r] > 0.f;
+    if (p.lse && t4 == 0)
+      p.lse[static_cast<long long>(bh) * p.T + q0 + row] =
+          valid ? m_run[r] + log2f(l_run[r]) : 0.f;
     __nv_bfloat16* orow = o + row * o_st + t4 * 2;
 #pragma unroll
     for (int n = 0; n < 8; ++n) {
@@ -286,6 +223,7 @@ __global__ void __launch_bounds__(128) fwd_bf16_kernel(Params p) {
   }
 }
 
+template <bool kDrop>
 __global__ void __launch_bounds__(64) fwd_f32_kernel(Params p) {
   __shared__ __align__(16) float k_s[kBlockK * kD];
   __shared__ __align__(16) float v_s[kBlockK * kD];
@@ -303,9 +241,11 @@ __global__ void __launch_bounds__(64) fwd_f32_kernel(Params p) {
       static_cast<long long>(h) * kD);
 
   if (q0 >= len) {
-    if (row < p.T)
+    if (row < p.T) {
 #pragma unroll
       for (int j = 0; j < kD / 4; ++j) orow[j] = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (p.lse) p.lse[static_cast<long long>(bh) * p.T + row] = 0.f;
+    }
     return;
   }
 
@@ -378,13 +318,15 @@ __global__ void __launch_bounds__(64) fwd_f32_kernel(Params p) {
 #pragma unroll
       for (int jj = 0; jj < kChunk; ++jj) {
         const float4* vr = reinterpret_cast<const float4*>(v_s + (j0 + jj) * kD);
+        const float pv =
+            kDrop ? p.drop.apply(s[jj], bh, row, k0 + j0 + jj) : s[jj];
 #pragma unroll
         for (int d = 0; d < kD / 4; ++d) {
           const float4 vx = vr[d];
-          acc[4 * d] = fmaf(s[jj], vx.x, acc[4 * d]);
-          acc[4 * d + 1] = fmaf(s[jj], vx.y, acc[4 * d + 1]);
-          acc[4 * d + 2] = fmaf(s[jj], vx.z, acc[4 * d + 2]);
-          acc[4 * d + 3] = fmaf(s[jj], vx.w, acc[4 * d + 3]);
+          acc[4 * d] = fmaf(pv, vx.x, acc[4 * d]);
+          acc[4 * d + 1] = fmaf(pv, vx.y, acc[4 * d + 1]);
+          acc[4 * d + 2] = fmaf(pv, vx.z, acc[4 * d + 2]);
+          acc[4 * d + 3] = fmaf(pv, vx.w, acc[4 * d + 3]);
         }
       }
     }
@@ -392,6 +334,9 @@ __global__ void __launch_bounds__(64) fwd_f32_kernel(Params p) {
 
   if (row >= p.T) return;
   const bool valid = row < len && l_run > 0.f;
+  if (p.lse)
+    p.lse[static_cast<long long>(bh) * p.T + row] =
+        valid ? m_run + log2f(l_run) : 0.f;
 #pragma unroll
   for (int j = 0; j < kD / 4; ++j)
     orow[j] = valid ? make_float4(acc[4 * j] / l_run, acc[4 * j + 1] / l_run,
@@ -401,27 +346,40 @@ __global__ void __launch_bounds__(64) fwd_f32_kernel(Params p) {
 
 }  // namespace
 
-// dtype: 0 = bfloat16, 1 = float32. Strides are in elements. lengths is a
-// device int32 [B] (each clamped to [0, T] in the kernel) or null (all rows
-// have T keys). Returns cudaGetLastError() after the launch (0 = launched).
+// dtype: 0 = bfloat16, 1 = float32. Strides are in elements. lse is a device
+// f32 [B*H, T] or null (not written). lengths is a device int32 [B] (each
+// clamped to [0, T] in the kernel) or null (all rows have T keys). dropout
+// != 0 drops P with keep(seed, bh, q, k) >= thresh and scales the kept
+// entries by inv_keep = 1 / (1 - rate). Returns cudaGetLastError() after the
+// launch (0 = launched).
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
-                                   void* o, const int* lengths, long long q_sb,
-                                   long long q_st, long long q_sh,
-                                   long long k_sb, long long k_st,
-                                   long long k_sh, long long v_sb,
-                                   long long v_st, long long v_sh, int B, int T,
-                                   int H, float scale, int dtype,
-                                   void* stream) {
-  Params p{q,    k,    v,    o,    lengths, q_sb, q_st, q_sh, k_sb, k_st,
-           k_sh, v_sb, v_st, v_sh, B,       T,    H,    (T + kBlockQ - 1) / kBlockQ,
-           scale};
+                                   void* o, float* lse, const int* lengths,
+                                   long long q_sb, long long q_st,
+                                   long long q_sh, long long k_sb,
+                                   long long k_st, long long k_sh,
+                                   long long v_sb, long long v_st,
+                                   long long v_sh, int B, int T, int H,
+                                   float scale, int dtype, unsigned seed,
+                                   unsigned thresh, float inv_keep,
+                                   int dropout, void* stream) {
+  Params p{q,    k,    v,    o,    lse,  lengths, q_sb, q_st,
+           q_sh, k_sb, k_st, k_sh, v_sb, v_st,    v_sh, B,
+           T,    H,    (T + kBlockQ - 1) / kBlockQ, scale,
+           Dropout{seed, thresh, inv_keep}};
   const unsigned grid = static_cast<unsigned>(B) * H * p.n_qt;
   if (grid == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    fwd_bf16_kernel<<<grid, 128, 0, s>>>(p);
-  else
-    fwd_f32_kernel<<<grid, 64, 0, s>>>(p);
+  if (dtype == 0) {
+    if (dropout)
+      fwd_bf16_kernel<true><<<grid, 128, 0, s>>>(p);
+    else
+      fwd_bf16_kernel<false><<<grid, 128, 0, s>>>(p);
+  } else {
+    if (dropout)
+      fwd_f32_kernel<true><<<grid, 64, 0, s>>>(p);
+    else
+      fwd_f32_kernel<false><<<grid, 64, 0, s>>>(p);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,46 +1,72 @@
-"""The port's main-path program, counterpart of ``__graft_entry__.entry()``
-(``__graft_entry__.py:15-77``).
+"""The port's main-path programs.
 
-wav2vec2-BASE -> masked mean pooling -> FC head over 5994 speakers
-(VoxCeleb2 dev), speaker-embedding extraction on B=48 x 48 000-sample
-(3 s) clips. Random weights from a seeded ``torch.Generator``: bfloat16
-backbone weights and compute on the card, float32 on the CPU. Every
-attention call on the card launches the hand-written flash-attention
-kernel (12 launches per forward).
+- ``entry()``, counterpart of ``__graft_entry__.entry()``
+  (``__graft_entry__.py:15-77``): wav2vec2-BASE -> masked mean pooling -> FC
+  head over 5994 speakers (VoxCeleb2 dev), speaker-embedding extraction on
+  B=48 x 48 000-sample (3 s) clips. bfloat16 backbone weights and compute on
+  the card, float32 on the CPU. Every attention call on the card launches
+  the hand-written flash-attention forward (12 launches per forward).
+- ``train_entry()``, counterpart of one dispatch of the
+  ``speaker_wav2vec2_ce`` recipe's training loop (``run.py``): the same
+  model with the recipe's regularisation (dropout 0.1 at the feature
+  projection, hidden and attention sites, layerdrop 0.05, SpecAugment time
+  masks), CE loss, Adam under the one-cycle schedule, float32 parameters
+  with bfloat16 autocast on the card (float32 on the CPU), four steps per
+  dispatch on stacked B=66 x 48 000-sample batches. On the card each kept
+  layer launches the forward, dq and dk/dv kernels once per step.
+
+Random weights come from a seeded ``torch.Generator``, synthetic batches
+and labels from numpy's seeded generator.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
 from .device import DeviceLike, resolve_device, set_float32_precision
 from .models.wav2vec2 import Wav2Vec2Config, init_parameters
 from .models.wav2vec2_speaker import Wav2Vec2SpeakerConfig, Wav2Vec2SpeakerModel
+from .runtime.experiment import SPEAKER_WAV2VEC2_CE, build_optimizer, w2v2_config
+from .train.speaker_task import SpeakerTask
+from .train.state import TrainState
+from .train.steps import make_train_step
 
-__all__ = ["entry", "build_model", "NUM_SPEAKERS", "BATCH", "SAMPLES"]
+__all__ = [
+    "entry", "train_entry", "build_model", "build_train_state", "synthetic_batch",
+    "NUM_SPEAKERS", "BATCH", "SAMPLES",
+]
 
 NUM_SPEAKERS = 5994
 BATCH, SAMPLES = 48, 48000
 
 
-def build_model(
-    device: torch.device, dtype: torch.dtype, seed: int = 0
-) -> Wav2Vec2SpeakerModel:
-    """BASE + mean pooling + FC head, eval mode, weights drawn on ``device``
-    from ``torch.Generator(device).manual_seed(seed)``. On the card it sets
-    full float32 for f32 matmuls and convolutions (``set_float32_precision``)."""
+def _random_model(cfg: Wav2Vec2SpeakerConfig, device: torch.device, seed: int):
+    """The model with float32 parameters drawn on ``device`` from
+    ``torch.Generator(device).manual_seed(seed)``; on the card it sets full
+    float32 for f32 matmuls and convolutions (``set_float32_precision``)."""
     if device.type == "cuda":
         set_float32_precision()
-    cfg = Wav2Vec2SpeakerConfig(
-        w2v2=Wav2Vec2Config(dtype=str(dtype).removeprefix("torch."), layerdrop=0.0),
-        stat_pooling_type="mean",
-    )
     with torch.device("meta"):
         model = Wav2Vec2SpeakerModel(cfg, num_speakers=NUM_SPEAKERS)
     model.to_empty(device=device)
     init_parameters(model, torch.Generator(device=device).manual_seed(seed))
+    return model
+
+
+def build_model(
+    device: torch.device, dtype: torch.dtype, seed: int = 0
+) -> Wav2Vec2SpeakerModel:
+    """BASE + mean pooling + FC head for serving, eval mode: the backbone's
+    weights cast to ``dtype`` (as the JAX entry casts its variables)."""
+    cfg = Wav2Vec2SpeakerConfig(
+        w2v2=Wav2Vec2Config(dtype=str(dtype).removeprefix("torch."), layerdrop=0.0),
+        stat_pooling_type="mean",
+    )
+    model = _random_model(cfg, device, seed)
+    model.wav2vec2.to(dtype)
     return model.eval().requires_grad_(False)
 
 
@@ -61,3 +87,65 @@ def entry(
         return model.compute_embedding(wav)
 
     return forward, (model, example_wav)
+
+
+def build_train_state(
+    device: torch.device,
+    precision: str,
+    cfg: Dict = SPEAKER_WAV2VEC2_CE,
+    seed: int = 0,
+    num_layers: Optional[int] = None,
+) -> Tuple[TrainState, SpeakerTask]:
+    """(state, task) of the recipe ``cfg`` on ``device``: random float32
+    weights from ``seed``, the step generator seeded with ``seed`` too.
+    ``num_layers`` cuts the depth (the widths stay)."""
+    net = cfg["network"]
+    w2v2 = w2v2_config(net, precision)
+    if num_layers is not None:
+        w2v2 = Wav2Vec2Config(**{**w2v2.__dict__, "num_layers": num_layers})
+    model_cfg = Wav2Vec2SpeakerConfig(
+        w2v2=w2v2,
+        stat_pooling_type=net["stat_pooling_type"],
+        test_stat_pooling_type=net["test_stat_pooling_type"],
+        hidden_fc_layers_out=tuple(net["hidden_fc_layers_out"]),
+        embedding_layer_idx=net["embedding_layer_idx"],
+        final_channel_mask_prob=net["final_channel_mask_prob"],
+        final_channel_mask_width=net["final_channel_mask_width"],
+    )
+    model = _random_model(model_cfg, device, seed)
+    return TrainState.create(model, build_optimizer(cfg), seed=seed), SpeakerTask(model, "ce")
+
+
+def synthetic_batch(
+    batch: int, samples: int, device: torch.device, seed: int = 0, steps: int = 1
+) -> Dict[str, torch.Tensor]:
+    """``steps`` stacked batches of unpadded random clips (``features``,
+    all-valid ``mask``) with random labels over the 5994 speakers, each
+    entry ``[steps, batch, ...]``."""
+    rng = np.random.default_rng(seed)
+    return {
+        "features": torch.from_numpy(
+            rng.normal(0, 0.1, (steps, batch, samples)).astype(np.float32)).to(device),
+        "mask": torch.ones((steps, batch, samples), dtype=torch.bool, device=device),
+        "labels": torch.from_numpy(rng.integers(0, NUM_SPEAKERS, (steps, batch))).to(device),
+    }
+
+
+def train_entry(
+    device: DeviceLike = None, batch: int = 66, samples: int = SAMPLES
+) -> Tuple[Callable, tuple]:
+    """``(step, (state, example_batch))`` of the ``speaker_wav2vec2_ce``
+    recipe: ``step(state, example_batch)`` runs one dispatch of four
+    training steps and returns ``(state, metrics)`` with ``[4]``-stacked
+    ``loss``, ``accuracy`` and ``layers_run``. Precision is the recipe's
+    bf16 on the card, f32 on the CPU. Runs on the card unless
+    ``device="cpu"``; raises without a card."""
+    dev = resolve_device(device)
+    cfg = SPEAKER_WAV2VEC2_CE
+    precision = cfg["trainer"]["precision"] if dev.type == "cuda" else "f32"
+    state, task = build_train_state(dev, precision, cfg)
+    k = cfg["trainer"]["steps_per_dispatch"]
+    step = make_train_step(
+        task, accumulate_steps=cfg["trainer"]["accumulate_grad_batches"], steps_per_dispatch=k
+    )
+    return step, (state, synthetic_batch(batch, samples, dev, steps=k))

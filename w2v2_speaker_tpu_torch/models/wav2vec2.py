@@ -1,4 +1,4 @@
-"""wav2vec2 backbone in PyTorch, eval only.
+"""wav2vec2 backbone in PyTorch, eval and training.
 
 Counterpart of ``w2v2_speaker_tpu/models/wav2vec2.py``:
 
@@ -6,6 +6,7 @@ Counterpart of ``w2v2_speaker_tpu/models/wav2vec2.py``:
 - ``feat_extract_output_lengths`` (:187)
 - ``_MaskedChannelNorm`` (:211)
 - ``ConvFeatureEncoder`` (:287), the default ``conv_impl="xla"`` path
+- ``HashDropout`` (:373)
 - ``FeatureProjection`` (:420)
 - ``PosConvEmbedding`` (:437)
 - ``SelfAttention`` (:550)
@@ -17,21 +18,32 @@ Public layouts are the JAX package's: waveforms ``[B, N]``, features
 channels-last ``[B, T, F]``. Inside, the conv stack runs in PyTorch's
 ``[B, C, T]``. Parameter names follow the flax tree (``conv_0``,
 ``group_norm``, ``qkv_proj``, ...) so ``convert.params_from_jax`` is a
-rename and a transpose. The backbone's parameters and its compute are in
-``cfg.dtype``; norm statistics and the attention softmax run in float32.
+rename and a transpose. ``cfg.dtype`` is the compute type. Parameters are
+created in float32, as flax's ``param_dtype`` keeps them: training keeps
+them so and runs the forward under ``torch.autocast`` in bfloat16 when
+``cfg.dtype`` is bfloat16 (the role of ``trainer.precision``); serving casts
+the weights themselves to bfloat16 (``entry.build_model``) and then needs no
+autocast. Norm statistics and the attention softmax run in float32.
 
 A per-layer Python loop stands in for ``nn.scan``. Every attention call
 goes through ``ops.flash_attention.flash_attention``: the hand-written CUDA
-kernel on the card, its plain version on the CPU. There is no
-``_kernel_profitable`` dispatch, and ``attention_impl`` picks nothing here.
+kernels on the card (forward, and dq and dk/dv under autograd), their plain
+versions on the CPU. There is no ``_kernel_profitable`` dispatch, and
+``attention_impl`` picks nothing here.
 
-Training (dropout, SpecAugment, layerdrop) and ``conv_impl="fused_pallas"``
-raise ``NotImplementedError`` until later slices (ROADMAP Queue 1 item 5,
-Queue 2 item 4).
+Training (``train=True``) takes the train step's ``torch.Generator``; every
+random draw of the forward comes from it, in a fixed order: one int32 seed
+per dropout site (the counter-hash masks of ``HashDropout`` and of the
+attention kernel), the SpecAugment uniforms, one coin per layer for
+layerdrop. A dropped layer is skipped outright: its output is its input, as
+the JAX ``where`` (:620-625) gives, and its parameters get zero gradients
+from the train step. ``conv_impl="fused_pallas"`` raises
+``NotImplementedError`` (ROADMAP Queue 2 item 4).
 """
 
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass
 from typing import Optional, Tuple
 
@@ -39,9 +51,11 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.flash_attention import flash_attention
+from ..ops.flash_attention import attention_dropout_keep, draw_seed, flash_attention
+from .masking import draw_uniform, sample_span_mask
 
 __all__ = [
+    "HashDropout",
     "Wav2Vec2Config",
     "Wav2Vec2Model",
     "BASE_CONFIG",
@@ -50,17 +64,13 @@ __all__ = [
     "init_parameters",
 ]
 
-TRAINING_ROW = "ROADMAP.md Queue 1 item 5 (training step, slice 2)"
-
-
 @dataclass(frozen=True)
 class Wav2Vec2Config:
     """Same fields, defaults and validation as the JAX package's config.
 
-    Fields that only shape training or TPU code generation (dropout rates,
-    layerdrop, SpecAugment, remat, scan unroll, posconv formulation,
-    hash_dropout, attention_impl) are kept so configs carry over; they do
-    not change this eval-only forward.
+    Fields that only shape TPU code generation (remat, remat_policy, scan
+    unroll, posconv formulation, attention_impl) are kept so configs carry
+    over; they change nothing here (ROADMAP Queue 1 item 11).
     """
 
     # conv feature encoder
@@ -228,14 +238,60 @@ class ConvFeatureEncoder(nn.Module):
         return x.transpose(1, 2)
 
 
+def hash_dropout(x: torch.Tensor, rate: float, seed: int) -> torch.Tensor:
+    """``x`` [B, T, C] with the counter-hash keep mask
+    ``attention_dropout_keep(seed, B, 1, T, C)`` (bh = batch, q = time,
+    k = channel): kept entries divided by 1 - rate, the rest 0."""
+    b, t, c = x.shape
+    keep = attention_dropout_keep(seed, b, 1, t, c, rate, x.device)[:, 0]
+    return torch.where(keep, _div_keep(x, rate), torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def _div_keep(x: torch.Tensor, rate: float) -> torch.Tensor:
+    # x / (1 - rate) with the divisor in x's type, as JAX's weakly typed
+    # Python float becomes (bf16(0.9) in a bf16 forward)
+    return x / torch.tensor(1.0 - rate, dtype=x.dtype, device=x.device)
+
+
+class HashDropout(nn.Module):
+    """Dropout at one site of the backbone (<- ``HashDropout`` :373).
+
+    ``forward(x, generator)``: ``generator`` None (eval) or a rate of 0
+    returns ``x``. Otherwise the mask is the counter hash of one int32 seed
+    drawn from ``generator`` (``use_hash``, the default), or, with
+    ``hash_dropout=False``, ``torch.bernoulli`` drawn on ``generator`` and
+    moved to ``x``'s device. Plain PyTorch on the card too: the JAX package
+    runs it as XLA ops, not as a Pallas kernel (a fused Triton version is
+    later work, ROADMAP Queue 1 item 4).
+    """
+
+    def __init__(self, rate: float, use_hash: bool = True):
+        super().__init__()
+        self.rate, self.use_hash = rate, use_hash
+
+    def forward(
+        self, x: torch.Tensor, generator: Optional[torch.Generator] = None
+    ) -> torch.Tensor:
+        if generator is None or self.rate <= 0.0:
+            return x
+        if self.use_hash:
+            return hash_dropout(x, self.rate, draw_seed(generator))
+        keep = torch.bernoulli(torch.full(x.shape, 1.0 - self.rate), generator=generator)
+        keep = keep.to(device=x.device, dtype=torch.bool)
+        return torch.where(keep, _div_keep(x, self.rate), torch.zeros((), dtype=x.dtype, device=x.device))
+
+
 class FeatureProjection(nn.Module):
     def __init__(self, cfg: Wav2Vec2Config):
         super().__init__()
         self.layer_norm = nn.LayerNorm(cfg.conv_dim[-1], eps=cfg.layer_norm_eps)
         self.projection = nn.Linear(cfg.conv_dim[-1], cfg.hidden_size)
+        self.dropout = HashDropout(cfg.feat_proj_dropout, cfg.hash_dropout)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.projection(self.layer_norm(x))
+    def forward(
+        self, x: torch.Tensor, generator: Optional[torch.Generator] = None
+    ) -> torch.Tensor:
+        return self.dropout(self.projection(self.layer_norm(x)), generator)
 
 
 class PosConvEmbedding(nn.Module):
@@ -271,24 +327,32 @@ class PosConvEmbedding(nn.Module):
 
 class SelfAttention(nn.Module):
     """Fused QKV projection -> flash attention over ``[B, T, H, D]`` views
-    of the projection (no copy) -> output projection."""
+    of the projection (no copy) -> output projection. In training the
+    attention-prob dropout runs inside the kernels, from one seed drawn
+    from the generator."""
 
     def __init__(self, cfg: Wav2Vec2Config):
         super().__init__()
         h = cfg.hidden_size
         self.num_heads = cfg.num_heads
+        self.dropout = cfg.attention_dropout
         self.qkv_proj = nn.Linear(h, 3 * h)
         self.out_proj = nn.Linear(h, h)
 
     def forward(
-        self, x: torch.Tensor, lengths: Optional[torch.Tensor]
+        self,
+        x: torch.Tensor,
+        lengths: Optional[torch.Tensor],
+        generator: Optional[torch.Generator] = None,
     ) -> torch.Tensor:
         b, t, h = x.shape
         q, k, v = (
             part.view(b, t, self.num_heads, h // self.num_heads)
             for part in self.qkv_proj(x).split(h, dim=-1)
         )
-        out = flash_attention(q, k, v, lengths)
+        rate = self.dropout if generator is not None else 0.0
+        seed = draw_seed(generator) if rate > 0.0 else None
+        out = flash_attention(q, k, v, lengths, rate, seed)
         return self.out_proj(out.reshape(b, t, h))
 
 
@@ -304,18 +368,23 @@ class EncoderLayer(nn.Module):
         self.intermediate_dense = nn.Linear(cfg.hidden_size, cfg.intermediate_size)
         self.output_dense = nn.Linear(cfg.intermediate_size, cfg.hidden_size)
         self.final_layer_norm = nn.LayerNorm(cfg.hidden_size, eps=eps)
+        self.attn_dropout = HashDropout(cfg.hidden_dropout, cfg.hash_dropout)  # :647
+        self.act_dropout = HashDropout(cfg.activation_dropout, cfg.hash_dropout)  # :670
+        self.out_dropout = HashDropout(cfg.hidden_dropout, cfg.hash_dropout)  # :675
 
     def forward(
-        self, x: torch.Tensor, lengths: Optional[torch.Tensor]
+        self,
+        x: torch.Tensor,
+        lengths: Optional[torch.Tensor],
+        generator: Optional[torch.Generator] = None,
     ) -> torch.Tensor:
-        if self.pre:
-            x = x + self.attention(self.layer_norm(x), lengths)
-            h = self.final_layer_norm(x)
-        else:
-            x = self.layer_norm(x + self.attention(x, lengths))
-            h = x
-        h = self.output_dense(F.gelu(self.intermediate_dense(h)))
-        x = x + h
+        attn = self.attention(self.layer_norm(x) if self.pre else x, lengths, generator)
+        x = x + self.attn_dropout(attn, generator)
+        if not self.pre:
+            x = self.layer_norm(x)
+        h = F.gelu(self.intermediate_dense(self.final_layer_norm(x) if self.pre else x))
+        h = self.output_dense(self.act_dropout(h, generator))
+        x = x + self.out_dropout(h, generator)
         return x if self.pre else self.final_layer_norm(x)
 
 
@@ -323,16 +392,24 @@ class Encoder(nn.Module):
     def __init__(self, cfg: Wav2Vec2Config):
         super().__init__()
         self.pre = cfg.do_stable_layer_norm
+        self.layerdrop = cfg.layerdrop
         self.pos_conv_embed = PosConvEmbedding(cfg)
         self.layer_norm = nn.LayerNorm(cfg.hidden_size, eps=cfg.layer_norm_eps)
+        self.dropout = HashDropout(cfg.hidden_dropout, cfg.hash_dropout)  # :741
         self.layers = nn.ModuleList(EncoderLayer(cfg) for _ in range(cfg.num_layers))
+        self.layers_run = cfg.num_layers  # layers the last forward ran
 
     def forward(
-        self, x: torch.Tensor, attention_mask: Optional[torch.Tensor] = None
+        self,
+        x: torch.Tensor,
+        attention_mask: Optional[torch.Tensor] = None,
+        generator: Optional[torch.Generator] = None,
     ) -> torch.Tensor:
         """``attention_mask`` ``[B, T]`` is suffix-contiguous (a True
-        prefix); the attention kernel takes it as one int32 length per row,
-        counted here once for all layers."""
+        prefix); the attention kernels take it as one int32 length per row,
+        counted here once for all layers. With a ``generator`` (training)
+        each layer is kept where a uniform drawn from it is below
+        1 - layerdrop (:620-625), and skipped otherwise."""
         lengths = None
         if attention_mask is not None:
             # zero padded frames before the pos conv (HF does the same)
@@ -341,11 +418,28 @@ class Encoder(nn.Module):
         x = x + self.pos_conv_embed(x)
         if not self.pre:
             x = self.layer_norm(x)
+        x = self.dropout(x, generator)
+        self.layers_run = 0
         for layer in self.layers:
-            x = layer(x, lengths)
+            if generator is not None and self.layerdrop > 0.0 and not (
+                float(torch.rand((), generator=generator)) < 1.0 - self.layerdrop
+            ):
+                continue
+            x = layer(x, lengths, generator)
+            self.layers_run += 1
         if self.pre:
             x = self.layer_norm(x)
         return x
+
+
+def _compute_context(device: torch.device, compute: torch.dtype, params: torch.dtype):
+    """Autocast to ``compute`` when the parameters are float32 and the
+    compute type is narrower; nothing when they agree."""
+    if compute == params:
+        return contextlib.nullcontext()
+    if params == torch.float32 and compute in (torch.bfloat16, torch.float16):
+        return torch.autocast(device.type, dtype=compute)
+    raise ValueError(f"compute dtype {compute} with {params} parameters is not supported")
 
 
 class Wav2Vec2Model(nn.Module):
@@ -361,35 +455,61 @@ class Wav2Vec2Model(nn.Module):
         self.cfg = cfg
         self.feature_encoder = ConvFeatureEncoder(cfg)
         self.feature_projection = FeatureProjection(cfg)
-        # SpecAugment's learned mask vector: unused in eval, kept so
-        # checkpoints carry over
+        # SpecAugment's learned mask vector (:817-825), used in training
         self.masked_spec_embed = (
             nn.Parameter(torch.empty(cfg.hidden_size))
             if cfg.mask_time_prob > 0
             else None
         )
         self.encoder = Encoder(cfg)
-        self.to(getattr(torch, cfg.dtype))
 
     def forward(
         self,
         wav: torch.Tensor,  # [B, N]
         wav_mask: Optional[torch.Tensor] = None,  # [B, N] validity
         train: bool = False,
+        generator: Optional[torch.Generator] = None,
     ):
-        if train:
-            raise NotImplementedError(
-                f"train=True (dropout, SpecAugment, layerdrop) is not ported "
-                f"yet: {TRAINING_ROW}"
-            )
-        features = self.feature_encoder(wav, wav_mask)
-        frame_mask = None
-        if wav_mask is not None:
-            frame_lengths = feat_extract_output_lengths(wav_mask.sum(-1), self.cfg)
-            frame_mask = _suffix_mask(frame_lengths, features.shape[1])
-        x = self.feature_projection(features)
-        x = self.encoder(x, attention_mask=frame_mask)
+        """``train=True`` applies dropout, SpecAugment and layerdrop, with
+        every random draw from ``generator`` (required then)."""
+        if train and generator is None:
+            raise ValueError("train=True needs the train step's torch.Generator")
+        gen = generator if train else None
+        cfg = self.cfg
+        param_dtype = self.feature_projection.projection.weight.dtype
+        with _compute_context(wav.device, getattr(torch, cfg.dtype), param_dtype):
+            features = self.feature_encoder(wav, wav_mask)
+            frame_mask = None
+            if wav_mask is not None:
+                frame_lengths = feat_extract_output_lengths(wav_mask.sum(-1), cfg)
+                frame_mask = _suffix_mask(frame_lengths, features.shape[1])
+            x = self.feature_projection(features, gen)
+            if gen is not None:
+                x = self._spec_augment(x, frame_mask, gen)
+            x = self.encoder(x, frame_mask, gen)
         return x.float(), frame_mask
+
+    def _spec_augment(self, x, frame_mask, generator):
+        """Time spans replaced by ``masked_spec_embed``, feature spans
+        zeroed (:826-850), from uniforms drawn on ``generator``."""
+        cfg = self.cfg
+        b, t, h = x.shape
+        if cfg.mask_time_prob > 0:
+            time_mask = sample_span_mask(
+                draw_uniform(generator, (b, t), x.device),
+                cfg.mask_time_prob,
+                cfg.mask_time_length,
+                frame_mask.sum(-1) if frame_mask is not None else None,
+            )
+            x = torch.where(time_mask[:, :, None], self.masked_spec_embed.to(x.dtype), x)
+        if cfg.mask_feature_prob > 0:
+            feat_mask = sample_span_mask(
+                draw_uniform(generator, (b, h), x.device),
+                cfg.mask_feature_prob,
+                cfg.mask_feature_length,
+            )
+            x = x * (~feat_mask)[:, None, :].to(x.dtype)
+        return x
 
 
 @torch.no_grad()

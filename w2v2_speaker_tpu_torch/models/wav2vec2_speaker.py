@@ -1,14 +1,17 @@
-"""wav2vec2 + pooling + FC head speaker model, eval only.
+"""wav2vec2 + pooling + FC head speaker model, eval and training.
 
 Counterpart of ``w2v2_speaker_tpu/models/wav2vec2_speaker.py``:
-``Wav2Vec2SpeakerConfig`` (:44) and ``Wav2Vec2SpeakerModel`` (:62) with
-``compute_embedding`` (:158). The backbone computes in ``cfg.w2v2.dtype``
-and returns float32 features; pooling and the head run in float32, as the
-JAX package's do.
+``Wav2Vec2SpeakerConfig`` (:44) and ``Wav2Vec2SpeakerModel`` (:62) with its
+train and eval forward (:108-156) and ``compute_embedding`` (:158). The
+backbone computes in ``cfg.w2v2.dtype`` and returns float32 features;
+pooling and the head run in float32, as the JAX package's do. Training
+pools with ``stat_pooling_type``, eval with ``test_stat_pooling_type``
+(:104-106).
 
 Not ported yet, and raising ``NotImplementedError``: the feature-encoder-only
-variant, the AAM head, the CTC head, the frame-level (no-pool) modes,
-training and layer-ensemble embeddings (ROADMAP Queue 1 items 3, 5 and 9).
+variant, the AAM head, the CTC head, the frame-level (no-pool) modes, the
+final-embedding channel mask and layer-ensemble embeddings (ROADMAP Queue 1
+items 3 and 9).
 """
 
 from __future__ import annotations
@@ -21,7 +24,7 @@ from torch import nn
 
 from .heads import FCHead
 from .pooling import get_pooling, pooled_embedding_size
-from .wav2vec2 import BASE_CONFIG, TRAINING_ROW, Wav2Vec2Config, Wav2Vec2Model
+from .wav2vec2 import BASE_CONFIG, Wav2Vec2Config, Wav2Vec2Model
 
 __all__ = ["Wav2Vec2SpeakerConfig", "Wav2Vec2SpeakerModel"]
 
@@ -61,7 +64,13 @@ class Wav2Vec2SpeakerModel(nn.Module):
                     f"ROADMAP.md {row}"
                 )
         self.cfg = cfg
+        if cfg.final_channel_mask_prob > 0:
+            raise NotImplementedError(
+                "final_channel_mask_prob > 0 (embedding_mask) is not ported yet: "
+                "ROADMAP.md Queue 1 item 9"
+            )
         self.wav2vec2 = Wav2Vec2Model(cfg.w2v2)
+        self.stat_pooling = get_pooling(cfg.stat_pooling_type)
         self.test_stat_pooling = get_pooling(
             cfg.test_stat_pooling_type or cfg.stat_pooling_type
         )
@@ -80,12 +89,14 @@ class Wav2Vec2SpeakerModel(nn.Module):
         wav: torch.Tensor,  # [B, N]
         wav_mask: Optional[torch.Tensor] = None,  # [B, N] validity
         train: bool = False,
+        generator: Optional[torch.Generator] = None,
     ) -> Dict[str, torch.Tensor]:
-        """Eval forward: ``{"embedding", "logits"}``."""
-        if train:
-            raise NotImplementedError(f"train=True is not ported yet: {TRAINING_ROW}")
-        features, frame_mask = self.wav2vec2(wav, wav_mask)
-        embedding, logits = self.head(self.test_stat_pooling(features, frame_mask))
+        """``{"embedding", "logits"}``. ``train=True`` runs the backbone's
+        regularisation with every draw from ``generator`` and pools with
+        the train pooling."""
+        features, frame_mask = self.wav2vec2(wav, wav_mask, train, generator)
+        pool = self.stat_pooling if train else self.test_stat_pooling
+        embedding, logits = self.head(pool(features, frame_mask))
         return {"embedding": embedding, "logits": logits}
 
     def compute_embedding(

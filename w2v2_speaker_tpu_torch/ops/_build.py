@@ -1,11 +1,13 @@
 """Build and load the port's CUDA kernels.
 
 Each ``csrc/<name>.cu`` is compiled with ``nvcc`` for ``sm_90a`` into a
-shared library with a plain C interface, loaded with ``ctypes``. The build
-runs at first use, from the sources in the checkout only, into
-``build/torch_kernels/`` beside the package (listed in ``.gitignore``). The
-library's file name carries a hash of its source, so an edited kernel is
-never served from a stale build. Nothing here runs at import time.
+shared library with a plain C interface, loaded with ``ctypes``; the
+``csrc/*.cuh`` headers are shared by the sources. The build runs at first
+use, from the sources in the checkout only, into ``build/torch_kernels/``
+beside the package (listed in ``.gitignore``). The library's file name
+carries a hash of its source and of the headers, so an edited kernel is
+never served from a stale build. ``build_all`` starts one ``nvcc`` per
+source, all at once. Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -15,10 +17,11 @@ import hashlib
 import os
 import shutil
 import subprocess
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Sequence
 
-__all__ = ["BUILD_DIR", "CSRC_DIR", "build", "compile_library", "load"]
+__all__ = ["BUILD_DIR", "CSRC_DIR", "build", "build_all", "compile_library", "load"]
 
 CSRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
@@ -48,9 +51,10 @@ def _nvcc() -> str:
 
 
 def _library_path(name: str) -> Path:
-    src = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    digest = hashlib.sha256()
+    for src in [CSRC_DIR / f"{name}.cu", *sorted(CSRC_DIR.glob("*.cuh"))]:
+        digest.update(src.read_bytes())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
 def compile_library(src: Path, out: Path) -> str:
@@ -59,7 +63,7 @@ def compile_library(src: Path, out: Path) -> str:
     out.parent.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+        [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC_DIR), "-o", str(tmp), str(src)],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
     )
     if proc.returncode != 0:
@@ -75,6 +79,13 @@ def build(name: str) -> str:
     if out.exists():
         return ""
     return compile_library(CSRC_DIR / f"{name}.cu", out)
+
+
+def build_all(names: Sequence[str]) -> Dict[str, str]:
+    """``build`` each of ``names`` in parallel (one ``nvcc`` per source);
+    returns each one's report."""
+    with ThreadPoolExecutor(max_workers=max(len(names), 1)) as pool:
+        return dict(zip(names, pool.map(build, names)))
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -1,0 +1,71 @@
+"""Speaker-recognition task: the loss of the ``ce`` training mode.
+
+Counterpart of ``w2v2_speaker_tpu/train/speaker_task.py::SpeakerTask``
+(:43): the model's logits against the speaker labels with
+``cross_entropy``, and the loss and accuracy metrics (:114-126). The other
+training modes raise ``NotImplementedError`` naming their ROADMAP rows.
+
+The model contract: ``model(features, mask, train=..., generator=...)``
+returns a dict with ``embedding`` [B, D] and ``logits`` [B, C].
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+from torch import nn
+
+from ..objectives import losses
+
+__all__ = ["SpeakerTask", "TRAINING_MODES"]
+
+TRAINING_MODES = ("ce", "ce_no_pool", "aam", "triplet", "triplet_ce", "speaker_ctc")
+_NOT_PORTED = {
+    "ce_no_pool": "Queue 1 item 3 (frame-level pooling 'none')",
+    "aam": "Queue 1 item 3 (AAMSoftmaxHead)",
+    "triplet": "Queue 1 item 9 (triplet mining and losses)",
+    "triplet_ce": "Queue 1 item 9 (triplet mining and losses)",
+    "speaker_ctc": "Queue 1 item 9 (speech CTC)",
+}
+
+
+@dataclass
+class SpeakerTask:
+    model: nn.Module
+    mode: str = "ce"
+
+    def __post_init__(self):
+        if self.mode not in TRAINING_MODES:
+            raise ValueError(f"unknown training mode {self.mode}; one of {TRAINING_MODES}")
+        if self.mode in _NOT_PORTED:
+            raise NotImplementedError(
+                f"training mode {self.mode!r} is not ported yet: ROADMAP.md "
+                f"{_NOT_PORTED[self.mode]}"
+            )
+
+    def loss_fn(
+        self,
+        batch: Dict[str, torch.Tensor],
+        generator: Optional[torch.Generator] = None,
+        train: bool = True,
+    ) -> Tuple[torch.Tensor, Dict[str, Any]]:
+        """(loss, aux) with aux = {"metrics", "out"}. In training the
+        metrics also carry ``layers_run``, the encoder layers this forward
+        ran (the rest were dropped by layerdrop)."""
+        labels = batch.get("labels")
+        out = self.model(batch["features"], batch.get("mask"), train=train, generator=generator)
+        loss, preds = losses.cross_entropy(out["logits"], labels)
+        metrics: Dict[str, Any] = {"loss": loss.detach()}
+        if labels is not None and preds.shape[0] == labels.shape[0]:
+            metrics["accuracy"] = (preds.argmax(-1) == labels).float().mean()
+        encoder = getattr(getattr(self.model, "wav2vec2", None), "encoder", None)
+        if train and encoder is not None:
+            metrics["layers_run"] = encoder.layers_run
+        return loss, {"metrics": metrics, "out": out}
+
+    @torch.no_grad()
+    def embed_fn(self, features: torch.Tensor, mask: Optional[torch.Tensor] = None):
+        """Deterministic speaker-embedding extraction (eval path)."""
+        return self.model(features, mask, train=False)["embedding"]

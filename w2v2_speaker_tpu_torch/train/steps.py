@@ -1,0 +1,88 @@
+"""Train step builder.
+
+Counterpart of ``w2v2_speaker_tpu/train/steps.py::make_train_step`` (:30)
+on one card: forward, backward and optimizer update, eagerly. Gradient
+accumulation averages the microbatches' gradients (:91-128);
+``return_embeddings`` adds the detached float32 embeddings to the metrics;
+``steps_per_dispatch=K`` takes a stacked batch and runs K steps in a Python
+loop (the JAX package scans them inside one device program, :54-61, to
+amortize dispatches through its TPU transport; here it only keeps the
+recipe's batch layout). There is no mesh: data parallelism is ROADMAP
+Queue 1 item 10.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Dict, List
+
+import torch
+
+from .speaker_task import SpeakerTask
+from .state import TrainState
+
+__all__ = ["make_train_step"]
+
+
+def _stack(per_step: List[Dict]) -> Dict:
+    out = {}
+    for key in per_step[0]:
+        vals = [m[key] for m in per_step]
+        out[key] = torch.stack(vals) if isinstance(vals[0], torch.Tensor) else torch.tensor(vals)
+    return out
+
+
+def make_train_step(
+    task: SpeakerTask,
+    accumulate_steps: int = 1,
+    return_embeddings: bool = False,
+    steps_per_dispatch: int = 1,
+) -> Callable:
+    """Returns ``step(state, batch) -> (state, metrics)``; the state is
+    updated in place and returned.
+
+    ``batch``: ``features`` [B, N], optional ``mask`` [B, N], ``labels``
+    [B] (with ``steps_per_dispatch`` K > 1, every entry stacked [K, B, ...]
+    and the metrics stacked [K, ...]). With ``accumulate_steps`` A > 1 the
+    batch is split into A microbatches along axis 0 and the gradients are
+    averaged. Every random draw comes from ``state.generator``.
+    """
+
+    def step(state: TrainState, batch: Dict[str, torch.Tensor]):
+        state.model.zero_grad(set_to_none=True)
+        micro = [batch] if accumulate_steps == 1 else [
+            dict(zip(batch, parts))
+            for parts in zip(*(v.chunk(accumulate_steps) for v in batch.values()))
+        ]
+        per_micro = []
+        for mb in micro:
+            loss, aux = task.loss_fn(mb, state.generator, train=True)
+            loss.backward()
+            metrics = dict(aux["metrics"])
+            if return_embeddings:
+                metrics["_embedding"] = aux["out"]["embedding"].detach().float()
+            per_micro.append(metrics)
+        if accumulate_steps == 1:
+            metrics = per_micro[0]
+        else:
+            with torch.no_grad():
+                for p in state.model.parameters():
+                    if p.grad is not None:
+                        p.grad.div_(accumulate_steps)
+            stacked = _stack(per_micro)
+            metrics = {k: v.float().mean() for k, v in stacked.items() if k != "_embedding"}
+            if return_embeddings:  # [A, B/A, D] -> [B, D]
+                metrics["_embedding"] = stacked["_embedding"].flatten(0, 1)
+        state.apply_gradients()
+        return state, metrics
+
+    if steps_per_dispatch > 1:
+        single = step
+
+        def step(state: TrainState, stacked: Dict[str, torch.Tensor]):
+            per_step = []
+            for i in range(steps_per_dispatch):
+                state, metrics = single(state, {k: v[i] for k, v in stacked.items()})
+                per_step.append(metrics)
+            return state, _stack(per_step)
+
+    return step
