@@ -11,9 +11,12 @@ the run by raising:
    ``nvcc`` per source, all started together;
 3. each kernel against its plain PyTorch version on the card: the
    attention forward (output and LSE, and the inference path at rate 0),
-   dq and dk/dv, at the training shape, a ragged 30 s shape and a 64 s
-   shape, in float32 and bfloat16, at dropout rates 0 and 0.1, with kernel,
-   plain, bound and library times;
+   dq and dk/dv, at the BASE training shape, a ragged 30 s shape and a
+   64 s shape, in float32 and bfloat16, at dropout rates 0 and 0.1, and at
+   LARGE's training shape (H=16, bf16, rate 0.1); the fused strided conv
+   over conv layers 1-6 at the BASE (B=66, no bias, no LN) and LARGE
+   (B=48, bias + LN) training shapes and on ragged short inputs, in float32
+   and bfloat16; each with kernel, plain, bound and library times;
 4. serving main path: ``entry()`` (wav2vec2-BASE, mean pooling, FC head;
    bf16, B=48 x 48 000 samples), its launch counts, its speed, and a float32
    check of the same weights against the CPU on a small padded batch;
@@ -31,8 +34,21 @@ the run by raising:
    gradients agree;
 8. overfit: 30 steps on one batch at a constant learning rate; the loss
    falls;
-9. one JSON line with every kernel's numbers, the card line, then the
-   result line.
+9. LARGE serving: wav2vec2-LARGE with the AAM head and
+   ``conv_impl="fused_pallas"`` (bf16, B=48 x 48 000): launches (conv 6,
+   attention forward 24), speed, a float32 check against the CPU, the
+   ``conv_impl="xla"`` route's embeddings within the bf16 limit, and
+   padding invariance of bucketed serving;
+10. LARGE training main path: ``large_train_entry()`` (the
+   ``speaker_wav2vec2_large_aam`` recipe with the fused conv, B=48 x 48 000,
+   bf16 autocast): warm-up, 12 timed steps, 6 conv launches and kept-layer
+   attention launches per step, the AAM accuracy metric, peak memory and
+   the device profile;
+11. a float32 LARGE-width step (2 layers, the conv stack whole), card
+   against CPU, dropout on: loss and gradients agree;
+12. one JSON line with every kernel's numbers (the attention kernels and
+   the conv at the LARGE training shapes, launches of the LARGE training
+   run), the card line, then the result line.
 
 Exits non-zero, printing no result, without a CUDA device or outside a
 checkout of the repository.
@@ -51,13 +67,20 @@ import torch
 import torch.nn.functional as F
 
 from w2v2_speaker_tpu_torch.data.samples import SpeakerSample
+from w2v2_speaker_tpu_torch.device import set_float32_precision
 from w2v2_speaker_tpu_torch.entry import (
-    BATCH, SAMPLES, build_model, build_train_state, entry, synthetic_batch, train_entry,
+    BATCH, SAMPLES, build_model, build_train_state, entry, large_train_entry, synthetic_batch,
+    train_entry,
 )
-from w2v2_speaker_tpu_torch.models.wav2vec2 import BASE_CONFIG, feat_extract_output_lengths
+from w2v2_speaker_tpu_torch.models.wav2vec2 import (
+    BASE_CONFIG, LARGE_CONFIG, feat_extract_output_lengths,
+)
 from w2v2_speaker_tpu_torch.ops import _build
+from w2v2_speaker_tpu_torch.ops import conv_encoder as ce
 from w2v2_speaker_tpu_torch.ops import flash_attention as fa
-from w2v2_speaker_tpu_torch.runtime.experiment import SPEAKER_WAV2VEC2_CE, build_optimizer
+from w2v2_speaker_tpu_torch.runtime.experiment import (
+    SPEAKER_WAV2VEC2_CE, SPEAKER_WAV2VEC2_LARGE_AAM, build_optimizer,
+)
 from w2v2_speaker_tpu_torch.runtime.predict import extract_embeddings, score_pairs
 from w2v2_speaker_tpu_torch.train.speaker_task import SpeakerTask
 from w2v2_speaker_tpu_torch.train.state import AdamTx, TrainState
@@ -68,12 +91,20 @@ from w2v2_speaker_tpu_torch.train.steps import make_train_step
 PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 PEAK_BYTES = 3.35e12
 H, D = 12, 64  # wav2vec2-BASE attention
-KERNEL_SOURCES = ("flash_attention_fwd", "flash_attention_bwd")
+H_LARGE, LARGE_BATCH = 16, 48  # wav2vec2-LARGE attention; the LARGE recipe's batch
+KERNEL_SOURCES = ("flash_attention_fwd", "flash_attention_bwd", "conv_encoder")
 KERNELS = (  # (name in the kernels line, source, the TPU kernel it replaces)
     ("flash_attention_fwd", "flash_attention_fwd", "w2v2_speaker_tpu/ops/flash_attention.py:204"),
     ("flash_attention_bwd_dq", "flash_attention_bwd", "w2v2_speaker_tpu/ops/flash_attention.py:381"),
     ("flash_attention_bwd_dkv", "flash_attention_bwd", "w2v2_speaker_tpu/ops/flash_attention.py:465"),
+    ("conv_encoder", "conv_encoder", "w2v2_speaker_tpu/ops/conv_encoder.py:120"),
 )
+ATTENTION = KERNELS[0][0], KERNELS[1][0], KERNELS[2][0]
+# the fused conv vs its plain version: ce.kernel_tolerance (f32: the JAX
+# kernel tests' 2e-4 / 2e-5; bf16: rtol 2e-2, atol 2^-5 of the RMS of the
+# plain output). Ragged short inputs (T_in, k) at C=512, B=2, bias + LN:
+# T_out 48, 47 and 10, none a multiple of the kernel's frame tiles
+CONV_RAGGED = ((97, 2), (97, 3), (21, 3))
 # kernel vs plain, on valid rows: fa.kernel_tolerance (f32: the JAX kernel
 # tests' 2e-4 / 2e-5 forward, 5e-4 / 5e-5 backward; bf16: rtol 2e-2, atol
 # 2^-5 of the outputs' RMS); the LSE is float32 in both types: 2e-4 / 2e-5
@@ -117,29 +148,29 @@ def cuda_ms(fn, reps: int, warmup: int = 3) -> float:
     return start.elapsed_time(stop) / reps
 
 
-def attention_bound(kind: str, lengths, t: int, dtype):
+def attention_bound(kind: str, lengths, t: int, dtype, h: int = H):
     """(ms, 'bytes' | 'operations'): the least time for this data. FLOPs:
     4 (fwd), 6 (dq) or 8 (dkv) x H*D*sum(len^2) over the dtype's peak.
     Bytes: the valid rows of each input read once (q, k, v; the backward
     also dO and the f32 lse and D), every row of each output written once
     (o and, in training, the f32 lse; dq; dk and dv)."""
     lens = np.asarray(lengths, np.float64)
-    flops = dict(zip(("fwd", "dq", "dkv"), (4, 6, 8)))[kind] * H * D * float((lens**2).sum())
+    flops = dict(zip(("fwd", "dq", "dkv"), (4, 6, 8)))[kind] * h * D * float((lens**2).sum())
     esz = torch.tensor([], dtype=dtype).element_size()
     valid, rows = lens.sum(), len(lens) * t
     if kind == "fwd":
-        nbytes = (3 * valid + rows) * H * D * esz + rows * H * 4
+        nbytes = (3 * valid + rows) * h * D * esz + rows * h * 4
     else:
-        nbytes = 4 * valid * H * D * esz + 2 * valid * H * 4 + (rows if kind == "dq" else 2 * rows) * H * D * esz
+        nbytes = 4 * valid * h * D * esz + 2 * valid * h * 4 + (rows if kind == "dq" else 2 * rows) * h * D * esz
     t_ops, t_bytes = flops / PEAK_OPS[dtype], nbytes / PEAK_BYTES
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops > t_bytes else "bytes")
 
 
-def attention_inputs(b, t, lengths, dtype, gen):
+def attention_inputs(b, t, lengths, dtype, gen, h: int = H):
     """Random q, k, v as the model gives them (strided views of one fused
     projection) and the [B] int32 lengths, on the card."""
-    qkv = torch.randn(b, t, 3 * H * D, generator=gen, device="cuda").to(dtype)
-    q, k, v = (x.view(b, t, H, D) for x in qkv.split(H * D, dim=-1))
+    qkv = torch.randn(b, t, 3 * h * D, generator=gen, device="cuda").to(dtype)
+    q, k, v = (x.view(b, t, h, D) for x in qkv.split(h * D, dim=-1))
     return q, k, v, torch.tensor(lengths, dtype=torch.int32, device="cuda")
 
 
@@ -166,11 +197,11 @@ def lse_error(got, want, lens):
     return err.max().item(), share, bool(torch.all(got[~valid] == 0))
 
 
-def kernel_errors(b, t, lengths, dtype, rate, gen):
+def kernel_errors(b, t, lengths, dtype, rate, gen, h: int = H):
     """The three kernels and their plain versions on one random input:
     ({output: (max abs err, share of its limit, zeros past the length)}
     for o, lse, dq, dk and dv; the inputs; the forward's outputs)."""
-    q, k, v, lens = attention_inputs(b, t, lengths, dtype, gen)
+    q, k, v, lens = attention_inputs(b, t, lengths, dtype, gen, h)
     seed = DROPOUT_SEED if rate > 0 else None
     o, lse = fa.flash_attention_fwd(q, k, v, lens, rate, seed, return_lse=True)
     want_o, want_lse = fa.flash_attention_plain(q, k, v, lens, rate, seed, return_lse=True)
@@ -184,11 +215,11 @@ def kernel_errors(b, t, lengths, dtype, rate, gen):
     return errors, args, o
 
 
-def check_kernels(name, b, t, lengths, dtype, rate, gen):
+def check_kernels(name, b, t, lengths, dtype, rate, gen, h: int = H):
     """The three kernels against their plain versions on one input; one
     row of numbers per kernel."""
     tag = f"{name} {str(dtype).removeprefix('torch.')} rate {rate}"
-    errors, args, o = kernel_errors(b, t, lengths, dtype, rate, gen)
+    errors, args, o = kernel_errors(b, t, lengths, dtype, rate, gen, h)
     for out, (err, share, zeros) in errors.items():
         assert share <= 1 and zeros, f"{tag} {out}: err {err}, {share:.3f} of the limit, zeros past the length {zeros}"
     q, k, v, do, lse, delta, lens, rate, seed = args
@@ -210,7 +241,8 @@ def check_kernels(name, b, t, lengths, dtype, rate, gen):
         lib_fwd = cuda_ms(sdpa, 10)
     lib_bwd = cuda_ms(sdpa_fwd_bwd, 10) - lib_fwd
     plain_bwd = cuda_ms(lambda: fa.flash_attention_bwd_plain(*args), 2, warmup=1)
-    common = {"shape": name, "dtype": str(dtype).removeprefix("torch."), "rate": rate, "B": b, "T": t}
+    common = {"shape": name, "dtype": str(dtype).removeprefix("torch."), "rate": rate, "B": b, "T": t,
+              "H": h}
     (err, share, _), (lerr, lshare, _) = errors["o"], errors["lse"]
     dkv = max(errors["dk"][:2], errors["dv"][:2], key=lambda e: e[1])
     rows = {
@@ -229,46 +261,118 @@ def check_kernels(name, b, t, lengths, dtype, rate, gen):
             plain_ms=plain_bwd, library_ms=lib_bwd),
     }
     for kernel, kind in zip(rows, ("fwd", "dq", "dkv")):
-        rows[kernel]["bound_ms"], rows[kernel]["bound_by"] = attention_bound(kind, lengths, t, dtype)
+        rows[kernel]["bound_ms"], rows[kernel]["bound_by"] = attention_bound(kind, lengths, t, dtype, h)
         print("kernel", kernel, json.dumps(rows[kernel]), flush=True)
     return rows
 
 
-def conv_encoder_row(b: int = 66) -> dict:
-    """The TPU kernel still to port, ``ops/conv_encoder.py::_kernel`` (:120):
-    its function over BASE conv layers 1-6 (stride 2, k 3 or 2, 512 -> 512,
-    no bias, exact GELU) at the training main path's shapes (B=66 x 48 000
-    samples), bf16. Bound: 2*B*T_out*k*C^2 FLOPs per layer over the bf16
-    peak, or the input, weights and output moved once; library: ``F.conv1d``
-    + ``F.gelu`` per layer in the port's [B, C, T] layout."""
-    gen = torch.Generator(device="cuda").manual_seed(1)
-    c = BASE_CONFIG.conv_dim[0]
-    t = (SAMPLES - BASE_CONFIG.conv_kernel[0]) // BASE_CONFIG.conv_stride[0] + 1  # conv_0's frames
-    layers, flops, nbytes = [], 0.0, 0.0
-    for k, stride in zip(BASE_CONFIG.conv_kernel[1:], BASE_CONFIG.conv_stride[1:]):
-        t_out = (t - k) // stride + 1
-        x = torch.randn(b, c, t, generator=gen, device="cuda").to(torch.bfloat16)
-        w = (torch.randn(c, c, k, generator=gen, device="cuda") * (c * k) ** -0.5).to(torch.bfloat16)
-        layers.append((x, w, stride))
-        flops += 2.0 * b * t_out * k * c * c
-        nbytes += 2.0 * (b * c * (t + t_out) + c * c * k)
-        t = t_out
+def conv_inputs(b, t_in, c, k, affine, dtype, gen):
+    """One conv layer's random inputs on the card, (x [B, T_in, C], w
+    [k, C, C] in ``dtype``, then bias, LN scale and LN bias in float32 or
+    None): unit-variance x, weights scaled by (k C)^-1/2."""
+    x = torch.randn(b, t_in, c, generator=gen, device="cuda").to(dtype)
+    w = (torch.randn(k, c, c, generator=gen, device="cuda") * (k * c) ** -0.5).to(dtype)
+    if not affine:
+        return x, w, None, None, None
+    return (x, w, torch.randn(c, generator=gen, device="cuda"),
+            1 + 0.1 * torch.randn(c, generator=gen, device="cuda"),
+            torch.randn(c, generator=gen, device="cuda"))
+
+
+def conv_stack_inputs(cfg, b, dtype, gen):
+    """Inputs of conv layers 1-6 of ``cfg`` at the main path's shapes (B
+    clips of ``SAMPLES`` samples); bias + LN where the layout has them."""
+    c = cfg.conv_dim[0]
+    t = (SAMPLES - cfg.conv_kernel[0]) // cfg.conv_stride[0] + 1  # conv_0's frames
+    layers = []
+    for k in cfg.conv_kernel[1:]:
+        layers.append(conv_inputs(b, t, c, k, cfg.feat_extract_norm == "layer", dtype, gen))
+        t = (t - k) // 2 + 1
+    return layers
+
+
+def conv_bound(layers):
+    """(ms, 'bytes' | 'operations', GFLOP, MB): per layer the larger of
+    2 B T_out k C^2 FLOPs over the peak of the type and x, w, the f32
+    bias and LN parameters and y moved once over the memory rate, summed
+    over the layers (one launch each)."""
+    total, t_ops_all, t_bytes_all, flops_all, bytes_all = 0.0, 0.0, 0.0, 0.0, 0.0
+    for x, w, *extra in layers:
+        b, t_in, c = x.shape
+        k = w.shape[0]
+        t_out = (t_in - k) // 2 + 1
+        esz = x.element_size()
+        flops = 2.0 * b * t_out * k * c * c
+        nbytes = esz * (b * t_in * c + k * c * c + b * t_out * c) + 4 * c * sum(e is not None for e in extra)
+        t_ops, t_bytes = flops / PEAK_OPS[x.dtype], nbytes / PEAK_BYTES
+        total += max(t_ops, t_bytes)
+        t_ops_all, t_bytes_all = t_ops_all + t_ops, t_bytes_all + t_bytes
+        flops_all, bytes_all = flops_all + flops, bytes_all + nbytes
+    return (1e3 * total, "operations" if t_ops_all > t_bytes_all else "bytes", flops_all / 1e9,
+            bytes_all / 1e6)
+
+
+def conv_library_call(layers):
+    """The yardstick, one PyTorch call per step in the port's [B, C, T]
+    layout: ``F.conv1d`` (+ ``F.layer_norm`` over channels) + ``F.gelu``
+    per layer, parameters in the input's type. Timed only."""
+    prepared = [
+        (x.transpose(1, 2).contiguous(), w.permute(2, 1, 0).contiguous(),
+         *(None if e is None else e.to(x.dtype) for e in extra))
+        for x, w, *extra in layers
+    ]
 
     def run():
-        for x, w, stride in layers:
-            F.gelu(F.conv1d(x, w, stride=stride))
+        for xt, wc, bias, scale, shift in prepared:
+            y = F.conv1d(xt, wc, bias, stride=2)
+            if scale is not None:
+                y = F.layer_norm(y.transpose(1, 2), (y.shape[1],), scale, shift, 1e-5)
+            F.gelu(y)
 
-    t_ops, t_bytes = flops / PEAK_OPS[torch.bfloat16], nbytes / PEAK_BYTES
-    row = {"name": "conv_encoder (not ported)", "B": b, "layers": len(layers), "gflop": flops / 1e9,
-           "mbytes": nbytes / 1e6, "bound_ms": 1e3 * max(t_ops, t_bytes),
-           "bound_by": "operations" if t_ops > t_bytes else "bytes",
-           "library_ms": cuda_ms(run, 10)}
+    return run
+
+
+def conv_errors(layers):
+    """The conv kernel against its plain version on each layer: (max abs
+    error, the largest share of ce.kernel_tolerance one element uses). The
+    check passes at share <= 1."""
+    worst_err, worst_share = 0.0, 0.0
+    for layer in layers:
+        got = ce.strided_conv_fused(*layer)
+        want = ce.conv_fused_reference(*layer)
+        assert got.shape == want.shape
+        rtol, atol = ce.kernel_tolerance(want)
+        err = (got.float() - want.float()).abs()
+        share = (err / (atol + rtol * want.float().abs())).max().item()
+        worst_err, worst_share = max(worst_err, err.max().item()), max(worst_share, share)
+    return worst_err, worst_share
+
+
+def check_conv(name, layers) -> dict:
+    """The conv kernel against its plain version on each layer of
+    ``layers``; one row of numbers for the whole set (times summed over
+    the layers)."""
+    dtype = layers[0][0].dtype
+    worst_err, worst_share = conv_errors(layers)
+    assert worst_share <= 1, f"conv {name} {dtype}: err {worst_err}, {worst_share:.3f} of the limit"
+    bound_ms, bound_by, gflop, mbytes = conv_bound(layers)
+    row = {"shape": name, "dtype": str(dtype).removeprefix("torch."), "B": layers[0][0].shape[0],
+           "layers": len(layers), "T_in": [x.shape[1] for x, *_ in layers],
+           "bias_ln": layers[0][2] is not None, "gflop": gflop, "mbytes": mbytes,
+           "max_abs_err": worst_err, "limit_share": worst_share,
+           "ms": cuda_ms(lambda: [ce.strided_conv_fused(*layer) for layer in layers], 10),
+           "plain_ms": cuda_ms(lambda: [ce.conv_fused_reference(*layer) for layer in layers], 2,
+                               warmup=1),
+           "library_ms": cuda_ms(conv_library_call(layers), 10),
+           "bound_ms": bound_ms, "bound_by": bound_by}
     print("kernel conv_encoder", json.dumps(row), flush=True)
     return row
 
 
 def kernel_category(name: str) -> str:
     low = name.lower()
+    if "conv_encoder" in low:
+        return "conv_encoder (this repo)"
     if "fwd_bf16_kernel" in low or "fwd_f32_kernel" in low:
         return "flash_attention_fwd (this repo)"
     if "dq_bf16_kernel" in low or "dkv_bf16_kernel" in low or "dq_f32_kernel" in low \
@@ -282,7 +386,7 @@ def kernel_category(name: str) -> str:
         return "layer_norm"
     if "gelu" in low:
         return "gelu"
-    if "adam" in low or "foreach" in low:
+    if "adam" in low or "foreach" in low or "multi_tensor_apply" in low:
         return "optimizer (foreach)"
     return "other elementwise / reduction"
 
@@ -291,7 +395,9 @@ def profile_breakdown(fn, reps: int = 3, top_ops: int = 0) -> None:
     """Device time per kernel category over ``reps`` calls, and the share
     of the window in which the card ran any kernel (torch.profiler, CUPTI;
     the profiler's own host cost widens the window). With ``top_ops``, also
-    the PyTorch ops with the most device time, with their input shapes."""
+    the PyTorch ops with the most device time, with their input shapes.
+    GPU-side user annotations (``Optimizer.step#Adam.step``) are ranges
+    over other kernels, not kernels, and are left out."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -304,7 +410,7 @@ def profile_breakdown(fn, reps: int = 3, top_ops: int = 0) -> None:
     spans = sorted(
         (e.time_range.start, e.time_range.end, e.name)
         for e in prof.events()
-        if e.device_type == torch.autograd.DeviceType.CUDA
+        if e.device_type == torch.autograd.DeviceType.CUDA and not getattr(e, "is_user_annotation", False)
     )
     assert spans, "the profiler saw no kernel on the card"
     by_cat, by_name, busy, end = {}, {}, 0.0, spans[0][0]
@@ -370,6 +476,7 @@ def reset_launches() -> None:
     fa.flash_attention.launches = 0
     fa.flash_attention_bwd_dq.launches = 0
     fa.flash_attention_bwd_dkv.launches = 0
+    ce.strided_conv_fused.launches = 0
 
 
 def launches() -> dict:
@@ -377,6 +484,7 @@ def launches() -> dict:
         "flash_attention_fwd": fa.flash_attention.launches,
         "flash_attention_bwd_dq": fa.flash_attention_bwd_dq.launches,
         "flash_attention_bwd_dkv": fa.flash_attention_bwd_dkv.launches,
+        "conv_encoder": ce.strided_conv_fused.launches,
     }
 
 
@@ -391,16 +499,21 @@ def build_phase() -> None:
 
 
 def kernel_phase() -> dict:
-    """Phase 3; returns the rows of the training shape, bf16, rate 0.1."""
+    """Phase 3; returns the rows of the LARGE training shapes (attention
+    B=48, H=16, bf16, rate 0.1; the conv over layers 1-6 at B=48, bf16)."""
     gen = torch.Generator(device="cuda").manual_seed(0)
-    main = None
     for name, b, t, lengths in ATTN_SHAPES:
         for dtype in (torch.float32, torch.bfloat16):
             for rate in RATES:
-                rows = check_kernels(name, b, t, lengths, dtype, rate, gen)
-                if name == "train_3s" and dtype == torch.bfloat16 and rate > 0:
-                    main = rows
-    conv_encoder_row()
+                check_kernels(name, b, t, lengths, dtype, rate, gen)
+    main = check_kernels("large_train_3s", LARGE_BATCH, 149, [149] * LARGE_BATCH, torch.bfloat16,
+                         0.1, gen, h=H_LARGE)
+    for dtype in (torch.float32, torch.bfloat16):
+        check_conv("ragged_short", [conv_inputs(2, t_in, 512, k, True, dtype, gen)
+                                    for t_in, k in CONV_RAGGED])
+        check_conv("base_train_3s", conv_stack_inputs(BASE_CONFIG, 66, dtype, gen))
+        large = check_conv("large_train_3s", conv_stack_inputs(LARGE_CONFIG, LARGE_BATCH, dtype, gen))
+    main["conv_encoder"] = large  # bf16, the training main path's type
     return main
 
 
@@ -414,7 +527,8 @@ def serving_phase(card: str) -> None:
     torch.cuda.synchronize()
     serve_launches = launches()
     assert serve_launches == {"flash_attention_fwd": 12, "flash_attention_bwd_dq": 0,
-                              "flash_attention_bwd_dkv": 0}, f"serving launches {serve_launches}"
+                              "flash_attention_bwd_dkv": 0, "conv_encoder": 0}, \
+        f"serving launches {serve_launches}"
     assert emb.shape == (BATCH, 768) and emb.dtype == torch.float32
     assert torch.isfinite(emb).all(), "main path: non-finite embeddings"
     assert torch.isfinite(forward(model, example_wav)).all()
@@ -473,27 +587,36 @@ def serving_phase(card: str) -> None:
     print("scores", " ".join(f"{s:.4f}" for s in scores), flush=True)
 
 
-def train_phase(card: str) -> dict:
-    """Phase 6; returns each kernel's launches over the timed steps."""
-    step, (state, batch) = train_entry()
+WATCHED = ("head.fc_out.weight", "aam.weights", "wav2vec2.encoder.layers.0.attention.qkv_proj.weight",
+           "wav2vec2.feature_encoder.conv_0.weight", "wav2vec2.feature_encoder.conv_1.weight")
+
+
+def train_phase(card: str, make_entry=train_entry, label: str = "train",
+                conv_per_step: int = 0) -> dict:
+    """Phases 6 and 10: warm-up, then ``TRAIN_DISPATCHES`` timed dispatches
+    of ``make_entry()``'s step; each attention kernel launched once per kept
+    layer and the conv kernel ``conv_per_step`` times in every step.
+    Returns each kernel's launches over the timed steps."""
+    step, (state, batch) = make_entry()
     b = batch["labels"].shape[1]
     steps = batch["labels"].shape[0]
     state, metrics = step(state, batch)  # warm-up dispatch
     torch.cuda.synchronize()
-    watched = {n: p.detach().clone() for n, p in state.model.named_parameters()
-               if n in ("head.fc_out.weight", "wav2vec2.encoder.layers.0.attention.qkv_proj.weight",
-                        "wav2vec2.feature_encoder.conv_0.weight")}
+    assert "accuracy" in metrics, f"{label}: no accuracy metric"
+    watched = {n: p.detach().clone() for n, p in state.model.named_parameters() if n in WATCHED}
+    assert len(watched) >= 4, f"{label}: watched parameters {sorted(watched)}"
     # each step ends in one optimizer update: read the counters there
     counts, update = [], state.apply_gradients
     state.apply_gradients = lambda: (counts.append(launches()), update())
     reset_launches()
-    losses, kept = [], []
+    losses, kept, accuracy = [], [], []
     start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
     for _ in range(TRAIN_DISPATCHES):
         state, metrics = step(state, batch)
         kept += metrics["layers_run"].tolist()
         losses.append(metrics["loss"])
+        accuracy.append(metrics["accuracy"])
     stop.record()
     torch.cuda.synchronize()
     state.apply_gradients = update
@@ -501,23 +624,27 @@ def train_phase(card: str) -> dict:
     per_step = [{k: n - (counts[i - 1][k] if i else 0) for k, n in c.items()}
                 for i, c in enumerate(counts)]
     for run, got in zip(kept, per_step, strict=True):
-        assert all(n == run for n in got.values()), f"a step kept {run} layers, launched {got}"
+        want = {**{k: run for k in ATTENTION}, "conv_encoder": conv_per_step}
+        assert got == want, f"{label}: a step kept {run} layers, launched {got}"
     n_steps = TRAIN_DISPATCHES * steps
     ms = start.elapsed_time(stop) / n_steps
     losses = torch.cat(losses).cpu()
-    assert torch.isfinite(losses).all(), f"non-finite training loss {losses}"
+    accuracy = torch.cat(accuracy).cpu()
+    assert torch.isfinite(losses).all(), f"{label}: non-finite training loss {losses}"
+    assert torch.all((accuracy >= 0) & (accuracy <= 1)), f"{label}: accuracy {accuracy}"
     moved = {n: float((p.detach() - watched[n]).abs().max()) for n, p in state.model.named_parameters()
              if n in watched}
-    assert all(v > 0 for v in moved.values()), f"parameters did not move: {moved}"
-    print(f"train layers kept per step {kept}; launches per step "
-          f"{[list(c.values()) for c in per_step]} (fwd, dq, dk/dv); total {total}", flush=True)
+    assert all(v > 0 for v in moved.values()), f"{label}: parameters did not move: {moved}"
+    print(f"{label} layers kept per step {kept}; launches per step "
+          f"{[list(c.values()) for c in per_step]} (fwd, dq, dk/dv, conv); total {total}", flush=True)
     torch.cuda.reset_peak_memory_stats()
     step(state, batch)
     torch.cuda.synchronize()
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
-    print(f"train main_path B={b} x {SAMPLES} bf16 autocast: {ms:.3f} ms/step, "
+    print(f"{label} main_path B={b} x {SAMPLES} bf16 autocast: {ms:.3f} ms/step, "
           f"{b / ms * 1e3:.1f} utt/s, peak {peak_gib:.2f} GiB, loss {losses[0]:.4f} -> "
-          f"{losses[-1]:.4f}, max param change {moved} [{card}]", flush=True)
+          f"{losses[-1]:.4f}, accuracy {accuracy.tolist()}, max param change {moved} [{card}]",
+          flush=True)
     profile_breakdown(lambda: step(state, batch), reps=1, top_ops=8)
     return total
 
@@ -526,21 +653,25 @@ def grads_of(model) -> dict:
     return {n: p.grad.detach().cpu().clone() for n, p in model.named_parameters()}
 
 
-def f32_train_phase() -> None:
-    """Phase 7: one float32 step, card against CPU, same weights and step
-    generator seed, dropout, layerdrop and SpecAugment on."""
-    cfg = SPEAKER_WAV2VEC2_CE
+def f32_train_phase(cfg=SPEAKER_WAV2VEC2_CE, label: str = "BASE", conv_launches: int = 0) -> None:
+    """Phases 7 and 11: one float32 step of the recipe ``cfg`` cut to 2
+    layers, card against CPU, same weights and step generator seed,
+    dropout, layerdrop and SpecAugment on; the card step launches the conv
+    kernel ``conv_launches`` times."""
     state, task = build_train_state(torch.device("cuda"), "f32", cfg, seed=1, num_layers=2)
     cpu_model = copy.deepcopy(state.model).cpu()
     cpu_state = TrainState.create(cpu_model, build_optimizer(cfg), seed=1)
-    cpu_task = SpeakerTask(cpu_model, "ce")
+    cpu_task = SpeakerTask(cpu_model, task.mode)
     rng = np.random.default_rng(5)
     lengths = np.array([32000, 21000, 9000])
     wav = rng.normal(0, 0.1, (3, 32000)).astype(np.float32)
     mask = np.arange(32000)[None, :] < lengths[:, None]
     batch = {"features": torch.from_numpy(wav * mask), "mask": torch.from_numpy(mask),
              "labels": torch.from_numpy(rng.integers(0, 5994, 3))}
+    reset_launches()
     _, on_card = make_train_step(task)(state, {k: v.cuda() for k, v in batch.items()})
+    torch.cuda.synchronize()
+    card_launches = launches()["conv_encoder"]
     _, on_cpu = make_train_step(cpu_task)(cpu_state, batch)
     loss_rel = abs(float(on_card["loss"]) - float(on_cpu["loss"])) / abs(float(on_cpu["loss"]))
     g_card, g_cpu = grads_of(state.model), grads_of(cpu_model)
@@ -551,12 +682,13 @@ def f32_train_phase() -> None:
         rel = err / scale if scale > 0 else (0.0 if err == 0 else float("inf"))
         if rel > worst:
             worst, worst_name = rel, n
-    print(f"f32 train step card vs cpu (2 layers, dropout on, layers run "
-          f"{on_card['layers_run']}/{on_cpu['layers_run']}): loss {float(on_card['loss']):.6f} vs "
-          f"{float(on_cpu['loss']):.6f} (rel {loss_rel:.3e}); grads max err / max abs per "
-          f"parameter {worst:.3e} ({worst_name})", flush=True)
+    print(f"f32 {label} train step card vs cpu (2 layers, dropout on, layers run "
+          f"{on_card['layers_run']}/{on_cpu['layers_run']}, conv launches {card_launches}): loss "
+          f"{float(on_card['loss']):.6f} vs {float(on_cpu['loss']):.6f} (rel {loss_rel:.3e}); grads "
+          f"max err / max abs per parameter {worst:.3e} ({worst_name})", flush=True)
     assert on_card["layers_run"] == on_cpu["layers_run"]
-    assert loss_rel < F32_REL_TOL and worst < F32_REL_TOL, "f32 train step: card vs cpu differ"
+    assert card_launches == conv_launches, f"f32 {label} step: {card_launches} conv launches"
+    assert loss_rel < F32_REL_TOL and worst < F32_REL_TOL, f"f32 {label} train step: card vs cpu differ"
 
 
 def overfit_losses(lr: float, seed: int = 2) -> list:
@@ -584,6 +716,83 @@ def overfit_phase() -> None:
     assert fall >= OVERFIT_MIN_FALL, f"overfit: the loss fell only {fall}"
 
 
+@torch.inference_mode()
+def embed(model, wav, mask=None) -> torch.Tensor:
+    return model.compute_embedding(wav, mask)
+
+
+def large_serving_phase(card: str) -> None:
+    """Phase 9: LARGE + AAM head with the fused conv, serving."""
+    dev = torch.device("cuda")
+    model = build_model(dev, torch.bfloat16, size="large", conv_impl="fused_pallas", use_aam=True)
+    rng = np.random.default_rng(9)
+    wav = torch.from_numpy(rng.normal(0, 0.1, (LARGE_BATCH, SAMPLES)).astype(np.float32)).cuda()
+    reset_launches()
+    emb = embed(model, wav)
+    torch.cuda.synchronize()
+    got = launches()
+    assert got == {"flash_attention_fwd": 24, "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0,
+                   "conv_encoder": 6}, f"LARGE serving launches {got}"
+    assert emb.shape == (LARGE_BATCH, 1024) and emb.dtype == torch.float32
+    assert torch.isfinite(emb).all(), "LARGE serving: non-finite embeddings"
+    ms = cuda_ms(lambda: embed(model, wav), 10)
+    torch.cuda.reset_peak_memory_stats()
+    embed(model, wav)
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    print(f"large serving main_path B={LARGE_BATCH} x {SAMPLES} bf16 fused conv: {ms:.3f} ms/batch, "
+          f"{LARGE_BATCH / ms * 1e3:.1f} utt/s, peak {peak_gib:.2f} GiB, launches {got} [{card}]",
+          flush=True)
+    profile_breakdown(lambda: embed(model, wav))
+
+    # the same weights through the cuDNN route (bf16) and in float32
+    xla = build_model(dev, torch.bfloat16, size="large", conv_impl="xla", use_aam=True)
+    xla.load_state_dict(model.state_dict())
+    reset_launches()
+    emb_xla = embed(xla, wav)
+    assert launches()["conv_encoder"] == 0, "the xla route launched the conv kernel"
+    del xla
+    model32 = build_model(dev, torch.float32, size="large", conv_impl="fused_pallas", use_aam=True)
+    emb32 = embed(model32, wav)
+    # the bf16 limit of ce.kernel_tolerance: rtol 2e-2, atol 2^-5 x RMS
+    atol = ce.BF16_ATOL_RMS * emb_xla.square().mean().sqrt().item()
+    share = ((emb - emb_xla).abs() / (atol + ce.BF16_RTOL * emb_xla.abs())).max().item()
+
+    def rel(a, b):
+        return float((a - b).abs().max() / b.abs().max())
+
+    print(f"large routes: fused vs xla bf16 embeddings max err / max abs {rel(emb, emb_xla):.3e}, "
+          f"{share:.3f} of the bf16 limit; vs f32: fused {rel(emb, emb32):.3e}, xla "
+          f"{rel(emb_xla, emb32):.3e}; min cosine fused vs xla "
+          f"{cosine(emb.cpu().numpy(), emb_xla.cpu().numpy()).min():.6f}", flush=True)
+    assert share <= 1, f"LARGE: the fused and xla routes differ by {share:.3f} of the bf16 limit"
+
+    # float32, card (f32 conv and attention kernels) vs CPU (plain versions)
+    small = rng.normal(0, 0.1, (3, 32000)).astype(np.float32)
+    small_mask = np.arange(32000)[None, :] < np.array([32000, 21000, 9000])[:, None]
+    small *= small_mask
+    on_card = embed(model32, torch.from_numpy(small).cuda(), torch.from_numpy(small_mask).cuda())
+    on_cpu = embed(copy.deepcopy(model32).cpu(), torch.from_numpy(small), torch.from_numpy(small_mask))
+    rel32 = rel(on_card.cpu(), on_cpu)
+    print(f"large f32 card vs cpu: max abs err / max abs {rel32:.3e}", flush=True)
+    assert rel32 < F32_REL_TOL, f"LARGE f32 card vs cpu differ: {rel32}"
+    del model32
+
+    # padding invariance of bucketed serving
+    samples = serving_samples(rng)
+    extract_embeddings(model, samples, pad_to_multiple=16000, batch_size=4)  # warm-up
+    reset_launches()
+    served = {e.sample_id: e.embedding
+              for e in extract_embeddings(model, samples, pad_to_multiple=16000, batch_size=4)}
+    got = launches()
+    assert (got["flash_attention_fwd"], got["conv_encoder"]) == (24 * 3, 6 * 3), f"served {got}"
+    alone = unpadded_embeddings(embed, model, samples)
+    ratio = padding_ratio(served, alone)
+    print(f"large serving: {len(samples)} utterances, bucketed vs unpadded batch-1: distance ratio "
+          f"{ratio:.4f} (limit {MAX_PAD_RATIO}), min cosine "
+          f"{min(cosine(served[k], alone[k]) for k in alone):.6f}", flush=True)
+    assert ratio <= MAX_PAD_RATIO, f"LARGE: padding moved an embedding: distance ratio {ratio}"
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; this run needs a card")
@@ -592,18 +801,24 @@ def main() -> None:
     card = card_line()  # 1
     print(card, flush=True)
     print("torch", torch.__version__, "cuda", torch.version.cuda, flush=True)
+    set_float32_precision()  # full f32 for the plain versions and the yardsticks
     build_phase()  # 2
     main_rows = kernel_phase()  # 3
     serving_phase(card)  # 4, 5
-    train_launches = train_phase(card)  # 6
+    train_phase(card)  # 6
     f32_train_phase()  # 7
     overfit_phase()  # 8
+    large_serving_phase(card)  # 9
+    train_launches = train_phase(card, large_train_entry, "large train", conv_per_step=6)  # 10
+    large = {**SPEAKER_WAV2VEC2_LARGE_AAM,
+             "network": {**SPEAKER_WAV2VEC2_LARGE_AAM["network"], "conv_impl": "fused_pallas"}}
+    f32_train_phase(large, "LARGE", conv_launches=6)  # 11
 
-    # 9. kernels line, card line, result line
+    # 12. kernels line, card line, result line
     kernels = []
     for name, source, replaces in KERNELS:
         row = main_rows[name]
-        assert train_launches[name] > 0, f"{name} was not launched on the training main path"
+        assert train_launches[name] > 0, f"{name} was not launched on the LARGE training main path"
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"w2v2_speaker_tpu_torch/csrc/{source}.cu",

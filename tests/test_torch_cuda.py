@@ -1,6 +1,8 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the card:
-the attention forward (inference path, and with the LSE and dropout) and the
-dq and dk/dv backward kernels.
+the attention forward (inference path, and with the LSE and dropout), the
+dq and dk/dv backward kernels, and the fused strided conv (f32 and bf16,
+ragged last tiles, bias + LayerNorm, with and without GELU, and its
+autograd Function).
 
 These tests need an NVIDIA card and ``nvcc``; without a card they skip.
 The repository's ``tests/conftest.py`` imports JAX, which the card machine
@@ -12,6 +14,7 @@ need not have, so run them there without it:
 import pytest
 import torch
 
+from w2v2_speaker_tpu_torch.ops import conv_encoder
 from w2v2_speaker_tpu_torch.ops import flash_attention as fa
 
 pytestmark = pytest.mark.cuda
@@ -127,3 +130,67 @@ def test_autograd_through_the_kernels(cuda):
         q, k, v, do, lse, fa.attention_delta(o, do), lens, 0.1, 5)
     for g, w in zip(got, want):
         _close(g, w, valid, backward=True)
+
+
+# the fused strided conv (csrc/conv_encoder.cu): (B, T_in, C, k, bias + LN)
+CONV_CASES = [
+    (2, 97, 128, 2, False), (2, 97, 128, 3, True), (3, 21, 128, 3, False),  # ragged last tiles
+    (2, 130, 256, 3, True), (1, 600, 512, 2, True), (2, 1199, 512, 3, False),  # wav2vec2 widths
+]
+
+
+def _conv_inputs(cuda, b, t_in, c, k, affine, dtype, seed):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    x = torch.randn(b, t_in, c, generator=gen, device=cuda).to(dtype)
+    w = (torch.randn(k, c, c, generator=gen, device=cuda) * (k * c) ** -0.5).to(dtype)
+    extra = [None, None, None]
+    if affine:
+        extra = [torch.randn(c, generator=gen, device=cuda),
+                 1 + 0.1 * torch.randn(c, generator=gen, device=cuda),
+                 torch.randn(c, generator=gen, device=cuda)]
+    return x, w, extra
+
+
+@pytest.mark.parametrize("gelu", [True, False], ids=["gelu", "no_gelu"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b, t_in, c, k, affine", CONV_CASES)
+def test_conv_kernel_matches_plain(cuda, dtype, b, t_in, c, k, affine, gelu):
+    x, w, extra = _conv_inputs(cuda, b, t_in, c, k, affine, dtype, seed=t_in + k)
+    before = conv_encoder.strided_conv_fused.launches
+    got = conv_encoder.strided_conv_fused(x, w, *extra, fuse_gelu=gelu)
+    torch.cuda.synchronize()
+    assert conv_encoder.strided_conv_fused.launches == before + 1
+    want = conv_encoder.conv_fused_reference(x, w, *extra, fuse_gelu=gelu)
+    assert got.shape == want.shape == (b, (t_in - k) // 2 + 1, c) and got.dtype == dtype
+    rtol, atol = conv_encoder.kernel_tolerance(want)
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol, atol=atol)
+
+
+def test_conv_kernel_rejects_what_it_does_not_take(cuda):
+    x, w = torch.zeros(1, 9, 128, device=cuda, dtype=torch.float16), torch.zeros(3, 128, 128)
+    with pytest.raises(ValueError, match="bfloat16 or float32"):
+        conv_encoder.strided_conv_fused(x, w)
+    x = torch.zeros(1, 9, 640, device=cuda)
+    with pytest.raises(ValueError, match="C <= 512"):
+        conv_encoder.strided_conv_fused(x, torch.zeros(3, 640, 640, device=cuda))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_conv_function_gradients_match_plain(cuda, dtype):
+    """``StridedConvFusedFunction`` on the card (kernel forward, recomputed
+    plain backward) against autograd of the plain version on the same
+    inputs: the forward within the kernel's limit, the gradients close to
+    float32 rounding (the backward is the same computation)."""
+    x, w, extra = _conv_inputs(cuda, 2, 97, 256, 3, True, dtype, seed=4)
+    w32 = w.float().requires_grad_()
+    leaves = [x.requires_grad_(), w32, *(e.requires_grad_() for e in extra)]
+    y = conv_encoder.StridedConvFusedFunction.apply(x, w32, *extra, 1e-5, True)
+    g = torch.randn(y.shape, device=cuda, generator=torch.Generator(device=cuda).manual_seed(1))
+    got = torch.autograd.grad(y, leaves, g.to(dtype))
+    want_y = conv_encoder.conv_fused_reference(x, w32, *extra)
+    want = torch.autograd.grad(want_y, leaves, g.to(dtype))
+    rtol, atol = conv_encoder.kernel_tolerance(want_y)
+    torch.testing.assert_close(y.float(), want_y.float(), rtol=rtol, atol=atol)
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)

@@ -1,0 +1,94 @@
+"""Recipe assembly of the port against the JAX package's: the backbone
+config of a network dict (every key ``_w2v2_config`` reads, with its
+defaults), the speaker model config and mode of ``build_model_and_task``,
+and the LARGE AAM recipe's merged config against ``config/``."""
+
+import dataclasses
+import pathlib
+
+import pytest
+import torch
+import yaml
+
+from w2v2_speaker_tpu.runtime import experiment as jexp
+from w2v2_speaker_tpu_torch.models import wav2vec2 as tw
+from w2v2_speaker_tpu_torch.runtime import experiment as texp
+from w2v2_speaker_tpu_torch.train.speaker_task import SpeakerTask
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+CE, LARGE = texp.SPEAKER_WAV2VEC2_CE, texp.SPEAKER_WAV2VEC2_LARGE_AAM
+_REGULARISATION = {k: CE["network"][k] for k in (
+    "activation_dropout", "attention_dropout", "feat_proj_dropout", "hidden_dropout", "layerdrop",
+    "mask_feature_length", "mask_feature_prob", "mask_time_length", "mask_time_prob")}
+NETWORKS = {
+    "ce_recipe": CE["network"],
+    "large_aam_recipe": LARGE["network"],
+    "fused_conv": {**LARGE["network"], "conv_impl": "fused_pallas", "posconv_decomposed": True},
+    "defaults_only": dict(_REGULARISATION),  # every optional key at its default
+    "tiny_int8_yaml_one": {**_REGULARISATION, "wav2vec2_size": "tiny", "int8_matmuls": 1,
+                           "attention_impl": "flash", "encoder_unroll": 4, "hash_dropout": False},
+    "int8_auto": {**CE["network"], "int8_matmuls": "auto", "remat_policy": "dots"},
+}
+
+
+@pytest.mark.parametrize("remat, accumulate", [(False, 1), (True, 2)])
+@pytest.mark.parametrize("precision", ["bf16", "f32"])
+@pytest.mark.parametrize("net", sorted(NETWORKS))
+def test_w2v2_config_matches_jax(net, precision, remat, accumulate):
+    want = jexp._w2v2_config(NETWORKS[net], precision, remat, accumulate)
+    got = texp.w2v2_config(NETWORKS[net], precision, remat, accumulate)
+    assert dataclasses.asdict(got) == dataclasses.asdict(want)
+
+
+def test_int8_and_unported_networks_raise():
+    """``int8_matmuls`` true builds a model that raises (it used to run in
+    bf16 without a word); unported networks and losses raise too."""
+    net = NETWORKS["tiny_int8_yaml_one"]
+    assert texp.w2v2_config(net, "f32").int8_matmuls is True
+    with pytest.raises(NotImplementedError, match="int8_matmuls"):
+        texp.build_model_and_task({**CE, "network": {**CE["network"], **net}}, 4)
+    with pytest.raises(NotImplementedError, match="network 'ecapa_tdnn'"):
+        texp.speaker_model_config({**CE, "network": {**CE["network"], "name": "ecapa_tdnn"}})
+    with pytest.raises(NotImplementedError, match="loss 'triplet'"):
+        texp.speaker_model_config({**CE, "optim": {**CE["optim"], "loss": {"name": "triplet"}}})
+
+
+@pytest.mark.parametrize("recipe", ["ce", "large_aam"])
+def test_speaker_model_config_matches_jax_build_model_and_task(recipe):
+    cfg = {"ce": CE, "large_aam": LARGE}[recipe]
+    want_task, kind = jexp.build_model_and_task(cfg, num_speakers=5994)
+    got_cfg, mode = texp.speaker_model_config(cfg)
+    assert kind == "speaker" and mode == want_task.mode == {"ce": "ce", "large_aam": "aam"}[recipe]
+    assert dataclasses.asdict(got_cfg) == dataclasses.asdict(want_task.model.cfg)
+    assert want_task.model.num_speakers == 5994
+
+
+def test_build_model_and_task_builds_the_aam_model():
+    cfg = {**LARGE, "network": {**LARGE["network"], "wav2vec2_size": "tiny",
+                                "explicit_num_speakers": 7}}
+    task, kind = texp.build_model_and_task(cfg, num_speakers=5994)
+    assert kind == "speaker" and isinstance(task, SpeakerTask) and task.mode == "aam"
+    assert task.model.aam.weights.shape == (7, 48) and task.model.head.fc_out is None
+    assert task.model.cfg.w2v2.remat and task.model.cfg.w2v2.remat_policy == "dots_no_batch"
+    tw.init_parameters(task.model, torch.Generator().manual_seed(0))
+    w = task.model.aam.weights
+    assert torch.isfinite(w).all() and w.abs().max() <= 2 * (2 / (7 + 48)) ** 0.5 / 0.8796 + 1e-6
+
+
+def test_large_aam_recipe_matches_the_yaml_files():
+    def load(*parts):
+        return yaml.safe_load((ROOT / "config" / pathlib.Path(*parts)).read_text())
+
+    exp = load("experiment", "speaker_wav2vec2_large_aam.yaml")
+    net = {**load("network", "wav2vec2_fc.yaml"), **exp["network"]}
+    assert LARGE["network"] == {k: net[k] for k in LARGE["network"]}
+    algo = {**load("optim", "algo", "adam.yaml"), **exp["optim"]["algo"]}
+    assert LARGE["optim"]["algo"] == {k: algo[k] for k in LARGE["optim"]["algo"]}
+    assert LARGE["optim"]["schedule"] == load("optim", "schedule", "one_cycle.yaml")
+    assert LARGE["optim"]["loss"] == load("optim", "loss", "aam_softmax.yaml")
+    assert {"override /optim/loss": "aam_softmax"} in exp["defaults"]
+    trainer = {**load("trainer", "trainer.yaml"), **exp["trainer"]}
+    assert LARGE["trainer"] == {k: trainer[k] for k in LARGE["trainer"]}
+    assert LARGE["data"] == exp["data"]
+    # the CE recipe's network dict holds the same keys
+    assert set(CE["network"]) == set(LARGE["network"])

@@ -1,16 +1,18 @@
 """Rules of the PyTorch port: it imports nothing of JAX or of the JAX
 package, its entry points need a card unless asked for the CPU, training
-runs, and what is not ported yet raises."""
+and the fused conv route run, and what is not ported yet raises."""
 
 import ast
+import dataclasses
 import pathlib
 
 import pytest
 import torch
 
 from w2v2_speaker_tpu_torch import device as tdevice
-from w2v2_speaker_tpu_torch.entry import entry, train_entry
+from w2v2_speaker_tpu_torch.entry import entry, large_train_entry, train_entry
 from w2v2_speaker_tpu_torch.models import wav2vec2 as tw
+from w2v2_speaker_tpu_torch.ops import conv_encoder
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "flax", "optax", "w2v2_speaker_tpu")
@@ -50,6 +52,8 @@ def test_entry_points_need_a_card_unless_asked_for_the_cpu():
     with pytest.raises(RuntimeError, match="no CUDA device"):
         train_entry()
     with pytest.raises(RuntimeError, match="no CUDA device"):
+        large_train_entry()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
         tdevice.resolve_device()
     assert tdevice.resolve_device("cpu") == torch.device("cpu")
     with pytest.raises(ValueError, match="unsupported device"):
@@ -58,7 +62,8 @@ def test_entry_points_need_a_card_unless_asked_for_the_cpu():
 
 def test_train_and_fused_conv_raise():
     """train=True runs (and raises only without the step's generator);
-    the fused conv and int8 still raise."""
+    the fused conv route builds and trains at a tiny eligible width (on
+    the CPU through the plain version); int8 still raises."""
     model = tw.Wav2Vec2Model(TINY)
     tw.init_parameters(model, torch.Generator().manual_seed(0))
     x, _ = model(torch.randn(2, 400), train=True, generator=torch.Generator().manual_seed(0))
@@ -67,8 +72,17 @@ def test_train_and_fused_conv_raise():
     assert model.feature_projection.projection.weight.grad is not None
     with pytest.raises(ValueError, match="Generator"):
         model(torch.zeros(1, 400), train=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 2 item 4"):
-        tw.Wav2Vec2Model(tw.Wav2Vec2Config(conv_impl="fused_pallas"))
+    fused = tw.Wav2Vec2Model(dataclasses.replace(
+        TINY, conv_dim=(128, 128), conv_kernel=(10, 3), conv_stride=(5, 2),
+        feat_extract_norm="layer", conv_bias=True, conv_impl="fused_pallas"))
+    tw.init_parameters(fused, torch.Generator().manual_seed(0))
+    before = conv_encoder.strided_conv_fused.launches
+    x, _ = fused(torch.randn(2, 400), train=True, generator=torch.Generator().manual_seed(0))
+    assert x.shape == (2, 39, 16) and torch.isfinite(x).all()
+    x.sum().backward()
+    assert conv_encoder.strided_conv_fused.launches == before  # no kernel on the CPU
+    grad = fused.feature_encoder.conv_1.weight.grad
+    assert grad is not None and grad.abs().sum() > 0 and fused.feature_encoder.layer_norm_1.bias.grad is not None
     with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 6"):
         tw.Wav2Vec2Model(tw.Wav2Vec2Config(int8_matmuls=True))
 

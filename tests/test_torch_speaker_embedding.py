@@ -93,7 +93,7 @@ def test_forward_logits_match_jax_and_padding_invariance():
 
 def test_unported_options_raise():
     w2v2 = tw.Wav2Vec2Config(**TINY)
-    for kw in (dict(use_aam=True), dict(feature_encoder_only=True), dict(ctc_head=True),
+    for kw in (dict(feature_encoder_only=True), dict(ctc_head=True),
                dict(stat_pooling_type="attentive"), dict(test_stat_pooling_type="max")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             ts.Wav2Vec2SpeakerModel(ts.Wav2Vec2SpeakerConfig(w2v2=w2v2, **kw))

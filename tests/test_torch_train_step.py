@@ -261,8 +261,9 @@ def test_steps_per_dispatch_and_embeddings():
 
 def test_unported_modes_and_options_raise():
     model = _regularised_model()
+    assert ttask.SpeakerTask(model, "aam").mode == "aam"  # ported with the AAM head
     with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 3"):
-        ttask.SpeakerTask(model, "aam")
+        ttask.SpeakerTask(model, "ce_no_pool")
     with pytest.raises(ValueError, match="unknown training mode"):
         ttask.SpeakerTask(model, "hinge")
     with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 9"):

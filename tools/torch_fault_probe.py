@@ -18,6 +18,14 @@ first reading sits well under it and the second well over it.
   the boundary tile loaded up to T instead of the length: with the tile's
   keys past the length zero-filled, as the built kernel loads them, a
   missing mask alone changes no dq, since those keys' rows of K are 0).
+- The fused conv vs its plain version (``chip_smoke.conv_errors``: the
+  share of ``ce.kernel_tolerance`` used by the worst element over the
+  layers), at ``chip_smoke``'s ragged short inputs and the BASE (B=66) and
+  LARGE (B=48) conv layers 1-6, in float32 and bfloat16, as built and for
+  mutants: the LayerNorm without its mean subtraction; tap 2 read from
+  x[2t+1] instead of x[2t+2]; the ragged last frame tile's store unmasked
+  (in every batch row but the last, whose spill would leave the output
+  buffer: the spilled frames land on the next row's first frames).
 - Padding invariance of bucketed serving (``chip_smoke.padding_ratio``), for
   the port as it is, with two embeddings handed back swapped (the closest
   pair), and with attention that ignores the key lengths.
@@ -45,7 +53,9 @@ sys.path.insert(0, str(ROOT))
 import chip_smoke  # noqa: E402
 from w2v2_speaker_tpu_torch.entry import entry  # noqa: E402
 from w2v2_speaker_tpu_torch.models import wav2vec2 as tw  # noqa: E402
+from w2v2_speaker_tpu_torch.models.wav2vec2 import BASE_CONFIG, LARGE_CONFIG  # noqa: E402
 from w2v2_speaker_tpu_torch.ops import _build  # noqa: E402
+from w2v2_speaker_tpu_torch.ops import conv_encoder as ce  # noqa: E402
 from w2v2_speaker_tpu_torch.ops import flash_attention as fa  # noqa: E402
 from w2v2_speaker_tpu_torch.runtime.predict import extract_embeddings  # noqa: E402
 
@@ -81,6 +91,17 @@ MUTANTS = {
          "    const int n_valid = min(kBlockK, p.T - k0);\n    __syncthreads();\n"
          "    load_tile_f32(k_s,"),
     ]),
+    "conv_ln_no_mean_subtraction": ("conv_encoder", [
+        ("  return (v - mean) * rstd * s + lb;", "  return v * rstd * s + lb;"),
+    ]),
+    "conv_tap2_reads_x_2t_plus_1": ("conv_encoder", [
+        ("  return (static_cast<long long>(b) * p.T_in + 2LL * t) * p.C + kk;",
+         "  return (static_cast<long long>(b) * p.T_in + 2LL * t) * p.C"
+         " + (kk >= 2 * p.C ? kk - p.C : kk);"),
+    ]),
+    "conv_ragged_tile_store_unmasked": ("conv_encoder", [
+        ("if (t0 + row < p.T_out) {", "if (t0 + row < p.T_out || b + 1 < p.B) {"),
+    ]),
 }
 
 
@@ -98,8 +119,32 @@ def build_mutant(name: str, out_dir: pathlib.Path) -> None:
     _build.compile_library(path, lib)
     if source == "flash_attention_fwd":
         fa._fwd_fn = fa.bind(ctypes.CDLL(str(lib)))
+    elif source == "conv_encoder":
+        ce._fn = ce.bind(ctypes.CDLL(str(lib)))
     else:
         fa._bwd_fns = fa.bind_bwd(ctypes.CDLL(str(lib)))
+
+
+def conv_readings(variant: str, seeds) -> None:
+    sets = {
+        "ragged_short": lambda dtype, gen: [chip_smoke.conv_inputs(2, t_in, 512, k, True, dtype, gen)
+                                            for t_in, k in chip_smoke.CONV_RAGGED],
+        "base_train_3s": lambda dtype, gen: chip_smoke.conv_stack_inputs(BASE_CONFIG, 66, dtype, gen),
+        "large_train_3s": lambda dtype, gen: chip_smoke.conv_stack_inputs(
+            LARGE_CONFIG, chip_smoke.LARGE_BATCH, dtype, gen),
+    }
+    for name, make in sets.items():
+        for dtype in (torch.float32, torch.bfloat16):
+            err, share = 0.0, 0.0
+            for seed in seeds:
+                gen = torch.Generator(device="cuda").manual_seed(seed)
+                e, s = chip_smoke.conv_errors(make(dtype, gen))
+                err, share = max(err, e), max(share, s)
+            print(json.dumps({
+                "limit": "conv", "variant": variant, "shape": name,
+                "dtype": str(dtype).removeprefix("torch."), "seeds": len(seeds),
+                "max_abs_err": err, "limit_share": share,
+            }), flush=True)
 
 
 def kernel_readings(variant: str, seeds) -> None:
@@ -169,11 +214,15 @@ def main() -> None:
     print(chip_smoke.card_line(), flush=True)
     _build.build_all(chip_smoke.KERNEL_SOURCES)
     kernel_readings("as_built", SEEDS)
+    conv_readings("as_built", SEEDS)
     with tempfile.TemporaryDirectory() as tmp:
         for name in MUTANTS:
             build_mutant(name, pathlib.Path(tmp))
-            kernel_readings(name, SEEDS[:1])
-            fa._fwd_fn = fa._bwd_fns = None  # the kernels as built again
+            if MUTANTS[name][0] == "conv_encoder":
+                conv_readings(name, SEEDS[:1])
+            else:
+                kernel_readings(name, SEEDS[:1])
+            fa._fwd_fn = fa._bwd_fns = ce._fn = None  # the kernels as built again
     padding_readings()
     overfit_readings()
 

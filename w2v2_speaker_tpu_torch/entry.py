@@ -14,6 +14,14 @@
   with bfloat16 autocast on the card (float32 on the CPU), four steps per
   dispatch on stacked B=66 x 48 000-sample batches. On the card each kept
   layer launches the forward, dq and dk/dv kernels once per step.
+- ``large_train_entry()``, one dispatch of the ``speaker_wav2vec2_large_aam``
+  recipe: wav2vec2-LARGE (24 x 1024, 16 heads, pre-norm, conv bias and a
+  LayerNorm after every conv), the AAM-softmax head (margin 0.2, scale 30),
+  Adam lr 5e-5 under one-cycle, four steps of B=48 x 48 000 samples, with
+  ``network.conv_impl=fused_pallas`` by default: on the card each forward
+  launches the fused conv kernel for conv layers 1-6 and each kept layer
+  the three attention kernels. ``build_model(..., size="large",
+  conv_impl="fused_pallas", use_aam=True)`` is its serving model.
 
 Random weights come from a seeded ``torch.Generator``, synthetic batches
 and labels from numpy's seeded generator.
@@ -27,16 +35,18 @@ import numpy as np
 import torch
 
 from .device import DeviceLike, resolve_device, set_float32_precision
-from .models.wav2vec2 import Wav2Vec2Config, init_parameters
+from .models.wav2vec2 import BASE_CONFIG, LARGE_CONFIG, Wav2Vec2Config, init_parameters
 from .models.wav2vec2_speaker import Wav2Vec2SpeakerConfig, Wav2Vec2SpeakerModel
-from .runtime.experiment import SPEAKER_WAV2VEC2_CE, build_optimizer, w2v2_config
+from .runtime.experiment import (
+    SPEAKER_WAV2VEC2_CE, SPEAKER_WAV2VEC2_LARGE_AAM, build_optimizer, speaker_model_config,
+)
 from .train.speaker_task import SpeakerTask
 from .train.state import TrainState
 from .train.steps import make_train_step
 
 __all__ = [
-    "entry", "train_entry", "build_model", "build_train_state", "synthetic_batch",
-    "NUM_SPEAKERS", "BATCH", "SAMPLES",
+    "entry", "train_entry", "large_train_entry", "build_model", "build_train_state",
+    "synthetic_batch", "NUM_SPEAKERS", "BATCH", "SAMPLES",
 ]
 
 NUM_SPEAKERS = 5994
@@ -57,13 +67,18 @@ def _random_model(cfg: Wav2Vec2SpeakerConfig, device: torch.device, seed: int):
 
 
 def build_model(
-    device: torch.device, dtype: torch.dtype, seed: int = 0
+    device: torch.device, dtype: torch.dtype, seed: int = 0, size: str = "base",
+    conv_impl: str = "xla", use_aam: bool = False,
 ) -> Wav2Vec2SpeakerModel:
-    """BASE + mean pooling + FC head for serving, eval mode: the backbone's
+    """wav2vec2 ``size`` ("base" or "large") + mean pooling + FC head (or,
+    with ``use_aam``, the AAM head) for serving, eval mode: the backbone's
     weights cast to ``dtype`` (as the JAX entry casts its variables)."""
+    base = {"base": BASE_CONFIG, "large": LARGE_CONFIG}[size]
     cfg = Wav2Vec2SpeakerConfig(
-        w2v2=Wav2Vec2Config(dtype=str(dtype).removeprefix("torch."), layerdrop=0.0),
+        w2v2=Wav2Vec2Config(**{**base.__dict__, "dtype": str(dtype).removeprefix("torch."),
+                               "layerdrop": 0.0, "conv_impl": conv_impl}),
         stat_pooling_type="mean",
+        use_aam=use_aam,
     )
     model = _random_model(cfg, device, seed)
     model.wav2vec2.to(dtype)
@@ -96,24 +111,17 @@ def build_train_state(
     seed: int = 0,
     num_layers: Optional[int] = None,
 ) -> Tuple[TrainState, SpeakerTask]:
-    """(state, task) of the recipe ``cfg`` on ``device``: random float32
-    weights from ``seed``, the step generator seeded with ``seed`` too.
-    ``num_layers`` cuts the depth (the widths stay)."""
-    net = cfg["network"]
-    w2v2 = w2v2_config(net, precision)
+    """(state, task) of the recipe ``cfg`` on ``device`` at ``precision``
+    ("bf16" or "f32"): random float32 weights from ``seed``, the step
+    generator seeded with ``seed`` too. ``num_layers`` cuts the depth (the
+    widths stay)."""
+    model_cfg, mode = speaker_model_config(
+        {**cfg, "trainer": {**cfg["trainer"], "precision": precision}})
     if num_layers is not None:
-        w2v2 = Wav2Vec2Config(**{**w2v2.__dict__, "num_layers": num_layers})
-    model_cfg = Wav2Vec2SpeakerConfig(
-        w2v2=w2v2,
-        stat_pooling_type=net["stat_pooling_type"],
-        test_stat_pooling_type=net["test_stat_pooling_type"],
-        hidden_fc_layers_out=tuple(net["hidden_fc_layers_out"]),
-        embedding_layer_idx=net["embedding_layer_idx"],
-        final_channel_mask_prob=net["final_channel_mask_prob"],
-        final_channel_mask_width=net["final_channel_mask_width"],
-    )
+        w2v2 = Wav2Vec2Config(**{**model_cfg.w2v2.__dict__, "num_layers": num_layers})
+        model_cfg = Wav2Vec2SpeakerConfig(**{**model_cfg.__dict__, "w2v2": w2v2})
     model = _random_model(model_cfg, device, seed)
-    return TrainState.create(model, build_optimizer(cfg), seed=seed), SpeakerTask(model, "ce")
+    return TrainState.create(model, build_optimizer(cfg), seed=seed), SpeakerTask(model, mode)
 
 
 def synthetic_batch(
@@ -131,6 +139,17 @@ def synthetic_batch(
     }
 
 
+def _recipe_entry(cfg: Dict, device: DeviceLike, batch: int, samples: int):
+    dev = resolve_device(device)
+    precision = cfg["trainer"]["precision"] if dev.type == "cuda" else "f32"
+    state, task = build_train_state(dev, precision, cfg)
+    k = cfg["trainer"]["steps_per_dispatch"]
+    step = make_train_step(
+        task, accumulate_steps=cfg["trainer"]["accumulate_grad_batches"], steps_per_dispatch=k
+    )
+    return step, (state, synthetic_batch(batch, samples, dev, steps=k))
+
+
 def train_entry(
     device: DeviceLike = None, batch: int = 66, samples: int = SAMPLES
 ) -> Tuple[Callable, tuple]:
@@ -140,12 +159,17 @@ def train_entry(
     ``loss``, ``accuracy`` and ``layers_run``. Precision is the recipe's
     bf16 on the card, f32 on the CPU. Runs on the card unless
     ``device="cpu"``; raises without a card."""
-    dev = resolve_device(device)
-    cfg = SPEAKER_WAV2VEC2_CE
-    precision = cfg["trainer"]["precision"] if dev.type == "cuda" else "f32"
-    state, task = build_train_state(dev, precision, cfg)
-    k = cfg["trainer"]["steps_per_dispatch"]
-    step = make_train_step(
-        task, accumulate_steps=cfg["trainer"]["accumulate_grad_batches"], steps_per_dispatch=k
-    )
-    return step, (state, synthetic_batch(batch, samples, dev, steps=k))
+    return _recipe_entry(SPEAKER_WAV2VEC2_CE, device, batch, samples)
+
+
+def large_train_entry(
+    device: DeviceLike = None, batch: int = 48, samples: int = SAMPLES,
+    conv_impl: str = "fused_pallas",
+) -> Tuple[Callable, tuple]:
+    """``train_entry`` for the ``speaker_wav2vec2_large_aam`` recipe with
+    ``network.conv_impl=conv_impl``: wav2vec2-LARGE, the AAM head, four
+    steps per dispatch of B=``batch`` clips; the metrics as
+    ``train_entry``'s, ``accuracy`` from the AAM head's predictions."""
+    cfg = SPEAKER_WAV2VEC2_LARGE_AAM
+    cfg = {**cfg, "network": {**cfg["network"], "conv_impl": conv_impl}}
+    return _recipe_entry(cfg, device, batch, samples)

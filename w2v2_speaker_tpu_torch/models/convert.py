@@ -11,8 +11,9 @@ name. It imports neither jax nor flax. The rules:
 - dense kernels ``[in, out]`` become ``weight`` ``[out, in]``;
 - conv kernels ``[k, in, out]`` become ``weight`` ``[out, in, k]``;
 - norm ``scale`` becomes ``weight``;
-- ``weight_v`` / ``weight_g`` (already in torch layout), biases and
-  ``masked_spec_embed`` pass through.
+- ``weight_v`` / ``weight_g`` (already in torch layout), biases,
+  ``masked_spec_embed`` and the AAM head's ``weights`` ``[classes, D]``
+  pass through.
 """
 
 from __future__ import annotations

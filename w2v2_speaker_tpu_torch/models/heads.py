@@ -1,21 +1,53 @@
-"""FC prediction head.
+"""Classification heads.
 
-Counterpart of ``w2v2_speaker_tpu/models/heads.py::FCHead`` (:65): one
-(Linear -> ReLU) block per hidden size, then a plain Linear to ``num_out``;
-the speaker embedding is the output of block ``embedding_layer_idx`` (-1 =
-the pooled input itself, ``len(hidden_sizes)`` = the logits). The AAM head
-(``AAMSoftmaxHead`` :29) comes with slice 2 (ROADMAP Queue 1 item 3).
+Counterpart of ``w2v2_speaker_tpu/models/heads.py``:
+
+- ``AAMSoftmaxHead`` (:29): the angular-additive-margin softmax head,
+  owning its ``weights`` ``[num_classes, D]``; with labels it returns (loss,
+  softmax predictions) of the margin logits, without them the scaled
+  cosines;
+- ``FCHead`` (:65): one (Linear -> ReLU) block per hidden size, then a
+  plain Linear to ``num_out``; the speaker embedding is the output of block
+  ``embedding_layer_idx`` (-1 = the pooled input itself,
+  ``len(hidden_sizes)`` = the logits). With ``use_aam`` the final Linear is
+  left out and the logits are None: the AAM head consumes the embedding.
 """
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-__all__ = ["FCHead"]
+from ..objectives.losses import aam_margin_logits, cross_entropy
+
+__all__ = ["AAMSoftmaxHead", "FCHead"]
+
+
+def _unit_rows(x: torch.Tensor) -> torch.Tensor:
+    return x / torch.linalg.vector_norm(x, dim=-1, keepdim=True).clamp_min(1e-12)
+
+
+class AAMSoftmaxHead(nn.Module):
+    """The JAX head with its defaults (``easy_margin`` False, no per-row
+    loss weights), as ``Wav2Vec2SpeakerModel`` builds it."""
+
+    def __init__(self, in_features: int, num_classes: int, margin: float = 0.2,
+                 scale: float = 30.0):
+        super().__init__()
+        self.margin, self.scale = margin, scale
+        self.weights = nn.Parameter(torch.empty(num_classes, in_features))
+
+    def forward(self, embedding: torch.Tensor, labels: Optional[torch.Tensor] = None):
+        """``embedding`` [B, D], ``labels`` [B] int. With labels: (mean CE
+        of the margin logits, softmax predictions). Without: the cosines
+        times ``scale``."""
+        cosine = _unit_rows(embedding.float()) @ _unit_rows(self.weights.float()).T
+        if labels is None:
+            return cosine * self.scale
+        return cross_entropy(aam_margin_logits(cosine, labels, self.margin, self.scale), labels)
 
 
 class FCHead(nn.Module):
@@ -25,6 +57,7 @@ class FCHead(nn.Module):
         hidden_sizes: Sequence[int],
         num_out: int,
         embedding_layer_idx: int = -1,
+        use_aam: bool = False,
     ):
         super().__init__()
         self.embedding_layer_idx = embedding_layer_idx
@@ -32,15 +65,17 @@ class FCHead(nn.Module):
         for i, size in enumerate(hidden_sizes):
             self.add_module(f"fc_{i}", nn.Linear(in_features, size))
             in_features = size
-        self.fc_out = nn.Linear(in_features, num_out)
+        self.fc_out = None if use_aam else nn.Linear(in_features, num_out)
 
-    def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-        """(embedding, logits)."""
+    def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """(embedding, logits); logits None under AAM."""
         embedding = h = x
         for i in range(self.num_hidden):
             h = F.relu(getattr(self, f"fc_{i}")(h))
             if i == self.embedding_layer_idx:
                 embedding = h
+        if self.fc_out is None:
+            return embedding, None
         logits = self.fc_out(h)
         if self.embedding_layer_idx == self.num_hidden:
             embedding = logits

@@ -5,7 +5,8 @@ Counterpart of ``w2v2_speaker_tpu/models/wav2vec2.py``:
 - ``Wav2Vec2Config`` (:53), ``BASE_CONFIG`` / ``LARGE_CONFIG`` (:175-184)
 - ``feat_extract_output_lengths`` (:187)
 - ``_MaskedChannelNorm`` (:211)
-- ``ConvFeatureEncoder`` (:287), the default ``conv_impl="xla"`` path
+- ``ConvFeatureEncoder`` (:287), both routes: ``conv_impl="xla"`` and the
+  fused strided-conv kernel of ``conv_impl="fused_pallas"`` (:318-346)
 - ``HashDropout`` (:373)
 - ``FeatureProjection`` (:420)
 - ``PosConvEmbedding`` (:437)
@@ -37,8 +38,10 @@ per dropout site (the counter-hash masks of ``HashDropout`` and of the
 attention kernel), the SpecAugment uniforms, one coin per layer for
 layerdrop. A dropped layer is skipped outright: its output is its input, as
 the JAX ``where`` (:620-625) gives, and its parameters get zero gradients
-from the train step. ``conv_impl="fused_pallas"`` raises
-``NotImplementedError`` (ROADMAP Queue 2 item 4).
+from the train step. ``conv_impl="fused_pallas"`` sends the eligible conv
+layers (1-6 of BASE and LARGE) through ``ops.conv_encoder``'s fused
+conv + bias + LayerNorm + GELU: the hand-written kernel on the card, its
+plain version on the CPU.
 """
 
 from __future__ import annotations
@@ -51,7 +54,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops import conv_encoder
 from ..ops.flash_attention import attention_dropout_keep, draw_seed, flash_attention
+from .heads import AAMSoftmaxHead
 from .masking import draw_uniform, sample_span_mask
 
 __all__ = [
@@ -191,18 +196,18 @@ class _MaskedChannelNorm(nn.Module):
 class ConvFeatureEncoder(nn.Module):
     """Raw waveform ``[B, N]`` -> features ``[B, T, conv_dim[-1]]``.
 
-    ``F.conv1d`` chain with exact GELU; BASE normalises the first layer's
-    output with masked per-channel statistics, LARGE applies a LayerNorm
-    over channels after every conv.
+    ``F.conv1d`` chain with exact GELU in ``[B, C, T]``; BASE normalises the
+    first layer's output with masked per-channel statistics, LARGE applies
+    a LayerNorm over channels after every conv. With
+    ``conv_impl="fused_pallas"`` each eligible layer (k 2 or 3, stride 2,
+    C -> C, C % 128 == 0) is one ``StridedConvFusedFunction`` call in
+    channels-last ``[B, T, C]``, in the compute type ``cfg.dtype``, with the
+    same parameters; the others stay on the chain. The lengths update runs
+    on both routes.
     """
 
     def __init__(self, cfg: Wav2Vec2Config):
         super().__init__()
-        if cfg.conv_impl == "fused_pallas":
-            raise NotImplementedError(
-                "conv_impl='fused_pallas' (the fused strided-conv kernel) is "
-                "not ported yet: ROADMAP.md Queue 2 item 4"
-            )
         self.cfg = cfg
         in_c = 1
         for i, (c, k, s) in enumerate(
@@ -223,19 +228,33 @@ class ConvFeatureEncoder(nn.Module):
         self, wav: torch.Tensor, wav_mask: Optional[torch.Tensor] = None
     ) -> torch.Tensor:
         cfg = self.cfg
+        fused = cfg.conv_impl == "fused_pallas"
         x = wav[:, None, :].to(self.conv_0.weight.dtype)  # [B, 1, N]
+        channels_last = False
         lengths = None if wav_mask is None else wav_mask.sum(-1)
-        for i, (k, s) in enumerate(zip(cfg.conv_kernel, cfg.conv_stride)):
-            x = getattr(self, f"conv_{i}")(x)
+        for i, (c, k, s) in enumerate(zip(cfg.conv_dim, cfg.conv_kernel, cfg.conv_stride)):
+            conv = getattr(self, f"conv_{i}")
+            ln = getattr(self, f"layer_norm_{i}", None)
             if lengths is not None:
                 lengths = (lengths - k) // s + 1
-            if i == 0 and cfg.feat_extract_norm == "group":
-                x = self.group_norm(x, lengths)
-            elif cfg.feat_extract_norm == "layer":
-                x = getattr(self, f"layer_norm_{i}")(x.transpose(1, 2))
-                x = x.transpose(1, 2)
-            x = F.gelu(x)
-        return x.transpose(1, 2)
+            if fused and conv_encoder.eligible(k, s, conv.in_channels, c):
+                if not channels_last:
+                    x, channels_last = x.transpose(1, 2), True
+                x = conv_encoder.StridedConvFusedFunction.apply(
+                    x.to(getattr(torch, cfg.dtype)), conv.weight.permute(2, 1, 0), conv.bias,
+                    None if ln is None else ln.weight, None if ln is None else ln.bias,
+                    cfg.layer_norm_eps, True,
+                )
+            else:
+                if channels_last:
+                    x, channels_last = x.transpose(1, 2), False
+                x = conv(x)
+                if i == 0 and cfg.feat_extract_norm == "group":
+                    x = self.group_norm(x, lengths)
+                elif ln is not None:
+                    x = ln(x.transpose(1, 2)).transpose(1, 2)
+                x = F.gelu(x)
+        return x if channels_last else x.transpose(1, 2)
 
 
 def hash_dropout(x: torch.Tensor, rate: float, seed: int) -> torch.Tensor:
@@ -517,8 +536,9 @@ def init_parameters(module: nn.Module, generator: torch.Generator) -> None:
     """Random weights drawn from ``generator``, with the JAX package's
     initialisers: dense and conv kernels lecun-normal (truncated at two
     standard deviations), biases 0, norm scales 1, the pos-conv ``weight_v``
-    uniform in +-1/sqrt(fan_in) with ``weight_g`` its per-tap norm, and
-    ``masked_spec_embed`` uniform in [0, 1). Values are drawn in float32
+    uniform in +-1/sqrt(fan_in) with ``weight_g`` its per-tap norm,
+    ``masked_spec_embed`` uniform in [0, 1), and the AAM head's ``weights``
+    xavier-normal (truncated, as flax's). Values are drawn in float32
     and rounded to each parameter's dtype. The generator must be on the
     parameters' device."""
 
@@ -548,3 +568,7 @@ def init_parameters(module: nn.Module, generator: torch.Generator) -> None:
         elif isinstance(m, Wav2Vec2Model) and m.masked_spec_embed is not None:
             draw(m.masked_spec_embed, lambda x: nn.init.uniform_(
                 x, 0.0, 1.0, generator=generator))
+        elif isinstance(m, AAMSoftmaxHead):
+            std = (2.0 / sum(m.weights.shape)) ** 0.5 / 0.87962566103423978  # fan_avg
+            draw(m.weights, lambda x: nn.init.trunc_normal_(
+                x, std=std, a=-2 * std, b=2 * std, generator=generator))

@@ -4,14 +4,15 @@ Counterpart of ``w2v2_speaker_tpu/models/wav2vec2_speaker.py``:
 ``Wav2Vec2SpeakerConfig`` (:44) and ``Wav2Vec2SpeakerModel`` (:62) with its
 train and eval forward (:108-156) and ``compute_embedding`` (:158). The
 backbone computes in ``cfg.w2v2.dtype`` and returns float32 features;
-pooling and the head run in float32, as the JAX package's do. Training
+pooling and the heads run in float32, as the JAX package's do. Training
 pools with ``stat_pooling_type``, eval with ``test_stat_pooling_type``
-(:104-106).
+(:104-106). With ``use_aam`` the FC head has no output layer and the
+``AAMSoftmaxHead`` ``aam`` (:97-103) takes the embedding: given labels,
+the forward also returns its ``loss`` and ``preds`` (:147-156).
 
 Not ported yet, and raising ``NotImplementedError``: the feature-encoder-only
-variant, the AAM head, the CTC head, the frame-level (no-pool) modes, the
-final-embedding channel mask and layer-ensemble embeddings (ROADMAP Queue 1
-items 3 and 9).
+variant, the CTC head, the frame-level (no-pool) modes, the final-embedding
+channel mask and layer-ensemble embeddings (ROADMAP Queue 1 items 3 and 9).
 """
 
 from __future__ import annotations
@@ -22,7 +23,7 @@ from typing import Dict, Optional, Tuple
 import torch
 from torch import nn
 
-from .heads import FCHead
+from .heads import AAMSoftmaxHead, FCHead
 from .pooling import get_pooling, pooled_embedding_size
 from .wav2vec2 import BASE_CONFIG, Wav2Vec2Config, Wav2Vec2Model
 
@@ -55,7 +56,6 @@ class Wav2Vec2SpeakerModel(nn.Module):
         super().__init__()
         for name, row in (
             ("feature_encoder_only", "Queue 1 item 2"),
-            ("use_aam", "Queue 1 item 3"),
             ("ctc_head", "Queue 1 item 9"),
         ):
             if getattr(cfg, name):
@@ -82,7 +82,13 @@ class Wav2Vec2SpeakerModel(nn.Module):
             cfg.hidden_fc_layers_out,
             num_speakers,
             cfg.embedding_layer_idx,
+            use_aam=cfg.use_aam,
         )
+        if cfg.use_aam:
+            sizes = (self.pool_dim, *cfg.hidden_fc_layers_out)
+            idx = cfg.embedding_layer_idx
+            emb_dim = sizes[idx + 1] if -1 <= idx < len(sizes) - 1 else self.pool_dim
+            self.aam = AAMSoftmaxHead(emb_dim, num_speakers, cfg.aam_margin, cfg.aam_scale)
 
     def forward(
         self,
@@ -90,14 +96,19 @@ class Wav2Vec2SpeakerModel(nn.Module):
         wav_mask: Optional[torch.Tensor] = None,  # [B, N] validity
         train: bool = False,
         generator: Optional[torch.Generator] = None,
+        labels: Optional[torch.Tensor] = None,  # [B], read under AAM
     ) -> Dict[str, torch.Tensor]:
-        """``{"embedding", "logits"}``. ``train=True`` runs the backbone's
-        regularisation with every draw from ``generator`` and pools with
-        the train pooling."""
+        """``{"embedding", "logits"}`` (logits None under AAM), and under
+        AAM with ``labels`` also ``loss`` and ``preds``. ``train=True`` runs
+        the backbone's regularisation with every draw from ``generator``
+        and pools with the train pooling."""
         features, frame_mask = self.wav2vec2(wav, wav_mask, train, generator)
         pool = self.stat_pooling if train else self.test_stat_pooling
         embedding, logits = self.head(pool(features, frame_mask))
-        return {"embedding": embedding, "logits": logits}
+        out = {"embedding": embedding, "logits": logits}
+        if self.cfg.use_aam and labels is not None:
+            out["loss"], out["preds"] = self.aam(embedding, labels)
+        return out
 
     def compute_embedding(
         self, wav: torch.Tensor, wav_mask: Optional[torch.Tensor] = None

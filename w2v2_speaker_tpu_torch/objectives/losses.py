@@ -1,18 +1,19 @@
 """Training losses.
 
 Counterpart of ``w2v2_speaker_tpu/objectives/losses.py``: ``cross_entropy``
-(:43). The other losses (binary CE, AAM margin, triplet, CTC) are not
-ported yet (ROADMAP Queue 1 items 3, 5 and 9).
+(:43) and ``aam_margin_logits`` (:74). The other losses (binary CE,
+triplet, CTC) are not ported yet (ROADMAP Queue 1 item 9).
 """
 
 from __future__ import annotations
 
+import math
 from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
-__all__ = ["cross_entropy"]
+__all__ = ["aam_margin_logits", "cross_entropy"]
 
 
 def cross_entropy(
@@ -31,3 +32,25 @@ def cross_entropy(
         w = weights.to(ce.dtype)
         loss = (ce * w).sum() / w.sum().clamp_min(1.0)
     return loss, torch.softmax(logits.detach().float(), dim=-1)
+
+
+def aam_margin_logits(
+    cosine: torch.Tensor,  # [B, C] cos(theta)
+    labels: torch.Tensor,  # [B] int
+    margin: float = 0.2,
+    scale: float = 30.0,
+    easy_margin: bool = False,
+) -> torch.Tensor:
+    """The target class's cosine replaced by cos(theta + m) inside the
+    monotonic region (cos theta > cos(pi - m)) and by cos theta -
+    m sin(pi - m) outside it (by cos theta where cos theta <= 0 with
+    ``easy_margin``); every logit times ``scale``."""
+    sine = (1.0 - cosine * cosine).clamp(0.0, 1.0).sqrt()
+    phi = cosine * math.cos(margin) - sine * math.sin(margin)
+    if easy_margin:
+        phi = torch.where(cosine > 0, phi, cosine)
+    else:
+        phi = torch.where(cosine - math.cos(math.pi - margin) > 0, phi,
+                          cosine - math.sin(math.pi - margin) * margin)
+    one_hot = F.one_hot(labels.long(), cosine.shape[-1]).to(cosine.dtype)
+    return (one_hot * phi + (1.0 - one_hot) * cosine) * scale

@@ -1,81 +1,179 @@
-"""Recipe assembly: the backbone config and the optimizer from a config dict.
+"""Recipe assembly: the backbone config, the speaker model and task, and the
+optimizer from a config dict.
 
 Counterpart of ``w2v2_speaker_tpu/runtime/experiment.py``: ``_w2v2_config``
-(:320) as ``w2v2_config`` and ``build_optimizer`` (:616), for the subset
-the ``speaker_wav2vec2_ce`` recipe uses: Adam under the one-cycle schedule,
+(:320) as ``w2v2_config``, ``build_model_and_task`` (:374) for the
+``wav2vec2_fc`` network in the ``ce`` and ``aam`` modes, and
+``build_optimizer`` (:616) for Adam under the one-cycle schedule,
 global-norm clipping and the backbone freeze schedules, read from the same
 keys of the merged Hydra config (``optim.algo``, ``optim.schedule``,
-``trainer``, ``network``). What is not ported raises
-``NotImplementedError`` naming its ROADMAP row. ``SPEAKER_WAV2VEC2_CE`` is
-that recipe's merged config, restricted to the keys read here (the port
-carries no YAML reader; ``tests/test_torch_train_step.py`` holds it
-against ``config/``).
+``optim.loss``, ``trainer``, ``network``). What is not ported raises
+``NotImplementedError`` naming its ROADMAP row. ``SPEAKER_WAV2VEC2_CE`` and
+``SPEAKER_WAV2VEC2_LARGE_AAM`` are those recipes' merged configs,
+restricted to the keys read here (the port carries no YAML reader;
+``tests/test_torch_train_step.py`` and ``tests/test_torch_experiment.py``
+hold them against ``config/``).
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Tuple
 
 from ..models.wav2vec2 import BASE_CONFIG, LARGE_CONFIG, Wav2Vec2Config
+from ..models.wav2vec2_speaker import Wav2Vec2SpeakerConfig, Wav2Vec2SpeakerModel
 from ..objectives import schedules
+from ..train.speaker_task import SpeakerTask
 from ..train.state import AdamTx, ClipTx, make_freeze_schedule_tx
 
-__all__ = ["SPEAKER_WAV2VEC2_CE", "build_optimizer", "w2v2_config"]
+__all__ = [
+    "SPEAKER_WAV2VEC2_CE", "SPEAKER_WAV2VEC2_LARGE_AAM", "TINY_W2V2", "build_model_and_task",
+    "build_optimizer", "speaker_model_config", "w2v2_config",
+]
 
 _OPTIM_ROW = "ROADMAP.md Queue 1 item 5 (optimizers and schedules)"
+
+TINY_W2V2 = Wav2Vec2Config(  # network.wav2vec2_size=tiny (:82), for debug runs
+    conv_dim=(32, 32), conv_kernel=(10, 3), conv_stride=(5, 2), hidden_size=48, num_layers=2,
+    num_heads=4, intermediate_size=96, num_conv_pos_embeddings=16,
+    num_conv_pos_embedding_groups=4,
+)
+
+# config/network/wav2vec2_fc.yaml, the keys read here
+_WAV2VEC2_FC = {
+    "name": "wav2vec2_fc",
+    "wav2vec2_size": "base",
+    "wav2vec_initially_frozen": False,
+    "num_frozen_steps": None,
+    "completely_freeze_feature_extractor": False,
+    "hidden_fc_layers_out": [],
+    "embedding_layer_idx": -1,
+    "stat_pooling_type": "mean",
+    "test_stat_pooling_type": None,
+    "activation_dropout": 0.0,
+    "attention_dropout": 0.1,
+    "feat_proj_dropout": 0.1,
+    "hidden_dropout": 0.1,
+    "layerdrop": 0.05,
+    "mask_feature_length": 10,
+    "mask_feature_prob": 0.0,
+    "mask_time_length": 10,
+    "mask_time_prob": 0.05,
+    "final_channel_mask_prob": 0.0,
+    "final_channel_mask_width": 1,
+    "attention_impl": "flash",
+    "remat_policy": "nothing",
+    "encoder_unroll": 99,
+    "int8_matmuls": False,
+}
+_ADAM = {"name": "adam", "b1": 0.9, "b2": 0.999, "weight_decay": 0.0, "mu_dtype": None}
+_ONE_CYCLE = {"name": "one_cycle", "pct_start": 0.3, "div_factor": 25.0,
+              "final_div_factor": 10000.0}
+_TRAINER = {"max_steps": 100000, "precision": "bf16", "accumulate_grad_batches": 1,
+            "gradient_clip_val": 0, "steps_per_dispatch": 4, "remat": False}
 
 # config/experiment/speaker_wav2vec2_ce.yaml over config/train_eval.yaml's
 # defaults: network wav2vec2_fc, optim/algo adam (lr 9e-5), optim/schedule
 # one_cycle, optim/loss cross_entropy, trainer (bf16, 100 000 steps, 4 steps
 # per dispatch), batch 66
 SPEAKER_WAV2VEC2_CE: Dict = {
-    "network": {
-        "wav2vec2_size": "base",
-        "wav2vec_initially_frozen": False,
-        "num_frozen_steps": None,
-        "completely_freeze_feature_extractor": False,
-        "hidden_fc_layers_out": [],
-        "embedding_layer_idx": -1,
-        "stat_pooling_type": "mean",
-        "test_stat_pooling_type": None,
-        "activation_dropout": 0.0,
-        "attention_dropout": 0.1,
-        "feat_proj_dropout": 0.1,
-        "hidden_dropout": 0.1,
-        "layerdrop": 0.05,
-        "mask_feature_length": 10,
-        "mask_feature_prob": 0.0,
-        "mask_time_length": 10,
-        "mask_time_prob": 0.05,
-        "final_channel_mask_prob": 0.0,
-        "final_channel_mask_width": 1,
-    },
-    "optim": {
-        "algo": {"name": "adam", "lr": 9.0e-5, "b1": 0.9, "b2": 0.999,
-                 "weight_decay": 0.0, "mu_dtype": None},
-        "schedule": {"name": "one_cycle", "pct_start": 0.3, "div_factor": 25.0,
-                     "final_div_factor": 10000.0},
-        "loss": {"name": "cross_entropy"},
-    },
-    "trainer": {"max_steps": 100000, "precision": "bf16", "accumulate_grad_batches": 1,
-                "gradient_clip_val": 0, "steps_per_dispatch": 4},
+    "network": dict(_WAV2VEC2_FC),
+    "optim": {"algo": {**_ADAM, "lr": 9.0e-5}, "schedule": dict(_ONE_CYCLE),
+              "loss": {"name": "cross_entropy"}},
+    "trainer": dict(_TRAINER),
     "data": {"dataloader": {"batch_size": 66}},
 }
 
+# config/experiment/speaker_wav2vec2_large_aam.yaml over the same defaults:
+# wav2vec2-LARGE, optim/loss aam_softmax (margin 0.2, scale 30), Adam lr
+# 5e-5, trainer.remat with remat_policy dots_no_batch (accepted, no effect
+# here: ROADMAP Queue 1 item 11), batch 48
+SPEAKER_WAV2VEC2_LARGE_AAM: Dict = {
+    "network": {**_WAV2VEC2_FC, "wav2vec2_size": "large", "remat_policy": "dots_no_batch"},
+    "optim": {"algo": {**_ADAM, "lr": 5.0e-5}, "schedule": dict(_ONE_CYCLE),
+              "loss": {"name": "aam_softmax", "margin": 0.2, "scale": 30.0}},
+    "trainer": {**_TRAINER, "remat": True},
+    "data": {"dataloader": {"batch_size": 48}},
+}
 
-def w2v2_config(net: Dict, precision: str) -> Wav2Vec2Config:
-    """The backbone config of a ``network`` dict: BASE or LARGE with the
-    recipe's regularisation, computing in bfloat16 for precision "bf16"."""
-    base = {"base": BASE_CONFIG, "large": LARGE_CONFIG}[net.get("wav2vec2_size", "base")]
+
+def _canon_int8(val):
+    """``network.int8_matmuls`` as the JAX package reads it (:786): YAML's
+    1 / 0 arrive as ints, and 1 must mean true."""
+    if isinstance(val, str):
+        return val
+    return bool(val)
+
+
+def w2v2_config(net: Dict, precision: str, remat: bool = False, accumulate: int = 1) -> Wav2Vec2Config:
+    """The backbone config of a ``network`` dict, key for key and default for
+    default as the JAX ``_w2v2_config`` (:320) builds it: BASE, LARGE or
+    tiny with the recipe's regularisation, computing in bfloat16 for
+    precision "bf16". ``remat``, ``remat_policy``, ``encoder_unroll``,
+    ``posconv_decomposed`` and ``attention_impl`` are carried and validated
+    and change nothing here (ROADMAP Queue 1 item 11); ``int8_matmuls``
+    true makes the model raise."""
+    base = {"base": BASE_CONFIG, "large": LARGE_CONFIG, "tiny": TINY_W2V2}[
+        net.get("wav2vec2_size", "base")]
     keys = ("activation_dropout", "attention_dropout", "feat_proj_dropout", "hidden_dropout",
             "layerdrop", "mask_feature_length", "mask_feature_prob", "mask_time_length",
             "mask_time_prob")
     return Wav2Vec2Config(**{
         **base.__dict__,
+        "posconv_decomposed": net.get("posconv_decomposed", accumulate > 1),
         **{k: net[k] for k in keys},
         "dtype": "bfloat16" if precision == "bf16" else "float32",
+        "remat": remat,
+        "remat_policy": net.get("remat_policy", "nothing"),
+        "attention_impl": net.get("attention_impl", "xla"),
+        "conv_impl": net.get("conv_impl", "xla"),
+        "encoder_unroll": net.get("encoder_unroll", 1),
+        "int8_matmuls": _canon_int8(net.get("int8_matmuls", False)) is True,
         "hash_dropout": net.get("hash_dropout", True),
     })
+
+
+_MODES = {"cross_entropy": "ce", "aam_softmax": "aam"}
+
+
+def speaker_model_config(cfg: Dict) -> Tuple[Wav2Vec2SpeakerConfig, str]:
+    """(model config, training mode) of a merged config whose network is
+    ``wav2vec2_fc`` and whose loss is cross entropy or AAM softmax, as the
+    JAX ``build_model_and_task`` (:434-459) reads them."""
+    net, loss = cfg["network"], cfg["optim"]["loss"]
+    if net.get("name", "wav2vec2_fc") != "wav2vec2_fc":
+        raise NotImplementedError(f"network {net['name']!r} is not ported yet: ROADMAP.md Queue 1 item 9")
+    if loss["name"] not in _MODES:
+        raise NotImplementedError(f"loss {loss['name']!r} is not ported yet: ROADMAP.md Queue 1 item 9")
+    trainer = cfg["trainer"]
+    w2v2 = w2v2_config(net, trainer["precision"], trainer.get("remat", False),
+                       int(trainer.get("accumulate_grad_batches") or 1))
+    use_aam = loss["name"] == "aam_softmax"
+    model_cfg = Wav2Vec2SpeakerConfig(
+        w2v2=w2v2,
+        feature_encoder_only=net.get("wav2vec_feature_encoder_only", False),
+        stat_pooling_type=net["stat_pooling_type"],
+        test_stat_pooling_type=net.get("test_stat_pooling_type"),
+        hidden_fc_layers_out=tuple(net["hidden_fc_layers_out"]),
+        embedding_layer_idx=net["embedding_layer_idx"],
+        use_aam=use_aam,
+        aam_margin=loss.get("margin", 0.2),
+        aam_scale=loss.get("scale", 30.0),
+        final_channel_mask_prob=net["final_channel_mask_prob"],
+        final_channel_mask_width=net["final_channel_mask_width"],
+    )
+    mode = _MODES[loss["name"]]
+    if mode == "ce" and net["stat_pooling_type"] == "none":
+        mode = "ce_no_pool"
+    return model_cfg, mode
+
+
+def build_model_and_task(cfg: Dict, num_speakers: int) -> Tuple[SpeakerTask, str]:
+    """``(task, "speaker")`` with a new ``Wav2Vec2SpeakerModel`` (parameters
+    allocated, not initialised: see ``models.wav2vec2.init_parameters``)
+    over ``network.explicit_num_speakers`` or ``num_speakers`` classes."""
+    model_cfg, mode = speaker_model_config(cfg)
+    n_out = cfg["network"].get("explicit_num_speakers") or num_speakers
+    return SpeakerTask(Wav2Vec2SpeakerModel(model_cfg, num_speakers=n_out), mode), "speaker"
 
 
 def build_optimizer(cfg: Dict):

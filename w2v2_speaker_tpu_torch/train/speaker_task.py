@@ -1,12 +1,17 @@
-"""Speaker-recognition task: the loss of the ``ce`` training mode.
+"""Speaker-recognition task: the losses of the ``ce`` and ``aam`` training
+modes.
 
 Counterpart of ``w2v2_speaker_tpu/train/speaker_task.py::SpeakerTask``
-(:43): the model's logits against the speaker labels with
-``cross_entropy``, and the loss and accuracy metrics (:114-126). The other
-training modes raise ``NotImplementedError`` naming their ROADMAP rows.
+(:43): ``ce`` takes the model's logits against the speaker labels with
+``cross_entropy``; ``aam`` hands the labels to the model, whose AAM head
+returns the loss and predictions (:91-92, :131-132). The loss and
+accuracy metrics as :114-126. The other training modes raise
+``NotImplementedError`` naming their ROADMAP rows.
 
 The model contract: ``model(features, mask, train=..., generator=...)``
-returns a dict with ``embedding`` [B, D] and ``logits`` [B, C].
+(and ``labels=`` under ``aam``) returns a dict with ``embedding`` [B, D],
+``logits`` [B, C] (None under ``aam``), and under ``aam`` ``loss`` and
+``preds``.
 """
 
 from __future__ import annotations
@@ -24,7 +29,6 @@ __all__ = ["SpeakerTask", "TRAINING_MODES"]
 TRAINING_MODES = ("ce", "ce_no_pool", "aam", "triplet", "triplet_ce", "speaker_ctc")
 _NOT_PORTED = {
     "ce_no_pool": "Queue 1 item 3 (frame-level pooling 'none')",
-    "aam": "Queue 1 item 3 (AAMSoftmaxHead)",
     "triplet": "Queue 1 item 9 (triplet mining and losses)",
     "triplet_ce": "Queue 1 item 9 (triplet mining and losses)",
     "speaker_ctc": "Queue 1 item 9 (speech CTC)",
@@ -55,10 +59,15 @@ class SpeakerTask:
         metrics also carry ``layers_run``, the encoder layers this forward
         ran (the rest were dropped by layerdrop)."""
         labels = batch.get("labels")
-        out = self.model(batch["features"], batch.get("mask"), train=train, generator=generator)
-        loss, preds = losses.cross_entropy(out["logits"], labels)
+        kwargs = {"labels": labels} if self.mode == "aam" else {}
+        out = self.model(batch["features"], batch.get("mask"), train=train, generator=generator,
+                         **kwargs)
+        if self.mode == "aam":
+            loss, preds = out["loss"], out["preds"]
+        else:
+            loss, preds = losses.cross_entropy(out["logits"], labels)
         metrics: Dict[str, Any] = {"loss": loss.detach()}
-        if labels is not None and preds.shape[0] == labels.shape[0]:
+        if labels is not None and preds.ndim == 2 and preds.shape[0] == labels.shape[0]:
             metrics["accuracy"] = (preds.argmax(-1) == labels).float().mean()
         encoder = getattr(getattr(self.model, "wav2vec2", None), "encoder", None)
         if train and encoder is not None:
