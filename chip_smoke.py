@@ -16,7 +16,8 @@ the run by raising:
    LARGE's training shape (H=16, bf16, rate 0.1); the fused strided conv
    over conv layers 1-6 at the BASE (B=66, no bias, no LN) and LARGE
    (B=48, bias + LN) training shapes and on ragged short inputs, in float32
-   and bfloat16; each with kernel, plain, bound and library times;
+   and bfloat16; each with kernel, plain, bound and library times, and at
+   each attention shape the dq + dk/dv pair beside SDPA's backward;
 4. serving main path: ``entry()`` (wav2vec2-BASE, mean pooling, FC head;
    bf16, B=48 x 48 000 samples), its launch counts, its speed, and a float32
    check of the same weights against the CPU on a small padded batch;
@@ -263,6 +264,9 @@ def check_kernels(name, b, t, lengths, dtype, rate, gen, h: int = H):
     for kernel, kind in zip(rows, ("fwd", "dq", "dkv")):
         rows[kernel]["bound_ms"], rows[kernel]["bound_by"] = attention_bound(kind, lengths, t, dtype, h)
         print("kernel", kernel, json.dumps(rows[kernel]), flush=True)
+    pair = rows["flash_attention_bwd_dq"]["ms"] + rows["flash_attention_bwd_dkv"]["ms"]
+    print(f"backward pair {tag}: dq + dk/dv {pair:.4f} ms, SDPA backward {lib_bwd:.4f} ms "
+          f"({pair / lib_bwd:.2f}x)", flush=True)
     return rows
 
 

@@ -61,12 +61,12 @@ def test_flash_attention_kernel_rejects_what_it_does_not_take(cuda):
         fa.flash_attention(y, y, y)
 
 
-def _inputs(cuda, dtype, t, lengths, seed):
+def _inputs(cuda, dtype, t, lengths, seed, h=2):
     gen = torch.Generator(device=cuda).manual_seed(seed)
     b = 2 if lengths is None else len(lengths)
-    qkv = torch.randn(b, t, 3 * 128, generator=gen, device=cuda).to(dtype)
-    q, k, v = (x.view(b, t, 2, 64) for x in qkv.split(128, dim=-1))
-    do = torch.randn(b, t, 2, 64, generator=gen, device=cuda).to(dtype)
+    qkv = torch.randn(b, t, 3 * h * 64, generator=gen, device=cuda).to(dtype)
+    q, k, v = (x.view(b, t, h, 64) for x in qkv.split(h * 64, dim=-1))
+    do = torch.randn(b, t, h, 64, generator=gen, device=cuda).to(dtype)
     lens = None if lengths is None else torch.tensor(lengths, device=cuda)
     n = torch.full((b,), t, device=cuda) if lens is None else lens.clamp(0, t)
     valid = torch.arange(t, device=cuda)[None, :] < n[:, None]
@@ -118,6 +118,27 @@ def test_backward_kernels_match_plain(cuda, dtype, t, lengths, rate):
         _close(got, want, valid, backward=True)
 
 
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("t, lengths, h", [
+    (149, [149, 149, 120], 16),  # wav2vec2-LARGE's heads at the 3 s training length
+    (129, [129, 129], 2),  # two full key tiles plus one key
+])
+def test_dkv_kernel_at_the_training_shapes(cuda, t, lengths, h, rate):
+    """The dk/dv kernel in bf16 at LARGE's head count and at a key tile of
+    one valid key, against the plain backward."""
+    q, k, v, do, lens, valid = _inputs(cuda, torch.bfloat16, t, lengths, t + h, h)
+    seed = 11 if rate else None
+    o, lse = fa.flash_attention_fwd(q, k, v, lens, rate, seed, return_lse=True)
+    args = (q, k, v, do, lse, fa.attention_delta(o, do), lens, rate, seed)
+    before = fa.flash_attention_bwd_dkv.launches
+    dk, dv = fa.flash_attention_bwd_dkv(*args)
+    torch.cuda.synchronize()
+    assert fa.flash_attention_bwd_dkv.launches == before + 1
+    _, want_dk, want_dv = fa.flash_attention_bwd_plain(*args)
+    _close(dk, want_dk, valid, backward=True)
+    _close(dv, want_dv, valid, backward=True)
+
+
 def test_autograd_through_the_kernels(cuda):
     """``flash_attention`` under autograd on the card: the forward and both
     backward kernels, against the plain backward of the same forward."""
@@ -136,6 +157,8 @@ def test_autograd_through_the_kernels(cuda):
 CONV_CASES = [
     (2, 97, 128, 2, False), (2, 97, 128, 3, True), (3, 21, 128, 3, False),  # ragged last tiles
     (2, 130, 256, 3, True), (1, 600, 512, 2, True), (2, 1199, 512, 3, False),  # wav2vec2 widths
+    # odd T_in whose T_out is one frame past a 64-frame tile (65, 129)
+    (3, 131, 384, 3, True), (4, 131, 384, 2, False), (3, 131, 512, 3, True), (5, 259, 128, 3, True),
 ]
 
 

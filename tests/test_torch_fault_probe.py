@@ -1,0 +1,69 @@
+"""Where the planted faults of ``tools/torch_fault_probe.py`` land in the
+kernel sources: every edit's text occurs in its source, and each conv and
+dk/dv mutant changes the bf16 path (the main path's kernel, its launch code
+or a helper it calls) as well as the f32 kernel. The probe itself needs the
+card; this reads the sources only."""
+
+import importlib.util
+import pathlib
+import re
+
+import pytest
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+CSRC = ROOT / "w2v2_speaker_tpu_torch" / "csrc"
+# (bf16 kernel and its launch code, f32 kernel) per mutant family
+PATHS = {
+    "conv": (("conv_encoder_bf16_kernel", "launch_bf16"), ("conv_encoder_f32_kernel",)),
+    "dkv": (("dkv_bf16_kernel",), ("dkv_f32_kernel",)),
+}
+
+
+def _probe():
+    spec = importlib.util.spec_from_file_location(
+        "torch_fault_probe", ROOT / "tools" / "torch_fault_probe.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+MUTANTS = _probe().MUTANTS
+
+
+def _definition(src: str, name: str) -> str:
+    """The text of function ``name``'s definition, brace-matched."""
+    match = re.search(rf"\b{name}\s*\([^;{{}}]*\)\s*\{{", src)
+    assert match, f"{name} is not defined"
+    depth = 0
+    for end in range(match.end() - 1, len(src)):
+        depth += {"{": 1, "}": -1}.get(src[end], 0)
+        if depth == 0:
+            return src[match.start():end + 1]
+    raise AssertionError(f"{name}: unbalanced braces")
+
+
+def _path(src: str, roots) -> list:
+    """The definitions of ``roots`` and of every device helper they call."""
+    bodies = [_definition(src, name) for name in roots]
+    helpers = re.findall(r"__device__ __forceinline__ (?:[\w:<>]+\s+)+(\w+)\s*\(", src)
+    called = {h for h in helpers if any(re.search(rf"\b{h}\s*\(", b) for b in bodies)}
+    return bodies + [_definition(src, h) for h in sorted(called)]
+
+
+@pytest.mark.parametrize("name", sorted(MUTANTS))
+def test_every_edit_occurs_in_its_source(name):
+    source, edits = MUTANTS[name]
+    src = (CSRC / f"{source}.cu").read_text()
+    for old, new in edits:
+        assert old != new and src.count(old) >= 1, f"{name}: {old!r}"
+
+
+@pytest.mark.parametrize("name", sorted(n for n in MUTANTS if n.split("_")[0] in PATHS))
+def test_mutant_reaches_the_bf16_and_f32_kernels(name):
+    source, edits = MUTANTS[name]
+    src = (CSRC / f"{source}.cu").read_text()
+    bf16, f32 = PATHS[name.split("_")[0]]
+    for roots in (bf16, f32):
+        bodies = _path(src, roots)
+        assert any(old in body for old, _ in edits for body in bodies), (
+            f"{name} leaves {'/'.join(roots)} unchanged")

@@ -13,8 +13,8 @@ first reading sits well under it and the second well over it.
   bfloat16, at dropout rates 0 and 0.1, for the kernels as built and for
   mutants compiled into a temporary directory: the forward without the
   boundary K/V tile mask or without the accumulator rescale; the dk/dv
-  kernel without the keep mask on dP, or without the division of dk by
-  log2 e; the dq kernel without its boundary handling (no key mask, and
+  kernels (the bf16 wgmma kernel and the f32 one) without the keep mask on
+  dP, or without the division of dk by log2 e; the dq kernel without its boundary handling (no key mask, and
   the boundary tile loaded up to T instead of the length: with the tile's
   keys past the length zero-filled, as the built kernel loads them, a
   missing mask alone changes no dq, since those keys' rows of K are 0).
@@ -23,9 +23,11 @@ first reading sits well under it and the second well over it.
   layers), at ``chip_smoke``'s ragged short inputs and the BASE (B=66) and
   LARGE (B=48) conv layers 1-6, in float32 and bfloat16, as built and for
   mutants: the LayerNorm without its mean subtraction; tap 2 read from
-  x[2t+1] instead of x[2t+2]; the ragged last frame tile's store unmasked
-  (in every batch row but the last, whose spill would leave the output
-  buffer: the spilled frames land on the next row's first frames).
+  x[2t+1] instead of x[2t+2] (the f32 kernel's A offset, the bf16 kernel's
+  tap-2 tensor map); the ragged last frame tile's store unmasked (in every
+  batch row but the last, whose spill would leave the output buffer: the
+  spilled frames land on the next row's first frames; the bf16 kernel's
+  rows past T_out hold the zero-filled A rows' outputs).
 - Padding invariance of bucketed serving (``chip_smoke.padding_ratio``), for
   the port as it is, with two embeddings handed back swapped (the closest
   pair), and with attention that ignores the key lengths.
@@ -61,7 +63,9 @@ from w2v2_speaker_tpu_torch.runtime.predict import extract_embeddings  # noqa: E
 
 SEEDS = (0, 1, 2, 3)
 # (source, [(old, new)]): each old text must occur in the source; every
-# occurrence is replaced
+# occurrence is replaced. The conv and dk/dv mutants plant their fault in
+# both the bf16 kernel (the main path's) and the f32 one
+# (tests/test_torch_fault_probe.py checks where each edit lands).
 MUTANTS = {
     "fwd_no_boundary_mask": ("flash_attention_fwd", [
         ("    if (k0 + kBlockK > len) {  // boundary tile: mask keys >= len\n", "    if (false) {\n"),
@@ -98,6 +102,8 @@ MUTANTS = {
         ("  return (static_cast<long long>(b) * p.T_in + 2LL * t) * p.C + kk;",
          "  return (static_cast<long long>(b) * p.T_in + 2LL * t) * p.C"
          " + (kk >= 2 * p.C ? kk - p.C : kk);"),
+        ("    const int first = j;  // tap j starts at input frame j",
+         "    const int first = j == 2 ? 1 : j;"),
     ]),
     "conv_ragged_tile_store_unmasked": ("conv_encoder", [
         ("if (t0 + row < p.T_out) {", "if (t0 + row < p.T_out || b + 1 < p.B) {"),

@@ -24,18 +24,30 @@
 // training shape (B=66, T=149, bf16) both are bound by bytes (~0.02 ms);
 // at 30 s and longer by operations.
 //
-// Design (first version: right and simple; no TMA, wgmma or cp.async yet).
-// Two kernels and no atomics, so the gradients are deterministic:
-// - dq: one block per (batch*head, 64-row q tile), four warps of 16 q rows;
-//   a loop over 64-row K/V tiles up to len, only the boundary tile masked.
-//   S = qs K^T and dP = dO V^T on the tensor cores (mma.sync m16n8k16, bf16
-//   in, f32 accumulate); dZ built in the accumulator fragments, repacked in
-//   registers as the A operand of dQ += dZ K.
-// - dk/dv: one block per (batch*head, 64-row k tile), four warps of 16 key
-//   rows; a loop over q tiles that stops at len. The transposed tiles
-//   S^T = K qs^T and dP^T = V dO^T put the per-q lse and D along the
-//   fragments' columns, and their fragments repack as the A operands of
-//   dV += P~^T dO and dK += dZ^T qs (the forward's P V trick).
+// Design. Two kernels and no atomics, so the gradients are deterministic:
+// - dq (first version): one block per (batch*head, 64-row q tile), four
+//   warps of 16 q rows; a loop over 64-row K/V tiles up to len, only the
+//   boundary tile masked. S = qs K^T and dP = dO V^T on the tensor cores
+//   (mma.sync m16n8k16, bf16 in, f32 accumulate); dZ built in the
+//   accumulator fragments, repacked in registers as the A operand of
+//   dQ += dZ K.
+// - dk/dv (redesigned for Hopper; the first version, mma.sync fed by scalar
+//   16-bit shared loads after synchronous tile loads, ran at 6x its bound):
+//   one warpgroup per (batch*head, 64-key tile), a loop over q tiles that
+//   stops at len. K and V, then each q tile's q, dO, lse and D arrive by
+//   cp.async (16-byte chunks, rows past len zero-filled) into
+//   128-byte-swizzled tiles; the next q tile is copied into a second stage
+//   while the current one computes, and qs = q * scale is a pass over the
+//   landed tile. The transposed tiles S^T = K qs^T and dP^T = V dO^T are
+//   wgmma m64n64k16 with both operands K-major in shared memory, so the
+//   per-q lse and D lie along the accumulators' columns; P~^T and dZ^T,
+//   rounded to bf16 in registers, are the register A operands of
+//   dV += P~^T dO and dK += dZ^T qs, whose B is the same q tile read
+//   MN-major (hopper.cuh). At the training shape it runs at ~3x its bytes
+//   bound (PERF.md): with 3 q tiles per (b, h) the prologue weighs as much
+//   as the loop, two blocks share an SM (168 registers, 50 KB of shared
+//   memory), and each tile's dropout hash and exp2 run between its two
+//   pairs of products (their shares are not measured apart).
 // - f32 inputs: scalar f32 FMAs (TF32 would miss the f32 tolerance), two
 //   threads per row, each holding half of d, the dot products completed
 //   with one shuffle.
@@ -46,6 +58,7 @@
 #include <stdint.h>
 
 #include "flash_attention_common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -178,13 +191,55 @@ __global__ void __launch_bounds__(128) dq_bf16_kernel(BwdParams p) {
   }
 }
 
+constexpr int kTileBytes = 64 * 128;  // a 64 x 64 bf16 tile of 128-byte rows
+// k, v, two stages of (qs, dO), two of (lse, D), 1 KB alignment slack
+constexpr int kDkvSmem = 6 * kTileBytes + 4 * kBlockQ * 4 + 1024;
+
+// 64 rows x 64 bf16 (row stride `st` elements) by cp.async into a
+// 128-byte-swizzled tile; rows >= n_rows (>= 1) zero-filled. 128 threads,
+// 4 x 16 B each: thread tid moves chunks tid + 128 i.
+__device__ __forceinline__ void cp_async_tile(uint8_t* dst, const __nv_bfloat16* src,
+                                              long long st, int n_rows, int tid) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int c = tid + i * 128;
+    const int r = c >> 3, chunk = c & 7;
+    const bool ok = r < n_rows;
+    cp_async_16(dst + sw128_offset(r, chunk), ok ? src + r * st + chunk * 8 : src, ok);
+  }
+}
+
+// q * scale rounded to bf16 again (qs), in place, on the chunks this thread
+// copied into the swizzled tile (as load_tile_bf16 scales)
+__device__ __forceinline__ void prescale_tile(uint8_t* tile, int tid, float scale) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int c = tid + i * 128;
+    uint4* chunk = reinterpret_cast<uint4*>(tile + sw128_offset(c >> 3, c & 7));
+    uint4 val = *chunk;
+    __nv_bfloat162* e = reinterpret_cast<__nv_bfloat162*>(&val);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float2 f = __bfloat1622float2(e[j]);
+      e[j] = __floats2bfloat162_rn(f.x * scale, f.y * scale);
+    }
+    *chunk = val;
+  }
+}
+
+// One warpgroup per (batch*head, 64-key tile), looping over the q tiles up
+// to len; the next q tile's qs, dO, lse and D arrive by cp.async in the
+// other stage while this one computes. Accumulator element 4 n + e of every
+// product is (key row 16 warp + g + 8 (e / 2), column 8 n + 2 t4 + e % 2).
 template <bool kDrop>
 __global__ void __launch_bounds__(128) dkv_bf16_kernel(BwdParams p) {
-  __shared__ __align__(16) __nv_bfloat16 k_s[kBlockK * kLds];
-  __shared__ __align__(16) __nv_bfloat16 v_s[kBlockK * kLds];
-  __shared__ __align__(16) __nv_bfloat16 qs_s[kBlockQ * kLds];
-  __shared__ __align__(16) __nv_bfloat16 do_s[kBlockQ * kLds];
-  __shared__ float lse_s[kBlockQ], dlt_s[kBlockQ];
+  extern __shared__ uint8_t smem_raw[];
+  // the swizzled tiles need 1024-byte alignment
+  uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint8_t* k_s = smem;
+  uint8_t* v_s = smem + kTileBytes;
+  float* lse_s = reinterpret_cast<float*>(smem + 6 * kTileBytes);  // [2][kBlockQ]
+  float* dlt_s = lse_s + 2 * kBlockQ;                               // [2][kBlockQ]
 
   const int tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31;
@@ -212,14 +267,26 @@ __global__ void __launch_bounds__(128) dkv_bf16_kernel(BwdParams p) {
     return;
   }
 
-  load_tile_bf16(k_s, at<__nv_bfloat16>(p.k, p.k_sb, p.k_sh, b, h) + k0 * p.k_st,
-                 p.k_st, len - k0, tid);
-  load_tile_bf16(v_s, at<__nv_bfloat16>(p.v, p.v_sb, p.v_sh, b, h) + k0 * p.v_st,
-                 p.v_st, len - k0, tid);
-  __syncthreads();
-  uint32_t ka[4][4], va[4][4];
-  load_a_frags(ka, k_s, warp * 16, g, t4);
-  load_a_frags(va, v_s, warp * 16, g, t4);
+  const __nv_bfloat16* qg = at<__nv_bfloat16>(p.q, p.q_sb, p.q_sh, b, h);
+  const __nv_bfloat16* dog = at<__nv_bfloat16>(p.dout, p.do_sb, p.do_sh, b, h);
+  const long long stat = static_cast<long long>(bh) * p.T;
+  // q tile q0's qs (unscaled yet), dO, lse and D into stage `stage`
+  auto load_q_tile = [&](int q0, int stage) {
+    cp_async_tile(smem + (2 + stage) * kTileBytes, qg + q0 * p.q_st, p.q_st, len - q0, tid);
+    cp_async_tile(smem + (4 + stage) * kTileBytes, dog + q0 * p.do_st, p.do_st, len - q0, tid);
+    if (tid < kBlockQ) {
+      const bool ok = q0 + tid < len;
+      const long long i = stat + (ok ? q0 + tid : 0);
+      cp_async_4(lse_s + stage * kBlockQ + tid, p.lse + i, ok);
+      cp_async_4(dlt_s + stage * kBlockQ + tid, p.delta + i, ok);
+    }
+  };
+  cp_async_tile(k_s, at<__nv_bfloat16>(p.k, p.k_sb, p.k_sh, b, h) + k0 * p.k_st, p.k_st,
+                len - k0, tid);
+  cp_async_tile(v_s, at<__nv_bfloat16>(p.v, p.v_sb, p.v_sh, b, h) + k0 * p.v_st, p.v_st,
+                len - k0, tid);
+  load_q_tile(0, 0);
+  cp_async_commit();
 
   int key[2];
   bool kv[2];
@@ -229,48 +296,79 @@ __global__ void __launch_bounds__(128) dkv_bf16_kernel(BwdParams p) {
     kv[r] = key[r] < len;
   }
 
-  float acc_k[8][4], acc_v[8][4];
+  float acc_k[32], acc_v[32];
 #pragma unroll
-  for (int n = 0; n < 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc_k[n][e] = acc_v[n][e] = 0.f;
+  for (int i = 0; i < 32; ++i) acc_k[i] = acc_v[i] = 0.f;
 
-  const __nv_bfloat16* qg = at<__nv_bfloat16>(p.q, p.q_sb, p.q_sh, b, h);
-  const __nv_bfloat16* dog = at<__nv_bfloat16>(p.dout, p.do_sb, p.do_sh, b, h);
-  const long long stat = static_cast<long long>(bh) * p.T;
-  for (int q0 = 0; q0 < len; q0 += kBlockQ) {
-    __syncthreads();  // the previous tile's readers are done
-    load_tile_bf16(qs_s, qg + q0 * p.q_st, p.q_st, len - q0, tid, p.scale);
-    load_tile_bf16(do_s, dog + q0 * p.do_st, p.do_st, len - q0, tid);
-    if (tid < kBlockQ) {
-      const bool ok = q0 + tid < len;
-      lse_s[tid] = ok ? p.lse[stat + q0 + tid] : 0.f;
-      dlt_s[tid] = ok ? p.delta[stat + q0 + tid] : 0.f;
-    }
+  const uint64_t k_desc = desc_k_major(k_s), v_desc = desc_k_major(v_s);
+  const int n_q = (len + kBlockQ - 1) / kBlockQ;
+  for (int it = 0; it < n_q; ++it) {
+    const int q0 = it * kBlockQ, stage = it & 1;
+    if (it + 1 < n_q) load_q_tile(q0 + kBlockQ, stage ^ 1);
+    cp_async_commit();
+    cp_async_wait<1>();  // this tile (and k, v) landed; the next may be in flight
+    uint8_t* qs_s = smem + (2 + stage) * kTileBytes;
+    uint8_t* do_s = smem + (4 + stage) * kTileBytes;
+    const float* lse_t = lse_s + stage * kBlockQ;
+    const float* dlt_t = dlt_s + stage * kBlockQ;
+    prescale_tile(qs_s, tid, p.scale);
+    fence_proxy_async();
     __syncthreads();
 
-    // transposed tiles: rows are this warp's keys, columns the 64 queries
-    float st[8][4], dpt[8][4];
-    mma_frags_tile_t(st, ka, qs_s, g, t4);   // K qs^T
-    mma_frags_tile_t(dpt, va, do_s, g, t4);  // V dO^T
+    // transposed tiles: rows are the keys, columns the 64 queries
+    float st[32], dpt[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) st[i] = dpt[i] = 0.f;
+    const uint64_t qs_k = desc_k_major(qs_s), do_k = desc_k_major(do_s);
+    wgmma_fence();
+#pragma unroll
+    for (int k16 = 0; k16 < 4; ++k16) {
+      wgmma_ss<64>(st, k_desc + 2 * k16, qs_k + 2 * k16, 1);   // K qs^T
+      wgmma_ss<64>(dpt, v_desc + 2 * k16, do_k + 2 * k16, 1);  // V dO^T
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(st);
+    fence_regs(dpt);
 #pragma unroll
     for (int n = 0; n < 8; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int r = e >> 1, qc = n * 8 + t4 * 2 + (e & 1);
         const bool valid = kv[r] && q0 + qc < len;
-        const float pv = valid ? exp2f(st[n][e] - lse_s[qc]) : 0.f;
-        float ptv = pv, dpv = dpt[n][e];
+        const float pv = valid ? exp2f(st[4 * n + e] - lse_t[qc]) : 0.f;
+        float ptv = pv, dpv = dpt[4 * n + e];
         if (kDrop) {
           const bool kp = p.drop.keep(bh, q0 + qc, key[r]);
           ptv = kp ? pv * p.drop.inv_keep : 0.f;
           dpv = kp ? dpv * p.drop.inv_keep : 0.f;
         }
-        st[n][e] = ptv;                      // P~^T
-        dpt[n][e] = pv * (dpv - dlt_s[qc]);  // dZ^T
+        st[4 * n + e] = ptv;                     // P~^T
+        dpt[4 * n + e] = pv * (dpv - dlt_t[qc]);  // dZ^T
       }
-    mma_frags_tile(acc_v, st, do_s, g, t4);   // dV += P~^T dO
-    mma_frags_tile(acc_k, dpt, qs_s, g, t4);  // dK += dZ^T qs
+
+    // dV += P~^T dO and dK += dZ^T qs: A from registers (16 queries a step,
+    // all packed before the first product), B the same tiles read MN-major
+    uint32_t pa[4][4], za[4][4];
+#pragma unroll
+    for (int k16 = 0; k16 < 4; ++k16)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        pa[k16][j] = pack_bf16(st[8 * k16 + 2 * j], st[8 * k16 + 2 * j + 1]);
+        za[k16][j] = pack_bf16(dpt[8 * k16 + 2 * j], dpt[8 * k16 + 2 * j + 1]);
+      }
+    const uint64_t qs_mn = desc_mn_major(qs_s), do_mn = desc_mn_major(do_s);
+    wgmma_fence();
+#pragma unroll
+    for (int k16 = 0; k16 < 4; ++k16) {
+      wgmma_rs64_mn(acc_v, pa[k16], do_mn + 128 * k16, 1);
+      wgmma_rs64_mn(acc_k, za[k16], qs_mn + 128 * k16, 1);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(acc_v);
+    fence_regs(acc_k);
+    __syncthreads();  // every product on this stage is done before it is refilled
   }
 
 #pragma unroll
@@ -281,10 +379,10 @@ __global__ void __launch_bounds__(128) dkv_bf16_kernel(BwdParams p) {
     for (int n = 0; n < 8; ++n) {
       const long long c = row * o_st + n * 8 + t4 * 2;
       *reinterpret_cast<__nv_bfloat162*>(dk + c) = __floats2bfloat162_rn(
-          kv[r] ? acc_k[n][2 * r] / kLog2e : 0.f,
-          kv[r] ? acc_k[n][2 * r + 1] / kLog2e : 0.f);
+          kv[r] ? acc_k[4 * n + 2 * r] / kLog2e : 0.f,
+          kv[r] ? acc_k[4 * n + 2 * r + 1] / kLog2e : 0.f);
       *reinterpret_cast<__nv_bfloat162*>(dv + c) = __floats2bfloat162_rn(
-          kv[r] ? acc_v[n][2 * r] : 0.f, kv[r] ? acc_v[n][2 * r + 1] : 0.f);
+          kv[r] ? acc_v[4 * n + 2 * r] : 0.f, kv[r] ? acc_v[4 * n + 2 * r + 1] : 0.f);
     }
   }
 }
@@ -529,8 +627,15 @@ extern "C" int flash_attention_bwd_dkv(BWD_ARGS, void* dk, void* dv, BWD_TAIL) {
   if (grid == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
-    if (dropout) dkv_bf16_kernel<true><<<grid, 128, 0, s>>>(p);
-    else dkv_bf16_kernel<false><<<grid, 128, 0, s>>>(p);
+    // above the 48 KB default: dynamic shared memory after the attribute
+    const cudaError_t attr = dropout
+        ? cudaFuncSetAttribute(dkv_bf16_kernel<true>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, kDkvSmem)
+        : cudaFuncSetAttribute(dkv_bf16_kernel<false>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, kDkvSmem);
+    if (attr != cudaSuccess) return static_cast<int>(attr);
+    if (dropout) dkv_bf16_kernel<true><<<grid, 128, kDkvSmem, s>>>(p);
+    else dkv_bf16_kernel<false><<<grid, 128, kDkvSmem, s>>>(p);
   } else {
     if (dropout) dkv_f32_kernel<true><<<grid, 128, 0, s>>>(p);
     else dkv_f32_kernel<false><<<grid, 128, 0, s>>>(p);

@@ -163,8 +163,11 @@ def strided_conv_fused(
         raise ValueError(f"strided_conv_fused kernel takes C <= {MAX_CHANNELS}, got {c}")
     t_out = (t_in - k) // 2 + 1
     x = x.contiguous()
+    if x.data_ptr() % 16:
+        raise ValueError("strided_conv_fused kernel needs a 16-byte aligned x (its tensor "
+                         "maps and vector loads)")
     # the GEMM's B operand: bf16 as [C_out, k*C_in] (rows along the
-    # contraction, read as the mma's column-major B), f32 as [k*C_in, C_out]
+    # contraction: the K-major B tile of wgmma), f32 as [k*C_in, C_out]
     wd = w.to(device=x.device, dtype=x.dtype)
     wk = wd.permute(2, 0, 1).reshape(c, k * c) if x.dtype == torch.bfloat16 else wd.reshape(k * c, c)
     wk = wk.contiguous()
