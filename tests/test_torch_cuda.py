@@ -1,6 +1,8 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the card:
 the attention forward (inference path, and with the LSE and dropout), the
-dq and dk/dv backward kernels, and the fused strided conv (f32 and bf16,
+dq and dk/dv backward kernels (in bf16 also at the shapes that stress the
+K/V pipeline: LARGE's 16 heads, a key tile of one valid key, long rows
+whose ring wraps), and the fused strided conv (f32 and bf16,
 ragged last tiles, bias + LayerNorm, with and without GELU, and its
 autograd Function).
 
@@ -137,6 +139,45 @@ def test_dkv_kernel_at_the_training_shapes(cuda, t, lengths, h, rate):
     _, want_dk, want_dv = fa.flash_attention_bwd_plain(*args)
     _close(dk, want_dk, valid, backward=True)
     _close(dv, want_dv, valid, backward=True)
+
+
+PIPELINE_CASES = [
+    (149, [149, 149, 120], 16),  # wav2vec2-LARGE's heads at the 3 s training length
+    (129, [129, 129], 2),  # two full key tiles plus a tile of one valid key
+    (1100, [1100, 1037], 2),  # 18 and 17 key tiles: the K/V ring wraps at both parities
+]
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("t, lengths, h", PIPELINE_CASES)
+def test_forward_and_dq_kernels_at_the_pipeline_shapes(cuda, t, lengths, h, rate):
+    """The forward (o and LSE) and dq kernels in bf16 at LARGE's head count,
+    at a key tile of one valid key and at long rows with an odd and an even
+    number of key tiles, against their plain versions."""
+    q, k, v, do, lens, valid = _inputs(cuda, torch.bfloat16, t, lengths, t + h, h)
+    seed = 13 if rate else None
+    before = (fa.flash_attention.launches, fa.flash_attention_bwd_dq.launches)
+    o, lse = fa.flash_attention_fwd(q, k, v, lens, rate, seed, return_lse=True)
+    args = (q, k, v, do, lse, fa.attention_delta(o, do), lens, rate, seed)
+    dq = fa.flash_attention_bwd_dq(*args)
+    torch.cuda.synchronize()
+    assert (fa.flash_attention.launches, fa.flash_attention_bwd_dq.launches) == (
+        before[0] + 1, before[1] + 1)
+    want_o, want_lse = fa.flash_attention_plain(q, k, v, lens, rate, seed, return_lse=True)
+    _close(o, want_o, valid, backward=False)
+    rows = valid[:, None, :].expand_as(lse)
+    torch.testing.assert_close(lse[rows], want_lse[rows], rtol=2e-4, atol=2e-5)
+    assert torch.all(lse[~rows] == 0)
+    _close(dq, fa.flash_attention_bwd_plain(*args)[0], valid, backward=True)
+
+
+@pytest.mark.parametrize("t, lengths, h", [(t, n, 2) for t, n in CASES] + PIPELINE_CASES)
+def test_inference_path_is_bit_equal_to_the_lse_path(cuda, t, lengths, h):
+    """At rate 0 the inference instantiation (no LSE, no hash) and the
+    training one (LSE) of the bf16 forward give the same bits."""
+    q, k, v, _, lens, _ = _inputs(cuda, torch.bfloat16, t, lengths, t, h)
+    o, _ = fa.flash_attention_fwd(q, k, v, lens, return_lse=True)
+    assert torch.equal(fa.flash_attention(q, k, v, lens), o)
 
 
 def test_autograd_through_the_kernels(cuda):

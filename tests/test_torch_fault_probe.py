@@ -1,7 +1,7 @@
 """Where the planted faults of ``tools/torch_fault_probe.py`` land in the
-kernel sources: every edit's text occurs in its source, and each conv and
-dk/dv mutant changes the bf16 path (the main path's kernel, its launch code
-or a helper it calls) as well as the f32 kernel. The probe itself needs the
+kernel sources: every edit's text occurs in its source, and each mutant
+changes the bf16 path (the main path's kernel, its launch code or a helper
+it calls) as well as the f32 kernel. The probe itself needs the
 card; this reads the sources only."""
 
 import importlib.util
@@ -16,6 +16,8 @@ CSRC = ROOT / "w2v2_speaker_tpu_torch" / "csrc"
 PATHS = {
     "conv": (("conv_encoder_bf16_kernel", "launch_bf16"), ("conv_encoder_f32_kernel",)),
     "dkv": (("dkv_bf16_kernel",), ("dkv_f32_kernel",)),
+    "fwd": (("fwd_bf16_kernel",), ("fwd_f32_kernel",)),
+    "dq": (("dq_bf16_kernel",), ("dq_f32_kernel",)),
 }
 
 

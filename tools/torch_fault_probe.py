@@ -11,13 +11,15 @@ first reading sits well under it and the second well over it.
   ``fa.kernel_tolerance`` used by the worst element of o, lse, dq, dk and
   dv), at the shapes of ``chip_smoke.ATTN_SHAPES``, in float32 and
   bfloat16, at dropout rates 0 and 0.1, for the kernels as built and for
-  mutants compiled into a temporary directory: the forward without the
-  boundary K/V tile mask or without the accumulator rescale; the dk/dv
-  kernels (the bf16 wgmma kernel and the f32 one) without the keep mask on
-  dP, or without the division of dk by log2 e; the dq kernel without its boundary handling (no key mask, and
-  the boundary tile loaded up to T instead of the length: with the tile's
-  keys past the length zero-filled, as the built kernel loads them, a
-  missing mask alone changes no dq, since those keys' rows of K are 0).
+  mutants compiled into a temporary directory, each planted in the bf16
+  (wgmma) and the f32 kernel: the forward without the boundary K/V tile
+  mask, without the accumulator rescale, or with the normalizer summing
+  the dropped P; the dk/dv kernels without the keep mask on dP, or
+  without the division of dk by log2 e; the dq kernel without its
+  boundary handling (no key mask, and the boundary tile loaded up to T
+  instead of the length: with the tile's keys past the length
+  zero-filled, as the built kernel loads them, a missing mask alone
+  changes no dq, since those keys' rows of K are 0).
 - The fused conv vs its plain version (``chip_smoke.conv_errors``: the
   share of ``ce.kernel_tolerance`` used by the worst element over the
   layers), at ``chip_smoke``'s ragged short inputs and the BASE (B=66) and
@@ -63,18 +65,25 @@ from w2v2_speaker_tpu_torch.runtime.predict import extract_embeddings  # noqa: E
 
 SEEDS = (0, 1, 2, 3)
 # (source, [(old, new)]): each old text must occur in the source; every
-# occurrence is replaced. The conv and dk/dv mutants plant their fault in
-# both the bf16 kernel (the main path's) and the f32 one
-# (tests/test_torch_fault_probe.py checks where each edit lands).
+# occurrence is replaced. Every mutant plants its fault in both the bf16
+# kernel (the main path's) and the f32 one (tests/test_torch_fault_probe.py
+# checks where each edit lands).
 MUTANTS = {
     "fwd_no_boundary_mask": ("flash_attention_fwd", [
-        ("    if (k0 + kBlockK > len) {  // boundary tile: mask keys >= len\n", "    if (false) {\n"),
+        ("if (k0 + kFwdBlockN > len) {  // boundary tile: mask keys >= len", "if (false) {"),
         ("s[jj] = j0 + jj < n_valid ? dot : -INFINITY;", "s[jj] = dot;"),
     ]),
     "fwd_no_acc_rescale": ("flash_attention_fwd", [
-        ("      acc[n][0] *= alpha[0];\n      acc[n][1] *= alpha[0];\n"
-         "      acc[n][2] *= alpha[1];\n      acc[n][3] *= alpha[1];\n", ""),
+        ("#pragma unroll\n        for (int i = 0; i < 32; ++i) acc[i] *= alpha[acc_half(i)];\n", ""),
         ("for (int d = 0; d < kD; ++d) acc[d] *= alpha;", ""),
+    ]),
+    "fwd_row_sum_after_dropout": ("flash_attention_fwd", [
+        ("#pragma unroll\n      for (int i = 0; i < kFwdBlockN / 2; ++i) rs[acc_half(i)] += s[i];"
+         "  // l sums the undropped P\n", ""),
+        ("      for (int r = 0; r < 2; ++r) l_run[r] = l_run[r] * alpha[r] + rs[r];\n",
+         "      for (int i = 0; i < kFwdBlockN / 2; ++i) rs[acc_half(i)] += s[i];\n#pragma unroll\n"
+         "      for (int r = 0; r < 2; ++r) l_run[r] = l_run[r] * alpha[r] + rs[r];\n"),
+        ("        rs += s[jj];\n", "        rs += kDrop ? p.drop.apply(s[jj], bh, row, k0 + j0 + jj) : s[jj];\n"),
     ]),
     "dkv_no_keep_mask_on_dp": ("flash_attention_bwd", [
         ("          dpv = kp ? dpv * p.drop.inv_keep : 0.f;\n", ""),
@@ -85,11 +94,11 @@ MUTANTS = {
         ("acc_k[d] /= kLog2e;", ""),
     ]),
     "dq_no_boundary_mask": ("flash_attention_bwd", [
-        ("const bool valid = rv[r] && (!boundary || key < len);", "const bool valid = rv[r];"),
-        ("load_tile_bf16(k_s, kg + k0 * p.k_st, p.k_st, len - k0, tid);",
-         "load_tile_bf16(k_s, kg + k0 * p.k_st, p.k_st, p.T - k0, tid);"),
-        ("load_tile_bf16(v_s, vg + k0 * p.v_st, p.v_st, len - k0, tid);",
-         "load_tile_bf16(v_s, vg + k0 * p.v_st, p.v_st, p.T - k0, tid);"),
+        ("const bool valid = live && rv[r] && (!boundary || key < len);", "const bool valid = live && rv[r];"),
+        ("cp_async_tile(dst, kg + k0 * p.k_st, p.k_st, len - k0, tid);",
+         "cp_async_tile(dst, kg + k0 * p.k_st, p.k_st, p.T - k0, tid);"),
+        ("cp_async_tile(dst + kTileBytes, vg + k0 * p.v_st, p.v_st, len - k0, tid);",
+         "cp_async_tile(dst + kTileBytes, vg + k0 * p.v_st, p.v_st, p.T - k0, tid);"),
         ("    const int n_valid = min(kBlockK, len - k0);\n    __syncthreads();\n"
          "    load_tile_f32(k_s,",
          "    const int n_valid = min(kBlockK, p.T - k0);\n    __syncthreads();\n"

@@ -24,21 +24,30 @@
 // training shape (B=66, T=149, bf16) both are bound by bytes (~0.02 ms);
 // at 30 s and longer by operations.
 //
-// Design. Two kernels and no atomics, so the gradients are deterministic:
-// - dq (first version): one block per (batch*head, 64-row q tile), four
-//   warps of 16 q rows; a loop over 64-row K/V tiles up to len, only the
-//   boundary tile masked. S = qs K^T and dP = dO V^T on the tensor cores
-//   (mma.sync m16n8k16, bf16 in, f32 accumulate); dZ built in the
-//   accumulator fragments, repacked in registers as the A operand of
-//   dQ += dZ K.
+// Design. Two kernels and no atomics, so the gradients are deterministic.
+// Both bf16 kernels are Hopper designs on 128-byte-swizzled tiles filled by
+// cp.async (16-byte chunks, rows past len zero-filled) and wgmma products
+// whose second operand comes from registers (flash_attention_common.cuh,
+// hopper.cuh):
+// - dq (redesigned for Hopper; the first version, mma.sync after
+//   synchronous tile loads with K read by scalar 16-bit shared loads, ran
+//   at 4x its bound): one warpgroup per (batch*head, 64-row q tile). The qs
+//   and dO tiles land once (qs = q * scale a pass over the landed tile),
+//   each thread's two rows of lse and D sit in registers, and the K/V tiles
+//   up to len are double-buffered: the next one is copied while this one
+//   computes, one barrier per tile, only the boundary tile masked.
+//   S = qs K^T and dP = dO V^T are wgmma m64n64k16 with K-major operands;
+//   dZ = P (dP keep / (1 - rate) - D), built in the accumulators and
+//   rounded to bf16 in registers, is the A operand of dQ += dZ K, whose B
+//   is the resident K tile read MN-major. The store is dQ / 8, rows past
+//   len 0.
 // - dk/dv (redesigned for Hopper; the first version, mma.sync fed by scalar
 //   16-bit shared loads after synchronous tile loads, ran at 6x its bound):
 //   one warpgroup per (batch*head, 64-key tile), a loop over q tiles that
 //   stops at len. K and V, then each q tile's q, dO, lse and D arrive by
-//   cp.async (16-byte chunks, rows past len zero-filled) into
-//   128-byte-swizzled tiles; the next q tile is copied into a second stage
-//   while the current one computes, and qs = q * scale is a pass over the
-//   landed tile. The transposed tiles S^T = K qs^T and dP^T = V dO^T are
+//   cp.async; the next q tile is copied into a second stage while the
+//   current one computes, and qs = q * scale is a pass over the landed
+//   tile. The transposed tiles S^T = K qs^T and dP^T = V dO^T are
 //   wgmma m64n64k16 with both operands K-major in shared memory, so the
 //   per-q lse and D lie along the accumulators' columns; P~^T and dZ^T,
 //   rounded to bf16 in registers, are the register A operands of
@@ -93,12 +102,21 @@ __device__ __forceinline__ const T* at(const void* base, long long sb,
 
 // ------------------------------------------------------------------- bf16
 
+// qs, dO, two stages of (K, V), 1 KB alignment slack
+constexpr int kDqSmem = 6 * kTileBytes + 1024;
+// k, v, two stages of (qs, dO), two of (lse, D), 1 KB alignment slack
+constexpr int kDkvSmem = 6 * kTileBytes + 4 * kBlockQ * 4 + 1024;
+
+// One warpgroup per (batch*head, 64-row q tile), looping over the K/V
+// tiles up to len; the next K/V tile arrives by cp.async in the other stage
+// while this one computes. Accumulator element i of every product is (q row
+// 16 warp + g + 8 acc_half(i), column acc_col(i, t4)).
 template <bool kDrop>
 __global__ void __launch_bounds__(128) dq_bf16_kernel(BwdParams p) {
-  __shared__ __align__(16) __nv_bfloat16 qs_s[kBlockQ * kLds];
-  __shared__ __align__(16) __nv_bfloat16 do_s[kBlockQ * kLds];
-  __shared__ __align__(16) __nv_bfloat16 k_s[kBlockK * kLds];
-  __shared__ __align__(16) __nv_bfloat16 v_s[kBlockK * kLds];
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = align_1024(smem_raw);
+  uint8_t* qs_s = smem;
+  uint8_t* do_s = smem + kTileBytes;  // stage s: K at 2 + 2 s, V at 3 + 2 s
 
   const int tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31;
@@ -124,17 +142,21 @@ __global__ void __launch_bounds__(128) dq_bf16_kernel(BwdParams p) {
     return;
   }
 
-  load_tile_bf16(qs_s, at<__nv_bfloat16>(p.q, p.q_sb, p.q_sh, b, h) + q0 * p.q_st,
-                 p.q_st, len - q0, tid, p.scale);
-  load_tile_bf16(do_s,
-                 at<__nv_bfloat16>(p.dout, p.do_sb, p.do_sh, b, h) + q0 * p.do_st,
-                 p.do_st, len - q0, tid);
-  __syncthreads();
-  uint32_t qa[4][4], da[4][4];
-  load_a_frags(qa, qs_s, warp * 16, g, t4);
-  load_a_frags(da, do_s, warp * 16, g, t4);
+  const __nv_bfloat16* kg = at<__nv_bfloat16>(p.k, p.k_sb, p.k_sh, b, h);
+  const __nv_bfloat16* vg = at<__nv_bfloat16>(p.v, p.v_sb, p.v_sh, b, h);
+  auto load_kv = [&](int k0, int stage) {
+    uint8_t* dst = smem + (2 + 2 * stage) * kTileBytes;
+    cp_async_tile(dst, kg + k0 * p.k_st, p.k_st, len - k0, tid);
+    cp_async_tile(dst + kTileBytes, vg + k0 * p.v_st, p.v_st, len - k0, tid);
+  };
+  cp_async_tile(qs_s, at<__nv_bfloat16>(p.q, p.q_sb, p.q_sh, b, h) + q0 * p.q_st, p.q_st,
+                len - q0, tid);
+  cp_async_tile(do_s, at<__nv_bfloat16>(p.dout, p.do_sb, p.do_sh, b, h) + q0 * p.do_st,
+                p.do_st, len - q0, tid);
+  load_kv(0, 0);
+  cp_async_commit();
 
-  // rows g and g + 8 of this warp: validity, lse, D
+  // rows 16 warp + g and + 8: validity, lse, D (read while the tiles land)
   int q_abs[2];
   bool rv[2];
   float lse[2], dlt[2];
@@ -146,36 +168,62 @@ __global__ void __launch_bounds__(128) dq_bf16_kernel(BwdParams p) {
     lse[r] = rv[r] ? p.lse[i] : 0.f;
     dlt[r] = rv[r] ? p.delta[i] : 0.f;
   }
-
-  float acc[8][4];
+  const bool live = q0 + warp * 16 < len;  // this warp has a valid row
+  float acc[32];
 #pragma unroll
-  for (int n = 0; n < 8; ++n)
+  for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+
+  cp_async_wait<0>();
+  prescale_tile(qs_s, tid, p.scale);
+  const uint64_t qs_desc = desc_k_major(qs_s), do_desc = desc_k_major(do_s);
+  const int n_k = (len + kBlockK - 1) / kBlockK;
+  for (int it = 0; it < n_k; ++it) {
+    const int k0 = it * kBlockK, stage = it & 1;
+    cp_async_wait<0>();  // this thread's copies of tile it landed
+    fence_proxy_async();
+    __syncthreads();  // every copy of tile it landed; every product of tile it - 1 is done
+    if (it + 1 < n_k) load_kv(k0 + kBlockK, stage ^ 1);
+    cp_async_commit();
+    const uint8_t* k_s = smem + (2 + 2 * stage) * kTileBytes;
+    const uint8_t* v_s = k_s + kTileBytes;
+
+    // S = qs K^T and dP = dO V^T, both operands K-major (the first step
+    // overwrites s and dp)
+    float s[32], dp[32];
+    const uint64_t k_desc = desc_k_major(k_s), v_desc = desc_k_major(v_s);
+    wgmma_fence();
 #pragma unroll
-    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
-
-  const __nv_bfloat16* kg = at<__nv_bfloat16>(p.k, p.k_sb, p.k_sh, b, h);
-  const __nv_bfloat16* vg = at<__nv_bfloat16>(p.v, p.v_sb, p.v_sh, b, h);
-  for (int k0 = 0; k0 < len; k0 += kBlockK) {
-    __syncthreads();  // the previous tile's readers are done
-    load_tile_bf16(k_s, kg + k0 * p.k_st, p.k_st, len - k0, tid);
-    load_tile_bf16(v_s, vg + k0 * p.v_st, p.v_st, len - k0, tid);
-    __syncthreads();
-
-    float s[8][4], dp[8][4];
-    mma_frags_tile_t(s, qa, k_s, g, t4);   // qs K^T
-    mma_frags_tile_t(dp, da, v_s, g, t4);  // dO V^T
+    for (int k16 = 0; k16 < 4; ++k16) {
+      wgmma_ss<64>(s, qs_desc + 2 * k16, k_desc + 2 * k16, k16);
+      wgmma_ss<64>(dp, do_desc + 2 * k16, v_desc + 2 * k16, k16);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(s);
+    fence_regs(dp);
     const bool boundary = k0 + kBlockK > len;
 #pragma unroll
-    for (int n = 0; n < 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = e >> 1, key = k0 + n * 8 + t4 * 2 + (e & 1);
-        const bool valid = rv[r] && (!boundary || key < len);
-        const float pv = valid ? exp2f(s[n][e] - lse[r]) : 0.f;
-        const float dpv = kDrop ? p.drop.apply(dp[n][e], bh, q_abs[r], key) : dp[n][e];
-        s[n][e] = pv * (dpv - dlt[r]);  // dZ
+    for (int i = 0; i < 32; ++i) {  // dZ; 0 off the valid (q, k) pairs
+      const int r = acc_half(i), key = k0 + acc_col(i, t4);
+      const bool valid = live && rv[r] && (!boundary || key < len);
+      float dz = 0.f;
+      if (valid) {
+        const float dpv = kDrop ? p.drop.apply(dp[i], bh, q_abs[r], key) : dp[i];
+        dz = exp2_approx(s[i] - lse[r]) * (dpv - dlt[r]);
       }
-    mma_frags_tile(acc, s, k_s, g, t4);  // dQ += dZ K
+      s[i] = dz;
+    }
+
+    // dQ += dZ K: dZ from registers, 16 keys a step; K (resident) read MN-major
+    uint32_t za[4][4];
+    pack_a_operands<64>(za, s);
+    const uint64_t k_mn = desc_mn_major(k_s);
+    wgmma_fence();
+#pragma unroll
+    for (int k16 = 0; k16 < 4; ++k16) wgmma_rs64_mn(acc, za[k16], k_mn + 128 * k16, 1);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(acc);
   }
 
 #pragma unroll
@@ -186,44 +234,8 @@ __global__ void __launch_bounds__(128) dq_bf16_kernel(BwdParams p) {
 #pragma unroll
     for (int n = 0; n < 8; ++n)
       *reinterpret_cast<__nv_bfloat162*>(out + n * 8) = __floats2bfloat162_rn(
-          rv[r] ? acc[n][2 * r] * kDqScale : 0.f,
-          rv[r] ? acc[n][2 * r + 1] * kDqScale : 0.f);
-  }
-}
-
-constexpr int kTileBytes = 64 * 128;  // a 64 x 64 bf16 tile of 128-byte rows
-// k, v, two stages of (qs, dO), two of (lse, D), 1 KB alignment slack
-constexpr int kDkvSmem = 6 * kTileBytes + 4 * kBlockQ * 4 + 1024;
-
-// 64 rows x 64 bf16 (row stride `st` elements) by cp.async into a
-// 128-byte-swizzled tile; rows >= n_rows (>= 1) zero-filled. 128 threads,
-// 4 x 16 B each: thread tid moves chunks tid + 128 i.
-__device__ __forceinline__ void cp_async_tile(uint8_t* dst, const __nv_bfloat16* src,
-                                              long long st, int n_rows, int tid) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int c = tid + i * 128;
-    const int r = c >> 3, chunk = c & 7;
-    const bool ok = r < n_rows;
-    cp_async_16(dst + sw128_offset(r, chunk), ok ? src + r * st + chunk * 8 : src, ok);
-  }
-}
-
-// q * scale rounded to bf16 again (qs), in place, on the chunks this thread
-// copied into the swizzled tile (as load_tile_bf16 scales)
-__device__ __forceinline__ void prescale_tile(uint8_t* tile, int tid, float scale) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int c = tid + i * 128;
-    uint4* chunk = reinterpret_cast<uint4*>(tile + sw128_offset(c >> 3, c & 7));
-    uint4 val = *chunk;
-    __nv_bfloat162* e = reinterpret_cast<__nv_bfloat162*>(&val);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const float2 f = __bfloat1622float2(e[j]);
-      e[j] = __floats2bfloat162_rn(f.x * scale, f.y * scale);
-    }
-    *chunk = val;
+          rv[r] ? acc[4 * n + 2 * r] * kDqScale : 0.f,
+          rv[r] ? acc[4 * n + 2 * r + 1] * kDqScale : 0.f);
   }
 }
 
@@ -234,8 +246,7 @@ __device__ __forceinline__ void prescale_tile(uint8_t* tile, int tid, float scal
 template <bool kDrop>
 __global__ void __launch_bounds__(128) dkv_bf16_kernel(BwdParams p) {
   extern __shared__ uint8_t smem_raw[];
-  // the swizzled tiles need 1024-byte alignment
-  uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint8_t* smem = align_1024(smem_raw);
   uint8_t* k_s = smem;
   uint8_t* v_s = smem + kTileBytes;
   float* lse_s = reinterpret_cast<float*>(smem + 6 * kTileBytes);  // [2][kBlockQ]
@@ -350,13 +361,8 @@ __global__ void __launch_bounds__(128) dkv_bf16_kernel(BwdParams p) {
     // dV += P~^T dO and dK += dZ^T qs: A from registers (16 queries a step,
     // all packed before the first product), B the same tiles read MN-major
     uint32_t pa[4][4], za[4][4];
-#pragma unroll
-    for (int k16 = 0; k16 < 4; ++k16)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        pa[k16][j] = pack_bf16(st[8 * k16 + 2 * j], st[8 * k16 + 2 * j + 1]);
-        za[k16][j] = pack_bf16(dpt[8 * k16 + 2 * j], dpt[8 * k16 + 2 * j + 1]);
-      }
+    pack_a_operands<64>(pa, st);
+    pack_a_operands<64>(za, dpt);
     const uint64_t qs_mn = desc_mn_major(qs_s), do_mn = desc_mn_major(do_s);
     wgmma_fence();
 #pragma unroll
@@ -608,8 +614,11 @@ extern "C" int flash_attention_bwd_dq(BWD_ARGS, void* dq, BWD_TAIL) {
   if (grid == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
-    if (dropout) dq_bf16_kernel<true><<<grid, 128, 0, s>>>(p);
-    else dq_bf16_kernel<false><<<grid, 128, 0, s>>>(p);
+    void (*kernel)(BwdParams) = dropout ? dq_bf16_kernel<true> : dq_bf16_kernel<false>;
+    const cudaError_t attr =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kDqSmem);
+    if (attr != cudaSuccess) return static_cast<int>(attr);
+    kernel<<<grid, 128, kDqSmem, s>>>(p);
   } else {
     if (dropout) dq_f32_kernel<true><<<grid, 128, 0, s>>>(p);
     else dq_f32_kernel<false><<<grid, 128, 0, s>>>(p);
@@ -627,15 +636,12 @@ extern "C" int flash_attention_bwd_dkv(BWD_ARGS, void* dk, void* dv, BWD_TAIL) {
   if (grid == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
+    void (*kernel)(BwdParams) = dropout ? dkv_bf16_kernel<true> : dkv_bf16_kernel<false>;
     // above the 48 KB default: dynamic shared memory after the attribute
-    const cudaError_t attr = dropout
-        ? cudaFuncSetAttribute(dkv_bf16_kernel<true>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, kDkvSmem)
-        : cudaFuncSetAttribute(dkv_bf16_kernel<false>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, kDkvSmem);
+    const cudaError_t attr =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kDkvSmem);
     if (attr != cudaSuccess) return static_cast<int>(attr);
-    if (dropout) dkv_bf16_kernel<true><<<grid, 128, kDkvSmem, s>>>(p);
-    else dkv_bf16_kernel<false><<<grid, 128, kDkvSmem, s>>>(p);
+    kernel<<<grid, 128, kDkvSmem, s>>>(p);
   } else {
     if (dropout) dkv_f32_kernel<true><<<grid, 128, 0, s>>>(p);
     else dkv_f32_kernel<false><<<grid, 128, 0, s>>>(p);

@@ -1,6 +1,7 @@
 // Pieces shared by the flash-attention kernels (flash_attention_fwd.cu,
-// flash_attention_bwd.cu): tile geometry, the bf16 tensor-core product,
-// tile loads, and the counter-hash dropout of
+// flash_attention_bwd.cu): tile geometry, the bf16 tile copies into
+// 128-byte-swizzled shared memory (cp.async) with the qs prescale, the
+// wgmma accumulator layout, and the counter-hash dropout of
 // w2v2_speaker_tpu/ops/flash_attention.py::_dropout_keep (:83).
 #pragma once
 
@@ -8,12 +9,14 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace {
 
 constexpr int kD = 64;
 constexpr int kBlockQ = 64;
 constexpr int kBlockK = 64;
-constexpr int kLds = kD + 8;  // padded shared-memory row stride (bf16)
+constexpr int kTileBytes = 64 * 128;  // a 64 x 64 bf16 tile of 128-byte rows
 
 __device__ __forceinline__ int clamp_length(const int* lengths, int b, int T) {
   return lengths ? min(max(lengths[b], 0), T) : T;
@@ -24,108 +27,81 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-__device__ __forceinline__ uint32_t pack_raw(uint16_t lo, uint16_t hi) {
-  return static_cast<uint32_t>(lo) | (static_cast<uint32_t>(hi) << 16);
+// The smem base of a kernel's dynamic shared memory, rounded up to the
+// 1024-byte alignment of the swizzled tiles (the kernels ask for 1 KB of
+// slack).
+__device__ __forceinline__ uint8_t* align_1024(uint8_t* raw) {
+  return raw + ((1024 - (smem_u32(raw) & 1023)) & 1023);
 }
 
-// D = A(16x16, row) * B(16x8, col) + D, bf16 inputs, f32 accumulators.
-// Fragments (g = lane / 4, t4 = lane % 4): a0 = A[g][2t4..], a1 = A[g+8][2t4..],
-// a2 = A[g][2t4+8..], a3 = A[g+8][2t4+8..]; b0 = B[2t4..][g], b1 = B[2t4+8..][g];
-// c0, c1 = C[g][2t4..], c2, c3 = C[g+8][2t4..].
-__device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+// kRows rows x 64 bf16 (row stride `st` elements) by cp.async into a
+// 128-byte-swizzled tile; rows >= n_rows (>= 1) are zero-filled, their
+// source address row 0's (legal, not read). kThreads threads: thread tid
+// moves the 16-byte chunks tid + kThreads i.
+template <int kRows = 64, int kThreads = 128>
+__device__ __forceinline__ void cp_async_tile(uint8_t* dst, const __nv_bfloat16* src,
+                                              long long st, int n_rows, int tid) {
+  constexpr int kChunks = kRows * 8;
+#pragma unroll
+  for (int i = 0; i < (kChunks + kThreads - 1) / kThreads; ++i) {
+    const int c = tid + i * kThreads;
+    if (kChunks % kThreads == 0 || c < kChunks) {
+      const int r = c >> 3, chunk = c & 7;
+      const bool ok = r < n_rows;
+      cp_async_16(dst + sw128_offset(r, chunk), ok ? src + r * st + chunk * 8 : src, ok);
+    }
+  }
 }
 
-// 64 rows x 64 bf16 from global (row stride `st` elements) into padded
-// shared memory; rows >= n_rows are zero-filled. With `scale` != 0 each value
-// is multiplied by it and rounded to bf16 again (the prescaled qs). 128
-// threads, 16 B each.
-__device__ __forceinline__ void load_tile_bf16(__nv_bfloat16* dst,
-                                               const __nv_bfloat16* src,
-                                               long long st, int n_rows,
-                                               int tid, float scale = 0.f) {
+// q * scale rounded to bf16 again (qs = q * bf16(d^-0.5 log2 e)), in place,
+// on the chunks thread tid (of 128) copied into a 64-row swizzled tile with
+// cp_async_tile; after cp_async_wait, before fence_proxy_async
+__device__ __forceinline__ void prescale_tile(uint8_t* tile, int tid, float scale) {
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int c = tid + i * 128;
-    const int r = c >> 3;
-    const int col = (c & 7) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (r < n_rows) {
-      val = *reinterpret_cast<const uint4*>(src + r * st + col);
-      if (scale != 0.f) {
-        __nv_bfloat162* e = reinterpret_cast<__nv_bfloat162*>(&val);
+    uint4* chunk = reinterpret_cast<uint4*>(tile + sw128_offset(c >> 3, c & 7));
+    uint4 val = *chunk;
+    __nv_bfloat162* e = reinterpret_cast<__nv_bfloat162*>(&val);
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const float2 f = __bfloat1622float2(e[j]);
-          e[j] = __floats2bfloat162_rn(f.x * scale, f.y * scale);
-        }
-      }
+    for (int j = 0; j < 4; ++j) {
+      const float2 f = __bfloat1622float2(e[j]);
+      e[j] = __floats2bfloat162_rn(f.x * scale, f.y * scale);
     }
-    *reinterpret_cast<uint4*>(dst + r * kLds + col) = val;
+    *chunk = val;
   }
 }
 
-// The A fragments of 16 rows (row0 .. row0 + 15) x 64 columns of a padded
-// bf16 tile, one per 16-wide step along the 64 columns.
-__device__ __forceinline__ void load_a_frags(uint32_t a[4][4],
-                                             const __nv_bfloat16* tile,
-                                             int row0, int g, int t4) {
-  const __nv_bfloat16* base = tile + (row0 + g) * kLds + t4 * 2;
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    a[kk][0] = *reinterpret_cast<const uint32_t*>(base + kk * 16);
-    a[kk][1] = *reinterpret_cast<const uint32_t*>(base + 8 * kLds + kk * 16);
-    a[kk][2] = *reinterpret_cast<const uint32_t*>(base + kk * 16 + 8);
-    a[kk][3] = *reinterpret_cast<const uint32_t*>(base + 8 * kLds + kk * 16 + 8);
-  }
+// 2^x on the special-function unit, subnormal results flushed to 0 (the
+// scores' exponents are <= 0; a flushed term is below 2^-126 of the row's
+// largest)
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
 }
 
-// acc[16 x 64] += A[16 x 64] * B[64 x 64] where A is given as the eight
-// 16x8 accumulator fragments x[n] of a product over 64 columns (repacked in
-// registers as A operands, rounded to bf16) and B is a padded bf16 tile read
-// down its rows: B[k][n] = tile[k][n].
-__device__ __forceinline__ void mma_frags_tile(float acc[8][4],
-                                               const float x[8][4],
-                                               const __nv_bfloat16* tile,
-                                               int g, int t4) {
-  const uint16_t* raw = reinterpret_cast<const uint16_t*>(tile);
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    uint32_t a[4];
-    a[0] = pack_bf16(x[2 * kk][0], x[2 * kk][1]);
-    a[1] = pack_bf16(x[2 * kk][2], x[2 * kk][3]);
-    a[2] = pack_bf16(x[2 * kk + 1][0], x[2 * kk + 1][1]);
-    a[3] = pack_bf16(x[2 * kk + 1][2], x[2 * kk + 1][3]);
-    const uint16_t* br = raw + (kk * 16 + t4 * 2) * kLds + g;
-#pragma unroll
-    for (int n = 0; n < 8; ++n) {
-      const uint16_t* c = br + n * 8;
-      mma_bf16(acc[n], a, pack_raw(c[0], c[kLds]),
-               pack_raw(c[8 * kLds], c[9 * kLds]));
-    }
-  }
+// Accumulator element i of a wgmma m64nN product (hopper.cuh) lies in row
+// 16 warp + g + 8 acc_half(i) and column acc_col(i, t4) (g = lane / 4, t4 =
+// lane % 4): the rows and columns of the m16n8 fragments of mma.sync, so
+// the dropout coordinates of every element are those of the first kernels.
+__device__ __forceinline__ int acc_half(int i) { return (i >> 1) & 1; }
+
+__device__ __forceinline__ int acc_col(int i, int t4) {
+  return 8 * (i >> 2) + 2 * t4 + (i & 1);
 }
 
-// x[16 x 64] = A[16 x 64] * tile^T, with A given as fragments a (from
-// load_a_frags) and tile a padded bf16 64 x 64 tile: x[i][j] = A[i] . tile[j].
-__device__ __forceinline__ void mma_frags_tile_t(float x[8][4],
-                                                 const uint32_t a[4][4],
-                                                 const __nv_bfloat16* tile,
-                                                 int g, int t4) {
+// The register A operand of a 16-key step k16 of `O += P V` or `dQ += dZ K`
+// from the first product's accumulators x (64 rows x N keys), rounded to
+// bf16; all steps are packed before the first product (else ptxas fences
+// between the products, C7519)
+template <int kN>
+__device__ __forceinline__ void pack_a_operands(uint32_t (&a)[kN / 16][4],
+                                                const float (&x)[kN / 2]) {
 #pragma unroll
-  for (int n = 0; n < 8; ++n) {
-    x[n][0] = x[n][1] = x[n][2] = x[n][3] = 0.f;
-    const __nv_bfloat16* r = tile + (n * 8 + g) * kLds + t4 * 2;
+  for (int k16 = 0; k16 < kN / 16; ++k16)
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
-      mma_bf16(x[n], a[kk], *reinterpret_cast<const uint32_t*>(r + kk * 16),
-               *reinterpret_cast<const uint32_t*>(r + kk * 16 + 8));
-  }
+    for (int j = 0; j < 4; ++j) a[k16][j] = pack_bf16(x[8 * k16 + 2 * j], x[8 * k16 + 2 * j + 1]);
 }
 
 // Attention-prob dropout: keep where the murmur3 finalizer of

@@ -22,27 +22,42 @@
 //   is >= thresh; the normalizer l sums the undropped P (:249-257). The
 //   inference path (no dropout) is a separate instantiation with no hash.
 //
-// Bound at the main path's shapes (H100 SXM: 989 TFLOP/s bf16 dense,
-// 3.35 TB/s HBM). FLOPs = 4 * H * D * sum_b len_b^2; bytes = q, k, v valid
-// rows read once + o written once.
-//   B=48, T=149 (3 s clips): 3.3 GFLOP, 44 MB  -> memory-bound, ~13 us.
-//   B=8,  T=1500 (30 s):     55 GFLOP, 74 MB  -> compute-bound, ~56 us.
+// Bound (H100 SXM: 989 TFLOP/s bf16 dense, 3.35 TB/s HBM). FLOPs = 4 * H *
+// D * sum_b len_b^2; bytes = q, k, v valid rows read once + o (and the f32
+// lse) written once. LARGE training (B=48, T=149, H=16): bytes, ~0.018 ms;
+// a 64 s utterance pair (B=2, T=3200, H=12): operations, ~0.058 ms. At D=64
+// the exp2 of every score costs as much on the SM's 16 special-function
+// lanes as the two products on the tensor cores.
 //
-// Design (first version: right and simple; no TMA, no wgmma yet):
-// - one thread block per (batch*head, 64-row q tile); a tile whose first row
-//   is >= len writes zeros and returns without touching k or v;
-// - a loop over 64-row K/V tiles only up to len: tiles past the length are
-//   neither loaded nor computed, and only the boundary tile is masked;
-// - K/V tiles staged in shared memory (rows padded by 8 elements so the
-//   fragment reads are bank-conflict free), rows >= len zero-filled;
-// - bf16: four warps, each owns 16 q rows; S = Qs K^T and O += P V run on the
-//   tensor cores as mma.sync m16n8k16 (bf16 in, f32 accumulate); the S
-//   accumulator fragment is re-packed in registers as the A operand of P V
-//   (P rounded to bf16, the row sum kept from the f32 P, as _fwd_kernel does);
-// - f32: one thread per q row, scalar f32 FMAs (the tensor cores have no
-//   full-f32 product; TF32 would miss the f32 tolerance of the reference
-//   tests), K/V rows read as shared-memory broadcasts;
-// - running max, sum and accumulator in f32 registers.
+// Design, bf16 (redesigned for Hopper; the first version -- mma.sync fed by
+// synchronous tile loads and scalar 16-bit shared loads of V -- ran at 4x
+// its bound and lost to SDPA at 64 s):
+// - a block of kFwdWarpgroups warpgroups (128 threads each) per (batch*head,
+//   64 * kFwdWarpgroups q rows); a warpgroup owns 64 q rows, a block whose
+//   first row is >= len writes zeros and touches no K or V, a warpgroup
+//   whose first row is >= len writes zeros and only helps with the copies;
+// - each warpgroup's q tile lands once by cp.async in a 128-byte-swizzled
+//   tile, then the prescale pass rounds qs = q * scale to bf16 in place;
+// - K/V tiles of kFwdBlockN keys arrive by cp.async (16-byte chunks, rows
+//   past len zero-filled) in a ring of kFwdStages stages shared by the
+//   warpgroups: tile it + kFwdStages - 1 is in flight while tile it
+//   computes, one barrier per tile; tiles past len are neither loaded nor
+//   computed, and only the boundary tile is masked;
+// - S = qs K^T is wgmma m64nNk16 with both operands K-major in shared
+//   memory; the online softmax (running max, f32 row sums of the undropped
+//   P, dropout after the sum) runs on the accumulators, whose (row, column)
+//   per element are the mma.sync fragments' (acc_half, acc_col);
+// - P, rounded to bf16 and packed in registers, is the A operand of
+//   O += P V, whose B is the V tile read MN-major (wgmma_rs64_mn);
+// - overlap of one tile's softmax with another's products comes from the
+//   several blocks an SM holds, not from within a block.
+// The kept geometry (warpgroups, keys per tile, stages) is the fastest of
+// the variants timed by tools/torch_attention_variants.py (PERF.md).
+//
+// f32: one thread per q row, scalar f32 FMAs (the tensor cores have no
+// full-f32 product; TF32 would miss the f32 tolerance of the reference
+// tests), K/V rows read as shared-memory broadcasts; running max, sum and
+// accumulator in f32 registers (the first version, unchanged).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -50,8 +65,18 @@
 #include <stdint.h>
 
 #include "flash_attention_common.cuh"
+#include "hopper.cuh"
 
 namespace {
+
+constexpr int kFwdWarpgroups = 1;  // warpgroups a block, 64 q rows each
+constexpr int kFwdBlockN = 64;     // keys a K/V tile
+constexpr int kFwdStages = 2;      // K/V tiles in the ring
+constexpr int kFwdThreads = 128 * kFwdWarpgroups;
+constexpr int kFwdRows = 64 * kFwdWarpgroups;  // q rows a block
+constexpr int kKvBytes = kFwdBlockN * 128;     // one K or V tile
+// the warpgroups' q tiles, the ring of (K, V), 1 KB alignment slack
+constexpr int kFwdSmem = kFwdWarpgroups * kTileBytes + kFwdStages * 2 * kKvBytes + 1024;
 
 struct Params {
   const void* q;
@@ -63,7 +88,7 @@ struct Params {
   long long q_sb, q_st, q_sh;
   long long k_sb, k_st, k_sh;
   long long v_sb, v_st, v_sh;
-  int B, T, H, n_qt;
+  int B, T, H, n_qt;   // n_qt: q tiles (blocks) per batch*head
   float scale;  // d^-0.5 * log2(e), already rounded to the input type
   Dropout drop;
 };
@@ -72,132 +97,157 @@ __device__ __forceinline__ int row_length(const Params& p, int b) {
   return clamp_length(p.lengths, b, p.T);
 }
 
+// zeros in the 64 o rows (and lse entries) from q0 on, below T; 128 threads
+__device__ __forceinline__ void write_zero_rows(__nv_bfloat16* o, long long o_st, float* lse,
+                                                int q0, int T, int wtid) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int c = wtid + i * 128;
+    const int r = c >> 3;
+    if (q0 + r < T)
+      *reinterpret_cast<uint4*>(o + r * o_st + (c & 7) * 8) = make_uint4(0u, 0u, 0u, 0u);
+  }
+  if (lse && wtid < 64 && q0 + wtid < T) lse[q0 + wtid] = 0.f;
+}
+
 template <bool kDrop>
-__global__ void __launch_bounds__(128) fwd_bf16_kernel(Params p) {
-  __shared__ __align__(16) __nv_bfloat16 qs_s[kBlockQ * kLds];
-  __shared__ __align__(16) __nv_bfloat16 k_s[kBlockK * kLds];
-  __shared__ __align__(16) __nv_bfloat16 v_s[kBlockK * kLds];
+__global__ void __launch_bounds__(kFwdThreads) fwd_bf16_kernel(Params p) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = align_1024(smem_raw);
+  uint8_t* kv_s = smem + kFwdWarpgroups * kTileBytes;  // stage s: K at 2 s, V at 2 s + 1
 
   const int tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31;
+  const int wg = tid >> 7, wtid = tid & 127;
+  const int warp = wtid >> 5, lane = tid & 31;
   const int g = lane >> 2, t4 = lane & 3;
   const int bh = blockIdx.x / p.n_qt;
-  const int q0 = (blockIdx.x % p.n_qt) * kBlockQ;
   const int b = bh / p.H, h = bh % p.H;
   const int len = row_length(p, b);
+  const int block_q0 = (blockIdx.x % p.n_qt) * kFwdRows;
+  const int q0 = block_q0 + wg * 64;  // this warpgroup's first row
   const long long o_st = static_cast<long long>(p.H) * kD;
   __nv_bfloat16* o = static_cast<__nv_bfloat16*>(p.o) +
                      (static_cast<long long>(b) * p.T + q0) * o_st +
                      static_cast<long long>(h) * kD;
+  float* lse = p.lse ? p.lse + static_cast<long long>(bh) * p.T : nullptr;
 
-  if (q0 >= len) {  // fully padded q tile: zeros, no K/V traffic
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int c = tid + i * 128;
-      const int r = c >> 3;
-      if (q0 + r < p.T)
-        *reinterpret_cast<uint4*>(o + r * o_st + (c & 7) * 8) =
-            make_uint4(0u, 0u, 0u, 0u);
-    }
-    if (p.lse && tid < kBlockQ && q0 + tid < p.T)
-      p.lse[static_cast<long long>(bh) * p.T + q0 + tid] = 0.f;
+  if (block_q0 >= len) {  // fully padded block: zeros, no K/V traffic
+    write_zero_rows(o, o_st, lse, q0, p.T, wtid);
     return;
   }
+  const bool active = q0 < len;  // else this warpgroup's rows are padding
 
-  // Q tile, prescaled and rounded to bf16 (qs = q * scale in the input type),
-  // and this warp's 16 rows of it as mma A fragments
-  load_tile_bf16(qs_s,
-                 static_cast<const __nv_bfloat16*>(p.q) + b * p.q_sb +
-                     q0 * p.q_st + h * p.q_sh,
-                 p.q_st, p.T - q0, tid, p.scale);
-  __syncthreads();
-  uint32_t qa[4][4];
-  load_a_frags(qa, qs_s, warp * 16, g, t4);
-
-  float m_run[2] = {-INFINITY, -INFINITY};  // rows g and g + 8
-  float l_run[2] = {0.f, 0.f};              // this thread's partial row sums
-  float acc[8][4];
+  const __nv_bfloat16* kg = static_cast<const __nv_bfloat16*>(p.k) + b * p.k_sb + h * p.k_sh;
+  const __nv_bfloat16* vg = static_cast<const __nv_bfloat16*>(p.v) + b * p.v_sb + h * p.v_sh;
+  auto load_kv = [&](int tile, int stage) {
+    const int k0 = tile * kFwdBlockN;
+    uint8_t* dst = kv_s + stage * 2 * kKvBytes;
+    cp_async_tile<kFwdBlockN, kFwdThreads>(dst, kg + k0 * p.k_st, p.k_st, len - k0, tid);
+    cp_async_tile<kFwdBlockN, kFwdThreads>(dst + kKvBytes, vg + k0 * p.v_st, p.v_st, len - k0, tid);
+  };
+  uint8_t* qs_s = smem + wg * kTileBytes;
+  if (active)
+    cp_async_tile(qs_s,
+                  static_cast<const __nv_bfloat16*>(p.q) + b * p.q_sb + q0 * p.q_st + h * p.q_sh,
+                  p.q_st, len - q0, wtid);
+  const int n_k = (len + kFwdBlockN - 1) / kFwdBlockN;
 #pragma unroll
-  for (int n = 0; n < 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  for (int s = 0; s < kFwdStages - 1; ++s) {  // q rides in the first group
+    if (s < n_k) load_kv(s, s);
+    cp_async_commit();
+  }
+  cp_async_wait<kFwdStages - 2>();  // q (and K/V tile 0) landed
+  if (active) prescale_tile(qs_s, wtid, p.scale);
 
-  const __nv_bfloat16* kg = static_cast<const __nv_bfloat16*>(p.k) +
-                            b * p.k_sb + h * p.k_sh;
-  const __nv_bfloat16* vg = static_cast<const __nv_bfloat16*>(p.v) +
-                            b * p.v_sb + h * p.v_sh;
-
-  for (int k0 = 0; k0 < len; k0 += kBlockK) {
-    __syncthreads();  // the previous tile's readers are done
-    load_tile_bf16(k_s, kg + k0 * p.k_st, p.k_st, len - k0, tid);
-    load_tile_bf16(v_s, vg + k0 * p.v_st, p.v_st, len - k0, tid);
-    __syncthreads();
-
-    // S = qs K^T for 16 rows x 64 keys: s[n] holds keys n*8 + t4*2 + {0,1}
-    // of rows g ({0,1}) and g + 8 ({2,3})
-    float s[8][4];
-    mma_frags_tile_t(s, qa, k_s, g, t4);
-    if (k0 + kBlockK > len) {  // boundary tile: mask keys >= len
+  const int q_row = q0 + warp * 16 + g;  // this thread's rows: q_row, q_row + 8
+  const bool live = q0 + warp * 16 < len;  // this warp has a valid row
+  float m_run[2] = {-INFINITY, -INFINITY};
+  float l_run[2] = {0.f, 0.f};  // this thread's share of the row sums
+  float acc[32];
 #pragma unroll
-      for (int n = 0; n < 8; ++n)
+  for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+  const uint64_t q_desc = desc_k_major(qs_s);
+
+  for (int it = 0; it < n_k; ++it) {
+    const int k0 = it * kFwdBlockN;
+    cp_async_wait<kFwdStages - 2>();  // this thread's copies of tile it landed
+    fence_proxy_async();
+    __syncthreads();  // every copy of tile it landed; every product of tile it - 1 is done
+    if (it + kFwdStages - 1 < n_k) load_kv(it + kFwdStages - 1, (it + kFwdStages - 1) % kFwdStages);
+    cp_async_commit();
+    if (!active) continue;
+    const uint8_t* k_s = kv_s + (it % kFwdStages) * 2 * kKvBytes;
+    const uint8_t* v_s = k_s + kKvBytes;
+
+    // S = qs K^T: 64 rows x kFwdBlockN keys (the first step overwrites s)
+    float s[kFwdBlockN / 2];
+    const uint64_t k_desc = desc_k_major(k_s);
+    wgmma_fence();
 #pragma unroll
-        for (int e = 0; e < 2; ++e)
-          if (k0 + n * 8 + t4 * 2 + e >= len) {
-            s[n][e] = -INFINITY;
-            s[n][e + 2] = -INFINITY;
+    for (int k16 = 0; k16 < 4; ++k16) wgmma_ss<kFwdBlockN>(s, q_desc + 2 * k16, k_desc + 2 * k16, k16);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(s);
+
+    if (live) {
+      if (k0 + kFwdBlockN > len) {  // boundary tile: mask keys >= len
+#pragma unroll
+        for (int i = 0; i < kFwdBlockN / 2; ++i)
+          if (k0 + acc_col(i, t4) >= len) s[i] = -INFINITY;
+      }
+      // online softmax in exp2; key k0 is valid, so each row max is finite
+      float mx[2] = {m_run[0], m_run[1]};
+#pragma unroll
+      for (int i = 0; i < kFwdBlockN / 2; ++i) mx[acc_half(i)] = fmaxf(mx[acc_half(i)], s[i]);
+      float alpha[2], rs[2] = {0.f, 0.f};
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        alpha[r] = exp2_approx(m_run[r] - mx[r]);
+        m_run[r] = mx[r];
+      }
+#pragma unroll
+      for (int i = 0; i < kFwdBlockN / 2; ++i) s[i] = exp2_approx(s[i] - mx[acc_half(i)]);
+#pragma unroll
+      for (int i = 0; i < kFwdBlockN / 2; ++i) rs[acc_half(i)] += s[i];  // l sums the undropped P
+      if (kDrop) {  // hashes only for 8-key groups below len (P is 0 past it)
+#pragma unroll
+        for (int n = 0; n < kFwdBlockN / 8; ++n)
+          if (k0 + 8 * n < len) {
+#pragma unroll
+            for (int i = 4 * n; i < 4 * n + 4; ++i)
+              s[i] = p.drop.apply(s[i], bh, q_row + 8 * acc_half(i), k0 + acc_col(i, t4));
           }
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) l_run[r] = l_run[r] * alpha[r] + rs[r];
+      // rescale O to the new max where it moved (a factor of 1 changes no bit)
+      if (__any_sync(0xffffffffu, alpha[0] != 1.f || alpha[1] != 1.f)) {
+#pragma unroll
+        for (int i = 0; i < 32; ++i) acc[i] *= alpha[acc_half(i)];
+      }
+    } else {  // a warp of padded rows: P = 0, its outputs are zeros
+#pragma unroll
+      for (int i = 0; i < kFwdBlockN / 2; ++i) s[i] = 0.f;
     }
 
-    // online softmax in exp2; key k0 is valid, so each row max is finite
-    float mx[2] = {m_run[0], m_run[1]};
+    // O += P V: P from registers, 16 keys a step; V read MN-major
+    uint32_t pa[kFwdBlockN / 16][4];
+    pack_a_operands<kFwdBlockN>(pa, s);
+    const uint64_t v_desc = desc_mn_major(v_s);
+    wgmma_fence();
 #pragma unroll
-    for (int n = 0; n < 8; ++n) {
-      mx[0] = fmaxf(mx[0], fmaxf(s[n][0], s[n][1]));
-      mx[1] = fmaxf(mx[1], fmaxf(s[n][2], s[n][3]));
-    }
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-    }
-    float alpha[2], rs[2] = {0.f, 0.f};
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      alpha[r] = exp2f(m_run[r] - mx[r]);
-      m_run[r] = mx[r];
-    }
-#pragma unroll
-    for (int n = 0; n < 8; ++n) {
-      s[n][0] = exp2f(s[n][0] - mx[0]);
-      s[n][1] = exp2f(s[n][1] - mx[0]);
-      s[n][2] = exp2f(s[n][2] - mx[1]);
-      s[n][3] = exp2f(s[n][3] - mx[1]);
-      rs[0] += s[n][0] + s[n][1];
-      rs[1] += s[n][2] + s[n][3];
-    }
-#pragma unroll
-    for (int r = 0; r < 2; ++r) l_run[r] = l_run[r] * alpha[r] + rs[r];
-    if (kDrop) {  // drop after the row sum: l keeps the undropped P
-      const int q_abs = q0 + warp * 16 + g;
-#pragma unroll
-      for (int n = 0; n < 8; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          s[n][e] = p.drop.apply(s[n][e], bh, q_abs + (e >> 1) * 8,
-                                 k0 + n * 8 + t4 * 2 + (e & 1));
-    }
-#pragma unroll
-    for (int n = 0; n < 8; ++n) {
-      acc[n][0] *= alpha[0];
-      acc[n][1] *= alpha[0];
-      acc[n][2] *= alpha[1];
-      acc[n][3] *= alpha[1];
-    }
-
-    // O += P V: the S fragments of keys kk*16 .. kk*16+15 form the A operand
-    mma_frags_tile(acc, s, v_s, g, t4);
+    for (int k16 = 0; k16 < kFwdBlockN / 16; ++k16) wgmma_rs64_mn(acc, pa[k16], v_desc + 128 * k16, 1);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(acc);
   }
 
+  if (!active) {
+    write_zero_rows(o, o_st, lse, q0, p.T, wtid);
+    return;
+  }
   // finalize: full row sums across the quad, zeros for rows >= len
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
@@ -206,19 +256,16 @@ __global__ void __launch_bounds__(128) fwd_bf16_kernel(Params p) {
   }
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    const int row = warp * 16 + g + r * 8;
-    if (q0 + row >= p.T) continue;
-    const bool valid = q0 + row < len && l_run[r] > 0.f;
-    if (p.lse && t4 == 0)
-      p.lse[static_cast<long long>(bh) * p.T + q0 + row] =
-          valid ? m_run[r] + log2f(l_run[r]) : 0.f;
-    __nv_bfloat16* orow = o + row * o_st + t4 * 2;
+    const int row = q_row + 8 * r;
+    if (row >= p.T) continue;
+    const bool valid = row < len && l_run[r] > 0.f;
+    if (lse && t4 == 0) lse[row] = valid ? m_run[r] + log2f(l_run[r]) : 0.f;
+    __nv_bfloat16* orow = o + (row - q0) * o_st + t4 * 2;
 #pragma unroll
     for (int n = 0; n < 8; ++n) {
-      const float x0 = valid ? acc[n][2 * r] / l_run[r] : 0.f;
-      const float x1 = valid ? acc[n][2 * r + 1] / l_run[r] : 0.f;
-      *reinterpret_cast<__nv_bfloat162*>(orow + n * 8) =
-          __floats2bfloat162_rn(x0, x1);
+      const float x0 = valid ? acc[4 * n + 2 * r] / l_run[r] : 0.f;
+      const float x1 = valid ? acc[4 * n + 2 * r + 1] / l_run[r] : 0.f;
+      *reinterpret_cast<__nv_bfloat162*>(orow + n * 8) = __floats2bfloat162_rn(x0, x1);
     }
   }
 }
@@ -362,18 +409,20 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
                                    float scale, int dtype, unsigned seed,
                                    unsigned thresh, float inv_keep,
                                    int dropout, void* stream) {
+  const int rows = dtype == 0 ? kFwdRows : kBlockQ;  // q rows a block
   Params p{q,    k,    v,    o,    lse,  lengths, q_sb, q_st,
            q_sh, k_sb, k_st, k_sh, v_sb, v_st,    v_sh, B,
-           T,    H,    (T + kBlockQ - 1) / kBlockQ, scale,
+           T,    H,    (T + rows - 1) / rows, scale,
            Dropout{seed, thresh, inv_keep}};
   const unsigned grid = static_cast<unsigned>(B) * H * p.n_qt;
   if (grid == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
-    if (dropout)
-      fwd_bf16_kernel<true><<<grid, 128, 0, s>>>(p);
-    else
-      fwd_bf16_kernel<false><<<grid, 128, 0, s>>>(p);
+    void (*kernel)(Params) = dropout ? fwd_bf16_kernel<true> : fwd_bf16_kernel<false>;
+    const cudaError_t attr =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kFwdSmem);
+    if (attr != cudaSuccess) return static_cast<int>(attr);
+    kernel<<<grid, kFwdThreads, kFwdSmem, s>>>(p);
   } else {
     if (dropout)
       fwd_f32_kernel<true><<<grid, 64, 0, s>>>(p);

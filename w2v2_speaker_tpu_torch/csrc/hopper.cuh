@@ -1,5 +1,6 @@
 // Hopper (sm_90a) building blocks shared by the redesigned kernels
-// (conv_encoder.cu, the dk/dv kernel of flash_attention_bwd.cu): cp.async,
+// (conv_encoder.cu and the bf16 flash-attention forward, dq and dk/dv
+// kernels): cp.async,
 // mbarriers, TMA tile loads, and warpgroup matrix products (wgmma) on
 // 128-byte-swizzled shared-memory tiles.
 //

@@ -22,13 +22,16 @@ Bounds (H100 SXM: 989 TFLOP/s bf16, 67 TFLOP/s f32 outside the tensor cores,
 bytes the valid input rows read once and the outputs written once. At the
 training shape (B=66, T=149, H=12, d=64, bf16) every kernel is bound by
 bytes (~0.02-0.03 ms); on full utterances by operations. Design, shared by
-the three kernels: one block per (batch*head, 64-row tile), a loop over the
-other side's 64-row tiles only up to the row's length (only the boundary
-tile masked), bf16 products on the tensor cores (``mma.sync`` m16n8k16,
-f32 accumulate) with accumulator fragments repacked in registers as the A
-operand of the next product, f32 inputs on scalar f32 FMAs. The keep mask
-of the dropout is regenerated in every kernel from (seed, batch*head, q, k)
-by the same murmur3 finalizer, so no [T, T] mask exists anywhere. Two
+the three kernels: a warpgroup per (batch*head, 64-row tile), a loop over
+the other side's tiles only up to the row's length (only the boundary tile
+masked); in bf16 the tiles arrive by ``cp.async`` into 128-byte-swizzled
+shared memory, the next tile in flight while this one computes, and the
+products are Hopper's ``wgmma`` (f32 accumulate), the first with both
+operands in shared memory, the second with the first's accumulators,
+rounded to bf16 in registers, as its A operand; f32 inputs run scalar f32
+FMAs. The keep mask of the dropout is regenerated in every kernel from
+(seed, batch*head, q, k) by the same murmur3 finalizer, so no [T, T] mask
+exists anywhere. Two
 backward kernels and no atomics, as in the JAX package: gradients are
 deterministic.
 
