@@ -47,7 +47,21 @@ the run by raising:
    the device profile;
 11. a float32 LARGE-width step (2 layers, the conv stack whole), card
    against CPU, dropout on: loss and gradients agree;
-12. one JSON line with every kernel's numbers (the attention kernels and
+12. predict end to end: ``w2v2_speaker_tpu_torch.predict.main`` (the
+   ``predict.py`` twin over ``config/predict.yaml``) on 24 synthetic 16 kHz
+   WAV files of 2-30 s in VoxCeleb-style paths (6 speakers) and a labelled
+   trial file, at full LARGE width with ``network.conv_impl=fused_pallas``,
+   bf16, buckets of 16 000 samples, batch 4, from a seeded LARGE + AAM
+   ``state_dict`` file: one score in [0, 1] per pair, equal to the cosine
+   evaluator's over ``extract_embeddings`` of the same files called
+   directly; 24 attention-forward and 6 conv launches per bucket batch; a
+   second run served from the embedding cache with no launch; EER and
+   minDCF of the labelled trials in [0, 1]; the fused conv (layers 1-6)
+   and the attention forward (first and last layer) against their plain
+   versions on the inputs the longest bucket batch gave them; then 4 files
+   of <= 3 s in float32 on the card and on the CPU, scores within 1e-4;
+   utt/s and the real-time factor from the median of 10 warm extractions;
+13. one JSON line with every kernel's numbers (the attention kernels and
    the conv at the LARGE training shapes, launches of the LARGE training
    run), the card line, then the result line.
 
@@ -59,15 +73,23 @@ from __future__ import annotations
 
 import copy
 import json
+import pathlib
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from w2v2_speaker_tpu_torch import predict
+from w2v2_speaker_tpu_torch.data.io import load_raw_audio, write_wav
+from w2v2_speaker_tpu_torch.data.normalize import normalize_waveform
 from w2v2_speaker_tpu_torch.data.samples import SpeakerSample
+from w2v2_speaker_tpu_torch.data.trials import (
+    generate_validation_pairs, load_evaluation_pairs, save_evaluation_pairs,
+)
 from w2v2_speaker_tpu_torch.device import set_float32_precision
 from w2v2_speaker_tpu_torch.entry import (
     BATCH, SAMPLES, build_model, build_train_state, entry, large_train_entry, synthetic_batch,
@@ -79,10 +101,10 @@ from w2v2_speaker_tpu_torch.models.wav2vec2 import (
 from w2v2_speaker_tpu_torch.ops import _build
 from w2v2_speaker_tpu_torch.ops import conv_encoder as ce
 from w2v2_speaker_tpu_torch.ops import flash_attention as fa
-from w2v2_speaker_tpu_torch.runtime.experiment import (
-    SPEAKER_WAV2VEC2_CE, SPEAKER_WAV2VEC2_LARGE_AAM, build_optimizer,
-)
-from w2v2_speaker_tpu_torch.runtime.predict import extract_embeddings, score_pairs
+from w2v2_speaker_tpu_torch.eval.evaluator import CosineDistanceEvaluator, EmbeddingSample
+from w2v2_speaker_tpu_torch.runtime.config import load_config
+from w2v2_speaker_tpu_torch.runtime.experiment import build_optimizer, load_recipe
+from w2v2_speaker_tpu_torch.runtime.predict import build_predict_model, extract_embeddings
 from w2v2_speaker_tpu_torch.train.speaker_task import SpeakerTask
 from w2v2_speaker_tpu_torch.train.state import AdamTx, TrainState
 from w2v2_speaker_tpu_torch.train.steps import make_train_step
@@ -129,6 +151,16 @@ F32_REL_TOL = 1e-3
 TRAIN_DISPATCHES = 3  # x 4 steps per dispatch, timed
 OVERFIT_STEPS, OVERFIT_BATCH, OVERFIT_LR = 30, 8, 3e-4
 OVERFIT_MIN_FALL = 1.0  # nats of CE, mean of the first 3 steps minus the last 3
+# predict end to end: 24 files of 2-30 s over 6 speakers, ~60 labelled trials
+PREDICT_SPEAKERS, PREDICT_FILES, PREDICT_TRIALS = 6, 24, 60
+PREDICT_BATCH, PREDICT_PAD = 4, 16000  # data.dataloader.test_batch_size / test_pad_to_multiple
+PREDICT_F32_S = (2.0, 2.4, 2.7, 3.0)  # the float32 card-vs-CPU folder
+# the written scores against the direct extract_embeddings + cosine evaluator
+# (the same model and batches; bf16 kernels are deterministic)
+PREDICT_SAME_ATOL = 1e-6
+PREDICT_F32_ATOL = 1e-4  # float32 scores, card vs CPU
+PREDICT_ATTN_LAYERS = (0, -1)  # layers whose attention inputs are held against the plain version
+PREDICT_TIMED = 10  # warm extractions timed one by one
 
 
 def cuda_ms(fn, reps: int, warmup: int = 3) -> float:
@@ -439,6 +471,15 @@ def profile_breakdown(fn, reps: int = 3, top_ops: int = 0) -> None:
               f"{str(a.input_shapes)[:200]}", flush=True)
 
 
+def cosine_scores(embeddings, pairs) -> np.ndarray:
+    """The cosine evaluator's scores of ``pairs`` over ``embeddings`` (a
+    dict by id), mapped to (s + 1) / 2 and clipped to [0, 1] as predict
+    maps them."""
+    raw = CosineDistanceEvaluator()._compute_prediction_scores(
+        [(EmbeddingSample(a, embeddings[a]), EmbeddingSample(b, embeddings[b])) for a, b in pairs])
+    return np.clip((np.asarray(raw) + 1) / 2, 0, 1)
+
+
 def cosine(a, b) -> np.ndarray:
     return (a * b).sum(-1) / np.maximum(np.linalg.norm(a, axis=-1) * np.linalg.norm(b, axis=-1), 1e-8)
 
@@ -586,7 +627,7 @@ def serving_phase(card: str) -> None:
     assert ratio <= MAX_PAD_RATIO, f"padding moved an embedding: distance ratio {ratio}"
     keys = sorted(by_key)
     pairs = [tuple(rng.choice(keys, 2, replace=False)) for _ in range(20)]
-    scores = score_pairs(by_key, pairs)
+    scores = cosine_scores(by_key, pairs)
     assert scores.shape == (20,) and np.all((scores >= 0) & (scores <= 1))
     print("scores", " ".join(f"{s:.4f}" for s in scores), flush=True)
 
@@ -657,11 +698,12 @@ def grads_of(model) -> dict:
     return {n: p.grad.detach().cpu().clone() for n, p in model.named_parameters()}
 
 
-def f32_train_phase(cfg=SPEAKER_WAV2VEC2_CE, label: str = "BASE", conv_launches: int = 0) -> None:
+def f32_train_phase(cfg=None, label: str = "BASE", conv_launches: int = 0) -> None:
     """Phases 7 and 11: one float32 step of the recipe ``cfg`` cut to 2
     layers, card against CPU, same weights and step generator seed,
     dropout, layerdrop and SpecAugment on; the card step launches the conv
-    kernel ``conv_launches`` times."""
+    kernel ``conv_launches`` times. ``cfg`` None is ``speaker_wav2vec2_ce``."""
+    cfg = load_recipe("speaker_wav2vec2_ce") if cfg is None else cfg
     state, task = build_train_state(torch.device("cuda"), "f32", cfg, seed=1, num_layers=2)
     cpu_model = copy.deepcopy(state.model).cpu()
     cpu_state = TrainState.create(cpu_model, build_optimizer(cfg), seed=1)
@@ -797,6 +839,181 @@ def large_serving_phase(card: str) -> None:
     assert ratio <= MAX_PAD_RATIO, f"LARGE: padding moved an embedding: distance ratio {ratio}"
 
 
+def write_predict_folder(folder: pathlib.Path, seconds, speakers: int, rng) -> dict:
+    """16 kHz WAV files of the given lengths under VoxCeleb-style
+    ``idNNNNN/ytX/NNNNN.wav`` paths, speakers in turn, each a speaker's
+    tone mix plus noise; returns {id: seconds}."""
+    files = {}
+    for i, sec in enumerate(seconds):
+        spk = i % speakers
+        rel = f"id{10000 + spk:05d}/yt{i // speakers % 3}/{i:05d}.wav"
+        t = np.arange(int(sec * 16000)) / 16000
+        tone = sum(np.sin(2 * np.pi * f * t) for f in (110 + 40 * spk, 230 + 55 * spk))
+        wav = 0.05 * tone + rng.normal(0, 0.05, t.shape)
+        (folder / rel).parent.mkdir(parents=True, exist_ok=True)
+        write_wav(folder / rel, wav.astype(np.float32))
+        files[rel] = sec
+    return files
+
+
+def read_scores(path: pathlib.Path):
+    lines = [line.split(" ") for line in path.read_text().splitlines()]
+    return np.array([float(x[0]) for x in lines]), [(x[1], x[2]) for x in lines]
+
+
+def record_path_inputs(model) -> tuple:
+    """Forward hooks on a fused-conv speaker model that keep, from its
+    longest batch, the inputs the kernels get: conv 0's LayerNorm output
+    (whose GELU is fused conv 1's input) and the feature encoder's output,
+    and each ``PREDICT_ATTN_LAYERS`` layer's fused q/k/v projection and
+    lengths. Returns (the record, the hook handles)."""
+    rec, lens, handles = {}, {}, []
+    enc = model.wav2vec2.feature_encoder
+
+    def keep(name, value, extra=None):
+        if name not in rec or value.shape[1] > rec[name][0].shape[1]:
+            rec[name] = value.detach(), extra
+
+    handles.append(enc.layer_norm_0.register_forward_hook(lambda m, a, out: keep("ln0", out)))
+    handles.append(enc.register_forward_hook(lambda m, a, out: keep("features", out)))
+    for i in PREDICT_ATTN_LAYERS:
+        attn = model.wav2vec2.encoder.layers[i].attention
+        # SelfAttention.forward(x, lengths, ...) runs qkv_proj after this hook
+        handles.append(attn.register_forward_pre_hook(lambda m, a, i=i: lens.__setitem__(i, a[1])))
+        handles.append(attn.qkv_proj.register_forward_hook(
+            lambda m, a, out, i=i: keep(f"qkv{i}", out, lens[i])))
+    return rec, handles
+
+
+def check_path_kernels(model, rec) -> str:
+    """The fused conv (layers 1-6) and the attention forward on the inputs
+    the longest predict batch gave them, each against its plain version
+    under its kernel_tolerance. Conv layer i + 1 takes the kernel's output
+    of layer i; the chain's end must equal the feature encoder's output,
+    which shows that these were the path's inputs. Returns a report."""
+    enc, cfg = model.wav2vec2.feature_encoder, model.wav2vec2.cfg
+    x, worst, report = F.gelu(rec["ln0"][0]), (0.0, 0.0), []
+    for i in range(1, len(cfg.conv_kernel)):
+        conv, ln = getattr(enc, f"conv_{i}"), getattr(enc, f"layer_norm_{i}")
+        args = (x.to(getattr(torch, cfg.dtype)), conv.weight.permute(2, 1, 0), conv.bias, ln.weight, ln.bias,
+                cfg.layer_norm_eps)
+        got, want = ce.strided_conv_fused(*args), ce.conv_fused_reference(*args)
+        rtol, atol = ce.kernel_tolerance(want)
+        err = (got.float() - want.float()).abs()
+        share = (err / (atol + rtol * want.float().abs())).max().item()
+        assert share <= 1, f"predict conv_{i} {tuple(args[0].shape)}: {share:.3f} of the limit"
+        worst, x = max(worst, (share, err.max().item())), got
+    assert torch.equal(x, rec["features"][0]), "predict: the replayed conv chain is not the path's"
+    report.append(f"conv 1-{len(cfg.conv_kernel) - 1} from B x T_in {tuple(rec['ln0'][0].shape[:2])} {x.dtype}: max abs err "
+                  f"{worst[1]:.3e}, {worst[0]:.3f} of the limit")
+    h = cfg.hidden_size
+    for i in PREDICT_ATTN_LAYERS:
+        qkv, lens = rec[f"qkv{i}"]
+        b, t, _ = qkv.shape
+        q, k, v = (part.view(b, t, cfg.num_heads, h // cfg.num_heads) for part in qkv.split(h, dim=-1))
+        got = fa.flash_attention_fwd(q, k, v, lens)[0]
+        err, share, zeros = attention_error(got, fa.flash_attention_plain(q, k, v, lens), lens)
+        assert share <= 1 and zeros, f"predict attention layer {i}: {share:.3f} of the limit, zeros {zeros}"
+        report.append(f"attention layer {i % cfg.num_layers} B={b} T={t} H={cfg.num_heads} lengths "
+                      f"{lens.tolist()} {q.dtype}: max abs err {err:.3e}, {share:.3f} of the limit")
+    return "; ".join(report)
+
+
+def predict_phase(card: str) -> None:
+    """Phase 12: ``predict.main`` end to end at full LARGE width."""
+    rng = np.random.default_rng(12)
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = pathlib.Path(tmp)
+        folder = tmp / "wav"
+        seconds = np.round(rng.uniform(2.0, 30.0, PREDICT_FILES), 2)
+        files = write_predict_folder(folder, seconds, PREDICT_SPEAKERS, rng)
+        by_speaker = {}
+        for rel in files:
+            by_speaker.setdefault(rel.split("/")[0], []).append(rel.removesuffix(".wav"))
+        trials = generate_validation_pairs(by_speaker, PREDICT_TRIALS, seed=12)
+        pair_file = tmp / "trials.txt"
+        save_evaluation_pairs(trials, pair_file)
+        weights = tmp / "large_aam.pt"
+        torch.save(build_model(torch.device("cuda"), torch.float32, seed=12, size="large",
+                               conv_impl="fused_pallas", use_aam=True).state_dict(), weights)
+        overrides = [
+            "network=wav2vec2_fc", "network.wav2vec2_size=large", "network.conv_impl=fused_pallas",
+            "optim/loss=aam_softmax", "trainer.precision=bf16", f"load_network_from_checkpoint={weights}",
+            f"data.dataloader.test_pad_to_multiple={PREDICT_PAD}",
+            f"data.dataloader.test_batch_size={PREDICT_BATCH}",
+            f"predict_folder_path={folder}", f"pair_prediction_path={pair_file}",
+        ]
+        reset_launches()
+        t0 = time.perf_counter()
+        score_file = predict.main(overrides)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        got = launches()
+        batches = -(-len(files) // PREDICT_BATCH)
+        assert got == {"flash_attention_fwd": 24 * batches, "flash_attention_bwd_dq": 0,
+                       "flash_attention_bwd_dkv": 0, "conv_encoder": 6 * batches}, f"predict launched {got}"
+        scores, pairs = read_scores(score_file)
+        assert len(pairs) == len(trials) and np.all(np.isfinite(scores)), "predict: score lines"
+        assert np.all((scores >= 0) & (scores <= 1)), f"predict: scores outside [0, 1]: {scores}"
+
+        # the same files through extract_embeddings and the cosine evaluator, called directly
+        cfg = load_config(predict.CONFIG_DIR, "predict", overrides)
+        model = build_predict_model(cfg)
+        samples = [SpeakerSample(rel, normalize_waveform(load_raw_audio(folder / rel))) for rel in files]
+        rec, handles = record_path_inputs(model)
+        extract_embeddings(model, samples, PREDICT_PAD, PREDICT_BATCH)  # warm-up
+        for handle in handles:
+            handle.remove()
+        kernels_vs_plain = check_path_kernels(model, rec)
+        del rec
+        warm = []
+        for _ in range(PREDICT_TIMED):  # each call ends in a copy of the embeddings to the host
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            direct = {e.sample_id: e.embedding for e in extract_embeddings(model, samples, PREDICT_PAD, PREDICT_BATCH)}
+            warm.append(time.perf_counter() - t0)
+        del model
+        same = float(np.abs(cosine_scores(direct, pairs) - scores).max())
+        assert same <= PREDICT_SAME_ATOL, f"predict: written scores differ from the direct ones by {same}"
+
+        # a second run reads the embedding cache and launches nothing
+        reset_launches()
+        again, _ = read_scores(predict.main(overrides))
+        assert sum(launches().values()) == 0 and np.array_equal(again, scores), "predict: cache not reused"
+
+        # the labelled trials' EER and minDCF (random weights: no quality claimed)
+        metrics = CosineDistanceEvaluator().evaluate(
+            load_evaluation_pairs(pair_file),
+            [EmbeddingSample(k.removesuffix(".wav"), v) for k, v in direct.items()])
+        assert all(0 <= metrics[k] <= 1 for k in ("eer", "mdc")), f"predict: metrics {metrics}"
+
+        # float32, card against CPU, 4 files of <= 3 s
+        f32 = {}
+        for dev in ("cuda", "cpu"):
+            small = tmp / f"f32_{dev}"
+            ids = list(write_predict_folder(small, PREDICT_F32_S, 2, np.random.default_rng(13)))
+            small_pairs = small / "pairs.txt"
+            small_pairs.write_text("".join(f"{a} {b}\n" for i, a in enumerate(ids) for b in ids[i + 1:]))
+            f32[dev], _ = read_scores(predict.main(
+                [*overrides[:-2], "trainer.precision=f32", f"predict_folder_path={small}",
+                 f"pair_prediction_path={small_pairs}"], device=None if dev == "cuda" else "cpu"))
+        f32_err = float(np.abs(f32["cuda"] - f32["cpu"]).max())
+        assert f32_err <= PREDICT_F32_ATOL, f"predict f32 card vs cpu: {f32_err}"
+
+    audio_s = float(sum(files.values()))
+    warm_s = float(np.median(warm))
+    print(f"predict kernels vs plain at the longest bucket: {kernels_vs_plain}", flush=True)
+    print(f"predict LARGE fused conv bf16: {len(files)} files, {audio_s:.2f} s of audio, "
+          f"{len(pairs)} trials, {batches} bucket batches, launches {got}; first call (model build, "
+          f"weights, audio, extraction, scoring) {first_s:.3f} s; warm extraction over {len(warm)} runs: "
+          f"median {warm_s:.4f} s (min {min(warm):.4f}, max {max(warm):.4f}): {len(files) / warm_s:.2f} utt/s "
+          f"({len(files) / max(warm):.2f}-{len(files) / min(warm):.2f}), real-time factor "
+          f"{audio_s / warm_s:.1f} ({audio_s / max(warm):.1f}-{audio_s / min(warm):.1f}); written vs direct "
+          f"max diff {same:.3e}; cache rerun launches 0; EER {metrics['eer']:.4f}, minDCF "
+          f"{metrics['mdc']:.4f} (random weights); f32 card vs cpu max score diff {f32_err:.3e} "
+          f"(limit {PREDICT_F32_ATOL}) [{card}]", flush=True)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; this run needs a card")
@@ -814,11 +1031,11 @@ def main() -> None:
     overfit_phase()  # 8
     large_serving_phase(card)  # 9
     train_launches = train_phase(card, large_train_entry, "large train", conv_per_step=6)  # 10
-    large = {**SPEAKER_WAV2VEC2_LARGE_AAM,
-             "network": {**SPEAKER_WAV2VEC2_LARGE_AAM["network"], "conv_impl": "fused_pallas"}}
+    large = load_recipe("speaker_wav2vec2_large_aam", ["network.conv_impl=fused_pallas"])
     f32_train_phase(large, "LARGE", conv_launches=6)  # 11
+    predict_phase(card)  # 12
 
-    # 12. kernels line, card line, result line
+    # 13. kernels line, card line, result line
     kernels = []
     for name, source, replaces in KERNELS:
         row = main_rows[name]

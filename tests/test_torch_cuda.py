@@ -258,3 +258,30 @@ def test_conv_function_gradients_match_plain(cuda, dtype):
     for a, b in zip(got, want):
         assert a.dtype == b.dtype
         torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("recipe", ["speaker_wav2vec2_ce", "speaker_wav2vec2_large_aam"])
+def test_layer_norm_outputs_are_bf16_in_a_bf16_training_forward(cuda, recipe):
+    """CUDA autocast runs ``layer_norm`` in float32 and returns float32; the
+    port's ``LayerNorm`` rounds its output to bf16, as the JAX package's
+    ``LayerNorm(dtype=bf16)`` does, so nothing downstream (the BASE
+    residual stream, the conv GELUs, LARGE's final norm) runs in float32.
+    The recipe at full width and 2 layers, one training forward."""
+    from w2v2_speaker_tpu_torch.entry import build_train_state, synthetic_batch
+    from w2v2_speaker_tpu_torch.models.wav2vec2 import LayerNorm
+    from w2v2_speaker_tpu_torch.runtime.experiment import load_recipe
+
+    state, task = build_train_state(cuda, "bf16", load_recipe(recipe), seed=0, num_layers=2)
+    seen = {}
+    for name, module in state.model.named_modules():
+        if isinstance(module, torch.nn.LayerNorm):
+            assert isinstance(module, LayerNorm), name
+            module.register_forward_hook(lambda m, i, o, name=name: seen.__setitem__(name, o.dtype))
+    batch = {k: v[0] for k, v in synthetic_batch(2, 16000, cuda, seed=0).items()}
+    task.loss_fn(batch, state.generator, train=True)
+    kept = state.model.wav2vec2.encoder.layers_run
+    # BASE: feature projection, encoder input, 2 per kept layer; LARGE: the
+    # 7 conv norms too (cuDNN route), and the final encoder norm
+    want = 2 + 2 * kept if recipe == "speaker_wav2vec2_ce" else 9 + 2 * kept
+    assert len(seen) == want, sorted(seen)
+    assert set(seen.values()) == {torch.bfloat16}, seen

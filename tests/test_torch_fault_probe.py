@@ -2,7 +2,8 @@
 kernel sources: every edit's text occurs in its source, and each mutant
 changes the bf16 path (the main path's kernel, its launch code or a helper
 it calls) as well as the f32 kernel. The probe itself needs the
-card; this reads the sources only."""
+card; this reads the sources only, and runs the dv bisection's one-flip
+analysis on the plain version."""
 
 import importlib.util
 import pathlib
@@ -29,7 +30,8 @@ def _probe():
     return module
 
 
-MUTANTS = _probe().MUTANTS
+PROBE = _probe()
+MUTANTS = PROBE.MUTANTS
 
 
 def _definition(src: str, name: str) -> str:
@@ -69,3 +71,33 @@ def test_mutant_reaches_the_bf16_and_f32_kernels(name):
         bodies = _path(src, roots)
         assert any(old in body for old, _ in edits for body in bodies), (
             f"{name} leaves {'/'.join(roots)} unchanged")
+
+
+def test_one_flip_finds_the_p_whose_rounding_moved_dv():
+    """``one_flip`` on CPU tensors: a dv computed with one P of a key's
+    column rounded to its other bf16 neighbour is explained by that query,
+    and the unflipped dv by a flip that changes nothing much."""
+    import torch
+
+    from w2v2_speaker_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator().manual_seed(0)
+    b, t, h, d, n = 1, 64, 2, 64, 40
+    q, k, do = (torch.randn(b, t, h, d, generator=gen).to(torch.bfloat16) for _ in range(3))
+    lens = torch.tensor([n])
+    _, lse = fa.flash_attention_plain(q, k, k, lens, return_lse=True)
+    key, head, ch, query = 7, 1, 5, 23
+    qs = q[0, :n, head] * fa._scale(d, q.dtype)
+    p = torch.exp2(qs.float() @ k[0, key, head].float() - lse[0, head, :n])
+    pb = p.to(torch.bfloat16)
+    bits = pb.view(torch.int16)
+    other = torch.where(pb.float() < p, bits + 1, bits - 1).to(torch.int16).view(torch.bfloat16)
+    flipped = pb.float().clone()
+    flipped[query] = other[query].float()
+    dov = do[0, :n, head, ch].float()
+    kernel_value = float((flipped * dov).sum())
+    got = PROBE.one_flip(q, k, do, lse, (0, key, head, ch), n, kernel_value)
+    assert got["query"] == query
+    assert got["dv_one_flip"] == pytest.approx(kernel_value, abs=1e-6)
+    assert got["dv_f32"] == pytest.approx(float((pb.float() * dov).sum()), abs=1e-6)
+    assert 0 <= got["ulps_from_midpoint"] <= 0.5

@@ -1,10 +1,13 @@
 """Rules of the PyTorch port: it imports nothing of JAX or of the JAX
-package, its entry points need a card unless asked for the CPU, training
-and the fused conv route run, and what is not ported yet raises."""
+package, its entry points (``predict`` too) need a card unless asked for
+the CPU, training and the fused conv route run, and what is not ported yet
+raises."""
 
 import ast
 import dataclasses
 import pathlib
+import subprocess
+import sys
 
 import pytest
 import torch
@@ -37,11 +40,21 @@ def test_port_imports_no_jax_and_no_jax_package():
         + sorted((ROOT / "tools").glob("torch_*.py"))
         + [ROOT / "chip_smoke.py"]
     )
-    assert len(files) > 10
+    assert len(files) > 10 and ROOT / "w2v2_speaker_tpu_torch" / "predict.py" in files
     for path in files:
         for name in _imported_modules(path):
             top = name.split(".")[0]
             assert top not in FORBIDDEN, f"{path.relative_to(ROOT)} imports {name}"
+
+
+def test_the_jax_export_tool_is_not_a_port_tool():
+    """``tools/export_jax_params.py`` imports the JAX package (it restores
+    orbax checkpoints), so it lives outside both packages and outside the
+    ``tools/torch_*`` files that this module holds to the port's rules."""
+    tool = ROOT / "tools" / "export_jax_params.py"
+    assert tool.exists() and not tool.name.startswith("torch_")
+    assert tool not in sorted((ROOT / "tools").glob("torch_*.py"))
+    assert any(name.split(".")[0] == "w2v2_speaker_tpu" for name in _imported_modules(tool))
 
 
 def test_entry_points_need_a_card_unless_asked_for_the_cpu():
@@ -86,3 +99,17 @@ def test_train_and_fused_conv_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 6"):
         tw.Wav2Vec2Model(tw.Wav2Vec2Config(int8_matmuls=True))
 
+
+def test_predict_needs_a_card_before_reading_audio(tmp_path):
+    """``python -m w2v2_speaker_tpu_torch.predict`` on a host without a card
+    raises "no CUDA device" before it reads the (missing) pair file."""
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA device")
+    proc = subprocess.run(
+        [sys.executable, "-m", "w2v2_speaker_tpu_torch.predict", "network=wav2vec2_fc",
+         f"predict_folder_path={tmp_path / 'missing'}", f"pair_prediction_path={tmp_path / 'missing.txt'}"],
+        cwd=ROOT, capture_output=True, text=True, timeout=120,
+    )
+    assert proc.returncode != 0
+    assert "no CUDA device" in proc.stderr and "missing.txt" not in proc.stderr, proc.stderr[-2000:]
+    assert not (tmp_path / "missing").exists()

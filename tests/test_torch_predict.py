@@ -1,7 +1,11 @@
 """Serving path of the port against the JAX package: bucketed extraction,
-pair scores, the pair-file reader and the collate copies."""
+pair scores, the pair-file reader, the collate copies, and the ``predict.py``
+twin end to end (config, weights exported from a JAX checkpoint, audio,
+cache, evaluator, score file) against the JAX package's ``predict.main``."""
 
 import functools
+import importlib.util
+import pathlib
 
 import jax
 import jax.numpy as jnp
@@ -22,7 +26,11 @@ from w2v2_speaker_tpu_torch.data.samples import SpeakerSample
 from w2v2_speaker_tpu_torch.models import wav2vec2 as tw
 from w2v2_speaker_tpu_torch.models import wav2vec2_speaker as ts
 from w2v2_speaker_tpu_torch.models.convert import params_from_jax
+from w2v2_speaker_tpu_torch.eval.evaluator import CosineDistanceEvaluator as TorchCosine
+from w2v2_speaker_tpu_torch.eval.evaluator import EmbeddingSample as TorchEmbedding
 from w2v2_speaker_tpu_torch.runtime import predict as tpredict
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
 
 TINY = dict(
     conv_dim=(16, 16),
@@ -76,6 +84,9 @@ def test_extract_embeddings_matches_jax():
 
 
 def test_score_pairs_matches_jax_evaluator():
+    """The port's cosine evaluator and the (s + 1) / 2 clip of predict
+    (``runtime/predict.py:177-180``) on the port's embeddings, against the
+    JAX package's on its own: 1e-5."""
     want_emb, got_emb = _embeddings()
     keys = sorted(want_emb)
     pairs = [(a, b) for a in keys for b in keys if a < b]
@@ -84,7 +95,9 @@ def test_score_pairs_matches_jax_evaluator():
         [(JaxEmbedding(a, want_emb[a]), JaxEmbedding(b, want_emb[b])) for a, b in pairs]
     )
     want = np.clip((np.asarray(raw) + 1) / 2, 0, 1)  # runtime/predict.py:180
-    got = tpredict.score_pairs(got_emb, pairs)
+    got = TorchCosine()._compute_prediction_scores(
+        [(TorchEmbedding(a, got_emb[a]), TorchEmbedding(b, got_emb[b])) for a, b in pairs])
+    got = np.clip((np.asarray(got) + 1) / 2, 0, 1)
     np.testing.assert_allclose(got, want, atol=1e-5, rtol=0)
     assert np.all((got >= 0) & (got <= 1))
 
@@ -136,3 +149,177 @@ def test_padding_ratio_of_the_chip_smoke_check():
     for a, b in (("u0", "u1"), ("u2", "u4")):
         swapped = dict(alone, **{a: alone[b], b: alone[a]})
         assert chip_smoke.padding_ratio(swapped, alone) >= 1
+
+
+# --------------------------------------------------------------- predict.py
+
+PREDICT_OVERRIDES = ["network=wav2vec2_fc", "network.wav2vec2_size=tiny", "trainer.precision=f32",
+                     "data.dataloader.test_pad_to_multiple=8000", "data.dataloader.test_batch_size=4"]
+PREDICT_SECONDS = (0.6, 1.1, 0.9, 1.4, 0.7)
+SCORE_ATOL = 1e-5
+
+
+def _write_folder(folder):
+    """5 WAV files in VoxCeleb-style paths (2 speakers) and a labelled
+    trial file over every pair; returns the trial file. Each file is a
+    harmonic tone at its speaker's pitch plus a little noise: from white
+    noise alone the tiny random model's embeddings all lie within cosine
+    0.996 of each other, AS-Norm's top-K cohort spread is then ~1e-3, and
+    the two packages' float32 embeddings (1.5e-7 apart) read up to 5e-5
+    apart as scores; the tones spread the cosines to 0.96 and the cohort to
+    ~2e-2."""
+    from w2v2_speaker_tpu_torch.data.io import write_wav
+
+    rng = np.random.default_rng(11)
+    ids = []
+    for i, sec in enumerate(PREDICT_SECONDS):
+        rel = f"id{i % 2:05d}/yt{i}/{i:05d}.wav"
+        t = np.arange(int(sec * 16000)) / 16000
+        f0 = (120, 210)[i % 2] * (1 + 0.05 * i)
+        wav = sum(np.sin(2 * np.pi * f0 * h * t) / h for h in range(1, 6)) * (1 + 0.5 * np.sin(6 * np.pi * t))
+        (folder / rel).parent.mkdir(parents=True, exist_ok=True)
+        write_wav(folder / rel, (0.2 * wav + rng.normal(0, 0.02, t.shape)).astype(np.float32))
+        ids.append(rel)
+    trials = folder / "trials.txt"
+    trials.write_text("".join(f"{int(a[:7] == b[:7])} {a} {b}\n" for i, a in enumerate(ids) for b in ids[i + 1:]))
+    return trials
+
+
+@pytest.fixture(scope="module")
+def jax_checkpoint(tmp_path_factory):
+    """A tiny wav2vec2_fc model's params saved by the JAX package's
+    ``save_params`` and exported by ``tools/export_jax_params.py``:
+    (checkpoint dir, .npz)."""
+    from w2v2_speaker_tpu.runtime.config import load_config as jax_load_config
+    from w2v2_speaker_tpu.runtime.experiment import build_model_and_task
+    from w2v2_speaker_tpu.train.checkpoint import save_params
+
+    tmp = tmp_path_factory.mktemp("ckpt")
+    cfg = jax_load_config(ROOT / "config", "predict", PREDICT_OVERRIDES)
+    task, _ = build_model_and_task(cfg, 2)
+    batch = {"features": jnp.zeros((2, 16000)), "mask": jnp.ones((2, 16000), bool),
+             "labels": jnp.zeros((2,), jnp.int32)}
+    params, _ = task.init(jax.random.PRNGKey(7), batch)
+    save_params(tmp / "ckpt", params)
+    spec = importlib.util.spec_from_file_location("export_jax_params", ROOT / "tools" / "export_jax_params.py")
+    export = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(export)
+    export.main([str(tmp / "ckpt"), str(tmp / "params.npz")])
+    return tmp / "ckpt", tmp / "params.npz"
+
+
+def _scores(path):
+    lines = [line.split(" ") for line in pathlib.Path(path).read_text().splitlines()]
+    return np.array([float(x[0]) for x in lines]), [tuple(x[1:]) for x in lines]
+
+
+@pytest.mark.parametrize("evaluator", ["cosine_distance", "cosine_distance_asnorm"])
+def test_predict_cli_matches_jax_predict(tmp_path_factory, jax_checkpoint, evaluator):
+    """The port's ``predict.main`` against the JAX package's ``predict.main``
+    on the same folder and the same weights (the JAX package's checkpoint,
+    exported to ``.npz``): score files within 1e-5, the same pair order;
+    a second port run is served from its embedding cache."""
+    import predict as jax_predict
+    from w2v2_speaker_tpu_torch import predict as torch_predict
+
+    ckpt, npz = jax_checkpoint
+    runs = {}
+    for name in ("jax", "torch"):
+        folder = tmp_path_factory.mktemp(name)
+        trials = _write_folder(folder)
+        argv = [*PREDICT_OVERRIDES, f"evaluator={evaluator}", f"predict_folder_path={folder}",
+                f"pair_prediction_path={trials}",
+                f"load_network_from_checkpoint={ckpt if name == 'jax' else npz}"]
+        if name == "jax":
+            runs[name] = _scores(jax_predict.main(argv))
+        else:
+            runs[name] = _scores(torch_predict.main(argv, device="cpu"))
+            cached = sorted(p.relative_to(folder / "embeddings") for p in (folder / "embeddings").rglob("*.npy"))
+            assert len(cached) == len(PREDICT_SECONDS)
+            stamp = {p: (folder / "embeddings" / p).stat().st_mtime_ns for p in cached}
+            again = _scores(torch_predict.main(argv, device="cpu"))
+            assert {p: (folder / "embeddings" / p).stat().st_mtime_ns for p in cached} == stamp
+            np.testing.assert_array_equal(again[0], runs[name][0])
+    (want, want_pairs), (got, got_pairs) = runs["jax"], runs["torch"]
+    assert got_pairs == want_pairs and len(got) == 10
+    np.testing.assert_allclose(got, want, rtol=0, atol=SCORE_ATOL)
+    assert np.all((got >= 0) & (got <= 1))
+
+
+def test_load_params_grafts_matching_leaves(tmp_path):
+    """A checkpoint whose head has another class count, or another layer
+    count, leaves those leaves at their init and loads the rest, as the JAX
+    package's ``load_params`` graft does; a directory (orbax) raises."""
+    from w2v2_speaker_tpu_torch.train.checkpoint import load_params
+
+    cfg = ts.Wav2Vec2SpeakerConfig(w2v2=tw.Wav2Vec2Config(**TINY), use_aam=True)
+    source = ts.Wav2Vec2SpeakerModel(cfg, num_speakers=9)
+    tw.init_parameters(source, torch.Generator().manual_seed(1))
+    torch.save(source.state_dict(), tmp_path / "w.pt")
+    target = ts.Wav2Vec2SpeakerModel(cfg, num_speakers=2)
+    tw.init_parameters(target, torch.Generator().manual_seed(2))
+    init = {k: v.clone() for k, v in target.state_dict().items()}
+    load_params(tmp_path / "w.pt", target)
+    for name, value in target.state_dict().items():
+        want = init[name] if name == "aam.weights" else source.state_dict()[name]
+        assert torch.equal(value, want), name
+
+    deeper = ts.Wav2Vec2SpeakerModel(
+        ts.Wav2Vec2SpeakerConfig(w2v2=tw.Wav2Vec2Config(**{**TINY, "num_layers": 3})), num_speakers=2)
+    jm = js.Wav2Vec2SpeakerModel(cfg=js.Wav2Vec2SpeakerConfig(w2v2=jw.Wav2Vec2Config(**TINY)), num_speakers=2)
+    params = jax.device_get(jax.jit(jm.init)(jax.random.PRNGKey(0), jnp.zeros((1, 1600)))["params"])
+    flat = {}
+
+    def walk(tree, prefix=""):
+        for key, value in tree.items():
+            walk(value, f"{prefix}{key}/") if isinstance(value, dict) else flat.__setitem__(prefix + key, value)
+
+    walk(params)
+    np.savez(tmp_path / "p.npz", **flat)
+    with torch.no_grad():  # values no checkpoint leaf can hold by chance
+        for value in deeper.parameters():
+            value.uniform_(5.0, 6.0, generator=torch.Generator().manual_seed(3))
+    init = {k: v.clone() for k, v in deeper.state_dict().items()}
+    load_params(tmp_path / "p.npz", deeper)
+    for name, value in deeper.state_dict().items():
+        assert torch.equal(value, init[name]) == (".layers." in name), name
+    with pytest.raises(ValueError, match="export_jax_params"):
+        load_params(tmp_path, deeper)
+
+
+@pytest.mark.parametrize("wrap", ["module_prefix", "lightning_dict", "backbone_only_names"])
+def test_load_params_raises_when_no_backbone_entry_matches(tmp_path, wrap):
+    """A file whose names are not the model's (a ``module.`` prefix, a
+    ``{"state_dict": ...}`` wrapper, a bare backbone's names as an HF file
+    has them) would graft nothing: it raises instead of serving the init."""
+    from w2v2_speaker_tpu_torch.train.checkpoint import load_params
+
+    cfg = ts.Wav2Vec2SpeakerConfig(w2v2=tw.Wav2Vec2Config(**TINY))
+    model = ts.Wav2Vec2SpeakerModel(cfg, num_speakers=2)
+    tw.init_parameters(model, torch.Generator().manual_seed(1))
+    state = model.state_dict()
+    saved = {
+        "module_prefix": {f"module.{k}": v for k, v in state.items()},
+        "lightning_dict": {"state_dict": state, "epoch": 3},
+        "backbone_only_names": model.wav2vec2.state_dict(),
+    }[wrap]
+    torch.save(saved, tmp_path / "w.pt")
+    init = {k: v.clone() for k, v in state.items()}
+    with pytest.raises(ValueError, match=r"none of the model's wav2vec2\.\* entries"):
+        load_params(tmp_path / "w.pt", model)
+    assert all(torch.equal(v, init[k]) for k, v in model.state_dict().items())
+
+
+@pytest.mark.parametrize("override, row", [
+    ("network.int8_matmuls=auto", "item 6"), ("network.int8_matmuls=true", "item 6"),
+    ("network=xvector", "item 7"), ("optim/loss=triplet", "item 7"),
+])
+def test_predict_raises_for_what_is_not_ported(tmp_path, override, row):
+    """int8 serving (``BucketDispatchEmbed``), other networks and losses
+    raise, naming their ROADMAP row, before any audio is read."""
+    from w2v2_speaker_tpu_torch import predict as torch_predict
+
+    with pytest.raises(NotImplementedError, match=f"ROADMAP.md Queue 1 {row}"):
+        torch_predict.main(["network=wav2vec2_fc", override, f"predict_folder_path={tmp_path / 'none'}",
+                            f"pair_prediction_path={_write_folder(tmp_path)}"], device="cpu")
+    assert not (tmp_path / "none").exists()

@@ -3,7 +3,7 @@
 on the CPU, all regularisation rates at 0: loss, gradients and the updated
 parameters, plain, with gradient accumulation and with the freeze schedule.
 Also: padding invariance of the gradients, the step's own contracts, and
-the recipe's config against ``config/``."""
+the recipe's config, composed from ``config/``, against the YAML files."""
 
 import functools
 import pathlib
@@ -262,23 +262,23 @@ def test_steps_per_dispatch_and_embeddings():
 def test_unported_modes_and_options_raise():
     model = _regularised_model()
     assert ttask.SpeakerTask(model, "aam").mode == "aam"  # ported with the AAM head
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 3"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 5"):
         ttask.SpeakerTask(model, "ce_no_pool")
     with pytest.raises(ValueError, match="unknown training mode"):
         ttask.SpeakerTask(model, "hinge")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 9"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 5"):
         ts.Wav2Vec2SpeakerModel(ts.Wav2Vec2SpeakerConfig(
             w2v2=tw.Wav2Vec2Config(**TINY), final_channel_mask_prob=0.1))
-    base = texp.SPEAKER_WAV2VEC2_CE
+    base = texp.load_recipe("speaker_wav2vec2_ce")
     for section, key, value in (("algo", "name", "sgd"), ("algo", "mu_dtype", "bfloat16"),
                                 ("algo", "weight_decay", 0.01), ("schedule", "name", "tri_stage")):
         cfg = {**base, "optim": {**base["optim"], section: {**base["optim"][section], key: value}}}
-        with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 5"):
+        with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 3"):
             texp.build_optimizer(cfg)
 
 
 def test_build_optimizer_clips_and_freezes():
-    base = texp.SPEAKER_WAV2VEC2_CE
+    base = texp.load_recipe("speaker_wav2vec2_ce")
     tx = texp.build_optimizer(base)
     assert isinstance(tx, tstate.AdamTx) and tx.schedule(30000) == pytest.approx(9e-5)
     cfg = {**base, "trainer": {**base["trainer"], "gradient_clip_val": 0.5},
@@ -301,16 +301,17 @@ def test_recipe_config_matches_the_yaml_files():
     def load(*parts):
         return yaml.safe_load((ROOT / "config" / pathlib.Path(*parts)).read_text())
 
-    recipe = texp.SPEAKER_WAV2VEC2_CE
+    recipe = texp.load_recipe("speaker_wav2vec2_ce")
     exp = load("experiment", "speaker_wav2vec2_ce.yaml")
     net = load("network", "wav2vec2_fc.yaml")
-    for key, value in recipe["network"].items():
-        assert net[key] == value, key
+    assert recipe["network"] == {**net, **exp.get("network", {})}
     algo = {**load("optim", "algo", "adam.yaml"), **exp["optim"]["algo"]}
-    assert recipe["optim"]["algo"] == {k: algo[k] for k in recipe["optim"]["algo"]}
+    assert recipe["optim"]["algo"] == algo
     sched = load("optim", "schedule", "one_cycle.yaml")
     assert recipe["optim"]["schedule"] == sched
     assert recipe["optim"]["loss"] == load("optim", "loss", "cross_entropy.yaml")
     trainer = {**load("trainer", "trainer.yaml"), **exp["trainer"]}
-    assert recipe["trainer"] == {k: trainer[k] for k in recipe["trainer"]}
-    assert recipe["data"] == exp["data"]
+    for key in ("max_steps", "precision", "accumulate_grad_batches", "gradient_clip_val",
+                "steps_per_dispatch", "remat"):
+        assert recipe["trainer"][key] == trainer[key], key
+    assert recipe["data"]["dataloader"]["batch_size"] == exp["data"]["dataloader"]["batch_size"] == 66

@@ -38,6 +38,18 @@ first reading sits well under it and the second well over it.
   loss moves only with the dropout draws.
 
 Prints one JSON line per reading. Needs ``nvcc`` and one card.
+
+    python3 tools/torch_fault_probe.py --dv-bisect DIR
+
+reads only the dk/dv kernel's dv at ``DIR_SHAPE`` (bf16, rate 0, seeds
+0-3), fed the lse and D of three forwards on the same q, k, v and dO: the
+plain version, the forward kernel as built, and the forward kernel built
+from ``DIR`` (an older ``flash_attention_fwd.cu`` with the headers it
+includes, e.g. ``git archive <commit> w2v2_speaker_tpu_torch/csrc``
+unpacked there). For each it prints dv's share of its limit, the element
+that reads it (batch row, key, head, channel, the row's length, kernel and
+plain values, the limit there), and how far that forward's lse lies from
+the plain version's on the row.
 """
 
 from __future__ import annotations
@@ -64,6 +76,7 @@ from w2v2_speaker_tpu_torch.ops import flash_attention as fa  # noqa: E402
 from w2v2_speaker_tpu_torch.runtime.predict import extract_embeddings  # noqa: E402
 
 SEEDS = (0, 1, 2, 3)
+DIR_SHAPE = "ragged_30s"
 # (source, [(old, new)]): each old text must occur in the source; every
 # occurrence is replaced. Every mutant plants its fault in both the bf16
 # kernel (the main path's) and the f32 one (tests/test_torch_fault_probe.py
@@ -223,10 +236,94 @@ def overfit_readings() -> None:
             }), flush=True)
 
 
+def one_flip(q, k, do, lse, at, n, kernel_value) -> dict:
+    """Whether one P rounded to the other side explains dv's error at
+    ``at`` = (b, key, head, d): the plain version's P column of that key
+    (queries < n), rounded to bf16 as it rounds it, and for each query the
+    dv that the same sum gives with that one P on its other bf16
+    neighbour. Returns the query whose flip lands nearest the kernel's
+    value, that P, its distance from the rounding midpoint in units of its
+    ulp, and the dv with and without the flip."""
+    b, j, h, d = at
+    qs = q[b, :n, h] * fa._scale(q.shape[-1], q.dtype).to(q.device)
+    p = torch.exp2(qs.float() @ k[b, j, h].float() - lse[b, h, :n])
+    pb = p.to(torch.bfloat16)
+    bits = pb.view(torch.int16)
+    other = torch.where(pb.float() < p, bits + 1, bits - 1).to(torch.int16).view(torch.bfloat16)
+    dov = do[b, :n, h, d].float()
+    dv32 = float((pb.float() * dov).sum())
+    flipped = dv32 + (other.float() - pb.float()) * dov
+    i = int((flipped - kernel_value).abs().argmin())
+    ulp = (other.float() - pb.float()).abs()
+    mid = (other.float() + pb.float()) / 2
+    return {"query": i, "p": float(p[i]), "p_bf16": float(pb[i]), "do": float(dov[i]),
+            "ulps_from_midpoint": float((p[i] - mid[i]).abs() / ulp[i]),
+            "dv_f32": dv32, "dv_one_flip": float(flipped[i]), "kernel": kernel_value}
+
+
+def dv_bisect(old_csrc: pathlib.Path) -> None:
+    """The dv reading at ``DIR_SHAPE`` with the lse and D of each forward."""
+    _, b, t, lengths = next(s for s in chip_smoke.ATTN_SHAPES if s[0] == DIR_SHAPE)
+    with tempfile.TemporaryDirectory() as tmp:
+        lib = pathlib.Path(tmp) / "libold_fwd.so"
+        _build.compile_library(old_csrc / "flash_attention_fwd.cu", lib)
+        old_fwd = fa.bind(ctypes.CDLL(str(lib)))
+        built_fwd = fa._kernel()
+
+        def kernel_fwd(fn):
+            def run(q, k, v, lens):
+                fa._fwd_fn = fn
+                try:
+                    return fa.flash_attention_fwd(q, k, v, lens, return_lse=True)
+                finally:
+                    fa._fwd_fn = built_fwd
+            return run
+
+        forwards = {
+            "plain": lambda q, k, v, lens: fa.flash_attention_plain(q, k, v, lens, return_lse=True),
+            "built": kernel_fwd(built_fwd),
+            "old": kernel_fwd(old_fwd),
+        }
+        for seed in SEEDS:
+            gen = torch.Generator(device="cuda").manual_seed(seed)
+            # the draws of chip_smoke.kernel_errors: q, k, v, then dO
+            q, k, v, lens = chip_smoke.attention_inputs(b, t, lengths, torch.bfloat16, gen)
+            do = torch.randn((b, t, chip_smoke.H, chip_smoke.D), generator=gen,
+                             device="cuda").to(torch.bfloat16)
+            _, plain_lse = forwards["plain"](q, k, v, lens)
+            for name, fwd in forwards.items():
+                o, lse = fwd(q, k, v, lens)
+                args = (q, k, v, do, lse, fa.attention_delta(o, do), lens)
+                _, dv = fa.flash_attention_bwd_dkv(*args)
+                _, _, want = fa.flash_attention_bwd_plain(*args)
+                valid = torch.arange(t, device="cuda")[None, :] < lens[:, None]
+                rtol, atol = fa.kernel_tolerance(want[valid], backward=True)
+                share = (dv.float() - want.float()).abs() / (atol + rtol * want.float().abs())
+                share = torch.where(valid[:, :, None, None], share, 0.0)
+                at = np.unravel_index(int(share.argmax()), share.shape)
+                row = at[0]
+                print(json.dumps({
+                    "limit": "dv_bisect", "forward": name, "shape": DIR_SHAPE, "seed": seed,
+                    "limit_share": float(share.max()),
+                    "at": {"b": int(row), "key": int(at[1]), "head": int(at[2]), "d": int(at[3]),
+                           "length": int(lens[row])},
+                    "kernel": float(dv[at]), "plain": float(want[at]),
+                    "limit_there": atol + rtol * abs(float(want[at])), "atol": atol,
+                    "lse_vs_plain_max_abs_row": float(
+                        (lse[row][:, : int(lens[row])] - plain_lse[row][:, : int(lens[row])])
+                        .abs().max()) if int(lens[row]) else 0.0,
+                    "share_by_row": [float(share[i].max()) for i in range(b)],
+                    "one_flip": one_flip(q, k, do, lse, at, int(lens[row]), float(dv[at])),
+                }), flush=True)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("torch_fault_probe: needs a CUDA card")
     print(chip_smoke.card_line(), flush=True)
+    if sys.argv[1:2] == ["--dv-bisect"]:
+        dv_bisect(pathlib.Path(sys.argv[2]))
+        return
     _build.build_all(chip_smoke.KERNEL_SOURCES)
     kernel_readings("as_built", SEEDS)
     conv_readings("as_built", SEEDS)

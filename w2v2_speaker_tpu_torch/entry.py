@@ -37,9 +37,7 @@ import torch
 from .device import DeviceLike, resolve_device, set_float32_precision
 from .models.wav2vec2 import BASE_CONFIG, LARGE_CONFIG, Wav2Vec2Config, init_parameters
 from .models.wav2vec2_speaker import Wav2Vec2SpeakerConfig, Wav2Vec2SpeakerModel
-from .runtime.experiment import (
-    SPEAKER_WAV2VEC2_CE, SPEAKER_WAV2VEC2_LARGE_AAM, build_optimizer, speaker_model_config,
-)
+from .runtime.experiment import build_optimizer, load_recipe, speaker_model_config
 from .train.speaker_task import SpeakerTask
 from .train.state import TrainState
 from .train.steps import make_train_step
@@ -107,14 +105,16 @@ def entry(
 def build_train_state(
     device: torch.device,
     precision: str,
-    cfg: Dict = SPEAKER_WAV2VEC2_CE,
+    cfg: Optional[Dict] = None,
     seed: int = 0,
     num_layers: Optional[int] = None,
 ) -> Tuple[TrainState, SpeakerTask]:
-    """(state, task) of the recipe ``cfg`` on ``device`` at ``precision``
-    ("bf16" or "f32"): random float32 weights from ``seed``, the step
-    generator seeded with ``seed`` too. ``num_layers`` cuts the depth (the
-    widths stay)."""
+    """(state, task) of the recipe ``cfg`` (default: ``speaker_wav2vec2_ce``
+    from ``config/``) on ``device`` at ``precision`` ("bf16" or "f32"):
+    random float32 weights from ``seed``, the step generator seeded with
+    ``seed`` too. ``num_layers`` cuts the depth (the widths stay)."""
+    if cfg is None:
+        cfg = load_recipe("speaker_wav2vec2_ce")
     model_cfg, mode = speaker_model_config(
         {**cfg, "trainer": {**cfg["trainer"], "precision": precision}})
     if num_layers is not None:
@@ -159,7 +159,7 @@ def train_entry(
     ``loss``, ``accuracy`` and ``layers_run``. Precision is the recipe's
     bf16 on the card, f32 on the CPU. Runs on the card unless
     ``device="cpu"``; raises without a card."""
-    return _recipe_entry(SPEAKER_WAV2VEC2_CE, device, batch, samples)
+    return _recipe_entry(load_recipe("speaker_wav2vec2_ce"), device, batch, samples)
 
 
 def large_train_entry(
@@ -170,6 +170,5 @@ def large_train_entry(
     ``network.conv_impl=conv_impl``: wav2vec2-LARGE, the AAM head, four
     steps per dispatch of B=``batch`` clips; the metrics as
     ``train_entry``'s, ``accuracy`` from the AAM head's predictions."""
-    cfg = SPEAKER_WAV2VEC2_LARGE_AAM
-    cfg = {**cfg, "network": {**cfg["network"], "conv_impl": conv_impl}}
+    cfg = load_recipe("speaker_wav2vec2_large_aam", [f"network.conv_impl={conv_impl}"])
     return _recipe_entry(cfg, device, batch, samples)

@@ -1,0 +1,328 @@
+"""Speaker-verification evaluators: trial scoring -> EER / minDCF (copy of
+``w2v2_speaker_tpu/eval/evaluator.py``).
+
+- ``EmbeddingSample``, ``compute_mean_std`` (ddof 1), ``center`` and
+  ``length_norm``;
+- ``SpeakerRecognitionEvaluator.evaluate`` (:116): the sample map with
+  duplicate detection, the -1 sentinels for a trial whose sample is
+  missing, scores mapped to (s + 1) / 2 and clipped to [0, 1] for every
+  evaluator, EER and minDCF with the 1 / 1337 sentinels on failure;
+- ``CosineDistanceEvaluator`` (:176): row-wise cosine (torch
+  ``CosineSimilarity`` eps), optional centering and length-norm fitted on
+  a training buffer;
+- ``ASNormCosineEvaluator`` (:270): adaptive symmetric score normalisation
+  against the top-K of an impostor cohort, self-matches excluded
+  (``_cohort_stats`` :329), squashed by s / (1 + |s|).
+
+Layer-ensemble and non-pooled ``[T, D]`` embeddings (:212, :252) raise:
+they wait for the ensemble embeddings of ROADMAP.md Queue 1 item 5.
+"""
+
+from __future__ import annotations
+
+import warnings
+from dataclasses import dataclass
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+
+from ..data.trials import EvaluationPair
+from .metrics import calculate_eer, calculate_mdc
+
+_ENSEMBLE_ROW = "ROADMAP.md Queue 1 item 5 (layer ensembles)"
+
+__all__ = [
+    "EmbeddingSample",
+    "SpeakerRecognitionEvaluator",
+    "CosineDistanceEvaluator",
+    "ASNormCosineEvaluator",
+    "compute_mean_std",
+    "center",
+    "length_norm",
+]
+
+
+@dataclass
+class EmbeddingSample:
+    sample_id: str
+    embedding: np.ndarray  # [D] pooled
+
+
+def compute_mean_std(embeddings: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """Per-dimension mean/std over [N, D] (ddof=1, torch.std_mean parity)."""
+    return embeddings.mean(axis=0), embeddings.std(axis=0, ddof=1)
+
+
+def center(
+    embeddings: np.ndarray, mean: np.ndarray, std: np.ndarray
+) -> np.ndarray:
+    return (embeddings - mean) / (std + 1e-12)
+
+
+def length_norm(embeddings: np.ndarray) -> np.ndarray:
+    n = np.linalg.norm(embeddings, axis=-1, keepdims=True)
+    return embeddings / np.maximum(n, 1e-12)
+
+
+def _describe(x: np.ndarray) -> str:
+    """pandas-describe-style one-liner (count/mean/std/min/quartiles/max) —
+    the reference prints pd.DataFrame(scores).describe() for ground-truth
+    and prediction scores (speaker_recognition_evaluator.py:84-88)."""
+    if x.size == 0:
+        return "count=0"
+    q25, q50, q75 = np.percentile(x, [25, 50, 75])
+    std = x.std(ddof=1) if x.size > 1 else 0.0
+    return (
+        f"count={x.size} mean={x.mean():.4f} std={std:.4f} "
+        f"min={x.min():.4f} 25%={q25:.4f} 50%={q50:.4f} 75%={q75:.4f} "
+        f"max={x.max():.4f}"
+    )
+
+
+def _cosine_rowwise(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """Row-wise cosine similarity, torch CosineSimilarity eps semantics."""
+    na = np.linalg.norm(a, axis=-1)
+    nb = np.linalg.norm(b, axis=-1)
+    denom = np.maximum(na * nb, 1e-8)
+    return (a * b).sum(axis=-1) / denom
+
+
+class SpeakerRecognitionEvaluator:
+    def __init__(self, max_num_training_samples: int = 0):
+        self.max_num_training_samples = max_num_training_samples
+
+    # -- parameter fitting (centering stats etc.) -------------------------
+
+    def fit_parameters(
+        self,
+        embedding_tensors: Sequence[np.ndarray],
+        label_tensors: Optional[Sequence[int]] = None,
+    ) -> None:
+        pass
+
+    def reset_parameters(self) -> None:
+        pass
+
+    # -- scoring -----------------------------------------------------------
+
+    def _compute_prediction_scores(
+        self, pairs: List[Tuple[EmbeddingSample, EmbeddingSample]]
+    ) -> List[float]:
+        raise NotImplementedError
+
+    # -- evaluation orchestration -------------------------------------------
+
+    def evaluate(
+        self,
+        pairs: Sequence[EvaluationPair],
+        samples: Sequence[EmbeddingSample],
+    ) -> Dict[str, float]:
+        sample_map: Dict[str, EmbeddingSample] = {}
+        for s in samples:
+            if s.sample_id in sample_map:
+                raise ValueError(f"duplicate key {s.sample_id}")
+            sample_map[s.sample_id] = s
+
+        ground_truth, prediction_pairs = [], []
+        for p in pairs:
+            if p.sample1_id not in sample_map or p.sample2_id not in sample_map:
+                warnings.warn(
+                    f"{p.sample1_id} or {p.sample2_id} not in sample_map"
+                )
+                return {
+                    "eer": -1,
+                    "eer_threshold": -1,
+                    "mdc": -1,
+                    "mdc_threshold": -1,
+                }
+            ground_truth.append(1 if p.same_speaker else 0)
+            prediction_pairs.append(
+                (sample_map[p.sample1_id], sample_map[p.sample2_id])
+            )
+
+        scores = np.asarray(
+            self._compute_prediction_scores(prediction_pairs), dtype=np.float64
+        )
+        scores = np.clip((scores + 1.0) / 2.0, 0.0, 1.0)
+
+        # score-distribution diagnostics, the reference's
+        # pd.DataFrame(...).describe() tables
+        # (speaker_recognition_evaluator.py:84-88)
+        print("ground truth scores:", _describe(np.asarray(ground_truth)))
+        print("prediction scores:  ", _describe(scores))
+
+        try:
+            eer, eer_threshold = calculate_eer(
+                ground_truth, scores.tolist(), pos_label=1
+            )
+        except (ValueError, ZeroDivisionError) as e:
+            print(f"EER calculation had {e}")
+            eer, eer_threshold = 1, 1337
+        try:
+            mdc, mdc_threshold = calculate_mdc(ground_truth, scores.tolist())
+        except (ValueError, ZeroDivisionError) as e:
+            print(f"mdc calculation had {e}")
+            mdc, mdc_threshold = 1, 1337
+
+        return {
+            "eer": float(eer),
+            "eer_threshold": float(eer_threshold),
+            "mdc": float(mdc),
+            "mdc_threshold": float(mdc_threshold),
+        }
+
+
+class CosineDistanceEvaluator(SpeakerRecognitionEvaluator):
+    def __init__(
+        self,
+        center_before_scoring: bool = False,
+        length_norm_before_scoring: bool = False,
+        max_num_training_samples: int = 0,
+    ):
+        super().__init__(max_num_training_samples)
+        self.center_before_scoring = center_before_scoring
+        self.length_norm_before_scoring = length_norm_before_scoring
+        self.mean: Optional[np.ndarray] = None
+        self.std: Optional[np.ndarray] = None
+
+    def fit_parameters(self, embedding_tensors, label_tensors=None):
+        if not self.center_before_scoring:
+            return
+        if len(embedding_tensors) <= 2:
+            raise ValueError(
+                "mean/std calculation requires more than 2 samples"
+            )
+        stacked = np.stack(list(embedding_tensors), axis=0)
+        self.mean, self.std = compute_mean_std(stacked)
+
+    def reset_parameters(self):
+        self.mean = None
+        self.std = None
+
+    def _compute_prediction_scores(self, pairs):
+        first = pairs[0][0].embedding
+        if isinstance(first, list) or np.asarray(first).ndim == 2:
+            raise NotImplementedError(
+                "layer-ensemble and non-pooled [T, D] embeddings are not "
+                f"ported yet: {_ENSEMBLE_ROW}"
+            )
+        return self._pooled_pair_scores(pairs).tolist()
+
+    def _pooled_pair_scores(self, pairs) -> np.ndarray:
+        """Raw cosine over pooled [D] pairs after this evaluator's
+        centering/length-norm preprocessing (the pooled branch of
+        `_compute_prediction_scores`, shared with AS-norm)."""
+        left = np.stack([np.asarray(a.embedding) for a, _ in pairs])
+        right = np.stack([np.asarray(b.embedding) for _, b in pairs])
+        left, right = self._preprocess(left), self._preprocess(right)
+        return _cosine_rowwise(left, right)
+
+    def _preprocess(self, embeddings: np.ndarray) -> np.ndarray:
+        if self.center_before_scoring:
+            embeddings = center(embeddings, self.mean, self.std)
+        if self.length_norm_before_scoring:
+            embeddings = length_norm(embeddings)
+        return embeddings
+
+
+class ASNormCosineEvaluator(CosineDistanceEvaluator):
+    """Cosine scoring with adaptive symmetric score normalization (AS-Norm).
+
+    Beyond-reference capability (the reference stops at raw/centered cosine,
+    `cosine_distance.py:66-243`): each trial's cosine score is z-normalized
+    against the score distributions of its two sides vs an impostor cohort,
+    using only each side's top-K most similar cohort models — AS-Norm1 of
+    Matejka et al. (Interspeech 2017), the standard calibration step in
+    modern VoxCeleb recipes:
+
+        s' = 1/2 * ( (s - mu_e) / sd_e  +  (s - mu_t) / sd_t )
+
+    Cohort models are per-speaker means of the same training-embedding
+    buffer that already feeds centering (reference
+    speaker_recognition_module.py:79,521-561 — same data, one extra
+    [sides, cohort] matmul + top-K, no per-trial python loop).
+
+    The normalized score is squashed through the monotone map s/(1+|s|) so
+    the framework's (s+1)/2 clip (speaker_recognition_evaluator.py:81, a
+    preserved reference quirk) stays bijective on it — EER/minDCF are
+    rank-based, so they are exactly those of the raw AS-Norm scores.
+    """
+
+    def __init__(
+        self,
+        cohort_topk: int = 300,
+        center_before_scoring: bool = False,
+        length_norm_before_scoring: bool = True,
+        max_num_training_samples: int = 2000,
+    ):
+        super().__init__(
+            center_before_scoring=center_before_scoring,
+            length_norm_before_scoring=length_norm_before_scoring,
+            max_num_training_samples=max_num_training_samples,
+        )
+        self.cohort_topk = int(cohort_topk)
+        self.cohort: Optional[np.ndarray] = None
+
+    def fit_parameters(self, embedding_tensors, label_tensors=None):
+        super().fit_parameters(embedding_tensors, label_tensors)
+        stacked = np.stack(list(embedding_tensors), axis=0).astype(np.float64)
+        if label_tensors is not None and len(label_tensors) == len(stacked):
+            labels = np.asarray(list(label_tensors))
+            models = np.stack(
+                [stacked[labels == lab].mean(axis=0)
+                 for lab in np.unique(labels)]
+            )
+        else:  # no labels: every sample is its own cohort model
+            models = stacked
+        if self.center_before_scoring:
+            models = center(models, self.mean, self.std)
+        # cohort is always length-normed: the [sides, cohort] dot below is
+        # then exactly cosine similarity
+        self.cohort = length_norm(models)
+
+    def reset_parameters(self):
+        super().reset_parameters()
+        self.cohort = None
+
+    def _cohort_stats(
+        self, sides: np.ndarray
+    ) -> Tuple[np.ndarray, np.ndarray]:
+        """Top-K cohort-similarity mean/std per row of `sides` [P, D]."""
+        # reserve one slot so a masked self-match can never be forced into
+        # the top-K (predict.py fits the cohort from the extraction set
+        # itself, where every side has an exact twin in the cohort)
+        k = min(self.cohort_topk, max(self.cohort.shape[0] - 1, 1))
+        sims = length_norm(sides) @ self.cohort.T  # [P, N] cosine
+        # exclude self/duplicate matches: -2 is below any real cosine, so
+        # they lose every top-K contest without producing inf/nan stats
+        sims = np.where(sims >= 1.0 - 1e-6, -2.0, sims)
+        top = (
+            np.partition(sims, sims.shape[1] - k, axis=1)[:, -k:]
+            if k < sims.shape[1]
+            else sims
+        )
+        mu = top.mean(axis=1)
+        sd = top.std(axis=1, ddof=1) if k > 1 else np.ones_like(mu)
+        return mu, np.maximum(sd, 1e-6)
+
+    def _compute_prediction_scores(self, pairs):
+        first = pairs[0][0].embedding
+        if isinstance(first, list) or np.asarray(first).ndim == 2:
+            return super()._compute_prediction_scores(pairs)  # raises
+        if self.cohort is None or self.cohort.shape[0] < 2:
+            raise ValueError(
+                "ASNormCosineEvaluator needs a fitted cohort: set "
+                "evaluator.max_num_training_samples > 0 so fit_parameters "
+                "receives training embeddings"
+            )
+        left = self._preprocess(
+            np.stack([np.asarray(a.embedding) for a, _ in pairs])
+        )
+        right = self._preprocess(
+            np.stack([np.asarray(b.embedding) for _, b in pairs])
+        )
+        s = _cosine_rowwise(left, right)
+        mu_l, sd_l = self._cohort_stats(left)
+        mu_r, sd_r = self._cohort_stats(right)
+        z = 0.5 * ((s - mu_l) / sd_l + (s - mu_r) / sd_r)
+        return (z / (1.0 + np.abs(z))).tolist()

@@ -4,7 +4,7 @@ Counterpart of ``w2v2_speaker_tpu/models/masking.py::sample_span_mask``
 (:66). The JAX function draws its uniforms from a PRNG key; here the caller
 hands them in (``draw_uniform`` takes them from the train step's
 ``torch.Generator``), so a test can feed both packages the same numbers.
-``embedding_mask`` (:39) is not ported yet (ROADMAP Queue 1 item 9).
+``embedding_mask`` (:39) is not ported yet (ROADMAP Queue 1 item 5).
 """
 
 from __future__ import annotations

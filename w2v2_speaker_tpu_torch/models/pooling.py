@@ -3,7 +3,7 @@
 Counterpart of ``w2v2_speaker_tpu/models/pooling.py``: ``MeanPool`` (:75),
 ``get_pooling`` (:236) and ``pooled_embedding_size`` (:244). Only ``"mean"``
 is ported; the other pooling types of the JAX package raise
-``NotImplementedError`` until a later slice (ROADMAP Queue 1 item 3).
+``NotImplementedError`` until a later slice (ROADMAP Queue 1 item 5).
 """
 
 from __future__ import annotations
@@ -37,7 +37,7 @@ def _check(name: str) -> None:
     if name in _NOT_YET:
         raise NotImplementedError(
             f"pooling '{name}' is not ported yet (only 'mean'): ROADMAP.md "
-            f"Queue 1 item 3"
+            f"Queue 1 item 5"
         )
     if name != "mean":
         raise ValueError(f"unknown pooling '{name}'")

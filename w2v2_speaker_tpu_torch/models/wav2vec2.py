@@ -24,7 +24,9 @@ created in float32, as flax's ``param_dtype`` keeps them: training keeps
 them so and runs the forward under ``torch.autocast`` in bfloat16 when
 ``cfg.dtype`` is bfloat16 (the role of ``trainer.precision``); serving casts
 the weights themselves to bfloat16 (``entry.build_model``) and then needs no
-autocast. Norm statistics and the attention softmax run in float32.
+autocast. Norm statistics and the attention softmax run in float32; under
+autocast every LayerNorm hands its output on in the compute type
+(``LayerNorm``), as flax's ``LayerNorm(dtype=...)`` does.
 
 A per-layer Python loop stands in for ``nn.scan``. Every attention call
 goes through ``ops.flash_attention.flash_attention``: the hand-written CUDA
@@ -61,6 +63,7 @@ from .masking import draw_uniform, sample_span_mask
 
 __all__ = [
     "HashDropout",
+    "LayerNorm",
     "Wav2Vec2Config",
     "Wav2Vec2Model",
     "BASE_CONFIG",
@@ -75,7 +78,7 @@ class Wav2Vec2Config:
 
     Fields that only shape TPU code generation (remat, remat_policy, scan
     unroll, posconv formulation, attention_impl) are kept so configs carry
-    over; they change nothing here (ROADMAP Queue 1 item 11).
+    over; they change nothing here (ROADMAP Queue 1 item 9).
     """
 
     # conv feature encoder
@@ -193,6 +196,26 @@ class _MaskedChannelNorm(nn.Module):
         return y.to(x.dtype)
 
 
+class LayerNorm(nn.LayerNorm):
+    """``nn.LayerNorm`` whose output, under autocast, is rounded to the
+    autocast type, as the JAX package's ``LayerNorm(dtype=cfg.dtype)``
+    rounds it (:364-368, 653-655, 681-685, 738-740, 766-768). Statistics
+    and affine run in float32 on every device: CUDA autocast runs
+    ``layer_norm`` in float32 and returns float32, which would hand float32
+    on to the residual stream and the GELUs; CPU autocast would keep the
+    input's type. Outside autocast (float32, or serving on bfloat16
+    weights) it is ``nn.LayerNorm``."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dev = x.device.type
+        if not torch.is_autocast_enabled(dev):
+            return super().forward(x)
+        with torch.autocast(dev, enabled=False):
+            y = F.layer_norm(x.float(), self.normalized_shape, self.weight.float(),
+                             self.bias.float(), self.eps)
+        return y.to(torch.get_autocast_dtype(dev))
+
+
 class ConvFeatureEncoder(nn.Module):
     """Raw waveform ``[B, N]`` -> features ``[B, T, conv_dim[-1]]``.
 
@@ -218,7 +241,7 @@ class ConvFeatureEncoder(nn.Module):
             )
             if cfg.feat_extract_norm == "layer":
                 self.add_module(
-                    f"layer_norm_{i}", nn.LayerNorm(c, eps=cfg.layer_norm_eps)
+                    f"layer_norm_{i}", LayerNorm(c, eps=cfg.layer_norm_eps)
                 )
             in_c = c
         if cfg.feat_extract_norm == "group":
@@ -303,7 +326,7 @@ class HashDropout(nn.Module):
 class FeatureProjection(nn.Module):
     def __init__(self, cfg: Wav2Vec2Config):
         super().__init__()
-        self.layer_norm = nn.LayerNorm(cfg.conv_dim[-1], eps=cfg.layer_norm_eps)
+        self.layer_norm = LayerNorm(cfg.conv_dim[-1], eps=cfg.layer_norm_eps)
         self.projection = nn.Linear(cfg.conv_dim[-1], cfg.hidden_size)
         self.dropout = HashDropout(cfg.feat_proj_dropout, cfg.hash_dropout)
 
@@ -335,10 +358,21 @@ class PosConvEmbedding(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:  # [B, T, h]
         k = self.weight_v.shape[-1]
-        out = F.conv1d(
-            x.transpose(1, 2), self.weight(), self.bias,
-            padding=k // 2, groups=self.groups,
-        )
+        x, w, b = x.transpose(1, 2), self.weight(), self.bias
+        on_cpu = x.device.type == "cpu"
+        dtype = torch.get_autocast_dtype("cpu") if on_cpu and torch.is_autocast_enabled("cpu") else x.dtype
+        if on_cpu and dtype != torch.float32:
+            # oneDNN's bf16 grouped conv is wrong at 8 channels per group
+            # (max error ~100 % of the output on torch 2.13's CPU build);
+            # sum in float32 the operands rounded to the compute type, as
+            # cuDNN does on the card, and round the output once
+            with torch.autocast("cpu", enabled=False):
+                out = F.conv1d(
+                    *(t.to(dtype).float() for t in (x, w, b)),
+                    padding=k // 2, groups=self.groups,
+                ).to(dtype)
+        else:
+            out = F.conv1d(x, w, b, padding=k // 2, groups=self.groups)
         if k % 2 == 0:
             out = out[:, :, :-1]
         return F.gelu(out).transpose(1, 2)
@@ -383,10 +417,10 @@ class EncoderLayer(nn.Module):
         eps = cfg.layer_norm_eps
         self.pre = cfg.do_stable_layer_norm
         self.attention = SelfAttention(cfg)
-        self.layer_norm = nn.LayerNorm(cfg.hidden_size, eps=eps)
+        self.layer_norm = LayerNorm(cfg.hidden_size, eps=eps)
         self.intermediate_dense = nn.Linear(cfg.hidden_size, cfg.intermediate_size)
         self.output_dense = nn.Linear(cfg.intermediate_size, cfg.hidden_size)
-        self.final_layer_norm = nn.LayerNorm(cfg.hidden_size, eps=eps)
+        self.final_layer_norm = LayerNorm(cfg.hidden_size, eps=eps)
         self.attn_dropout = HashDropout(cfg.hidden_dropout, cfg.hash_dropout)  # :647
         self.act_dropout = HashDropout(cfg.activation_dropout, cfg.hash_dropout)  # :670
         self.out_dropout = HashDropout(cfg.hidden_dropout, cfg.hash_dropout)  # :675
@@ -413,7 +447,7 @@ class Encoder(nn.Module):
         self.pre = cfg.do_stable_layer_norm
         self.layerdrop = cfg.layerdrop
         self.pos_conv_embed = PosConvEmbedding(cfg)
-        self.layer_norm = nn.LayerNorm(cfg.hidden_size, eps=cfg.layer_norm_eps)
+        self.layer_norm = LayerNorm(cfg.hidden_size, eps=cfg.layer_norm_eps)
         self.dropout = HashDropout(cfg.hidden_dropout, cfg.hash_dropout)  # :741
         self.layers = nn.ModuleList(EncoderLayer(cfg) for _ in range(cfg.num_layers))
         self.layers_run = cfg.num_layers  # layers the last forward ran

@@ -12,7 +12,7 @@ the forward also returns its ``loss`` and ``preds`` (:147-156).
 
 Not ported yet, and raising ``NotImplementedError``: the feature-encoder-only
 variant, the CTC head, the frame-level (no-pool) modes, the final-embedding
-channel mask and layer-ensemble embeddings (ROADMAP Queue 1 items 3 and 9).
+channel mask and layer-ensemble embeddings (ROADMAP Queue 1 items 5 and 7).
 """
 
 from __future__ import annotations
@@ -55,8 +55,8 @@ class Wav2Vec2SpeakerModel(nn.Module):
     ):
         super().__init__()
         for name, row in (
-            ("feature_encoder_only", "Queue 1 item 2"),
-            ("ctc_head", "Queue 1 item 9"),
+            ("feature_encoder_only", "Queue 1 item 5"),
+            ("ctc_head", "Queue 1 item 7"),
         ):
             if getattr(cfg, name):
                 raise NotImplementedError(
@@ -67,7 +67,7 @@ class Wav2Vec2SpeakerModel(nn.Module):
         if cfg.final_channel_mask_prob > 0:
             raise NotImplementedError(
                 "final_channel_mask_prob > 0 (embedding_mask) is not ported yet: "
-                "ROADMAP.md Queue 1 item 9"
+                "ROADMAP.md Queue 1 item 5"
             )
         self.wav2vec2 = Wav2Vec2Model(cfg.w2v2)
         self.stat_pooling = get_pooling(cfg.stat_pooling_type)

@@ -2,7 +2,7 @@
 
 Counterpart of ``w2v2_speaker_tpu/objectives/losses.py``: ``cross_entropy``
 (:43) and ``aam_margin_logits`` (:74). The other losses (binary CE,
-triplet, CTC) are not ported yet (ROADMAP Queue 1 item 9).
+triplet, CTC) are not ported yet (ROADMAP Queue 1 item 7).
 """
 
 from __future__ import annotations

@@ -6,7 +6,7 @@ max_lr / div_factor up to max_lr over the first ``int(pct_start * T)``
 steps, then down to max_lr / (div_factor * final_div_factor) at step
 ``int(T)``, constant after. ``torch.optim.lr_scheduler.OneCycleLR`` ends
 each phase one step earlier and would give other rates. The other schedules
-are not ported yet (ROADMAP Queue 1 item 5).
+are not ported yet (ROADMAP Queue 1 item 3).
 """
 
 from __future__ import annotations

@@ -48,6 +48,7 @@ them, so embeddings and parameter gradients agree).
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from typing import Optional, Tuple
 
@@ -197,6 +198,20 @@ def _check_dropout(dropout_rate: float, seed: Optional[int]) -> None:
         raise ValueError("dropout_rate > 0 requires a seed")
 
 
+def _autocast_off(fn):
+    """Run a plain version with autocast off: it rounds where the kernel
+    rounds and sums in float32, and an autocast region (bf16 training on
+    the CPU) would round its float32 products and scores to bf16 again."""
+
+    @functools.wraps(fn)
+    def run(q, *args, **kwargs):
+        with torch.autocast(q.device.type, enabled=False):
+            return fn(q, *args, **kwargs)
+
+    return run
+
+
+@_autocast_off
 def flash_attention_plain(
     q: torch.Tensor,  # [B, T, H, D]
     k: torch.Tensor,
@@ -236,6 +251,7 @@ def flash_attention_plain(
     return o, lse
 
 
+@_autocast_off
 def flash_attention_bwd_plain(
     q: torch.Tensor,  # [B, T, H, D]
     k: torch.Tensor,

@@ -5,32 +5,38 @@ Counterpart of ``w2v2_speaker_tpu/runtime/experiment.py``: ``_w2v2_config``
 (:320) as ``w2v2_config``, ``build_model_and_task`` (:374) for the
 ``wav2vec2_fc`` network in the ``ce`` and ``aam`` modes, and
 ``build_optimizer`` (:616) for Adam under the one-cycle schedule,
-global-norm clipping and the backbone freeze schedules, read from the same
-keys of the merged Hydra config (``optim.algo``, ``optim.schedule``,
-``optim.loss``, ``trainer``, ``network``). What is not ported raises
-``NotImplementedError`` naming its ROADMAP row. ``SPEAKER_WAV2VEC2_CE`` and
-``SPEAKER_WAV2VEC2_LARGE_AAM`` are those recipes' merged configs,
-restricted to the keys read here (the port carries no YAML reader;
-``tests/test_torch_train_step.py`` and ``tests/test_torch_experiment.py``
-hold them against ``config/``).
+global-norm clipping and the backbone freeze schedules, and
+``build_evaluator`` (:289) for the five evaluators of ``config/evaluator/``,
+read from the same keys of the merged Hydra config (``optim.algo``,
+``optim.schedule``, ``optim.loss``, ``trainer``, ``network``,
+``evaluator``). ``load_recipe`` composes a recipe from ``config/`` with
+the port's ``load_config``. What is not ported raises
+``NotImplementedError`` naming its ROADMAP row.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+import pathlib
+from typing import Dict, Sequence, Tuple
 
+from ..eval.backends import LDAEvaluator, PLDAEvaluator
+from ..eval.evaluator import (
+    ASNormCosineEvaluator, CosineDistanceEvaluator, SpeakerRecognitionEvaluator,
+)
 from ..models.wav2vec2 import BASE_CONFIG, LARGE_CONFIG, Wav2Vec2Config
 from ..models.wav2vec2_speaker import Wav2Vec2SpeakerConfig, Wav2Vec2SpeakerModel
 from ..objectives import schedules
 from ..train.speaker_task import SpeakerTask
 from ..train.state import AdamTx, ClipTx, make_freeze_schedule_tx
+from .config import load_config
 
 __all__ = [
-    "SPEAKER_WAV2VEC2_CE", "SPEAKER_WAV2VEC2_LARGE_AAM", "TINY_W2V2", "build_model_and_task",
-    "build_optimizer", "speaker_model_config", "w2v2_config",
+    "CONFIG_DIR", "TINY_W2V2", "build_evaluator", "build_model_and_task", "build_optimizer",
+    "load_recipe", "speaker_model_config", "w2v2_config",
 ]
 
-_OPTIM_ROW = "ROADMAP.md Queue 1 item 5 (optimizers and schedules)"
+_OPTIM_ROW = "ROADMAP.md Queue 1 item 3 (optimizers and schedules)"
+CONFIG_DIR = pathlib.Path(__file__).resolve().parents[2] / "config"
 
 TINY_W2V2 = Wav2Vec2Config(  # network.wav2vec2_size=tiny (:82), for debug runs
     conv_dim=(32, 32), conv_kernel=(10, 3), conv_stride=(5, 2), hidden_size=48, num_layers=2,
@@ -38,62 +44,11 @@ TINY_W2V2 = Wav2Vec2Config(  # network.wav2vec2_size=tiny (:82), for debug runs
     num_conv_pos_embedding_groups=4,
 )
 
-# config/network/wav2vec2_fc.yaml, the keys read here
-_WAV2VEC2_FC = {
-    "name": "wav2vec2_fc",
-    "wav2vec2_size": "base",
-    "wav2vec_initially_frozen": False,
-    "num_frozen_steps": None,
-    "completely_freeze_feature_extractor": False,
-    "hidden_fc_layers_out": [],
-    "embedding_layer_idx": -1,
-    "stat_pooling_type": "mean",
-    "test_stat_pooling_type": None,
-    "activation_dropout": 0.0,
-    "attention_dropout": 0.1,
-    "feat_proj_dropout": 0.1,
-    "hidden_dropout": 0.1,
-    "layerdrop": 0.05,
-    "mask_feature_length": 10,
-    "mask_feature_prob": 0.0,
-    "mask_time_length": 10,
-    "mask_time_prob": 0.05,
-    "final_channel_mask_prob": 0.0,
-    "final_channel_mask_width": 1,
-    "attention_impl": "flash",
-    "remat_policy": "nothing",
-    "encoder_unroll": 99,
-    "int8_matmuls": False,
-}
-_ADAM = {"name": "adam", "b1": 0.9, "b2": 0.999, "weight_decay": 0.0, "mu_dtype": None}
-_ONE_CYCLE = {"name": "one_cycle", "pct_start": 0.3, "div_factor": 25.0,
-              "final_div_factor": 10000.0}
-_TRAINER = {"max_steps": 100000, "precision": "bf16", "accumulate_grad_batches": 1,
-            "gradient_clip_val": 0, "steps_per_dispatch": 4, "remat": False}
-
-# config/experiment/speaker_wav2vec2_ce.yaml over config/train_eval.yaml's
-# defaults: network wav2vec2_fc, optim/algo adam (lr 9e-5), optim/schedule
-# one_cycle, optim/loss cross_entropy, trainer (bf16, 100 000 steps, 4 steps
-# per dispatch), batch 66
-SPEAKER_WAV2VEC2_CE: Dict = {
-    "network": dict(_WAV2VEC2_FC),
-    "optim": {"algo": {**_ADAM, "lr": 9.0e-5}, "schedule": dict(_ONE_CYCLE),
-              "loss": {"name": "cross_entropy"}},
-    "trainer": dict(_TRAINER),
-    "data": {"dataloader": {"batch_size": 66}},
-}
-
-# config/experiment/speaker_wav2vec2_large_aam.yaml over the same defaults:
-# wav2vec2-LARGE, optim/loss aam_softmax (margin 0.2, scale 30), Adam lr
-# 5e-5, trainer.remat with remat_policy dots_no_batch (accepted, no effect
-# here: ROADMAP Queue 1 item 11), batch 48
-SPEAKER_WAV2VEC2_LARGE_AAM: Dict = {
-    "network": {**_WAV2VEC2_FC, "wav2vec2_size": "large", "remat_policy": "dots_no_batch"},
-    "optim": {"algo": {**_ADAM, "lr": 5.0e-5}, "schedule": dict(_ONE_CYCLE),
-              "loss": {"name": "aam_softmax", "margin": 0.2, "scale": 30.0}},
-    "trainer": {**_TRAINER, "remat": True},
-    "data": {"dataloader": {"batch_size": 48}},
-}
+def load_recipe(experiment: str, overrides: Sequence[str] = ()) -> Dict:
+    """The merged config of ``+experiment=<experiment>`` over
+    ``config/train_eval.yaml``, then ``overrides``, composed as ``run.py``
+    composes it."""
+    return load_config(CONFIG_DIR, "train_eval", [f"+experiment={experiment}", *overrides])
 
 
 def _canon_int8(val):
@@ -110,7 +65,7 @@ def w2v2_config(net: Dict, precision: str, remat: bool = False, accumulate: int 
     tiny with the recipe's regularisation, computing in bfloat16 for
     precision "bf16". ``remat``, ``remat_policy``, ``encoder_unroll``,
     ``posconv_decomposed`` and ``attention_impl`` are carried and validated
-    and change nothing here (ROADMAP Queue 1 item 11); ``int8_matmuls``
+    and change nothing here (ROADMAP Queue 1 item 9); ``int8_matmuls``
     true makes the model raise."""
     base = {"base": BASE_CONFIG, "large": LARGE_CONFIG, "tiny": TINY_W2V2}[
         net.get("wav2vec2_size", "base")]
@@ -141,9 +96,9 @@ def speaker_model_config(cfg: Dict) -> Tuple[Wav2Vec2SpeakerConfig, str]:
     JAX ``build_model_and_task`` (:434-459) reads them."""
     net, loss = cfg["network"], cfg["optim"]["loss"]
     if net.get("name", "wav2vec2_fc") != "wav2vec2_fc":
-        raise NotImplementedError(f"network {net['name']!r} is not ported yet: ROADMAP.md Queue 1 item 9")
+        raise NotImplementedError(f"network {net['name']!r} is not ported yet: ROADMAP.md Queue 1 item 7")
     if loss["name"] not in _MODES:
-        raise NotImplementedError(f"loss {loss['name']!r} is not ported yet: ROADMAP.md Queue 1 item 9")
+        raise NotImplementedError(f"loss {loss['name']!r} is not ported yet: ROADMAP.md Queue 1 item 7")
     trainer = cfg["trainer"]
     w2v2 = w2v2_config(net, trainer["precision"], trainer.get("remat", False),
                        int(trainer.get("accumulate_grad_batches") or 1))
@@ -215,3 +170,34 @@ def build_optimizer(cfg: Dict):
             tx, frozen_predicate=lambda p: "feature_encoder" in p, num_frozen_steps=None
         )
     return tx
+
+
+def build_evaluator(cfg: Dict) -> SpeakerRecognitionEvaluator:
+    """The evaluator of ``cfg["evaluator"]`` (any file of
+    ``config/evaluator/``), with the JAX package's defaults (:289-318)."""
+    e = cfg["evaluator"]
+    if e["name"] == "cosine_distance":
+        return CosineDistanceEvaluator(
+            center_before_scoring=e["center_before_scoring"],
+            length_norm_before_scoring=e["length_norm_before_scoring"],
+            max_num_training_samples=e["max_num_training_samples"],
+        )
+    if e["name"] == "cosine_distance_asnorm":
+        return ASNormCosineEvaluator(
+            cohort_topk=int(e.get("cohort_topk", 300)),
+            center_before_scoring=e.get("center_before_scoring", False),
+            length_norm_before_scoring=e.get("length_norm_before_scoring", True),
+            max_num_training_samples=e["max_num_training_samples"],
+        )
+    if e["name"] == "lda":
+        return LDAEvaluator(
+            num_pca_components=e["num_pca_components"],
+            max_num_training_samples=e["max_num_training_samples"],
+        )
+    if e["name"] == "plda":
+        return PLDAEvaluator(
+            num_pca_components=e["num_pca_components"],
+            num_em_iterations=e["num_em_iterations"],
+            max_num_training_samples=e["max_num_training_samples"],
+        )
+    raise ValueError(f"unknown evaluator {e['name']}")

@@ -1,4 +1,4 @@
-"""Serving: bucketed embedding extraction and pair scoring.
+"""Serving: bucketed embedding extraction and pair scoring, end to end.
 
 Counterparts:
 
@@ -8,35 +8,42 @@ Counterparts:
   all-invalid rows, run the masked model, slice the rows back;
 - ``read_pair_file`` <- ``w2v2_speaker_tpu/runtime/predict.py::
   read_pair_file`` (:74);
-- ``score_pairs`` <- the pooled cosine of ``w2v2_speaker_tpu/eval/
-  evaluator.py::CosineDistanceEvaluator`` (:176, ``_cosine_rowwise`` :83;
-  no centering, no length-norm) followed by the ``(s + 1) / 2`` clip of
-  ``w2v2_speaker_tpu/runtime/predict.py`` (:180).
+- ``run_predictions`` <- ``w2v2_speaker_tpu/runtime/predict.py::
+  run_predictions`` (:85): the pair file's sorted unique ids, the
+  configured evaluator, the ``wav2vec2_fc`` model with its weights
+  (``network.pretrained_checkpoint``, then ``load_network_from_checkpoint``),
+  16 kHz audio read and normalised per utterance, embeddings cached as
+  ``<folder>/embeddings/<id>.npy``, AS-Norm fitted on the extraction set,
+  scores mapped to (s + 1) / 2, clipped to [0, 1] and written as
+  ``<pairs-stem>_scores.txt`` lines ``<score> <a> <b>``.
 
-The single-card port has no mesh, so ``num_devices`` and layer ensembles
-are not here (ROADMAP Queue 1 items 6 and 10).
+Differences from the JAX package: no optimizer is built (serving needs
+none), there is no mesh (one card), and ``network.int8_matmuls`` other than
+false raises (``BucketDispatchEmbed`` waits for ROADMAP.md Queue 1 item 6).
+In bf16 the model keeps float32 parameters and computes under autocast, as
+the JAX package's model keeps float32 parameters and computes in bf16.
 """
 
 from __future__ import annotations
 
 import pathlib
-from dataclasses import dataclass
-from typing import List, Mapping, Sequence, Tuple
+from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from ..data.collate import collate_pad_right, pad_batch_rows
+from ..data.io import load_raw_audio
+from ..data.normalize import normalize_waveform
 from ..data.samples import SpeakerSample
-from ..device import DeviceLike, resolve_device
+from ..device import DeviceLike, resolve_device, set_float32_precision
+from ..eval.evaluator import ASNormCosineEvaluator, EmbeddingSample
+from ..models.hf_convert import load_hf_checkpoint
+from ..models.wav2vec2 import init_parameters
+from ..train.checkpoint import graft_into, load_params
+from .experiment import _canon_int8, build_evaluator, build_model_and_task, speaker_model_config
 
-__all__ = ["EmbeddingSample", "extract_embeddings", "read_pair_file", "score_pairs"]
-
-
-@dataclass
-class EmbeddingSample:
-    sample_id: str
-    embedding: np.ndarray  # [D] float32
+__all__ = ["build_predict_model", "extract_embeddings", "read_pair_file", "run_predictions"]
 
 
 @torch.inference_mode()
@@ -78,14 +85,95 @@ def read_pair_file(path: pathlib.Path) -> List[Tuple[str, str]]:
     return pairs
 
 
-def score_pairs(
-    embeddings: Mapping[str, np.ndarray], pairs: Sequence[Tuple[str, str]]
-) -> np.ndarray:
-    """Row-wise cosine of each pair's embeddings (torch
-    ``CosineSimilarity`` eps semantics), mapped to ``(s + 1) / 2`` and
-    clipped to [0, 1]."""
-    a = np.stack([np.asarray(embeddings[x], np.float32) for x, _ in pairs])
-    b = np.stack([np.asarray(embeddings[y], np.float32) for _, y in pairs])
-    denom = np.maximum(np.linalg.norm(a, axis=-1) * np.linalg.norm(b, axis=-1), 1e-8)
-    cosine = (a * b).sum(axis=-1) / denom
-    return np.clip((cosine + 1) / 2, 0, 1)
+def _check_servable(cfg: Dict) -> None:
+    """Raise for what predict cannot serve yet: another network than
+    ``wav2vec2_fc`` or an unported loss (``speaker_model_config``), and int8
+    matmuls."""
+    speaker_model_config(cfg)
+    int8 = cfg["network"].get("int8_matmuls", False)
+    if _canon_int8(int8) is not False:
+        raise NotImplementedError(
+            f"network.int8_matmuls={int8!r} is not ported yet: ROADMAP.md Queue 1 item 6 (int8 serving)"
+        )
+
+
+def build_predict_model(cfg: Dict, device: DeviceLike = None):
+    """The eval-mode speaker model of ``cfg`` on ``device``: parameters
+    drawn from ``cfg["seed"]`` on the device, then the converted HF
+    backbone of ``network.pretrained_checkpoint`` grafted into
+    ``wav2vec2``, then ``load_network_from_checkpoint`` grafted into the
+    whole model (leaves of another shape keep their values, as the JAX
+    package's ``_init_state`` :983-1004 does). Parameters stay float32."""
+    dev = resolve_device(device)
+    net = cfg["network"]
+    if dev.type == "cuda":
+        set_float32_precision()
+    with torch.device("meta"):
+        task, _ = build_model_and_task(cfg, net.get("explicit_num_speakers") or 2)
+    model = task.model.to_empty(device=dev)
+    init_parameters(model, torch.Generator(device=dev).manual_seed(int(cfg["seed"])))
+    if net.get("pretrained_checkpoint"):
+        ported = load_hf_checkpoint(net["pretrained_checkpoint"], model.cfg.w2v2)
+        graft_into(model.wav2vec2, ported, net["pretrained_checkpoint"])
+    if cfg.get("load_network_from_checkpoint"):
+        load_params(cfg["load_network_from_checkpoint"], model)
+    return model.eval().requires_grad_(False)
+
+
+def run_predictions(cfg: Dict, device: DeviceLike = None) -> pathlib.Path:
+    """Score ``cfg["pair_prediction_path"]`` over the audio under
+    ``cfg["predict_folder_path"]``; returns the score file's path. Runs on
+    the card unless ``device="cpu"``; raises without a card before it
+    reads anything."""
+    dev = resolve_device(device)
+    folder = pathlib.Path(cfg["predict_folder_path"])
+    pair_file = pathlib.Path(cfg["pair_prediction_path"])
+    pairs = read_pair_file(pair_file)
+    id_list = sorted({p for pair in pairs for p in pair})
+    print(f"{len(pairs)} pairs over {len(id_list)} files")
+
+    evaluator = build_evaluator(cfg)
+    _check_servable(cfg)
+
+    emb_dir = folder / "embeddings"
+    emb_dir.mkdir(exist_ok=True, parents=True)
+    todo: List[SpeakerSample] = []
+    cached: Dict[str, np.ndarray] = {}
+    for name in id_list:
+        cache = emb_dir / (name + ".npy")
+        if cache.exists():
+            cached[name] = np.load(cache)
+            continue
+        wav = normalize_waveform(load_raw_audio(folder / name))
+        todo.append(SpeakerSample(key=name, wav=wav, ground_truth=-1))
+
+    if todo:
+        print(f"computing {len(todo)} speaker embeddings")
+        model = build_predict_model(cfg, dev)
+        dl = cfg["data"]["dataloader"]
+        fresh = extract_embeddings(
+            model, todo,
+            pad_to_multiple=dl.get("test_pad_to_multiple", 16000),
+            batch_size=dl.get("test_batch_size", 8),
+            device=dev,
+        )
+        for s in fresh:
+            out = emb_dir / (s.sample_id + ".npy")
+            out.parent.mkdir(exist_ok=True, parents=True)
+            np.save(out, s.embedding)
+            cached[s.sample_id] = np.asarray(s.embedding)
+
+    embedding_pairs = [(EmbeddingSample(a, cached[a]), EmbeddingSample(b, cached[b])) for a, b in pairs]
+    if isinstance(evaluator, ASNormCosineEvaluator):
+        # the extraction set is the impostor cohort (each side's exact twin
+        # is excluded from its top-K inside _cohort_stats)
+        evaluator.fit_parameters(list(cached.values()))
+    scores = np.asarray(evaluator._compute_prediction_scores(embedding_pairs))
+    scores = np.clip((scores + 1) / 2, 0, 1)
+
+    score_file = pair_file.parent / f"{pair_file.stem}_scores.txt"
+    with open(score_file, "w") as f:
+        for s, (a, b) in zip(scores.tolist(), pairs):
+            f.write(f"{s} {a} {b}\n")
+    print(f"wrote {score_file}")
+    return score_file

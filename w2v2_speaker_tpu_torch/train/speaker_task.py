@@ -28,10 +28,10 @@ __all__ = ["SpeakerTask", "TRAINING_MODES"]
 
 TRAINING_MODES = ("ce", "ce_no_pool", "aam", "triplet", "triplet_ce", "speaker_ctc")
 _NOT_PORTED = {
-    "ce_no_pool": "Queue 1 item 3 (frame-level pooling 'none')",
-    "triplet": "Queue 1 item 9 (triplet mining and losses)",
-    "triplet_ce": "Queue 1 item 9 (triplet mining and losses)",
-    "speaker_ctc": "Queue 1 item 9 (speech CTC)",
+    "ce_no_pool": "Queue 1 item 5 (frame-level pooling 'none')",
+    "triplet": "Queue 1 item 7 (triplet mining and losses)",
+    "triplet_ce": "Queue 1 item 7 (triplet mining and losses)",
+    "speaker_ctc": "Queue 1 item 7 (speech CTC)",
 }
 
 

@@ -8,7 +8,7 @@ accumulation averages the microbatches' gradients (:91-128);
 loop (the JAX package scans them inside one device program, :54-61, to
 amortize dispatches through its TPU transport; here it only keeps the
 recipe's batch layout). There is no mesh: data parallelism is ROADMAP
-Queue 1 item 10.
+Queue 1 item 8.
 """
 
 from __future__ import annotations
