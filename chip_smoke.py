@@ -61,7 +61,22 @@ the run by raising:
    versions on the inputs the longest bucket batch gave them; then 4 files
    of <= 3 s in float32 on the card and on the CPU, scores within 1e-4;
    utt/s and the real-time factor from the median of 10 warm extractions;
-13. one JSON line with every kernel's numbers (the attention kernels and
+13. run end to end: ``w2v2_speaker_tpu_torch.run.main`` (the ``run.py``
+   twin over ``config/train_eval.yaml``) with ``+experiment=speaker_wav2vec2_ce``
+   at full BASE width, random init, bf16, B=66, on a corpus the phase
+   writes (50 speakers x 6 WAV files of 3.5-5 s, a trial file over 3 test
+   speakers, 3 validation speakers, shards of 22): shards, sanity and
+   interval validations, 8 steps in dispatches of 4, checkpoints, the test
+   EER; then resumed to step 12. The objectives are EERs in [0, 1],
+   ``index.json`` names a best and the last checkpoint, the resumed run
+   logs steps 9-12, every step launches the forward, dq and dk/dv once per
+   kept layer, and one layer's q/k/v from a training batch holds the
+   forward and the dq + dk/dv pair against their plain versions; prints
+   shard preparation time, steady ms/step (CUDA events, steps 5-8), the
+   host's wait on the prefetcher per step, the device's busy share over
+   one profiled dispatch, validation and test wall time and the peak
+   memory above what was allocated when the phase began;
+14. one JSON line with every kernel's numbers (the attention kernels and
    the conv at the LARGE training shapes, launches of the LARGE training
    run), the card line, then the result line.
 
@@ -72,6 +87,7 @@ checkout of the repository.
 from __future__ import annotations
 
 import copy
+import gc
 import json
 import pathlib
 import subprocess
@@ -161,6 +177,12 @@ PREDICT_SAME_ATOL = 1e-6
 PREDICT_F32_ATOL = 1e-4  # float32 scores, card vs CPU
 PREDICT_ATTN_LAYERS = (0, -1)  # layers whose attention inputs are held against the plain version
 PREDICT_TIMED = 10  # warm extractions timed one by one
+# run end to end: 50 speakers x 6 utterances (3 sessions x 2) of 3.5-5 s;
+# 3 speakers for the test trials, 3 held out for validation, the other 44
+# give 264 training utterances: 4 batches of 66 per epoch, in 12 shards of 22
+RUN_SPEAKERS, RUN_TEST, RUN_VAL, RUN_SHARD = 50, 3, 3, 22
+RUN_STEPS, RUN_VAL_EVERY, RUN_RESUMED_STEPS = 8, 4, 12
+RUN_ATTN_LAYER = 0  # the layer whose training inputs are held against the plain versions
 
 
 def cuda_ms(fn, reps: int, warmup: int = 3) -> float:
@@ -207,16 +229,18 @@ def attention_inputs(b, t, lengths, dtype, gen, h: int = H):
     return q, k, v, torch.tensor(lengths, dtype=torch.int32, device="cuda")
 
 
-def attention_error(got, want, lens, backward: bool = False):
+def attention_error(got, want, lens, backward: bool = False, slack=None):
     """Kernel output against the plain version's ([B, T, ...] rows): (max
-    abs error on valid rows, the largest share of fa.kernel_tolerance that
-    one element uses, whether every row past the length is exactly 0). The
-    check passes at share <= 1."""
+    abs error on valid rows, the largest share of fa.kernel_tolerance (plus
+    the per-element ``slack`` of fa.backward_rounding_slack, for bf16 dk
+    and dv) that one element uses, whether every row past the length is
+    exactly 0). The check passes at share <= 1."""
     valid = torch.arange(got.shape[1], device=got.device)[None, :] < lens[:, None]
     want_valid = want[valid].float()
     rtol, atol = fa.kernel_tolerance(want[valid], backward)
+    limit = atol + rtol * want_valid.abs() + (0.0 if slack is None else slack[valid])
     err = (got[valid].float() - want_valid).abs()
-    share = (err / (atol + rtol * want_valid.abs())).max().item() if err.numel() else 0.0
+    share = (err / limit).max().item() if err.numel() else 0.0
     return (err.max().item() if err.numel() else 0.0), share, bool(torch.all(got[~valid] == 0))
 
 
@@ -230,21 +254,31 @@ def lse_error(got, want, lens):
     return err.max().item(), share, bool(torch.all(got[~valid] == 0))
 
 
-def kernel_errors(b, t, lengths, dtype, rate, gen, h: int = H):
+def kernel_errors(b, t, lengths, dtype, rate, gen, h: int = H, without_slack: bool = False):
     """The three kernels and their plain versions on one random input:
     ({output: (max abs err, share of its limit, zeros past the length)}
-    for o, lse, dq, dk and dv; the inputs; the forward's outputs)."""
+    for o, lse, dq, dk and dv, and with ``without_slack`` also dk and dv
+    against kernel_tolerance alone; the inputs; the forward's outputs)."""
     q, k, v, lens = attention_inputs(b, t, lengths, dtype, gen, h)
-    seed = DROPOUT_SEED if rate > 0 else None
+    do = torch.randn(q.shape, generator=gen, device="cuda").to(dtype)
+    return attention_pair_errors(q, k, v, lens, rate, DROPOUT_SEED if rate > 0 else None, do, without_slack)
+
+
+def attention_pair_errors(q, k, v, lens, rate, seed, do, without_slack: bool = False):
+    """``kernel_errors`` on given inputs: the forward (o, lse) and the dq,
+    dk/dv pair under the upstream gradient ``do``, each against its plain
+    version."""
     o, lse = fa.flash_attention_fwd(q, k, v, lens, rate, seed, return_lse=True)
     want_o, want_lse = fa.flash_attention_plain(q, k, v, lens, rate, seed, return_lse=True)
     errors = {"o": attention_error(o, want_o, lens), "lse": lse_error(lse, want_lse, lens)}
-    do = torch.randn(o.shape, generator=gen, device="cuda").to(dtype)
     args = (q, k, v, do, lse, fa.attention_delta(o, do), lens, rate, seed)
     dq = fa.flash_attention_bwd_dq(*args)
     dk, dv = fa.flash_attention_bwd_dkv(*args)
-    for grad, got, want in zip(("dq", "dk", "dv"), (dq, dk, dv), fa.flash_attention_bwd_plain(*args)):
-        errors[grad] = attention_error(got, want, lens, backward=True)
+    slack = (None, *fa.backward_rounding_slack(*args))
+    for grad, got, want, extra in zip(("dq", "dk", "dv"), (dq, dk, dv), fa.flash_attention_bwd_plain(*args), slack):
+        errors[grad] = attention_error(got, want, lens, backward=True, slack=extra)
+        if without_slack and grad != "dq":
+            errors[f"{grad}_without_slack"] = attention_error(got, want, lens, backward=True)
     return errors, args, o
 
 
@@ -1014,6 +1048,254 @@ def predict_phase(card: str) -> None:
           f"(limit {PREDICT_F32_ATOL}) [{card}]", flush=True)
 
 
+def write_run_corpus(root: pathlib.Path, rng) -> tuple:
+    """``RUN_SPEAKERS`` x 6 WAV files of 3.5-5 s under
+    ``idNNNNN/ytY/NNNNN.wav`` (``write_predict_folder``'s tones and noise)
+    and a trial file of every pair of the last ``RUN_TEST`` speakers'
+    utterances; returns (WAV root, trial file, seconds of audio)."""
+    wav_dir, seconds = root / "wav", 0.0
+    for spk in range(RUN_SPEAKERS):
+        t_spk = rng.uniform(3.5, 5.0, 6)
+        for i, sec in enumerate(t_spk):
+            rel = f"id{20000 + spk:05d}/yt{i // 2}/{i % 2:05d}.wav"
+            t = np.arange(int(sec * 16000)) / 16000
+            tone = sum(np.sin(2 * np.pi * f * t) for f in (110 + 9 * spk, 230 + 13 * spk))
+            (wav_dir / rel).parent.mkdir(parents=True, exist_ok=True)
+            write_wav(wav_dir / rel, (0.05 * tone + rng.normal(0, 0.05, t.shape)).astype(np.float32))
+        seconds += float(t_spk.sum())
+    test = [f"id{20000 + spk:05d}/yt{i // 2}/{i % 2:05d}.wav"
+            for spk in range(RUN_SPEAKERS - RUN_TEST, RUN_SPEAKERS) for i in range(6)]
+    trials = root / "trials.txt"
+    trials.write_text("".join(f"{int(a[:7] == b[:7])} {a} {b}\n" for i, a in enumerate(test) for b in test[i + 1:]))
+    return wav_dir, trials, seconds
+
+
+def device_busy(prof) -> tuple:
+    """(share of the kernel window in which the card ran some kernel, the
+    window in ms, kernels) of a torch.profiler run."""
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and not getattr(e, "is_user_annotation", False))
+    assert spans, "the profiler saw no kernel on the card"
+    busy, end = 0.0, spans[0][0]
+    for start, stop in spans:
+        busy += max(0.0, stop - max(start, end))
+        end = max(end, stop)
+    return busy / (end - spans[0][0]), (end - spans[0][0]) / 1e3, len(spans)
+
+
+class RunProbe:
+    """Instruments the run twin's main path for the length of a ``with``
+    block by wrapping methods of the port's public classes: a CUDA event
+    and the launch counts where each training step starts
+    (``SpeakerTask.loss_fn``) and ends (``TrainState.apply_gradients``),
+    every logged step and evaluation (``MetricsLogger``), the time of
+    ``prepare_data`` and the host's wait for each train batch (the
+    ``Prefetcher`` behind ``train_batches``). The first step registers
+    forward hooks on its task's model, which keep layer
+    ``RUN_ATTN_LAYER``'s q/k/v, heads, lengths and dropout seed from the
+    first training forward. With ``profile``, the first ``RUN_VAL_EVERY``
+    steps (one dispatch) run under torch.profiler."""
+
+    def __init__(self, profile: bool = False):
+        self.profile = profile
+        self.starts, self.ends, self.steps, self.evals, self.waits = [], [], [], [], []
+        self.prepare_s, self.busy, self.attn = None, None, None
+        self._saved, self._prof = [], None
+
+    def _wrap(self, owner, name, make):
+        orig = getattr(owner, name)
+        self._saved.append((owner, name, orig))
+        setattr(owner, name, make(orig))
+
+    def _hook_attention(self, model) -> None:
+        attn = model.wav2vec2.encoder.layers[RUN_ATTN_LAYER].attention
+        seen = {}
+
+        def pre(module, args):
+            if torch.is_grad_enabled() and args[2] is not None:
+                twin = torch.Generator().set_state(args[2].get_state())
+                seen.update(lengths=args[1], seed=fa.draw_seed(twin), rate=module.dropout,
+                            heads=module.num_heads)
+
+        def post(module, args, out):
+            if seen:
+                self.attn = {**seen, "qkv": out.detach().clone()}
+                for handle in handles:
+                    handle.remove()
+
+        handles = [attn.register_forward_pre_hook(pre), attn.qkv_proj.register_forward_hook(post)]
+
+    def _step_start(self, task) -> None:
+        if not self.starts:
+            self._hook_attention(task.model)
+        if self.profile and not self.starts:
+            from torch.profiler import ProfilerActivity, profile
+
+            torch.cuda.synchronize()
+            self._prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+            self._prof.start()
+        self.starts.append((self._event(), launches()))
+
+    def _step_end(self) -> None:
+        self.ends.append((self._event(), launches()))
+        if self._prof is not None and len(self.ends) == RUN_VAL_EVERY:
+            torch.cuda.synchronize()
+            self._prof.stop()
+            self.busy, self._prof = device_busy(self._prof), None
+
+    @staticmethod
+    def _event():
+        e = torch.cuda.Event(enable_timing=True)
+        e.record()
+        return e
+
+    def __enter__(self):
+        from w2v2_speaker_tpu_torch.data.datamodule import VoxCelebDataModule
+        from w2v2_speaker_tpu_torch.runtime.logging import MetricsLogger
+
+        probe = self
+        self._wrap(SpeakerTask, "loss_fn", lambda orig: lambda task, *a, **kw: (
+            probe._step_start(task), orig(task, *a, **kw))[1])
+        self._wrap(TrainState, "apply_gradients", lambda orig: lambda state: (
+            orig(state), probe._step_end())[0])
+        self._wrap(MetricsLogger, "log_step", lambda orig: lambda lg, step, m: (
+            probe.steps.append((step, dict(m))), orig(lg, step, m))[1])
+        self._wrap(MetricsLogger, "log_eval", lambda orig: lambda lg, step, m, split="val": (
+            probe.evals.append((step, dict(m))), orig(lg, step, m, split))[1])
+
+        def timed_prepare(orig):
+            def run(dm):
+                t0 = time.perf_counter()
+                orig(dm)
+                probe.prepare_s = time.perf_counter() - t0
+            return run
+
+        def timed_batches(orig):
+            def batches(dm, *a, **kw):
+                it = iter(orig(dm, *a, **kw))
+                while True:
+                    t0 = time.perf_counter()
+                    batch = next(it, None)
+                    if batch is None:
+                        return
+                    probe.waits.append(time.perf_counter() - t0)
+                    yield batch
+            return batches
+
+        self._wrap(VoxCelebDataModule, "prepare_data", timed_prepare)
+        self._wrap(VoxCelebDataModule, "train_batches", timed_batches)
+        return self
+
+    def __exit__(self, *exc):
+        if self._prof is not None:
+            self._prof.stop()
+        for owner, name, orig in reversed(self._saved):
+            setattr(owner, name, orig)
+
+    def per_step(self) -> list:
+        """(step, layers kept, launches in the step) of every training step."""
+        assert len(self.starts) == len(self.ends) == len(self.steps), "unpaired step events"
+        return [(step, int(m["layers_run"]), {k: end[1][k] - start[1][k] for k in end[1]})
+                for (step, m), start, end in zip(self.steps, self.starts, self.ends)]
+
+    def step_ms(self, first: int, last: int) -> float:
+        """Device ms per step from the start of step ``first`` to the end of
+        step ``last`` (steps of this run, counted from its first)."""
+        torch.cuda.synchronize()
+        return self.starts[first][0].elapsed_time(self.ends[last][0]) / (last - first + 1)
+
+
+def check_run_attention(rec) -> str:
+    """Layer ``RUN_ATTN_LAYER``'s training q/k/v, lengths, rate and seed
+    through the forward and the dq + dk/dv pair (a random upstream
+    gradient), each against its plain version."""
+    qkv, heads = rec["qkv"], rec["heads"]
+    b, t, three_hidden = qkv.shape
+    hidden = three_hidden // 3
+    q, k, v = (part.view(b, t, heads, hidden // heads) for part in qkv.split(hidden, dim=-1))
+    lens = rec["lengths"]
+    lens = torch.full((b,), t, dtype=torch.int32, device="cuda") if lens is None else lens
+    do = torch.randn(q.shape, generator=torch.Generator(device="cuda").manual_seed(13), device="cuda").to(q.dtype)
+    errors, _, _ = attention_pair_errors(q, k, v, lens, rec["rate"], rec["seed"], do)
+    for out, (err, share, zeros) in errors.items():
+        assert share <= 1 and zeros, f"run attention {out}: err {err}, {share:.3f} of the limit"
+    return (f"layer {RUN_ATTN_LAYER} B={b} T={t} {q.dtype} rate {rec['rate']} seed {rec['seed']}: "
+            + ", ".join(f"{out} {share:.3f}" for out, (_, share, _) in errors.items()) + " of the limits")
+
+
+def run_phase(card: str) -> None:
+    """Phase 13: ``w2v2_speaker_tpu_torch.run.main`` end to end at full
+    BASE width, then resumed."""
+    from w2v2_speaker_tpu_torch import run
+
+    rng = np.random.default_rng(13)
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = pathlib.Path(tmp)
+        t0 = time.perf_counter()
+        wav_dir, trials, audio_s = write_run_corpus(tmp, rng)
+        write_s = time.perf_counter() - t0
+        argv = [
+            "+experiment=speaker_wav2vec2_ce", f"data.module.data_dir={wav_dir}",
+            f"data.module.shards_dir={tmp / 'shards'}", f"data.module.test_trial_path={trials}",
+            "data.module.train_val_split_mode=different", f"+data.module.num_val_speakers={RUN_VAL}",
+            f"data.shards.samples_per_shard={RUN_SHARD}", f"trainer.max_steps={RUN_STEPS}",
+            f"trainer.val_check_interval={RUN_VAL_EVERY}", f"trainer.checkpoint_dir={tmp / 'ckpt'}",
+            f"trainer.log_dir={tmp / 'tb'}", "trainer.log_every=1", "seed=13",
+        ]
+        gc.collect()  # what earlier phases left to the collector and the cache
+        torch.cuda.empty_cache()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        with RunProbe() as first:
+            t0 = time.perf_counter()
+            objective = run.main(argv)
+            first_s = time.perf_counter() - t0
+        index = json.loads((tmp / "ckpt" / "index.json").read_text())
+        assert index["last"]["step"] == RUN_STEPS and index["best"], f"run: index {index}"
+        with RunProbe(profile=True) as resumed:
+            t0 = time.perf_counter()
+            objective_2 = run.main([*argv, "trainer.resume=true", f"trainer.max_steps={RUN_RESUMED_STEPS}"])
+            resumed_s = time.perf_counter() - t0
+        peak_gib = (torch.cuda.max_memory_allocated() - held) / 2**30
+        index_2 = json.loads((tmp / "ckpt" / "index.json").read_text())
+        tb = [f.stat().st_size for f in (tmp / "tb").glob("events.out.tfevents.*")]
+    for name, obj in (("run", objective), ("resumed run", objective_2)):
+        assert obj is not None and np.isfinite(obj) and 0 <= obj <= 1, f"{name}: objective {obj}"
+    assert index_2["last"]["step"] == RUN_RESUMED_STEPS and index_2["best"], f"resumed run: index {index_2}"
+    assert tb and all(size > 0 for size in tb), f"run: TensorBoard event files of sizes {tb}"
+    assert [s for s, _ in first.steps] == list(range(1, RUN_STEPS + 1)), f"run: steps {first.steps}"
+    assert [s for s, _ in resumed.steps] == list(range(RUN_STEPS + 1, RUN_RESUMED_STEPS + 1)), \
+        f"resumed run: steps {[s for s, _ in resumed.steps]}"
+    kept = []
+    for probe in (first, resumed):
+        for step, layers, got in probe.per_step():
+            want = {**{k: layers for k in ATTENTION}, "conv_encoder": 0}
+            assert got == want, f"run step {step}: kept {layers} layers, launched {got}"
+            kept.append(layers)
+        assert all(np.isfinite(m["loss"]) for _, m in probe.steps), "run: non-finite loss"
+    assert first.attn is not None, "run: no training forward reached the hooked layer"
+    attention = check_run_attention(first.attn)
+    val = [m for _, m in first.evals + resumed.evals if "val_eer" in m]
+    test = [m for _, m in first.evals + resumed.evals if "test_eer" in m]
+    assert len(val) == 3 and len(test) == 2, f"run: evaluations {first.evals + resumed.evals}"
+    waits_ms = [1e3 * w for w in first.waits]
+    steady = first.step_ms(RUN_VAL_EVERY, RUN_STEPS - 1)
+    busy, window_ms, kernels = resumed.busy
+    print(f"run kernels vs plain on a training batch: {attention}", flush=True)
+    print(f"run BASE bf16 B=66 x 48000: {RUN_SPEAKERS} speakers, {audio_s:.1f} s of audio written in "
+          f"{write_s:.2f} s; shard preparation {first.prepare_s:.3f} s; steady {steady:.3f} ms/step "
+          f"(CUDA events, steps {RUN_VAL_EVERY + 1}-{RUN_STEPS}); host wait on the Prefetcher per step: "
+          f"mean {np.mean(waits_ms):.2f} ms, by step {[round(w, 2) for w in waits_ms]}; device busy "
+          f"{100 * busy:.1f} % of one profiled {RUN_VAL_EVERY}-step dispatch ({window_ms:.1f} ms, {kernels} "
+          f"kernels); validation s {[round(m['val_seconds'], 3) for m in val]}, test s "
+          f"{[round(m['test_seconds'], 3) for m in test]}; val EER {[round(m['val_eer'], 4) for m in val]}; "
+          f"objectives {objective:.4f}, {objective_2:.4f}; whole run {first_s:.2f} s, resumed "
+          f"{resumed_s:.2f} s; layers kept {kept}; peak {peak_gib:.2f} GiB above the {held / 2**30:.2f} GiB "
+          f"held at the phase's start [{card}]", flush=True)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; this run needs a card")
@@ -1034,8 +1316,9 @@ def main() -> None:
     large = load_recipe("speaker_wav2vec2_large_aam", ["network.conv_impl=fused_pallas"])
     f32_train_phase(large, "LARGE", conv_launches=6)  # 11
     predict_phase(card)  # 12
+    run_phase(card)  # 13
 
-    # 13. kernels line, card line, result line
+    # 14. kernels line, card line, result line
     kernels = []
     for name, source, replaces in KERNELS:
         row = main_rows[name]

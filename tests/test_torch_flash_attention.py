@@ -150,3 +150,38 @@ def test_dropout_needs_a_seed_and_a_rate_below_one():
         port.flash_attention(q, q, q, dropout_rate=0.1)
     with pytest.raises(ValueError, match=r"in \[0, 1\)"):
         port.flash_attention(q, q, q, dropout_rate=1.0, seed=0)
+
+
+def test_backward_rounding_slack_covers_one_p_rounded_the_other_way():
+    """dv with one P~ of a short row rounded to its other bf16 neighbour (as
+    a kernel summing in another order may round it) stays within
+    kernel_tolerance plus ``backward_rounding_slack``; the slack at that
+    element is at least the moved amount, and it is 0 past the lengths and
+    None in float32."""
+    g = torch.Generator().manual_seed(3)
+    b, t, h, lens = 2, 96, 2, torch.tensor([96, 12])
+    q, k, v, do = (torch.randn(b, t, h, 64, generator=g).to(torch.bfloat16) for _ in range(4))
+    q[1] *= 4  # peaked rows: P~ near 1/2, where one ulp is large
+    o, lse = port.flash_attention_plain(q, k, v, lens, return_lse=True)
+    args = (q, k, v, do, lse, port.attention_delta(o, do), lens)
+    _, _, want = port.flash_attention_bwd_plain(*args)
+    dk_slack, dv_slack = port.backward_rounding_slack(*args)
+    assert dk_slack.shape == dv_slack.shape == want.shape and dv_slack.dtype == torch.float32
+    assert torch.all(dv_slack[1, 12:] == 0) and torch.all(dk_slack[1, 12:] == 0) and dk_slack.max() > 0
+
+    qs = q * port._scale(64, q.dtype)
+    p = torch.exp2(torch.einsum("bqhd,bkhd->bhqk", qs.float(), k.float()) - lse[..., None])
+    pb = torch.where(torch.arange(t)[None, None, :, None] < lens[:, None, None, None], p, 0.0).to(torch.bfloat16)
+    qi = int((pb[1, 0, :12, 0].float() * do[1, :12, 0, 0].float().abs()).argmax())  # the largest term
+    bits = pb[1, 0, qi, 0].view(torch.int16)
+    other = (bits + 1 if pb[1, 0, qi, 0].float() < p[1, 0, qi, 0] else bits - 1).view(torch.bfloat16)
+    flipped = pb.clone()
+    flipped[1, 0, qi, 0] = other
+    got = torch.einsum("bhqk,bqhd->bkhd", flipped.float(), do.float()).to(torch.bfloat16)
+    moved = (got[1, 0, 0].float() - want[1, 0, 0].float()).abs()
+    assert moved.max() > 0 and torch.all(moved <= dv_slack[1, 0, 0] + port.kernel_tolerance(want)[0] * want[1, 0, 0].float().abs())
+    valid = torch.arange(t)[None, :] < lens[:, None]
+    rtol, atol = port.kernel_tolerance(want[valid], backward=True)
+    err = (got[valid].float() - want[valid].float()).abs()
+    assert torch.all(err <= atol + rtol * want[valid].float().abs() + dv_slack[valid])
+    assert port.backward_rounding_slack(*(x.float() if x.is_floating_point() else x for x in args)) == (None, None)

@@ -41,6 +41,10 @@ def test_port_imports_no_jax_and_no_jax_package():
         + [ROOT / "chip_smoke.py"]
     )
     assert len(files) > 10 and ROOT / "w2v2_speaker_tpu_torch" / "predict.py" in files
+    for module in ("run.py", "data/datamodule.py", "data/shards.py", "data/batching.py", "data/chunks.py",
+                   "data/extract.py", "data/augment.py", "runtime/logging.py", "runtime/tb_writer.py",
+                   "train/checkpoint.py"):
+        assert ROOT / "w2v2_speaker_tpu_torch" / module in files, module
     for path in files:
         for name in _imported_modules(path):
             top = name.split(".")[0]
@@ -113,3 +117,20 @@ def test_predict_needs_a_card_before_reading_audio(tmp_path):
     assert proc.returncode != 0
     assert "no CUDA device" in proc.stderr and "missing.txt" not in proc.stderr, proc.stderr[-2000:]
     assert not (tmp_path / "missing").exists()
+
+
+def test_run_needs_a_card_before_reading_data(tmp_path):
+    """``python -m w2v2_speaker_tpu_torch.run`` on a host without a card
+    raises "no CUDA device" before it looks for the (missing) corpus or
+    writes a shard."""
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA device")
+    proc = subprocess.run(
+        [sys.executable, "-m", "w2v2_speaker_tpu_torch.run", "+experiment=speaker_wav2vec2_ce",
+         f"data.module.data_dir={tmp_path / 'missing'}", f"data.module.shards_dir={tmp_path / 'shards'}",
+         f"trainer.checkpoint_dir={tmp_path / 'ckpt'}", "trainer.log_dir=null"],
+        cwd=ROOT, capture_output=True, text=True, timeout=120,
+    )
+    assert proc.returncode != 0
+    assert "no CUDA device" in proc.stderr and "missing" not in proc.stderr, proc.stderr[-2000:]
+    assert not (tmp_path / "shards").exists() and not (tmp_path / "ckpt").exists()

@@ -66,6 +66,7 @@ __all__ = [
     "flash_attention_bwd_dkv",
     "flash_attention_bwd_dq",
     "flash_attention_bwd_plain",
+    "backward_rounding_slack",
     "flash_attention_fwd",
     "flash_attention_plain",
     "keep_threshold",
@@ -313,12 +314,79 @@ def kernel_tolerance(want: torch.Tensor, backward: bool = False) -> Tuple[float,
     fixed 2e-2, is 2^-5 of the RMS of ``want``: on long rows the outputs
     shrink as 1/sqrt(len), and so does the limit. The readings of these
     limits on the kernels and on planted faults come from
-    ``tools/torch_fault_probe.py``.
+    ``tools/torch_fault_probe.py``. dk and dv also add, per element, one
+    rounding of the bf16 P~ or dZ they sum over (``backward_rounding_slack``).
     """
     if want.dtype == torch.float32:
         return (5e-4, 5e-5) if backward else (2e-4, 2e-5)
     rms = want.float().square().mean().sqrt().item() if want.numel() else 0.0
     return BF16_RTOL, BF16_ATOL_RMS * rms
+
+
+def _bf16_ulp(x: torch.Tensor) -> torch.Tensor:
+    """The spacing of bfloat16 numbers at |x| (8 significant bits): 2^(e-8)
+    for |x| in [2^(e-1), 2^e); 0 at 0, which rounds exactly."""
+    _, e = torch.frexp(x)
+    return torch.where(x == 0, 0.0, torch.ldexp(torch.ones_like(x), e - 8))
+
+
+def _max_product(a: torch.Tensor, b: torch.Tensor, budget: int = 2**27) -> torch.Tensor:
+    """max over q of a[b, h, q, k] * b[b, q, h, d] for non-negative ``a``
+    [B, H, Tq, Tk] and ``b`` [B, Tq, H, D]: [B, Tk, H, D], in chunks of keys
+    that keep each [B, H, Tq, keys, D] product under ``budget`` elements."""
+    bsz, h, tq, tk = a.shape
+    bt = b.permute(0, 2, 1, 3)[:, :, :, None, :]  # [B, H, Tq, 1, D]
+    step = max(1, budget // max(1, bsz * h * tq * b.shape[-1]))
+    out = [(a[..., k0 : k0 + step, None] * bt).amax(dim=2) for k0 in range(0, tk, step)]
+    return torch.cat(out, dim=2).permute(0, 2, 1, 3) if tq else a.new_zeros(bsz, tk, h, b.shape[-1])
+
+
+@_autocast_off
+@torch.no_grad()
+def backward_rounding_slack(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Tensor, lse: torch.Tensor,
+    delta: torch.Tensor, lengths: Optional[torch.Tensor] = None, dropout_rate: float = 0.0,
+    seed: Optional[int] = None,
+) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor]]:
+    """Per-element additions to the bf16 limits of dk and dv, [B, T, H, D]
+    float32 each (None, None for float32 inputs).
+
+    dv[k] = sum_q P~[q, k] dO[q] and dk[k] = sum_q dZ[q, k] qs[q] / log2 e
+    take P~ and dZ rounded to bf16 from float32 values that the kernel and
+    the plain version compute in other orders. Where such a value lies
+    within a hair of a rounding midpoint, the two round it to neighbouring
+    bf16 numbers, and the sums differ by one bf16 ulp of it times the
+    other factor. So an element may differ by the largest such term over
+    its queries: max_q ulp(P~[q, k]) |dO[q, d]| for dv, max_q ulp(dZ[q, k])
+    |qs[q, d]| / log2 e for dk, computed from the plain version's P~ and
+    dZ. ``kernel_tolerance``'s atol scales with the RMS of the whole
+    output, which long rows set, and misses one rounding in a short row.
+    """
+    if q.dtype != torch.bfloat16:
+        return None, None
+    _check_dropout(dropout_rate, seed)
+    b, t, h, d = q.shape
+    lens = _lengths(lengths, b, t, q.device)
+    qs = q * _scale(d, q.dtype).to(q.device)
+    valid = torch.arange(t, device=q.device)[None, :] < lens[:, None]
+    pairs = valid[:, None, :, None] & valid[:, None, None, :]
+    s = torch.einsum("bqhd,bkhd->bhqk", qs.float(), k.float())
+    p = torch.where(pairs, torch.exp2(s - lse[..., None]), 0.0)
+    del s
+    dp = torch.einsum("bqhd,bkhd->bhqk", do.float(), v.float())
+    pv = p
+    if dropout_rate > 0.0:
+        keep = attention_dropout_keep(seed, b, h, t, t, dropout_rate, q.device)
+        inv = _keep_scale(dropout_rate)
+        pv = torch.where(keep, p * inv, 0.0)
+        dp = torch.where(keep, dp * inv, 0.0)
+        del keep
+    dv_slack = _max_product(_bf16_ulp(pv), do.float().abs())
+    del pv
+    dz = p * (dp - delta[..., None])
+    del p, dp
+    dk_slack = _max_product(_bf16_ulp(dz), qs.float().abs()) / LOG2E
+    return dk_slack, dv_slack
 
 
 # ---------------------------------------------------------------------------

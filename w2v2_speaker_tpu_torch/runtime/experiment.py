@@ -1,5 +1,4 @@
-"""Recipe assembly: the backbone config, the speaker model and task, and the
-optimizer from a config dict.
+"""Recipe assembly and the train/validate/test loop of the speaker recipes.
 
 Counterpart of ``w2v2_speaker_tpu/runtime/experiment.py``: ``_w2v2_config``
 (:320) as ``w2v2_config``, ``build_model_and_task`` (:374) for the
@@ -10,32 +9,68 @@ global-norm clipping and the backbone freeze schedules, and
 read from the same keys of the merged Hydra config (``optim.algo``,
 ``optim.schedule``, ``optim.loss``, ``trainer``, ``network``,
 ``evaluator``). ``load_recipe`` composes a recipe from ``config/`` with
-the port's ``load_config``. What is not ported raises
+the port's ``load_config``.
+
+The entry point is ``run_train_eval`` (:840) for the speaker recipes on one
+card: the data module (``build_data_module`` :198), the model and its
+weights (``_init_state`` :983), the training loop (``_train_loop`` :1094:
+steps per dispatch, accumulation, sanity and interval validations,
+best-k and last checkpoints, resume, early stopping, step and epoch
+limits), then the best checkpoint (or the average of the best k) on the
+test trials over full utterances (``_run_speaker`` :1469). It runs on the
+card unless called with ``device="cpu"``. What is not ported raises
 ``NotImplementedError`` naming its ROADMAP row.
+
+Divergences from the JAX package: ``trainer.deterministic=true`` raises
+(ROADMAP.md Queue 1 item 9): the card's cuDNN and cuBLAS calls are not
+deterministic by default, and the knob's reproducibility is not ported;
+``trainer.prng_impl`` (a TPU PRNG choice) is read by no one. Random
+draws come from torch generators: the initial weights from one seeded with
+``seed`` on the device, the train step's draws from a CPU one seeded with
+``seed + 1`` (the JAX package keys its init with ``PRNGKey(seed)`` and its
+steps with ``PRNGKey(seed + 1)``), so the two packages agree on a run only
+from the same weights (``load_network_from_checkpoint``) with dropout,
+layerdrop and masking at 0. The epoch-in-progress save of the JAX
+package (``_train_loop`` :1287, whose resumed run retrains the epoch it
+was saved in) is carried over unchanged.
 """
 
 from __future__ import annotations
 
 import pathlib
-from typing import Dict, Sequence, Tuple
+import time
+from collections import deque
+from typing import Deque, Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
+import torch
+
+from ..data.datamodule import VoxCelebConfig, VoxCelebDataModule
+from ..device import DeviceLike, resolve_device, set_float32_precision
 from ..eval.backends import LDAEvaluator, PLDAEvaluator
 from ..eval.evaluator import (
-    ASNormCosineEvaluator, CosineDistanceEvaluator, SpeakerRecognitionEvaluator,
+    ASNormCosineEvaluator, CosineDistanceEvaluator, EmbeddingSample, SpeakerRecognitionEvaluator,
 )
-from ..models.wav2vec2 import BASE_CONFIG, LARGE_CONFIG, Wav2Vec2Config
+from ..models.hf_convert import load_hf_checkpoint
+from ..models.wav2vec2 import BASE_CONFIG, LARGE_CONFIG, Wav2Vec2Config, init_parameters
 from ..models.wav2vec2_speaker import Wav2Vec2SpeakerConfig, Wav2Vec2SpeakerModel
 from ..objectives import schedules
+from ..train.checkpoint import CheckpointManager, graft_into, load_params
 from ..train.speaker_task import SpeakerTask
-from ..train.state import AdamTx, ClipTx, make_freeze_schedule_tx
+from ..train.state import AdamTx, ClipTx, TrainState, make_freeze_schedule_tx
+from ..train.steps import make_train_step
 from .config import load_config
+from .logging import MetricsLogger
 
 __all__ = [
-    "CONFIG_DIR", "TINY_W2V2", "build_evaluator", "build_model_and_task", "build_optimizer",
-    "load_recipe", "speaker_model_config", "w2v2_config",
+    "CONFIG_DIR", "TINY_W2V2", "EarlyStopping", "build_augmenter", "build_data_module", "build_evaluator",
+    "build_model_and_task", "build_optimizer", "load_recipe", "run_train_eval", "speaker_model_config",
+    "w2v2_config",
 ]
 
 _OPTIM_ROW = "ROADMAP.md Queue 1 item 3 (optimizers and schedules)"
+_RUNTIME_ROW = "ROADMAP.md Queue 1 item 3 (speaker-recipe runtime, the rest)"
+_FAMILIES_ROW = "ROADMAP.md Queue 1 item 7 (remaining model families)"
 CONFIG_DIR = pathlib.Path(__file__).resolve().parents[2] / "config"
 
 TINY_W2V2 = Wav2Vec2Config(  # network.wav2vec2_size=tiny (:82), for debug runs
@@ -201,3 +236,531 @@ def build_evaluator(cfg: Dict) -> SpeakerRecognitionEvaluator:
             max_num_training_samples=e["max_num_training_samples"],
         )
     raise ValueError(f"unknown evaluator {e['name']}")
+
+
+# ------------------------------------------------------------------ data
+
+
+def build_augmenter(pipeline_cfg: Dict) -> None:
+    """None when ``augment.enabled`` is false or names no effect, as the JAX
+    ``build_augmenter`` (:97) returns; raises for any effect (the
+    augmentation suite is not ported)."""
+    aug = pipeline_cfg.get("augment") or {}
+    if not aug.get("enabled"):
+        return None
+    effects = [k for k in ("time_dropout", "freq_dropout") if aug.get(k) is not None] + [
+        k for k in ("speed", "speed_choices", "spec_augment_speeds", "reverb", "rirs_shards", "noise_snr")
+        if aug.get(k)]
+    if not effects:
+        return None
+    raise NotImplementedError(
+        f"data.pipeline.augment ({', '.join(effects)}) is not ported yet: ROADMAP.md Queue 1 item 2 "
+        "(Augmenter and its effect chain)")
+
+
+def _queue_size(cfg: Dict) -> int:
+    """The batch processors' sample queue: ``data.shards.queue_size`` where
+    set, else ``data.dataloader.queue_size`` (:188)."""
+    return cfg["data"]["shards"].get("queue_size") or cfg["data"]["dataloader"]["queue_size"]
+
+
+def build_data_module(cfg: Dict) -> VoxCelebDataModule:
+    """The prepared VoxCeleb data module of ``cfg`` (:198): shards, splits
+    and validation pairs written on first use."""
+    m = cfg["data"]["module"]
+    if m["name"] == "librispeech":
+        raise NotImplementedError(f"data.module librispeech is not ported yet: {_FAMILIES_ROW}")
+    if m["name"] != "voxceleb":
+        raise ValueError(f"unknown data module {m['name']}")
+    p, s, dl = cfg["data"]["pipeline"], cfg["data"]["shards"], cfg["data"]["dataloader"]
+
+    def opt_path(key):
+        return pathlib.Path(m[key]) if m.get(key) else None
+
+    build_augmenter(p)
+    dm = VoxCelebDataModule(VoxCelebConfig(
+        data_dir=opt_path("data_dir"),
+        shards_dir=pathlib.Path(m["shards_dir"]),
+        test_trial_path=opt_path("test_trial_path"),
+        voxceleb1_dev_dir=opt_path("voxceleb1_dev_dir"),
+        voxceleb1_test_dir=opt_path("voxceleb1_test_dir"),
+        voxceleb2_dev_dir=opt_path("voxceleb2_dev_dir"),
+        voxceleb2_test_dir=opt_path("voxceleb2_test_dir"),
+        use_voxceleb1_dev=m.get("use_voxceleb1_dev", True),
+        use_voxceleb1_test=m.get("use_voxceleb1_test", True),
+        use_voxceleb2_dev=m.get("use_voxceleb2_dev", True),
+        use_voxceleb2_test=m.get("use_voxceleb2_test", False),
+        all_voxceleb1_is_test_set=m.get("all_voxceleb1_is_test_set", False),
+        has_train=m.get("has_train", True),
+        has_val=m.get("has_val", True),
+        has_test=m.get("has_test", True),
+        train_val_split_mode=m["train_val_split_mode"],
+        train_val_ratio=m["train_val_ratio"],
+        num_val_speakers=m.get("num_val_speakers") or 0,
+        eer_validation_pairs=m["eer_validation_pairs"],
+        samples_per_shard=s["samples_per_shard"],
+        sequential_same_speaker_samples=s["sequential_same_speaker_samples"],
+        min_unique_speakers_per_shard=s["min_unique_speakers_per_shard"],
+        use_gzip_compression=s["use_gzip_compression"],
+        shuffle_shards=s["shuffle_shards"],
+        queue_size=_queue_size(cfg),
+        batch_size=dl.get("train_batch_size") or dl["batch_size"],
+        chunk_length_sec=p["chunk_length_sec"],
+        chunk_strategy=p["chunk_strategy"],
+        normalize_input=p["normalize_input"],
+        limit_samples=m.get("limit_samples"),
+        num_pipeline_workers=dl.get("num_pipeline_workers", 1),
+        seed=cfg["seed"],
+    ))
+    dm.prepare_data()
+    return dm
+
+
+# ------------------------------------------------------- train, validate, test
+
+
+def _validate_int8_config(cfg: Dict) -> None:
+    """``network.int8_matmuls`` is true, false or auto, and not true in a
+    training run (int8 matmuls have no gradient), as :796."""
+    val = _canon_int8(cfg["network"].get("int8_matmuls", False))
+    if val not in (True, False, "auto"):
+        raise ValueError(f"network.int8_matmuls must be true/false/auto, got {val!r}")
+    if val is True and cfg.get("fit_model", True):
+        raise ValueError(
+            "network.int8_matmuls is inference-only; training recipes must keep bf16/f32 matmuls "
+            "(use fit_model=false for an int8 eval-only run, or predict for extraction)")
+
+
+def _apply_fast_dev_run(cfg: Dict) -> None:
+    """``trainer.fast_dev_run`` (:816): true -> 1, or n: n train, val and
+    test batches, n steps and one validation, no sanity validation, no
+    checkpoints and no resume."""
+    fdr = cfg["trainer"].get("fast_dev_run")
+    if not fdr:
+        return
+    n = 1 if fdr is True else int(fdr)
+    t = cfg["trainer"]
+    t["max_steps"] = t["val_check_interval"] = n
+    t["limit_train_batches"] = t["limit_val_batches"] = t["limit_test_batches"] = n
+    t["num_sanity_val_steps"] = 0
+    t["resume"] = False
+    print(f"fast_dev_run: {n} train/val/test batch(es), checkpointing disabled")
+
+
+def _check_ported(cfg: Dict) -> None:
+    """Raise, before any data is read, for the knobs of ``run.py`` that this
+    runtime does not take yet."""
+    t, net = cfg["trainer"], cfg["network"]
+    det = t.get("deterministic", False)
+    if not isinstance(det, bool):
+        raise ValueError(f"trainer.deterministic must be a bool, got {det!r}")
+    if det:
+        raise NotImplementedError(
+            "trainer.deterministic=true is not ported yet: ROADMAP.md Queue 1 item 9 (a GPU meaning "
+            "for each TPU-era knob)")
+    if (cfg.get("profiler") or {}).get("name") == "jax_trace":
+        raise NotImplementedError("profiler=jax_trace (a trace window) is not ported yet: ROADMAP.md Queue 1 item 9")
+    if cfg.get("run_lr_range_test") or cfg.get("tune_model"):
+        raise NotImplementedError(f"run_lr_range_test / tune_model are not ported yet: {_RUNTIME_ROW}")
+    if cfg.get("verify_model"):
+        raise NotImplementedError(f"verify_model is not ported yet: {_RUNTIME_ROW}")
+    if t.get("dump_first_batch"):
+        raise NotImplementedError(f"trainer.dump_first_batch is not ported yet: {_RUNTIME_ROW}")
+    if (cfg.get("callbacks") or {}).get("progress_tracker"):
+        raise NotImplementedError(f"callbacks.progress_tracker is not ported yet: {_RUNTIME_ROW}")
+    if net.get("use_transformers_as_ensembles"):
+        raise NotImplementedError(
+            "network.use_transformers_as_ensembles is not ported yet: ROADMAP.md Queue 1 item 5")
+    nd = t.get("num_devices", "all")
+    if nd != "all" and int(nd) != 1:
+        raise NotImplementedError(f"trainer.num_devices={nd}: data parallelism is ROADMAP.md Queue 1 item 8")
+
+
+def run_train_eval(cfg: Dict, device: DeviceLike = None) -> Optional[float]:
+    """Train and test the speaker recipe of ``cfg`` (:840); returns the
+    test EER (the validation EER without test trials), or None when
+    ``eval_model`` is false or the test phase is skipped. Runs on the card
+    unless ``device="cpu"``, and raises without a card before it reads
+    anything."""
+    dev = resolve_device(device)
+    seed = int(cfg["seed"])
+    np.random.seed(seed)
+    _validate_int8_config(cfg)
+    _apply_fast_dev_run(cfg)
+    _check_ported(cfg)
+    if cfg.get("use_cometml"):
+        try:
+            import comet_ml  # noqa: F401
+        except ImportError as e:
+            raise RuntimeError(
+                "use_cometml=true but the comet_ml package is not available in this environment; "
+                "install it or use the TensorBoard path (trainer.log_dir=...)") from e
+    if dev.type == "cuda":
+        set_float32_precision()
+
+    logger = MetricsLogger(log_dir=cfg["trainer"].get("log_dir"),
+                           flush_every=cfg["trainer"].get("log_every", 100))
+    print(f"experiment: {cfg.get('experiment_name')}")
+    dm = build_data_module(cfg)
+    print(dm.summary())
+    with torch.device("meta"):
+        task, kind = build_model_and_task(cfg, dm.num_speakers)
+    task.model.to_empty(device=dev)
+    init_parameters(task.model, torch.Generator(device=dev).manual_seed(seed))
+    return _run_speaker(cfg, dm, task, logger, dev)
+
+
+def _init_state(cfg: Dict, task: SpeakerTask) -> TrainState:
+    """The train state over ``task.model`` (:983): the converted HF backbone
+    of ``network.pretrained_checkpoint`` grafted into ``wav2vec2``, then
+    ``load_network_from_checkpoint`` grafted into the whole model, the
+    optimizer of ``build_optimizer``, and the step generator seeded with
+    ``seed + 1``."""
+    model, net = task.model, cfg["network"]
+    if net.get("pretrained_checkpoint"):
+        ported = load_hf_checkpoint(net["pretrained_checkpoint"], model.cfg.w2v2)
+        graft_into(model.wav2vec2, ported, net["pretrained_checkpoint"])
+    if cfg.get("load_network_from_checkpoint"):
+        load_params(cfg["load_network_from_checkpoint"], model)
+    return TrainState.create(model, build_optimizer(cfg), seed=int(cfg["seed"]) + 1)
+
+
+class EarlyStopping:
+    """Stop when the monitored metric stops improving or diverges (:1047):
+    PyTorch Lightning's ``EarlyStopping`` on ``val_eer`` with ``min_delta``,
+    ``patience``, ``mode``, ``check_finite`` and ``divergence_threshold``.
+    ``update`` returns the reason to stop, or None."""
+
+    def __init__(self, monitor="val_eer", min_delta=0.0, patience=4, mode="min", check_finite=True,
+                 divergence_threshold=None):
+        self.monitor = monitor
+        self.min_delta = abs(float(min_delta))
+        self.patience = int(patience)
+        self.sign = -1.0 if mode == "min" else 1.0
+        self.check_finite = bool(check_finite)
+        self.divergence_threshold = divergence_threshold
+        self.best = None
+        self.wait = 0
+
+    def update(self, val_metrics: Dict) -> Optional[str]:
+        if self.monitor not in val_metrics:
+            return None
+        value = float(val_metrics[self.monitor])
+        if self.check_finite and not np.isfinite(value):
+            return f"{self.monitor} is not finite ({value})"
+        if self.divergence_threshold is not None and (
+                self.sign * value < self.sign * float(self.divergence_threshold)):
+            return f"{self.monitor}={value:.4f} diverged past {self.divergence_threshold}"
+        if self.best is None or self.sign * value > self.sign * self.best + self.min_delta:
+            self.best, self.wait = value, 0
+            return None
+        self.wait += 1
+        if self.wait >= self.patience:  # after `patience` validations without improvement
+            return f"{self.monitor} did not improve for {self.wait} validations (best {self.best:.4f})"
+        return None
+
+
+def _to_device(batch: Dict, device: torch.device) -> Dict[str, torch.Tensor]:
+    """The tensors of a numpy batch on ``device`` (host-only ``keys``
+    dropped)."""
+    return {k: torch.from_numpy(np.asarray(v)).to(device, non_blocking=True)
+            for k, v in batch.items() if k != "keys"}
+
+
+def _to_host(metrics: Dict) -> Dict[str, torch.Tensor]:
+    return {k: v.detach().cpu() if isinstance(v, torch.Tensor) else torch.tensor(v)
+            for k, v in metrics.items()}
+
+
+def _train_loop(cfg, task, state: TrainState, logger, train_iter_fn, validate_fn, device,
+                on_step=None):
+    """The training loop of :1094 on one card. Returns ``(state, ckpt)``,
+    ``ckpt`` None when nothing was checkpointed (no fit, fast_dev_run)."""
+    if not cfg.get("fit_model", True):
+        return state, None  # evaluation runs on the weights as loaded
+    trainer = cfg["trainer"]
+    max_steps = trainer["max_steps"]
+    val_every = trainer.get("val_check_interval") or max_steps
+    limit_train = trainer.get("limit_train_batches")
+    acc = trainer.get("accumulate_grad_batches", 1)
+    min_steps = int(trainer.get("min_steps") or 0)
+    max_epochs = trainer.get("max_epochs")
+    max_epochs = float("inf") if max_epochs is None else int(max_epochs)
+    min_epochs = int(trainer.get("min_epochs") or 0)
+    fast_dev = bool(trainer.get("fast_dev_run"))
+
+    ckpt = CheckpointManager(trainer["checkpoint_dir"], top_k=int(trainer.get("save_top_k", 1)))
+    resumed_epoch = 0
+    if trainer.get("resume"):
+        try:
+            state = ckpt.restore(state, name="last")
+            resumed_epoch = ckpt.last_epoch() or 0
+            print(f"resumed from step {int(state.step)} (epoch {resumed_epoch})")
+        except FileNotFoundError:
+            print("resume requested but no 'last' checkpoint; starting fresh")
+
+    early_stop = None
+    es_cfg = (cfg.get("callbacks") or {}).get("early_stopping")
+    if es_cfg:
+        early_stop = EarlyStopping(
+            monitor=es_cfg.get("monitor", "val_eer"), min_delta=es_cfg.get("min_delta", 0.0),
+            patience=es_cfg.get("patience", 4), mode=es_cfg.get("mode", "min"),
+            check_finite=es_cfg.get("check_finite", True),
+            divergence_threshold=es_cfg.get("divergence_threshold"))
+
+    step = int(state.step)
+    epoch = resumed_epoch
+    expected_rows = None
+    dropped_ragged = 0
+    stop_reason = None
+    epoch_batches = 0
+    validated_at = -1
+
+    # steps_per_dispatch K: K batches stacked into one dispatch of K steps,
+    # whose metrics come to the host once; a dispatch never straddles a
+    # validation, max_steps or limit_train_batches boundary
+    spd = int(trainer.get("steps_per_dispatch") or 1)
+    step_fns = {}
+
+    def get_step_fn(k: int):
+        if k not in step_fns:
+            step_fns[k] = make_train_step(task, accumulate_steps=acc,
+                                          return_embeddings=on_step is not None, steps_per_dispatch=k)
+        return step_fns[k]
+
+    def chunk_take() -> int:
+        take = min(spd, max_steps - step, val_every - step % val_every)
+        if limit_train:
+            take = min(take, limit_train - epoch_batches)
+        return max(take, 1)
+
+    buf: List[Dict] = []
+
+    def run_chunk():
+        nonlocal state, step, epoch_batches, buf
+        try:
+            if len(buf) == 1:
+                state, m = get_step_fn(1)(state, _to_device(buf[0], device))
+                per_step = [(buf[0], _to_host(m))]
+            else:
+                stacked = {key: np.stack([b[key] for b in buf]) for key in buf[0] if key != "keys"}
+                state, sm = get_step_fn(len(buf))(state, _to_device(stacked, device))
+                sm = _to_host(sm)  # one copy per metric for the whole dispatch
+                per_step = [(buf[i], {k: v[i] for k, v in sm.items()}) for i in range(len(buf))]
+        except Exception:
+            print(f"training step at step={step} raised; the batch dump on failure is not ported "
+                  f"({_RUNTIME_ROW})")
+            raise
+        buf = []
+        for batch, m in per_step:
+            step += 1
+            emb = m.pop("_embedding", None)
+            if on_step is not None:
+                on_step(batch, emb)
+            logger.log_step(step, {k: float(v) for k, v in m.items()})
+            epoch_batches += 1
+
+    def run_validation():
+        nonlocal stop_reason, validated_at
+        validated_at = step
+        t0 = time.perf_counter()
+        val_metrics = validate_fn(state)
+        logger.log_eval(step, {**val_metrics, "val_seconds": time.perf_counter() - t0})
+        if not fast_dev:
+            ckpt.save_step(state, val_metrics, epoch=epoch)
+        if early_stop is not None:
+            stop_reason = early_stop.update(val_metrics)
+            if stop_reason is not None and (step < min_steps or epoch < min_epochs):
+                floor = (f"min_steps={min_steps}" if step < min_steps
+                         else f"min_epochs={min_epochs} (at epoch {epoch})")
+                print(f"early-stop condition at step {step} suppressed: {floor} not reached ({stop_reason})")
+                stop_reason = None
+            elif stop_reason is not None:
+                print(f"early stopping at step {step}: {stop_reason}")
+
+    # trainer.num_sanity_val_steps: validation batches before any training,
+    # logged and never checkpointed or fed to early stopping
+    sanity = 0 if fast_dev else int(trainer.get("num_sanity_val_steps") or 0)
+    if sanity and step < max_steps:
+        print(f"sanity validation: {sanity} batch(es)")
+        t0 = time.perf_counter()
+        sanity_metrics = validate_fn(state, max_batches=sanity)
+        logger.log_eval(step, {**{f"sanity_{k}": v for k, v in sanity_metrics.items()},
+                               "sanity_seconds": time.perf_counter() - t0})
+
+    start_step = step
+    while step < max_steps and epoch < max_epochs and stop_reason is None:
+        epoch_batches = 0
+        buf = []
+        for batch in train_iter_fn(epoch):
+            rows = batch["features"].shape[0]
+            if expected_rows is None:
+                expected_rows = rows
+                if rows % acc:
+                    raise ValueError(f"batch size {rows} not divisible by accumulate_grad_batches={acc}")
+            if rows != expected_rows:
+                dropped_ragged += 1  # never silently: a mis-sized stream would train on a fraction
+                print(f"dropped ragged train batch #{dropped_ragged}: leading dim {rows} != {expected_rows}")
+                continue
+            buf.append(batch)
+            if len(buf) < chunk_take():
+                continue
+            run_chunk()
+            if step % val_every == 0 or step >= max_steps:
+                run_validation()
+                if stop_reason is not None:
+                    break
+            if step >= max_steps or (limit_train and epoch_batches >= limit_train):
+                break
+        if buf and stop_reason is None and step < max_steps:
+            run_chunk()  # the iterator ended inside a dispatch: train what it gave
+            if step % val_every == 0 or step >= max_steps:
+                run_validation()
+        if stop_reason is not None:
+            break
+        if limit_train and step < max_steps and validated_at != step:
+            run_validation()  # limit_train_batches ends an epoch: validate there
+            if stop_reason is not None:
+                break
+        if epoch_batches == 0:
+            raise RuntimeError("train loader yielded no usable batches")
+        epoch += 1
+    if (epoch >= max_epochs and step < max_steps and stop_reason is None and step > start_step
+            and validated_at != step and not fast_dev):
+        run_validation()  # the epoch cap ended training between validations
+    if dropped_ragged:
+        print(f"total ragged train batches dropped: {dropped_ragged}")
+    return state, (None if fast_dev else ckpt)
+
+
+def _limit_test_batches(cfg) -> Optional[int]:
+    """``trainer.limit_test_batches``: None for the whole test split, 0 to
+    skip the test phase, N for at most N batches (:1444)."""
+    v = cfg["trainer"].get("limit_test_batches")
+    return None if v is None else int(v)
+
+
+def _restore_best(state: TrainState, ckpt: Optional[CheckpointManager], average_top_k: int = 1):
+    """The best checkpoint (or the average of the best ``average_top_k``)
+    after a fit; the state as it is without a fit or a checkpoint (:1452)."""
+    if ckpt is None:
+        return state
+    try:
+        if average_top_k > 1:
+            return ckpt.average_best(state, average_top_k)
+        return ckpt.restore(state, name="best")
+    except FileNotFoundError:
+        return state
+
+
+@torch.inference_mode()
+def _embed_batch(model, batch: Dict, device: torch.device) -> np.ndarray:
+    """[B, D] float32 embeddings of a numpy batch (``features``, optional
+    ``mask``)."""
+    feats = torch.from_numpy(batch["features"]).to(device)
+    mask = batch.get("mask")
+    mask = None if mask is None else torch.from_numpy(mask).to(device)
+    return model.compute_embedding(feats, mask).float().cpu().numpy()
+
+
+def _run_speaker(cfg, dm: VoxCelebDataModule, task: SpeakerTask, logger, device) -> Optional[float]:
+    """Fit, validate, restore the best checkpoint and score the test trials
+    on full utterances (:1469)."""
+    from .predict import extract_embeddings
+
+    dl = cfg["data"]["dataloader"]
+    evaluator = build_evaluator(cfg)
+    state = _init_state(cfg, task)
+    model = task.model
+    val_pairs = dm.val_evaluation_pairs()
+    limit_val = cfg["trainer"].get("limit_val_batches")
+
+    # a rolling buffer of training embeddings for the evaluator's centering,
+    # filled from the train step's own forward
+    max_tr = int(evaluator.max_num_training_samples or 0)
+    emb_buffer: Optional[Deque] = deque(maxlen=max_tr) if max_tr else None
+
+    def on_step(batch, emb):
+        if emb is None:
+            return
+        e, labels = emb.numpy(), np.asarray(batch["labels"]).reshape(-1)
+        for j in range(min(len(e), len(labels))):
+            emb_buffer.append((e[j], int(labels[j])))
+
+    def collect_train_embeddings(max_samples):
+        embs, labels, rows = [], [], None
+        for batch in dm.train_batches():
+            rows = rows or batch["features"].shape[0]
+            if batch["features"].shape[0] != rows:
+                continue
+            embs.extend(_embed_batch(model, batch, device))
+            labels.extend(np.asarray(batch["labels"]).tolist())
+            if len(embs) >= max_samples:
+                break
+        return embs[:max_samples], labels[:max_samples]
+
+    def validate(state, max_batches=None):
+        if not val_pairs:
+            return {"val_eer": 1.0}
+        lim = max_batches if max_batches is not None else limit_val
+        samples: List[EmbeddingSample] = []
+        for i, batch in enumerate(dm.val_batches()):
+            if lim and i >= lim:
+                break
+            e = _embed_batch(model, batch, device)
+            samples.extend(EmbeddingSample(k, e[j]) for j, k in enumerate(batch["keys"]))
+        seen = {s.sample_id for s in samples}
+        usable = [p for p in val_pairs if p.sample1_id in seen and p.sample2_id in seen]
+        if not usable:
+            return {"val_eer": 1.0}
+        evaluator.reset_parameters()
+        if max_tr:
+            if emb_buffer:
+                embs, labels = zip(*emb_buffer)
+                evaluator.fit_parameters(list(embs), list(labels))
+            else:
+                evaluator.fit_parameters(*collect_train_embeddings(max_tr))
+        res = evaluator.evaluate(usable, samples)
+        return {"val_eer": res["eer"], "val_mdc": res["mdc"]}
+
+    def train_iter(epoch=0):
+        return dm.train_batches(prefetch_depth=dl.get("prefetch_depth", 4), epoch=epoch)
+
+    state, ckpt = _train_loop(cfg, task, state, logger, train_iter, validate, device,
+                              on_step=on_step if max_tr else None)
+
+    state = _restore_best(state, ckpt, int(cfg["trainer"].get("average_top_k", 1)))
+    if not cfg.get("eval_model", True):
+        logger.close()
+        return None
+    ltb = _limit_test_batches(cfg)
+    if ltb == 0:
+        print("limit_test_batches=0: skipping the test phase")
+        logger.close()
+        return None
+    test_pairs = dm.test_evaluation_pairs()
+    if not test_pairs:
+        final = validate(state)
+        logger.close()
+        return float(final["val_eer"])
+    t0 = time.perf_counter()
+    test_samples = list(dm.test_samples())
+    if ltb:
+        test_samples = test_samples[: ltb * dl.get("test_batch_size", 8)]
+    samples = extract_embeddings(model, test_samples, pad_to_multiple=dl.get("test_pad_to_multiple", 16000),
+                                 batch_size=dl.get("test_batch_size", 8), device=device)
+    if ltb:  # a prefix of the test split: score the trials whose both sides it holds
+        seen = {s.sample_id for s in samples}
+        test_pairs = [p for p in test_pairs if p.sample1_id in seen and p.sample2_id in seen]
+        if not test_pairs:
+            print("limit_test_batches: no scoreable test trials; skipping")
+            logger.close()
+            return None
+    evaluator.reset_parameters()
+    if max_tr:  # centre with embeddings of the restored weights
+        evaluator.fit_parameters(*collect_train_embeddings(max_tr))
+    res = evaluator.evaluate(test_pairs, samples)
+    logger.log_eval(int(state.step), {**{f"test_{k}": v for k, v in res.items()},
+                                      "test_seconds": time.perf_counter() - t0}, split="test")
+    logger.close()
+    return float(res["eer"])

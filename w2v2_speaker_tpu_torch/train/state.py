@@ -10,7 +10,10 @@ A transform here updates parameters in place from their ``.grad``:
 ``init(named_params)`` once, then ``update(named_params)`` once per step,
 where ``named_params`` is a list of ``("wav2vec2/encoder/...", param)`` —
 the module path joined with "/", so the JAX package's path predicates
-carry over.
+carry over. ``state_dict()`` / ``load_state_dict()`` of a transform and of
+``TrainState`` hold everything a resumed run needs (moments, counts, the
+step generator's state), as the JAX package's checkpoints hold the optax
+state and the rng key.
 """
 
 from __future__ import annotations
@@ -52,6 +55,13 @@ class AdamTx:
         self.adam.step()
         self.count += 1
 
+    def state_dict(self) -> dict:
+        return {"count": self.count, "adam": self.adam.state_dict()}
+
+    def load_state_dict(self, state: dict) -> None:
+        self.count = state["count"]
+        self.adam.load_state_dict(state["adam"])
+
 
 class ClipTx:
     """``optax.chain(optax.clip_by_global_norm(max_norm), inner)``: the
@@ -72,6 +82,12 @@ class ClipTx:
         for g in grads:
             g.mul_(factor)
         self.inner.update(named_params)
+
+    def state_dict(self) -> dict:
+        return self.inner.state_dict()
+
+    def load_state_dict(self, state: dict) -> None:
+        self.inner.load_state_dict(state)
 
 
 class _FreezeTx:
@@ -97,6 +113,13 @@ class _FreezeTx:
         for p, old in zip(frozen, saved):
             p.copy_(old)
         self.count += 1
+
+    def state_dict(self) -> dict:
+        return {"count": self.count, "inner": self.inner.state_dict()}
+
+    def load_state_dict(self, state: dict) -> None:
+        self.count = state["count"]
+        self.inner.load_state_dict(state["inner"])
 
 
 def make_freeze_schedule_tx(inner, frozen_predicate: Callable[[str], bool],
@@ -142,3 +165,15 @@ class TrainState:
                 p.grad = torch.zeros_like(p)
         self.tx.update(named)
         self.step += 1
+
+    def state_dict(self) -> dict:
+        """The step, the model's ``state_dict``, the transform's state and
+        the step generator's state."""
+        return {"step": self.step, "model": self.model.state_dict(), "tx": self.tx.state_dict(),
+                "generator": self.generator.get_state()}
+
+    def load_state_dict(self, state: dict) -> None:
+        self.step = int(state["step"])
+        self.model.load_state_dict(state["model"])
+        self.tx.load_state_dict(state["tx"])
+        self.generator.set_state(state["generator"])
