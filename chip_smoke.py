@@ -76,7 +76,29 @@ the run by raising:
    host's wait on the prefetcher per step, the device's busy share over
    one profiled dispatch, validation and test wall time and the peak
    memory above what was allocated when the phase began;
-14. one JSON line with every kernel's numbers (the attention kernels and
+14. pairs end to end: ``run.main`` with ``+experiment=speaker_wav2vec2_pairs``
+   (the paper's w2v2-bce recipe: one BASE encoder over ``[CLS, a, SEP, b,
+   SEP]``, T = 3 + 2 x 149 = 301 at 3 s crops, BCE) at full width, random
+   init, bf16, B=32 pairs, on phase 13's corpus in shards of 24 (runs of 4
+   per speaker), 8 steps in dispatches of 4 across an epoch boundary with
+   sanity and interval validations (the validation pairs scored through
+   the network), checkpoints, and the test trials scored on full-utterance
+   pairs. Checks: the EER in [0, 1], best and last checkpoints, 16
+   positives and 16 negatives in every step, launches = kept layers in
+   every step, layer 0's q/k/v of a paired training batch through the
+   forward and dq + dk/dv against their plain versions (then timed there
+   beside their bounds and SDPA), the test scores equal to ``score_fn``
+   called on the same batches; prints steady ms/step, the host's wait,
+   the busy share of a profiled dispatch, validation and test wall time,
+   the trials and their longest T, and the phase's own peak memory;
+15. the pooling zoo at full BASE width: ``compute_embedding`` of every
+   ``stat_pooling_type`` but ``mean`` in float32, card against CPU; the
+   bucketed-vs-unpadded distance ratio of bf16 serving for ``first+cls``,
+   ``attentive`` and ``quantile``; then ``run.main`` (``speaker_wav2vec2_ce``,
+   4 steps) with ``attentive`` pooling (its BatchNorm's running statistics
+   moved and restored with the best checkpoint) and with ``first+cls``
+   (attention at T=150), launches = kept layers in every step;
+16. one JSON line with every kernel's numbers (the attention kernels and
    the conv at the LARGE training shapes, launches of the LARGE training
    run), the card line, then the result line.
 
@@ -102,25 +124,27 @@ import torch.nn.functional as F
 from w2v2_speaker_tpu_torch import predict
 from w2v2_speaker_tpu_torch.data.io import load_raw_audio, write_wav
 from w2v2_speaker_tpu_torch.data.normalize import normalize_waveform
-from w2v2_speaker_tpu_torch.data.samples import SpeakerSample
+from w2v2_speaker_tpu_torch.data.samples import PairedSample, SpeakerSample, collate_paired_batch
 from w2v2_speaker_tpu_torch.data.trials import (
     generate_validation_pairs, load_evaluation_pairs, save_evaluation_pairs,
 )
 from w2v2_speaker_tpu_torch.device import set_float32_precision
 from w2v2_speaker_tpu_torch.entry import (
-    BATCH, SAMPLES, build_model, build_train_state, entry, large_train_entry, synthetic_batch,
+    BATCH, NUM_SPEAKERS, SAMPLES, build_model, build_train_state, entry, large_train_entry, synthetic_batch,
     train_entry,
 )
 from w2v2_speaker_tpu_torch.models.wav2vec2 import (
-    BASE_CONFIG, LARGE_CONFIG, feat_extract_output_lengths,
+    BASE_CONFIG, LARGE_CONFIG, Wav2Vec2Config, feat_extract_output_lengths, init_parameters,
 )
+from w2v2_speaker_tpu_torch.models.wav2vec2_speaker import Wav2Vec2SpeakerConfig, Wav2Vec2SpeakerModel
 from w2v2_speaker_tpu_torch.ops import _build
 from w2v2_speaker_tpu_torch.ops import conv_encoder as ce
 from w2v2_speaker_tpu_torch.ops import flash_attention as fa
 from w2v2_speaker_tpu_torch.eval.evaluator import CosineDistanceEvaluator, EmbeddingSample
 from w2v2_speaker_tpu_torch.runtime.config import load_config
-from w2v2_speaker_tpu_torch.runtime.experiment import build_optimizer, load_recipe
+from w2v2_speaker_tpu_torch.runtime.experiment import build_model_and_task, build_optimizer, load_recipe
 from w2v2_speaker_tpu_torch.runtime.predict import build_predict_model, extract_embeddings
+from w2v2_speaker_tpu_torch.train.paired_task import PairedSpeakerTask
 from w2v2_speaker_tpu_torch.train.speaker_task import SpeakerTask
 from w2v2_speaker_tpu_torch.train.state import AdamTx, TrainState
 from w2v2_speaker_tpu_torch.train.steps import make_train_step
@@ -183,6 +207,18 @@ PREDICT_TIMED = 10  # warm extractions timed one by one
 RUN_SPEAKERS, RUN_TEST, RUN_VAL, RUN_SHARD = 50, 3, 3, 22
 RUN_STEPS, RUN_VAL_EVERY, RUN_RESUMED_STEPS = 8, 4, 12
 RUN_ATTN_LAYER = 0  # the layer whose training inputs are held against the plain versions
+# pairs end to end on phase 13's corpus: shards of 24 (a multiple of the
+# recipe's runs of k=4; each training speaker gives one run of 4, so an
+# epoch holds 5 pair batches of 32), 8 steps across an epoch boundary
+PAIRS_SHARD, PAIRS_STEPS, PAIRS_VAL_EVERY, PAIRS_BATCH = 24, 8, 4, 32
+PAIRS_SAME_ATOL = 1e-6  # the test phase's scores vs score_fn on the same batches (same model, same kernels)
+PAIRS_F32_SIDES = ((48000, 20000), (31000, 48000), (16000, 9000))  # samples of side a, side b per f32 pair
+# the pooling zoo: every stat_pooling_type the JAX package trains with but "mean" (phase 4's)
+POOLINGS = ("mean+std", "max", "quantile", "attentive", "first", "first+cls", "middle", "last", "random")
+POOL_PADDING = ("first+cls", "attentive", "quantile")  # held to MAX_PAD_RATIO in bucketed bf16 serving
+# each pooling run: POOL_STEPS steps, a validation every POOL_VAL_EVERY; the
+# attentive one in two legs (the second resumed), its first leg's best pinned
+POOL_STEPS, POOL_VAL_EVERY = 4, 2
 
 
 def cuda_ms(fn, reps: int, warmup: int = 3) -> float:
@@ -292,6 +328,18 @@ def check_kernels(name, b, t, lengths, dtype, rate, gen, h: int = H):
     q, k, v, do, lse, delta, lens, rate, seed = args
     if rate == 0:  # the inference path (no LSE) gives the same output
         assert torch.equal(fa.flash_attention(q, k, v, lens), o), f"{tag}: inference path differs"
+    common = {"shape": name, "dtype": str(dtype).removeprefix("torch."), "rate": rate, "B": b, "T": t,
+              "H": h}
+    return attention_rows(tag, errors, args, common)
+
+
+def attention_rows(tag, errors, args, common):
+    """Kernel, plain, bound and SDPA times of the three kernels on the
+    inputs ``args`` (``attention_pair_errors``' second result), beside
+    ``errors``; one printed row of numbers per kernel."""
+    q, k, v, do, lse, delta, lens, rate, seed = args
+    t, h, dtype = q.shape[1], q.shape[2], q.dtype
+    lengths = lens.tolist()
 
     # library yardstick: SDPA with a boolean key mask, forward and backward
     mask = (torch.arange(t, device="cuda")[None, :] < lens[:, None])[:, None, None, :]
@@ -308,8 +356,6 @@ def check_kernels(name, b, t, lengths, dtype, rate, gen, h: int = H):
         lib_fwd = cuda_ms(sdpa, 10)
     lib_bwd = cuda_ms(sdpa_fwd_bwd, 10) - lib_fwd
     plain_bwd = cuda_ms(lambda: fa.flash_attention_bwd_plain(*args), 2, warmup=1)
-    common = {"shape": name, "dtype": str(dtype).removeprefix("torch."), "rate": rate, "B": b, "T": t,
-              "H": h}
     (err, share, _), (lerr, lshare, _) = errors["o"], errors["lse"]
     dkv = max(errors["dk"][:2], errors["dv"][:2], key=lambda e: e[1])
     rows = {
@@ -1072,35 +1118,50 @@ def write_run_corpus(root: pathlib.Path, rng) -> tuple:
 
 def device_busy(prof) -> tuple:
     """(share of the kernel window in which the card ran some kernel, the
-    window in ms, kernels) of a torch.profiler run."""
-    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+    window in ms, kernels, {kernel category: device ms}, (name, device ms)
+    of the kernel with the most time) of a torch.profiler run."""
+    spans = sorted((e.time_range.start, e.time_range.end, e.name) for e in prof.events()
                    if e.device_type == torch.autograd.DeviceType.CUDA
                    and not getattr(e, "is_user_annotation", False))
     assert spans, "the profiler saw no kernel on the card"
-    busy, end = 0.0, spans[0][0]
-    for start, stop in spans:
+    busy, end, by_cat, by_name = 0.0, spans[0][0], {}, {}
+    for start, stop, name in spans:
         busy += max(0.0, stop - max(start, end))
         end = max(end, stop)
-    return busy / (end - spans[0][0]), (end - spans[0][0]) / 1e3, len(spans)
+        by_cat[kernel_category(name)] = by_cat.get(kernel_category(name), 0.0) + (stop - start) / 1e3
+        by_name[name] = by_name.get(name, 0.0) + (stop - start) / 1e3
+    return (busy / (end - spans[0][0]), (end - spans[0][0]) / 1e3, len(spans), by_cat,
+            max(by_name.items(), key=lambda kv: kv[1]))
+
+
+def per_step_categories(by_cat, top_name, top_ms, steps) -> str:
+    """``device_busy``'s device ms by kernel category and its largest
+    kernel, per step of a profiled window of ``steps`` steps."""
+    cats = ", ".join(f"{cat} {ms / steps:.2f}" for cat, ms in sorted(by_cat.items(), key=lambda kv: -kv[1]))
+    return f"device ms per step by category: {cats}; the largest kernel {top_ms / steps:.2f} ms/step {top_name[:100]}"
 
 
 class RunProbe:
     """Instruments the run twin's main path for the length of a ``with``
-    block by wrapping methods of the port's public classes: a CUDA event
-    and the launch counts where each training step starts
-    (``SpeakerTask.loss_fn``) and ends (``TrainState.apply_gradients``),
-    every logged step and evaluation (``MetricsLogger``), the time of
-    ``prepare_data`` and the host's wait for each train batch (the
-    ``Prefetcher`` behind ``train_batches``). The first step registers
-    forward hooks on its task's model, which keep layer
-    ``RUN_ATTN_LAYER``'s q/k/v, heads, lengths and dropout seed from the
-    first training forward. With ``profile``, the first ``RUN_VAL_EVERY``
-    steps (one dispatch) run under torch.profiler."""
+    block by wrapping methods of the port's public classes: a CUDA event,
+    the launch counts and the batch's labels where each training step
+    starts (``task_cls.loss_fn``) and a CUDA event and the launch counts
+    where it ends (``TrainState.apply_gradients``), every logged step and
+    evaluation (``MetricsLogger``), the time of ``prepare_data`` and the
+    host's wait for each train batch (the ``Prefetcher`` behind
+    ``train_batches``); for ``PairedSpeakerTask`` also every
+    ``score_fn`` call's batch, scores and launches, with the number of
+    evaluations logged before it. The first step keeps its task and registers forward
+    hooks on its model, which keep layer ``RUN_ATTN_LAYER``'s q/k/v,
+    heads, lengths and dropout seed from the first training forward. With
+    ``profile=(first, last)``, steps ``first``-``last`` of the run (counted
+    from 0) run under torch.profiler."""
 
-    def __init__(self, profile: bool = False):
-        self.profile = profile
+    def __init__(self, profile=None, task_cls=SpeakerTask):
+        self.profile, self.task_cls = profile, task_cls
         self.starts, self.ends, self.steps, self.evals, self.waits = [], [], [], [], []
-        self.prepare_s, self.busy, self.attn = None, None, None
+        self.labels, self.scored = [], []
+        self.prepare_s, self.busy, self.attn, self.task = None, None, None, None
         self._saved, self._prof = [], None
 
     def _wrap(self, owner, name, make):
@@ -1109,7 +1170,7 @@ class RunProbe:
         setattr(owner, name, make(orig))
 
     def _hook_attention(self, model) -> None:
-        attn = model.wav2vec2.encoder.layers[RUN_ATTN_LAYER].attention
+        attn = getattr(model, "wav2vec2", model).encoder.layers[RUN_ATTN_LAYER].attention
         seen = {}
 
         def pre(module, args):
@@ -1126,20 +1187,22 @@ class RunProbe:
 
         handles = [attn.register_forward_pre_hook(pre), attn.qkv_proj.register_forward_hook(post)]
 
-    def _step_start(self, task) -> None:
+    def _step_start(self, task, batch) -> None:
         if not self.starts:
+            self.task = task
             self._hook_attention(task.model)
-        if self.profile and not self.starts:
+        if self.profile and len(self.starts) == self.profile[0]:
             from torch.profiler import ProfilerActivity, profile
 
             torch.cuda.synchronize()
             self._prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
             self._prof.start()
+        self.labels.append(batch["labels"])
         self.starts.append((self._event(), launches()))
 
     def _step_end(self) -> None:
         self.ends.append((self._event(), launches()))
-        if self._prof is not None and len(self.ends) == RUN_VAL_EVERY:
+        if self._prof is not None and len(self.ends) == self.profile[1] + 1:
             torch.cuda.synchronize()
             self._prof.stop()
             self.busy, self._prof = device_busy(self._prof), None
@@ -1155,8 +1218,20 @@ class RunProbe:
         from w2v2_speaker_tpu_torch.runtime.logging import MetricsLogger
 
         probe = self
-        self._wrap(SpeakerTask, "loss_fn", lambda orig: lambda task, *a, **kw: (
-            probe._step_start(task), orig(task, *a, **kw))[1])
+        self._wrap(self.task_cls, "loss_fn", lambda orig: lambda task, batch, *a, **kw: (
+            probe._step_start(task, batch), orig(task, batch, *a, **kw))[1])
+
+        def recorded_scores(orig):
+            def score_fn(task, batch):
+                before = launches()
+                scores = orig(task, batch)
+                probe.scored.append((len(probe.evals), batch, scores,
+                                     {k: n - before[k] for k, n in launches().items()}))
+                return scores
+            return score_fn
+
+        if self.task_cls is PairedSpeakerTask:
+            self._wrap(PairedSpeakerTask, "score_fn", recorded_scores)
         self._wrap(TrainState, "apply_gradients", lambda orig: lambda state: (
             orig(state), probe._step_end())[0])
         self._wrap(MetricsLogger, "log_step", lambda orig: lambda lg, step, m: (
@@ -1205,11 +1280,18 @@ class RunProbe:
         torch.cuda.synchronize()
         return self.starts[first][0].elapsed_time(self.ends[last][0]) / (last - first + 1)
 
+    def spans_ms(self, first: int, last: int) -> list:
+        """Device ms of each step ``first``-``last``, from its start to its
+        end: without the gaps between dispatches."""
+        torch.cuda.synchronize()
+        return [s[0].elapsed_time(e[0]) for s, e in zip(self.starts[first:last + 1], self.ends[first:last + 1])]
 
-def check_run_attention(rec) -> str:
+
+def check_run_attention(rec) -> tuple:
     """Layer ``RUN_ATTN_LAYER``'s training q/k/v, lengths, rate and seed
     through the forward and the dq + dk/dv pair (a random upstream
-    gradient), each against its plain version."""
+    gradient), each against its plain version: (summary, errors, the
+    kernels' inputs)."""
     qkv, heads = rec["qkv"], rec["heads"]
     b, t, three_hidden = qkv.shape
     hidden = three_hidden // 3
@@ -1217,50 +1299,50 @@ def check_run_attention(rec) -> str:
     lens = rec["lengths"]
     lens = torch.full((b,), t, dtype=torch.int32, device="cuda") if lens is None else lens
     do = torch.randn(q.shape, generator=torch.Generator(device="cuda").manual_seed(13), device="cuda").to(q.dtype)
-    errors, _, _ = attention_pair_errors(q, k, v, lens, rec["rate"], rec["seed"], do)
+    errors, args, _ = attention_pair_errors(q, k, v, lens, rec["rate"], rec["seed"], do)
     for out, (err, share, zeros) in errors.items():
         assert share <= 1 and zeros, f"run attention {out}: err {err}, {share:.3f} of the limit"
     return (f"layer {RUN_ATTN_LAYER} B={b} T={t} {q.dtype} rate {rec['rate']} seed {rec['seed']}: "
-            + ", ".join(f"{out} {share:.3f}" for out, (_, share, _) in errors.items()) + " of the limits")
+            + ", ".join(f"{out} {share:.3f}" for out, (_, share, _) in errors.items()) + " of the limits",
+            errors, args)
 
 
-def run_phase(card: str) -> None:
+def run_phase(card: str, tmp: pathlib.Path) -> tuple:
     """Phase 13: ``w2v2_speaker_tpu_torch.run.main`` end to end at full
-    BASE width, then resumed."""
+    BASE width, then resumed, on a corpus it writes under ``tmp``; returns
+    (WAV root, trial file, its shards directory)."""
     from w2v2_speaker_tpu_torch import run
 
     rng = np.random.default_rng(13)
-    with tempfile.TemporaryDirectory() as tmp:
-        tmp = pathlib.Path(tmp)
+    t0 = time.perf_counter()
+    wav_dir, trials, audio_s = write_run_corpus(tmp, rng)
+    write_s = time.perf_counter() - t0
+    argv = [
+        "+experiment=speaker_wav2vec2_ce", f"data.module.data_dir={wav_dir}",
+        f"data.module.shards_dir={tmp / 'shards'}", f"data.module.test_trial_path={trials}",
+        "data.module.train_val_split_mode=different", f"+data.module.num_val_speakers={RUN_VAL}",
+        f"data.shards.samples_per_shard={RUN_SHARD}", f"trainer.max_steps={RUN_STEPS}",
+        f"trainer.val_check_interval={RUN_VAL_EVERY}", f"trainer.checkpoint_dir={tmp / 'ckpt'}",
+        f"trainer.log_dir={tmp / 'tb'}", "trainer.log_every=1", "seed=13",
+    ]
+    gc.collect()  # what earlier phases left to the collector and the cache
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    with RunProbe() as first:
         t0 = time.perf_counter()
-        wav_dir, trials, audio_s = write_run_corpus(tmp, rng)
-        write_s = time.perf_counter() - t0
-        argv = [
-            "+experiment=speaker_wav2vec2_ce", f"data.module.data_dir={wav_dir}",
-            f"data.module.shards_dir={tmp / 'shards'}", f"data.module.test_trial_path={trials}",
-            "data.module.train_val_split_mode=different", f"+data.module.num_val_speakers={RUN_VAL}",
-            f"data.shards.samples_per_shard={RUN_SHARD}", f"trainer.max_steps={RUN_STEPS}",
-            f"trainer.val_check_interval={RUN_VAL_EVERY}", f"trainer.checkpoint_dir={tmp / 'ckpt'}",
-            f"trainer.log_dir={tmp / 'tb'}", "trainer.log_every=1", "seed=13",
-        ]
-        gc.collect()  # what earlier phases left to the collector and the cache
-        torch.cuda.empty_cache()
-        held = torch.cuda.memory_allocated()
-        torch.cuda.reset_peak_memory_stats()
-        reset_launches()
-        with RunProbe() as first:
-            t0 = time.perf_counter()
-            objective = run.main(argv)
-            first_s = time.perf_counter() - t0
-        index = json.loads((tmp / "ckpt" / "index.json").read_text())
-        assert index["last"]["step"] == RUN_STEPS and index["best"], f"run: index {index}"
-        with RunProbe(profile=True) as resumed:
-            t0 = time.perf_counter()
-            objective_2 = run.main([*argv, "trainer.resume=true", f"trainer.max_steps={RUN_RESUMED_STEPS}"])
-            resumed_s = time.perf_counter() - t0
-        peak_gib = (torch.cuda.max_memory_allocated() - held) / 2**30
-        index_2 = json.loads((tmp / "ckpt" / "index.json").read_text())
-        tb = [f.stat().st_size for f in (tmp / "tb").glob("events.out.tfevents.*")]
+        objective = run.main(argv)
+        first_s = time.perf_counter() - t0
+    index = json.loads((tmp / "ckpt" / "index.json").read_text())
+    assert index["last"]["step"] == RUN_STEPS and index["best"], f"run: index {index}"
+    with RunProbe(profile=(0, RUN_VAL_EVERY - 1)) as resumed:
+        t0 = time.perf_counter()
+        objective_2 = run.main([*argv, "trainer.resume=true", f"trainer.max_steps={RUN_RESUMED_STEPS}"])
+        resumed_s = time.perf_counter() - t0
+    peak_gib = (torch.cuda.max_memory_allocated() - held) / 2**30
+    index_2 = json.loads((tmp / "ckpt" / "index.json").read_text())
+    tb = [f.stat().st_size for f in (tmp / "tb").glob("events.out.tfevents.*")]
     for name, obj in (("run", objective), ("resumed run", objective_2)):
         assert obj is not None and np.isfinite(obj) and 0 <= obj <= 1, f"{name}: objective {obj}"
     assert index_2["last"]["step"] == RUN_RESUMED_STEPS and index_2["best"], f"resumed run: index {index_2}"
@@ -1276,24 +1358,264 @@ def run_phase(card: str) -> None:
             kept.append(layers)
         assert all(np.isfinite(m["loss"]) for _, m in probe.steps), "run: non-finite loss"
     assert first.attn is not None, "run: no training forward reached the hooked layer"
-    attention = check_run_attention(first.attn)
+    attention, _, _ = check_run_attention(first.attn)
     val = [m for _, m in first.evals + resumed.evals if "val_eer" in m]
     test = [m for _, m in first.evals + resumed.evals if "test_eer" in m]
     assert len(val) == 3 and len(test) == 2, f"run: evaluations {first.evals + resumed.evals}"
     waits_ms = [1e3 * w for w in first.waits]
     steady = first.step_ms(RUN_VAL_EVERY, RUN_STEPS - 1)
-    busy, window_ms, kernels = resumed.busy
+    spans = first.spans_ms(RUN_VAL_EVERY, RUN_STEPS - 1)
+    busy, window_ms, kernels, by_cat, (top_name, top_ms) = resumed.busy
     print(f"run kernels vs plain on a training batch: {attention}", flush=True)
     print(f"run BASE bf16 B=66 x 48000: {RUN_SPEAKERS} speakers, {audio_s:.1f} s of audio written in "
           f"{write_s:.2f} s; shard preparation {first.prepare_s:.3f} s; steady {steady:.3f} ms/step "
-          f"(CUDA events, steps {RUN_VAL_EVERY + 1}-{RUN_STEPS}); host wait on the Prefetcher per step: "
+          f"(CUDA events, start of step {RUN_VAL_EVERY + 1} to end of step {RUN_STEPS}; each step's own "
+          f"span {[round(x, 2) for x in spans]}, mean {np.mean(spans):.3f}); host wait on the Prefetcher per step: "
           f"mean {np.mean(waits_ms):.2f} ms, by step {[round(w, 2) for w in waits_ms]}; device busy "
           f"{100 * busy:.1f} % of one profiled {RUN_VAL_EVERY}-step dispatch ({window_ms:.1f} ms, {kernels} "
-          f"kernels); validation s {[round(m['val_seconds'], 3) for m in val]}, test s "
+          f"kernels; {per_step_categories(by_cat, top_name, top_ms, RUN_VAL_EVERY)}); validation s {[round(m['val_seconds'], 3) for m in val]}, test s "
           f"{[round(m['test_seconds'], 3) for m in test]}; val EER {[round(m['val_eer'], 4) for m in val]}; "
           f"objectives {objective:.4f}, {objective_2:.4f}; whole run {first_s:.2f} s, resumed "
           f"{resumed_s:.2f} s; layers kept {kept}; peak {peak_gib:.2f} GiB above the {held / 2**30:.2f} GiB "
           f"held at the phase's start [{card}]", flush=True)
+    return wav_dir, trials, tmp / "shards"
+
+
+def corpus_args(wav_dir, trials, shards, ckpt) -> list:
+    """The run twin's data and output overrides for phase 13's corpus."""
+    return [
+        f"data.module.data_dir={wav_dir}", f"data.module.shards_dir={shards}", f"data.module.test_trial_path={trials}",
+        "data.module.train_val_split_mode=different", f"+data.module.num_val_speakers={RUN_VAL}",
+        f"trainer.checkpoint_dir={ckpt}", "trainer.log_dir=null", "trainer.log_every=1",
+    ]
+
+
+def check_steps(label, probe, last, first: int = 1) -> list:
+    """Steps ``first``-``last`` logged with finite losses, each launching
+    the forward, dq and dk/dv once per kept layer and no conv; the layers
+    kept."""
+    assert [s for s, _ in probe.steps] == list(range(first, last + 1)), f"{label}: steps {probe.steps}"
+    assert all(np.isfinite(m["loss"]) for _, m in probe.steps), f"{label}: non-finite loss"
+    kept = []
+    for step, layers, got in probe.per_step():
+        assert got == {**{k: layers for k in ATTENTION}, "conv_encoder": 0}, \
+            f"{label} step {step}: kept {layers} layers, launched {got}"
+        kept.append(layers)
+    return kept
+
+
+def paired_f32_errors() -> dict:
+    """The paired network in float32 at full BASE width (the pairs recipe,
+    seeded weights), card against CPU from the same weights, on a pair
+    batch whose sides are padded each on its own (``PAIRS_F32_SIDES``):
+    max abs err / max abs of the logits and of the CLS outputs."""
+    dev = torch.device("cuda")
+    with torch.device("meta"):
+        task, _ = build_model_and_task(load_recipe("speaker_wav2vec2_pairs", ["trainer.precision=f32"]), 0)
+    model = task.model.to_empty(device=dev)
+    init_parameters(model, torch.Generator(device=dev).manual_seed(14))
+    model.eval().requires_grad_(False)
+    rng = np.random.default_rng(14)
+    batch = collate_paired_batch([
+        PairedSample(f"a{i}", rng.normal(0, 0.1, na).astype(np.float32),
+                     f"b{i}", rng.normal(0, 0.1, nb).astype(np.float32), i % 2)
+        for i, (na, nb) in enumerate(PAIRS_F32_SIDES)])
+    assert "mask_a" in batch and "mask_b" in batch, "paired f32: a side is not padded"
+
+    @torch.inference_mode()
+    def outputs(m, device):
+        t = {k: torch.from_numpy(v).to(device) for k, v in batch.items() if k != "keys"}
+        out = m(t["features_a"], t["features_b"], t.get("mask_a"), t.get("mask_b"))
+        return {"logit": out["logit"].cpu(), "cls": out["cls_embedding"].cpu()}
+
+    reset_launches()
+    on_card = outputs(model, dev)
+    assert launches()["flash_attention_fwd"] == model.cfg.w2v2.num_layers, f"paired f32 launched {launches()}"
+    on_cpu = outputs(copy.deepcopy(model).cpu(), "cpu")
+    return {k: float((on_card[k] - on_cpu[k]).abs().max() / on_cpu[k].abs().max()) for k in on_card}
+
+
+def pairs_phase(card: str, tmp: pathlib.Path, wav_dir, trials) -> None:
+    """Phase 14: ``w2v2_speaker_tpu_torch.run.main`` on the w2v2-bce recipe
+    (``speaker_wav2vec2_pairs``) at full BASE width on phase 13's corpus."""
+    from w2v2_speaker_tpu_torch import run
+
+    argv = ["+experiment=speaker_wav2vec2_pairs", f"data.shards.samples_per_shard={PAIRS_SHARD}",
+            f"trainer.max_steps={PAIRS_STEPS}", f"trainer.val_check_interval={PAIRS_VAL_EVERY}", "seed=14",
+            *corpus_args(wav_dir, trials, tmp / "pair_shards", tmp / "pair_ckpt")]
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    with RunProbe(profile=(1, PAIRS_VAL_EVERY - 1), task_cls=PairedSpeakerTask) as probe:
+        t0 = time.perf_counter()
+        objective = run.main(argv)
+        run_s = time.perf_counter() - t0
+    peak_gib = (torch.cuda.max_memory_allocated() - held) / 2**30
+    index = json.loads((tmp / "pair_ckpt" / "index.json").read_text())
+    assert objective is not None and np.isfinite(objective) and 0 <= objective <= 1, f"pairs: objective {objective}"
+    assert index["last"]["step"] == PAIRS_STEPS and index["best"], f"pairs: index {index}"
+    kept = check_steps("pairs", probe, PAIRS_STEPS)
+    positives = [(int(lab.numel()), int(lab.sum())) for lab in probe.labels]
+    assert positives == [(PAIRS_BATCH, PAIRS_BATCH // 2)] * PAIRS_STEPS, f"pairs: (rows, positives) {positives}"
+
+    # layer 0's q/k/v of the first training batch: the kernels against their
+    # plain versions, then their times at that shape
+    attention, errors, args = check_run_attention(probe.attn)
+    q = args[0]
+    assert q.shape[1] == 3 + 2 * feat_extract_output_lengths(SAMPLES), f"pairs: packed T {q.shape[1]}"
+    attention_rows("paired train", errors, args, {"shape": "paired_train_3s", "dtype": "bfloat16",
+                                                   "rate": args[7], "B": q.shape[0], "T": q.shape[1],
+                                                   "H": q.shape[2]})
+
+    # the test phase's scores against score_fn called on the same batches
+    n_test = next(i for i, (_, m) in enumerate(probe.evals) if "test_eer" in m)
+    calls = [(batch, scores) for n, batch, scores, _ in probe.scored if n == n_test]
+    per_call = [got for n, _, _, got in probe.scored if n == n_test]
+    want = {"flash_attention_fwd": 12, "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0, "conv_encoder": 0}
+    assert all(got == want for got in per_call), f"pairs: test calls launched {per_call}"
+    same = max(float((probe.task.score_fn(batch) - scores).abs().max()) for batch, scores in calls)
+    n_trials = sum(len(scores) for _, scores in calls)
+    assert n_trials == len(trials.read_text().splitlines()), f"pairs: {n_trials} test scores"
+    assert same <= PAIRS_SAME_ATOL, f"pairs: test scores vs score_fn differ by {same}"
+    longest = max(3 + feat_extract_output_lengths(b["features_a"].shape[1])
+                  + feat_extract_output_lengths(b["features_b"].shape[1]) for b, _ in calls)
+
+    steady = probe.step_ms(PAIRS_VAL_EVERY, PAIRS_STEPS - 1)
+    spans = probe.spans_ms(PAIRS_VAL_EVERY, PAIRS_STEPS - 1)
+    busy, window_ms, kernels, by_cat, (top_name, top_ms) = probe.busy
+    waits_ms = [1e3 * w for w in probe.waits]
+    val = [m for _, m in probe.evals if "val_eer" in m]
+    sanity = [m for _, m in probe.evals if "sanity_val_eer" in m]
+    test = probe.evals[n_test][1]
+    f32 = paired_f32_errors()
+    print(f"pairs kernels vs plain on a paired training batch: {attention}", flush=True)
+    print(f"pairs BASE bf16 B={PAIRS_BATCH} x 2 x {SAMPLES} (packed T={q.shape[1]}): shard preparation "
+          f"{probe.prepare_s:.3f} s; steady {steady:.3f} ms/step (CUDA events, start of step "
+          f"{PAIRS_VAL_EVERY + 1} to end of step {PAIRS_STEPS}; each step's own span "
+          f"{[round(x, 2) for x in spans]}, mean {np.mean(spans):.3f}); host wait on the "
+          f"Prefetcher per step: mean {np.mean(waits_ms):.2f} ms, by step {[round(w, 2) for w in waits_ms]}; "
+          f"device busy {100 * busy:.1f} % of steps 2-{PAIRS_VAL_EVERY} ({window_ms:.1f} ms, {kernels} kernels; "
+          f"{per_step_categories(by_cat, top_name, top_ms, PAIRS_VAL_EVERY - 1)}); "
+          f"sanity s {[round(m['sanity_seconds'], 3) for m in sanity]}, validation s "
+          f"{[round(m['val_seconds'], 3) for m in val]}, test {test['test_seconds']:.3f} s over {n_trials} "
+          f"trial pairs in {len(calls)} calls of 12 forward launches each (longest packed T={longest}); test "
+          f"scores vs score_fn max diff {same:.3e}; val EER "
+          f"{[round(m['val_eer'], 4) for m in val]}; objective {objective:.4f}; whole run {run_s:.2f} s; layers "
+          f"kept {kept}; positives per step {[p for _, p in positives]}; peak {peak_gib:.2f} GiB above the "
+          f"{held / 2**30:.2f} GiB held at the phase's start [{card}]", flush=True)
+    print(f"pairs f32 BASE card vs cpu on a padded pair batch {PAIRS_F32_SIDES}, max abs err / max abs "
+          f"(limit {F32_REL_TOL}): {json.dumps(f32)} [{card}]", flush=True)
+    assert all(v < F32_REL_TOL for v in f32.values()), f"pairs: f32 card vs cpu differ: {f32}"
+
+
+def pooling_model(dtype: torch.dtype, name: str) -> Wav2Vec2SpeakerModel:
+    """wav2vec2-BASE + ``name`` pooling + FC head for serving, eval mode,
+    weights seeded 15, the backbone's cast to ``dtype``."""
+    dev = torch.device("cuda")
+    cfg = Wav2Vec2SpeakerConfig(
+        w2v2=Wav2Vec2Config(**{**BASE_CONFIG.__dict__, "dtype": str(dtype).removeprefix("torch."),
+                               "layerdrop": 0.0}),
+        stat_pooling_type=name)
+    with torch.device("meta"):
+        model = Wav2Vec2SpeakerModel(cfg, num_speakers=NUM_SPEAKERS)
+    model.to_empty(device=dev)
+    init_parameters(model, torch.Generator(device=dev).manual_seed(15))
+    model.wav2vec2.to(dtype)
+    return model.eval().requires_grad_(False)
+
+
+def bn_stats(state_pt: pathlib.Path) -> dict:
+    """The attentive pooling's running statistics in a checkpoint."""
+    model = torch.load(state_pt, map_location="cpu")["model"]
+    return {k: model[f"stat_pooling.attn_bn.{k}"] for k in ("running_mean", "running_var")}
+
+
+def pooling_phase(card: str, tmp: pathlib.Path, wav_dir, trials, shards) -> None:
+    """Phase 15: the pooling zoo at full BASE width (f32 card vs CPU,
+    padding invariance of bf16 serving), then ``run.main`` with
+    ``attentive`` pooling (two runs, the second resumed, with the best
+    checkpoint before the last) and ``first+cls`` on phase 13's shards."""
+    from w2v2_speaker_tpu_torch import run
+
+    rng = np.random.default_rng(15)
+    small = rng.normal(0, 0.1, (3, 32000)).astype(np.float32)
+    small_mask = np.arange(32000)[None, :] < np.array([32000, 21000, 9000])[:, None]
+    small *= small_mask
+    f32 = {}
+    for name in POOLINGS:
+        model = pooling_model(torch.float32, name)
+        on_card = embed(model, torch.from_numpy(small).cuda(), torch.from_numpy(small_mask).cuda()).cpu()
+        on_cpu = embed(copy.deepcopy(model).cpu(), torch.from_numpy(small), torch.from_numpy(small_mask))
+        f32[name] = float((on_card - on_cpu).abs().max() / on_cpu.abs().max())
+        del model
+    print(f"pooling f32 card vs cpu, max abs err / max abs: {json.dumps(f32)}", flush=True)
+    assert all(v < F32_REL_TOL for v in f32.values()), f"pooling: f32 card vs cpu differ: {f32}"
+    ratios = {}
+    samples = serving_samples(rng)
+    for name in POOL_PADDING:
+        model = pooling_model(torch.bfloat16, name)
+        extract_embeddings(model, samples, pad_to_multiple=16000, batch_size=4)  # warm-up
+        reset_launches()
+        served = {e.sample_id: e.embedding
+                  for e in extract_embeddings(model, samples, pad_to_multiple=16000, batch_size=4)}
+        assert launches()["flash_attention_fwd"] == 12 * 3, f"{name} serving launched {launches()}"
+        ratios[name] = padding_ratio(served, unpadded_embeddings(embed, model, samples))
+        del model
+    print(f"pooling bf16 bucketed vs unpadded batch-1 distance ratio (limit {MAX_PAD_RATIO}): "
+          f"{json.dumps(ratios)} [{card}]", flush=True)
+    assert all(v <= MAX_PAD_RATIO for v in ratios.values()), f"pooling: padding moved an embedding: {ratios}"
+
+    for name in ("attentive", "first+cls"):
+        ckpt = tmp / f"{name}_ckpt"
+        argv = ["+experiment=speaker_wav2vec2_ce", f"network.stat_pooling_type={name}",
+                f"data.shards.samples_per_shard={RUN_SHARD}", f"trainer.val_check_interval={POOL_VAL_EVERY}",
+                "seed=15", *corpus_args(wav_dir, trials, shards, ckpt)]
+        # attentive: steps 1-2 without a test, their best entry pinned below
+        # any EER, then steps 3-4 resumed: the best is step 2 and last step 4
+        # by construction, so the test phase's restore has to load step 2
+        legs = ([(1, POOL_VAL_EVERY, ["eval_model=false"]), (POOL_VAL_EVERY + 1, POOL_STEPS, ["trainer.resume=true"])]
+                if name == "attentive" else [(1, POOL_STEPS, [])])
+        reset_launches()
+        kept, run_s = [], 0.0
+        for first, last, extra in legs:
+            if first > 1:
+                index = json.loads((ckpt / "index.json").read_text())
+                assert [e["step"] for e in index["best"]] == [first - 1], f"{name}: first leg's index {index}"
+                index["best"][0]["metric"] = -1.0
+                (ckpt / "index.json").write_text(json.dumps(index))
+            with RunProbe() as probe:
+                t0 = time.perf_counter()
+                objective = run.main([*argv, f"trainer.max_steps={last}", *extra])
+                run_s += time.perf_counter() - t0
+            kept += check_steps(name, probe, last, first)
+        assert objective is not None and np.isfinite(objective) and 0 <= objective <= 1, f"{name}: {objective}"
+        t = probe.attn["qkv"].shape[1]
+        note = f"attention T={t}"
+        if name == "first+cls":
+            assert t == feat_extract_output_lengths(SAMPLES) + 1, f"first+cls: attention T {t}"
+        else:
+            index = json.loads((ckpt / "index.json").read_text())
+            assert index["best"][0]["step"] == POOL_VAL_EVERY and index["last"]["step"] == POOL_STEPS, \
+                f"attentive: index {index}"
+            bn = probe.task.model.stat_pooling.attn_bn
+            best = bn_stats(ckpt / index["best"][0]["name"] / "state.pt")
+            last_stats = bn_stats(ckpt / "last" / "state.pt")
+            live = {k: getattr(bn, k).cpu() for k in ("running_mean", "running_var")}
+            moved = (float(best["running_mean"].abs().max()), float((best["running_var"] - 1).abs().max()))
+            apart = {k: float((best[k] - last_stats[k]).abs().max()) for k in best}
+            assert min(moved) > 0, f"attentive: running statistics did not move by step {POOL_VAL_EVERY}: {moved}"
+            assert min(apart.values()) > 0, f"attentive: steps 3-4 left the running statistics as they were: {apart}"
+            assert all(torch.equal(v, best[k]) for k, v in live.items()), \
+                "attentive: the running statistics after the test phase are not the best checkpoint's"
+            note += (f"; running mean / var at the best checkpoint (step {POOL_VAL_EVERY}) moved from their "
+                     f"initial values by up to {moved[0]:.4f} / {moved[1]:.4f} and differ from last's (step "
+                     f"{POOL_STEPS}) by up to {apart['running_mean']:.4f} / {apart['running_var']:.4f}; the "
+                     f"model tested holds the best's exactly")
+        print(f"pooling {name} run: {POOL_STEPS} steps in {len(legs)} run(s), layers kept {kept}, launches = "
+              f"kept layers per step, {note}; objective {objective:.4f}; whole run {run_s:.2f} s [{card}]",
+              flush=True)
 
 
 def main() -> None:
@@ -1316,9 +1638,13 @@ def main() -> None:
     large = load_recipe("speaker_wav2vec2_large_aam", ["network.conv_impl=fused_pallas"])
     f32_train_phase(large, "LARGE", conv_launches=6)  # 11
     predict_phase(card)  # 12
-    run_phase(card)  # 13
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = pathlib.Path(tmp)
+        wav_dir, trials, shards = run_phase(card, tmp)  # 13
+        pairs_phase(card, tmp, wav_dir, trials)  # 14
+        pooling_phase(card, tmp, wav_dir, trials, shards)  # 15
 
-    # 14. kernels line, card line, result line
+    # 16. kernels line, card line, result line
     kernels = []
     for name, source, replaces in KERNELS:
         row = main_rows[name]

@@ -1,7 +1,7 @@
 """Recipe assembly of the port against the JAX package's: the backbone
 config of a network dict (every key ``_w2v2_config`` reads, with its
-defaults), the speaker model config and mode of ``build_model_and_task``,
-and the LARGE AAM recipe, composed from ``config/`` by the port's
+defaults), the speaker and paired model configs and modes of
+``build_model_and_task``, and the LARGE AAM recipe, composed from ``config/`` by the port's
 ``load_config``, against the YAML files."""
 
 import dataclasses
@@ -14,6 +14,7 @@ import yaml
 from w2v2_speaker_tpu.runtime import experiment as jexp
 from w2v2_speaker_tpu_torch.models import wav2vec2 as tw
 from w2v2_speaker_tpu_torch.runtime import experiment as texp
+from w2v2_speaker_tpu_torch.train.paired_task import PairedSpeakerTask
 from w2v2_speaker_tpu_torch.train.speaker_task import SpeakerTask
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -62,6 +63,23 @@ def test_speaker_model_config_matches_jax_build_model_and_task(recipe):
     assert kind == "speaker" and mode == want_task.mode == {"ce": "ce", "large_aam": "aam"}[recipe]
     assert dataclasses.asdict(got_cfg) == dataclasses.asdict(want_task.model.cfg)
     assert want_task.model.num_speakers == 5994
+
+
+@pytest.mark.parametrize("constants", [(), ("network.cls_token_constant=0.5", "network.sep_token_constant=-3.0")],
+                         ids=["recipe", "constants"])
+def test_paired_model_config_matches_jax_build_model_and_task(constants):
+    """``wav2vec2_paired`` builds ``(PairedSpeakerTask, "paired")`` with the
+    JAX package's config, CLS and SEP constants from the network config;
+    the model's submodules are the flax tree's top level."""
+    cfg = texp.load_recipe("speaker_wav2vec2_pairs", list(constants))
+    want_task, want_kind = jexp.build_model_and_task(cfg, num_speakers=5994)
+    assert dataclasses.asdict(texp.paired_model_config(cfg)) == dataclasses.asdict(want_task.model.cfg)
+    tiny = {**cfg, "network": {**cfg["network"], "wav2vec2_size": "tiny"}}
+    task, kind = texp.build_model_and_task(tiny, num_speakers=5994)
+    assert kind == want_kind == "paired" and isinstance(task, PairedSpeakerTask)
+    assert [n for n, _ in task.model.named_children()] == [
+        "feature_encoder", "feature_projection", "encoder", "equality_head"]
+    assert task.model.cfg.cls_token_constant == cfg["network"]["cls_token_constant"]
 
 
 def test_build_model_and_task_builds_the_aam_model():

@@ -98,17 +98,13 @@ def test_hf_checkpoint_matches_hf_and_jax(tmp_path, layout, fmt, form):
     np.testing.assert_allclose(got.numpy(), np.asarray(want_jax), rtol=RTOL, atol=ATOL)
 
 
-def test_pretrained_checkpoint_is_grafted_into_the_backbone(tmp_path):
-    """``network.pretrained_checkpoint`` in a predict model: the converted
-    backbone replaces the init, the head keeps it."""
-    from w2v2_speaker_tpu_torch.runtime.config import load_config
-    from w2v2_speaker_tpu_torch.runtime.experiment import CONFIG_DIR, TINY_W2V2
-    from w2v2_speaker_tpu_torch.runtime.predict import build_predict_model
+def _write_tiny_hf(path):
+    """A HF model of the run twin's tiny geometry written to ``path``."""
+    from w2v2_speaker_tpu_torch.runtime.experiment import TINY_W2V2 as tiny
 
     from transformers import Wav2Vec2Config as HFConfig
     from transformers import Wav2Vec2Model as HFModel
 
-    tiny = TINY_W2V2
     torch.manual_seed(1)
     hf = HFModel(HFConfig(
         conv_dim=list(tiny.conv_dim), conv_kernel=list(tiny.conv_kernel), conv_stride=list(tiny.conv_stride),
@@ -116,7 +112,17 @@ def test_pretrained_checkpoint_is_grafted_into_the_backbone(tmp_path):
         intermediate_size=tiny.intermediate_size, num_conv_pos_embeddings=tiny.num_conv_pos_embeddings,
         num_conv_pos_embedding_groups=tiny.num_conv_pos_embedding_groups,
         num_feat_extract_layers=len(tiny.conv_dim)))
-    _write(hf, tmp_path / "hf.safetensors", "parametrizations")
+    _write(hf, path, "parametrizations")
+
+
+def test_pretrained_checkpoint_is_grafted_into_the_backbone(tmp_path):
+    """``network.pretrained_checkpoint`` in a predict model: the converted
+    backbone replaces the init, the head keeps it."""
+    from w2v2_speaker_tpu_torch.runtime.config import load_config
+    from w2v2_speaker_tpu_torch.runtime.experiment import CONFIG_DIR
+    from w2v2_speaker_tpu_torch.runtime.predict import build_predict_model
+
+    _write_tiny_hf(tmp_path / "hf.safetensors")
     overrides = ["network=wav2vec2_fc", "network.wav2vec2_size=tiny", "trainer.precision=f32"]
     plain = build_predict_model(load_config(CONFIG_DIR, "predict", overrides), "cpu")
     warm = build_predict_model(load_config(CONFIG_DIR, "predict", [
@@ -156,3 +162,26 @@ def test_safetensors_reader_matches_the_library(tmp_path):
     save_torch({"w": bf16}, str(tmp_path / "b.safetensors"))
     np.testing.assert_array_equal(hf_convert.read_safetensors(tmp_path / "b.safetensors")["w"],
                                   bf16.float().numpy())
+
+
+def test_pretrained_checkpoint_leaves_the_paired_model_at_init(tmp_path, capsys):
+    """The paired network has no ``wav2vec2`` subtree, so ``_init_state``
+    reads ``network.pretrained_checkpoint`` and keeps every weight at its
+    initialisation, as the JAX package's ``_init_state`` does (it grafts
+    only into a ``wav2vec2`` subtree), and prints that it did not load it."""
+    from w2v2_speaker_tpu_torch.runtime import experiment as texp
+
+    _write_tiny_hf(tmp_path / "hf.safetensors")
+    cfg = texp.load_recipe("speaker_wav2vec2_pairs", [
+        "network.wav2vec2_size=tiny", "trainer.precision=f32",
+        f"network.pretrained_checkpoint={tmp_path / 'hf.safetensors'}"])
+    task, kind = texp.build_model_and_task(cfg, 0)
+    tw.init_parameters(task.model, torch.Generator().manual_seed(0))
+    init = {k: v.clone() for k, v in task.model.state_dict().items()}
+    state = texp._init_state(cfg, task)
+    converted = hf_convert.load_hf_checkpoint(tmp_path / "hf.safetensors", task.model.cfg.w2v2)
+    assert kind == "paired" and state.model is task.model
+    assert sum(name in converted for name in init) == len(init) - 2  # the file matches all but equality_head
+    for name, value in task.model.state_dict().items():
+        assert torch.equal(value, init[name]), name
+    assert "the checkpoint is not loaded, as in the JAX package" in capsys.readouterr().out

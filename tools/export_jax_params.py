@@ -8,9 +8,13 @@ PyTorch port.
 (``w2v2_speaker_tpu.train.checkpoint.save_params``) or a checkpoint
 manager's entry (``logs/<exp>/checkpoints/best`` resolves to its best
 entry, as ``resolve_checkpoint_path`` does). It is restored with orbax as
-saved (a raw restore of its ``params`` tree, which needs no template) and
+saved (a raw restore, which needs no template), and its ``params`` tree is
 written with ``numpy.savez``, one array per leaf, under its ``/``-joined
 path in the tree (``wav2vec2/encoder/layers/block/attention/qkv_proj/kernel``).
+A checkpoint manager's entry also holds the model state; its
+``batch_stats`` leaves (the running statistics of ``attentive`` pooling's
+BatchNorm) are written under ``batch_stats/`` followed by their path
+(``batch_stats/stat_pooling/attn_bn/mean``).
 The port reads the file with
 ``w2v2_speaker_tpu_torch.train.checkpoint.load_params``
 (``load_network_from_checkpoint=<out.npz>``). Needs JAX and orbax, which
@@ -41,15 +45,18 @@ def flatten(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
 
 
 def export(checkpoint, out) -> Dict[str, np.ndarray]:
-    """Write the ``.npz`` of ``checkpoint``'s params to ``out``; returns the
-    flattened arrays."""
+    """Write the ``.npz`` of ``checkpoint``'s params (and batch_stats) to
+    ``out``; returns the flattened arrays."""
     import orbax.checkpoint as ocp
 
     from w2v2_speaker_tpu.train.checkpoint import resolve_checkpoint_path
 
     path = resolve_checkpoint_path(checkpoint).absolute()
-    params = ocp.StandardCheckpointer().restore(path)["params"]
-    flat = flatten(params)
+    restored = ocp.StandardCheckpointer().restore(path)
+    flat = flatten(restored["params"])
+    batch_stats = (restored.get("model_state") or {}).get("batch_stats")
+    if batch_stats:
+        flat.update(flatten(batch_stats, "batch_stats/"))
     np.savez(out, **flat)
     return flat
 

@@ -1,21 +1,30 @@
-"""Random fixed-size speaker batches: the port's copy of
-``w2v2_speaker_tpu/data/batching.py::RandomBatchProcessor`` (:43).
+"""Batch processors: the port's copies of
+``w2v2_speaker_tpu/data/batching.py::RandomBatchProcessor`` (:43) and
+``PairedBatchProcessor`` (:154).
 
-Samples fill a queue of ``max_queue_size``; each batch draws
-``max_batch_size`` of them at random from a seeded numpy generator, in the
-JAX package's order of draws. The triplet, paired and token-budget batch
-processors (:80-387) are not ported yet: ROADMAP.md Queue 1 item 7.
+``RandomBatchProcessor``: samples fill a queue of ``max_queue_size``; each
+batch draws ``max_batch_size`` of them at random. ``PairedBatchProcessor``:
+in ``generate`` mode it queues runs of ``sequential_same_speaker_samples``
+(k) samples and builds batches of positive and negative pairs at
+``pos_neg_training_batch_ratio`` from speakers drawn with weights 2^count;
+in ``reproduce`` mode it yields the exact pairs of a trial list, the last
+partial batch kept. Every draw comes from the processor's own
+``np.random.default_rng(seed)``, in the JAX package's order, so both
+packages yield the same batches at one seed. The triplet and token-budget
+batch processors (:80, :339) are not ported yet: ROADMAP.md Queue 1 item 7.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Iterable, Iterator, List
+from collections import defaultdict
+from typing import Callable, Dict, Iterable, Iterator, List, Optional
 
 import numpy as np
 
-from .samples import SpeakerSample
+from .samples import PairedSample, SpeakerSample
+from .trials import EvaluationPair
 
-__all__ = ["RandomBatchProcessor"]
+__all__ = ["PairedBatchProcessor", "RandomBatchProcessor"]
 
 
 class RandomBatchProcessor:
@@ -44,3 +53,152 @@ class RandomBatchProcessor:
         while len(batch) < self.max_batch_size and queue:
             batch.append(queue.pop(int(self.rng.integers(len(queue)))))
         return self.collate_fn(batch)
+
+
+class PairedBatchProcessor:
+    def __init__(
+        self,
+        batch_size: int,
+        max_queue_size: int,
+        mode: str,  # 'generate' | 'reproduce'
+        sequential_same_speaker_samples: int,
+        collate_fn: Callable[[List[PairedSample]], Dict],
+        pos_neg_training_batch_ratio: Optional[float] = None,
+        pairs: Optional[List[EvaluationPair]] = None,
+        seed: int = 0,
+    ):
+        if mode not in ("generate", "reproduce"):
+            raise ValueError(f"mode={mode} should be 'generate'|'reproduce'")
+        if batch_size > max_queue_size:
+            raise ValueError("batch_size must be <= max_queue_size")
+        if mode == "generate":
+            if pos_neg_training_batch_ratio is None:
+                raise ValueError("generate mode requires pos_neg_training_batch_ratio")
+            if batch_size % sequential_same_speaker_samples != 0:
+                raise ValueError("batch_size must be divisible by sequential_same_speaker_samples")
+        if mode == "reproduce" and pairs is None:
+            raise ValueError("reproduce mode requires pairs")
+        self.batch_size = batch_size
+        self.max_queue_size = max_queue_size
+        self.mode = mode
+        self.k = sequential_same_speaker_samples
+        self.collate_fn = collate_fn
+        self.ratio = pos_neg_training_batch_ratio
+        self.pairs = pairs
+        self.rng = np.random.default_rng(seed)
+
+    def __call__(self, samples: Iterable[SpeakerSample]) -> Iterator[Dict]:
+        if self.mode == "generate":
+            yield from self._generate(samples)
+        else:
+            yield from self._reproduce(samples)
+
+    def _generate(self, samples) -> Iterator[Dict]:
+        """A batch each time the queue holds ``max_queue_size`` (rounded
+        down to whole batches) after a run of k; then batches until the
+        queue runs short."""
+        num_pos = round(self.ratio * self.batch_size)
+        num_neg = self.batch_size - num_pos
+        queue: List[SpeakerSample] = []
+        max_queue = max(self.batch_size, (self.max_queue_size // self.batch_size) * self.batch_size)
+        run_left = self.k
+        for s in samples:
+            queue.append(s)
+            run_left -= 1
+            if run_left > 0:
+                continue
+            run_left = self.k
+            if len(queue) >= max_queue:
+                batch = self._paired_batch(queue, num_pos, num_neg)
+                if batch is not None:
+                    yield self.collate_fn(batch)
+        while queue:
+            batch = self._paired_batch(queue, num_pos, num_neg)
+            if batch is None:
+                return
+            yield self.collate_fn(batch)
+
+    def _paired_batch(self, queue, num_pos, num_neg):
+        """``batch_size / k`` speakers drawn with weights 2^count, k samples
+        each; ``num_pos`` same-speaker and ``num_neg`` cross-speaker pairs
+        among them, no pair twice (100 failed draws raise); the drawn
+        samples leave the queue; the pairs shuffled. None (and the queue
+        emptied) when the queue holds less than a batch."""
+        if len(queue) < self.batch_size:
+            queue.clear()
+            return None
+        speaker_map: Dict[int, List[SpeakerSample]] = defaultdict(list)
+        for s in queue:
+            speaker_map[s.ground_truth].append(s)
+
+        n_speakers = self.batch_size // self.k
+        ids = list(speaker_map)
+        weights = np.asarray([2.0 ** len(speaker_map[i]) for i in ids], dtype=np.float64)
+        chosen = []
+        while len(chosen) < n_speakers and ids:
+            j = int(self.rng.choice(len(ids), p=weights / weights.sum()))
+            chosen.append(ids.pop(j))
+            weights = np.delete(weights, j)
+
+        batch_map: Dict[int, List[SpeakerSample]] = defaultdict(list)
+        for spk in chosen:
+            lst = speaker_map[spk]
+            for _ in range(min(self.k, len(lst))):
+                batch_map[spk].append(lst.pop(int(self.rng.integers(len(lst)))))
+
+        def rand_choice(lst):
+            return lst[int(self.rng.integers(len(lst)))]
+
+        pos, fails, seen = [], 0, set()
+        while len(pos) < num_pos:
+            if fails >= 100:
+                raise ValueError("too many fails generating positive pairs")
+            lst = batch_map[rand_choice(chosen)]
+            if len(lst) < 2:
+                fails += 1
+                continue
+            i, j = self.rng.choice(len(lst), size=2, replace=False)
+            s1, s2 = lst[int(i)], lst[int(j)]
+            if (s1.key, s2.key) in seen:
+                fails += 1
+                continue
+            seen.add((s1.key, s2.key))
+            pos.append(PairedSample(s1.key, s1.wav, s2.key, s2.wav, ground_truth=1))
+        neg, fails = [], 0
+        while len(neg) < num_neg:
+            if fails >= 100:
+                raise ValueError("too many fails generating negative pairs")
+            if len(chosen) < 2:
+                raise ValueError("need >= 2 speakers for negative pairs")
+            a, b = self.rng.choice(len(chosen), size=2, replace=False)
+            l1, l2 = batch_map[chosen[int(a)]], batch_map[chosen[int(b)]]
+            if not l1 or not l2:
+                fails += 1
+                continue
+            s1, s2 = rand_choice(l1), rand_choice(l2)
+            if (s1.key, s2.key) in seen:
+                fails += 1
+                continue
+            seen.add((s1.key, s2.key))
+            neg.append(PairedSample(s1.key, s1.wav, s2.key, s2.wav, ground_truth=0))
+
+        for lst in batch_map.values():
+            for s in lst:
+                queue.remove(s)
+        out = pos + neg
+        self.rng.shuffle(out)
+        return out
+
+    def _reproduce(self, samples) -> Iterator[Dict]:
+        sample_dict = {s.key: s for s in samples}
+        if not sample_dict:
+            return
+        batch: List[PairedSample] = []
+        for p in self.pairs:
+            s1, s2 = sample_dict[p.sample1_id], sample_dict[p.sample2_id]
+            batch.append(PairedSample(s1.key, s1.wav, s2.key, s2.wav, ground_truth=1 if p.same_speaker else 0))
+            if len(batch) == self.batch_size:
+                yield self.collate_fn(batch)
+                batch = []
+        if batch:
+            yield self.collate_fn(batch)

@@ -1,6 +1,7 @@
-"""Sample record and speaker-batch collation of the port: copies of
-``w2v2_speaker_tpu/data/samples.py::SpeakerSample`` (:32) and
-``collate_speaker_batch`` (:61)."""
+"""Sample records and batch collation of the port: copies of
+``w2v2_speaker_tpu/data/samples.py::SpeakerSample`` (:32), ``PairedSample``
+(:40), ``collate_speaker_batch`` (:61) and ``collate_paired_batch``
+(:87)."""
 
 from __future__ import annotations
 
@@ -11,7 +12,7 @@ import numpy as np
 
 from .collate import collate_pad_right
 
-__all__ = ["SpeakerSample", "collate_speaker_batch"]
+__all__ = ["PairedSample", "SpeakerSample", "collate_paired_batch", "collate_speaker_batch"]
 
 
 @dataclass
@@ -20,6 +21,15 @@ class SpeakerSample:
     wav: np.ndarray  # [samples] float32
     ground_truth: int = -1  # speaker index; -1 when unknown
     meta: Dict[str, Any] = field(default_factory=dict)
+
+
+@dataclass
+class PairedSample:
+    primary_key: str
+    primary_wav: np.ndarray
+    secondary_key: str
+    secondary_wav: np.ndarray
+    ground_truth: int  # 1 same speaker, 0 different
 
 
 def collate_speaker_batch(
@@ -41,4 +51,29 @@ def collate_speaker_batch(
     }
     if not batch.mask.all():
         out["mask"] = batch.mask
+    return out
+
+
+def collate_paired_batch(
+    samples: Sequence[PairedSample],
+    pad_to_multiple: Optional[int] = None,
+    bucket_boundaries: Optional[Sequence[int]] = None,
+) -> Dict[str, Any]:
+    """Each side right-padded on its own: ``features_a`` / ``features_b``
+    [B, N] float32, ``mask_a`` / ``mask_b`` only where some row of that
+    side is padded, ``labels`` [B] int32 and ``keys`` (primary, secondary)."""
+    sides = [
+        collate_pad_right([getattr(s, f"{side}_wav") for s in samples], pad_to_multiple=pad_to_multiple,
+                          bucket_boundaries=bucket_boundaries, dtype=np.float32)
+        for side in ("primary", "secondary")
+    ]
+    out = {
+        "features_a": sides[0].values,
+        "features_b": sides[1].values,
+        "labels": np.asarray([s.ground_truth for s in samples], np.int32),
+        "keys": [(s.primary_key, s.secondary_key) for s in samples],
+    }
+    for name, side in zip(("mask_a", "mask_b"), sides):
+        if not side.mask.all():
+            out[name] = side.mask
     return out

@@ -1,10 +1,12 @@
 """Weight bridge from the JAX package's parameter tree to the port.
 
-``params_from_jax(params, cfg)`` takes the flax ``params`` tree of
-``w2v2_speaker_tpu``'s ``Wav2Vec2Model`` or ``Wav2Vec2SpeakerModel`` as
-nested dicts of numpy arrays (what ``jax.device_get(variables["params"])``
-gives) and returns the ``state_dict`` of the port's module of the same
-name. It imports neither jax nor flax. The rules:
+``params_from_jax(params, cfg, batch_stats)`` takes the flax ``params``
+tree of ``w2v2_speaker_tpu``'s ``Wav2Vec2Model``, ``Wav2Vec2SpeakerModel``
+or ``Wav2Vec2PairedModel`` as nested dicts of numpy arrays (what
+``jax.device_get(variables["params"])`` gives), and optionally the
+``batch_stats`` collection beside it, and returns the ``state_dict`` of
+the port's module of the same name. It imports neither jax nor flax. The
+rules:
 
 - the stacked ``[L, ...]`` layer parameters under ``encoder/layers/block``
   become ``encoder.layers.{i}``;
@@ -13,22 +15,26 @@ name. It imports neither jax nor flax. The rules:
 - norm ``scale`` becomes ``weight``;
 - ``weight_v`` / ``weight_g`` (already in torch layout), biases,
   ``masked_spec_embed`` and the AAM head's ``weights`` ``[classes, D]``
-  pass through.
+  pass through;
+- a ``batch_stats`` leaf ``mean`` / ``var`` becomes the ``running_mean`` /
+  ``running_var`` buffer of the ``BatchNorm`` at its path.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Iterator, Mapping, Tuple, Union
+from typing import Dict, Iterator, Mapping, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
 from .wav2vec2 import Wav2Vec2Config
+from .wav2vec2_paired import Wav2Vec2PairedConfig
 from .wav2vec2_speaker import Wav2Vec2SpeakerConfig
 
 __all__ = ["params_from_jax"]
 
 _STACKED = ("encoder", "layers", "block")
+_RUNNING = {"mean": "running_mean", "var": "running_var"}
 
 
 def _leaves(tree: Mapping, path: Tuple[str, ...] = ()) -> Iterator[Tuple[Tuple[str, ...], np.ndarray]]:
@@ -51,13 +57,16 @@ def _torch_leaf(path: Tuple[str, ...], x: np.ndarray) -> Tuple[str, np.ndarray]:
 
 def params_from_jax(
     params: Mapping,
-    cfg: Union[Wav2Vec2Config, Wav2Vec2SpeakerConfig],
+    cfg: Union[Wav2Vec2Config, Wav2Vec2SpeakerConfig, Wav2Vec2PairedConfig],
+    batch_stats: Optional[Mapping] = None,
 ) -> Dict[str, torch.Tensor]:
     """The port's ``state_dict`` (float32 CPU tensors) for a flax params
-    tree; load it with ``module.load_state_dict(..., strict=True)``."""
+    tree and its ``batch_stats``; load it with
+    ``module.load_state_dict(..., strict=True)``."""
     num_layers = getattr(cfg, "w2v2", cfg).num_layers
     out: Dict[str, torch.Tensor] = {}
-    for path, x in _leaves(params):
+    stats = [(path[:-1] + (_RUNNING[path[-1]],), x) for path, x in _leaves(batch_stats or {})]
+    for path, x in [*_leaves(params), *stats]:
         at = next(
             (i for i in range(len(path)) if path[i : i + 3] == _STACKED), None
         )

@@ -497,15 +497,21 @@ def _compute_context(device: torch.device, compute: torch.dtype, params: torch.d
 
 class Wav2Vec2Model(nn.Module):
     """Raw waveform ``[B, N]`` -> (float32 features ``[B, T, hidden]``,
-    frame mask ``[B, T]`` or None)."""
+    frame mask ``[B, T]`` or None). With ``insert_cls_token`` a row of
+    ones (the reference's ``cls_token_constant``, which no network of it
+    sets) goes in front of the projected frames, after
+    SpecAugment and before the encoder (:852-861): the features are
+    ``[B, 1 + T, hidden]`` and the frame mask, where there is one, gains a
+    leading True."""
 
-    def __init__(self, cfg: Wav2Vec2Config = BASE_CONFIG):
+    def __init__(self, cfg: Wav2Vec2Config = BASE_CONFIG, insert_cls_token: bool = False):
         super().__init__()
         if cfg.int8_matmuls:
             raise NotImplementedError(
                 "int8_matmuls is not ported yet: ROADMAP.md Queue 1 item 6"
             )
         self.cfg = cfg
+        self.insert_cls_token = insert_cls_token
         self.feature_encoder = ConvFeatureEncoder(cfg)
         self.feature_projection = FeatureProjection(cfg)
         # SpecAugment's learned mask vector (:817-825), used in training
@@ -539,6 +545,11 @@ class Wav2Vec2Model(nn.Module):
             x = self.feature_projection(features, gen)
             if gen is not None:
                 x = self._spec_augment(x, frame_mask, gen)
+            if self.insert_cls_token:
+                b = x.shape[0]
+                x = torch.cat([x.new_ones((b, 1, x.shape[2])), x], dim=1)
+                if frame_mask is not None:
+                    frame_mask = torch.cat([frame_mask.new_ones((b, 1)), frame_mask], dim=1)
             x = self.encoder(x, frame_mask, gen)
         return x.float(), frame_mask
 
@@ -572,8 +583,9 @@ def init_parameters(module: nn.Module, generator: torch.Generator) -> None:
     standard deviations), biases 0, norm scales 1, the pos-conv ``weight_v``
     uniform in +-1/sqrt(fan_in) with ``weight_g`` its per-tap norm,
     ``masked_spec_embed`` uniform in [0, 1), and the AAM head's ``weights``
-    xavier-normal (truncated, as flax's). Values are drawn in float32
-    and rounded to each parameter's dtype. The generator must be on the
+    xavier-normal (truncated, as flax's); any other module with a
+    ``reset_parameters`` sets its own fixed values. Values are drawn in
+    float32 and rounded to each parameter's dtype. The generator must be on the
     parameters' device."""
 
     def draw(p: torch.Tensor, fill) -> torch.Tensor:
@@ -606,3 +618,7 @@ def init_parameters(module: nn.Module, generator: torch.Generator) -> None:
             std = (2.0 / sum(m.weights.shape)) ** 0.5 / 0.87962566103423978  # fan_avg
             draw(m.weights, lambda x: nn.init.trunc_normal_(
                 x, std=std, a=-2 * std, b=2 * std, generator=generator))
+        elif hasattr(m, "reset_parameters"):
+            # A module of fixed initial values (the attentive pooling's
+            # BatchNorm); every drawn parameter is one of the cases above.
+            m.reset_parameters()

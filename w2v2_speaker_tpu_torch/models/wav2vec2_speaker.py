@@ -2,17 +2,21 @@
 
 Counterpart of ``w2v2_speaker_tpu/models/wav2vec2_speaker.py``:
 ``Wav2Vec2SpeakerConfig`` (:44) and ``Wav2Vec2SpeakerModel`` (:62) with its
-train and eval forward (:108-156) and ``compute_embedding`` (:158). The
-backbone computes in ``cfg.w2v2.dtype`` and returns float32 features;
-pooling and the heads run in float32, as the JAX package's do. Training
-pools with ``stat_pooling_type``, eval with ``test_stat_pooling_type``
-(:104-106). With ``use_aam`` the FC head has no output layer and the
-``AAMSoftmaxHead`` ``aam`` (:97-103) takes the embedding: given labels,
-the forward also returns its ``loss`` and ``preds`` (:147-156).
+pooling setup (:66-84), train and eval forward (:108-156) and
+``compute_embedding`` (:158). The backbone computes in ``cfg.w2v2.dtype``
+and returns float32 features; pooling and the heads run in float32, as the
+JAX package's do. Training pools with ``stat_pooling_type``, eval with
+``test_stat_pooling_type`` (the same module when the names agree, so an
+attentive pooling serves with what it learned); ``first+cls`` has the
+backbone insert a CLS row and pools it. With ``use_aam`` the FC head has no
+output layer and the ``AAMSoftmaxHead`` ``aam`` (:97-103) takes the
+embedding: given labels, the forward also returns its ``loss`` and
+``preds`` (:147-156).
 
 Not ported yet, and raising ``NotImplementedError``: the feature-encoder-only
-variant, the CTC head, the frame-level (no-pool) modes, the final-embedding
-channel mask and layer-ensemble embeddings (ROADMAP Queue 1 items 5 and 7).
+variant, the CTC head, the frame-level training mode (``stat_pooling_type``
+``none``), the final-embedding channel mask and layer-ensemble embeddings
+(ROADMAP Queue 1 items 5 and 7).
 """
 
 from __future__ import annotations
@@ -69,14 +73,23 @@ class Wav2Vec2SpeakerModel(nn.Module):
                 "final_channel_mask_prob > 0 (embedding_mask) is not ported yet: "
                 "ROADMAP.md Queue 1 item 5"
             )
-        self.wav2vec2 = Wav2Vec2Model(cfg.w2v2)
-        self.stat_pooling = get_pooling(cfg.stat_pooling_type)
-        self.test_stat_pooling = get_pooling(
-            cfg.test_stat_pooling_type or cfg.stat_pooling_type
+        if cfg.stat_pooling_type == "none":
+            raise NotImplementedError(
+                "stat_pooling_type 'none' (the frame-level ce_no_pool / speaker_ctc path) is not "
+                "ported yet: ROADMAP.md Queue 1 item 5"
+            )
+        feat = cfg.w2v2.hidden_size
+        self.wav2vec2 = Wav2Vec2Model(cfg.w2v2, insert_cls_token=cfg.stat_pooling_type == "first+cls")
+        self.stat_pooling = get_pooling(cfg.stat_pooling_type, feat)
+        test_type = cfg.test_stat_pooling_type or cfg.stat_pooling_type
+        if test_type == "attentive" and cfg.stat_pooling_type != "attentive":
+            raise ValueError("attention can not be learned at test time")
+        # a distinct test pooling is a module of its own; the same name
+        # pools with the training module
+        self.test_stat_pooling = (
+            get_pooling(test_type, feat) if test_type != cfg.stat_pooling_type else None
         )
-        self.pool_dim = pooled_embedding_size(
-            cfg.stat_pooling_type, cfg.w2v2.hidden_size
-        )
+        self.pool_dim = pooled_embedding_size(cfg.stat_pooling_type, feat)
         self.head = FCHead(
             self.pool_dim,
             cfg.hidden_fc_layers_out,
@@ -101,10 +114,12 @@ class Wav2Vec2SpeakerModel(nn.Module):
         """``{"embedding", "logits"}`` (logits None under AAM), and under
         AAM with ``labels`` also ``loss`` and ``preds``. ``train=True`` runs
         the backbone's regularisation with every draw from ``generator``
-        and pools with the train pooling."""
+        and pools with the train pooling (its BatchNorm on batch
+        statistics, ``random`` on a drawn frame)."""
         features, frame_mask = self.wav2vec2(wav, wav_mask, train, generator)
-        pool = self.stat_pooling if train else self.test_stat_pooling
-        embedding, logits = self.head(pool(features, frame_mask))
+        pool = self.stat_pooling if train else (self.test_stat_pooling or self.stat_pooling)
+        pooled = pool(features, frame_mask, train=train, generator=generator)
+        embedding, logits = self.head(pooled)
         out = {"embedding": embedding, "logits": logits}
         if self.cfg.use_aam and labels is not None:
             out["loss"], out["preds"] = self.aam(embedding, labels)

@@ -1,8 +1,8 @@
 """Training losses.
 
 Counterpart of ``w2v2_speaker_tpu/objectives/losses.py``: ``cross_entropy``
-(:43) and ``aam_margin_logits`` (:74). The other losses (binary CE,
-triplet, CTC) are not ported yet (ROADMAP Queue 1 item 7).
+(:43), ``binary_cross_entropy`` (:63) and ``aam_margin_logits`` (:74).
+The triplet and CTC losses are not ported yet (ROADMAP Queue 1 item 7).
 """
 
 from __future__ import annotations
@@ -13,7 +13,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-__all__ = ["aam_margin_logits", "cross_entropy"]
+__all__ = ["aam_margin_logits", "binary_cross_entropy", "cross_entropy"]
 
 
 def cross_entropy(
@@ -32,6 +32,17 @@ def cross_entropy(
         w = weights.to(ce.dtype)
         loss = (ce * w).sum() / w.sum().clamp_min(1.0)
     return loss, torch.softmax(logits.detach().float(), dim=-1)
+
+
+def binary_cross_entropy(
+    logits: torch.Tensor,  # [B] or [B, 1]
+    labels: torch.Tensor,  # [B] 0 / 1
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(mean BCE-with-logits in float32, sigmoid predictions without
+    gradient)."""
+    logits = logits.reshape(-1).float()
+    loss = F.binary_cross_entropy_with_logits(logits, labels.reshape(-1).float())
+    return loss, torch.sigmoid(logits.detach())
 
 
 def aam_margin_logits(

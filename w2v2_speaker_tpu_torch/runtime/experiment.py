@@ -2,7 +2,8 @@
 
 Counterpart of ``w2v2_speaker_tpu/runtime/experiment.py``: ``_w2v2_config``
 (:320) as ``w2v2_config``, ``build_model_and_task`` (:374) for the
-``wav2vec2_fc`` network in the ``ce`` and ``aam`` modes, and
+``wav2vec2_fc`` network in the ``ce`` and ``aam`` modes and for the
+``wav2vec2_paired`` network (:513-522), and
 ``build_optimizer`` (:616) for Adam under the one-cycle schedule,
 global-norm clipping and the backbone freeze schedules, and
 ``build_evaluator`` (:289) for the five evaluators of ``config/evaluator/``,
@@ -11,14 +12,16 @@ read from the same keys of the merged Hydra config (``optim.algo``,
 ``evaluator``). ``load_recipe`` composes a recipe from ``config/`` with
 the port's ``load_config``.
 
-The entry point is ``run_train_eval`` (:840) for the speaker recipes on one
-card: the data module (``build_data_module`` :198), the model and its
-weights (``_init_state`` :983), the training loop (``_train_loop`` :1094:
-steps per dispatch, accumulation, sanity and interval validations,
-best-k and last checkpoints, resume, early stopping, step and epoch
-limits), then the best checkpoint (or the average of the best k) on the
-test trials over full utterances (``_run_speaker`` :1469). It runs on the
-card unless called with ``device="cpu"``. What is not ported raises
+The entry point is ``run_train_eval`` (:840) for the speaker and paired
+recipes on one card: the data module (``build_data_module`` :198), the
+model and its weights (``_init_state`` :983), the training loop
+(``_train_loop`` :1094: steps per dispatch, accumulation, sanity and
+interval validations, best-k and last checkpoints, resume, early stopping,
+step and epoch limits), then the best checkpoint (or the average of the
+best k) on the test trials: embeddings of full utterances scored by the
+evaluator (``_run_speaker`` :1469), or the paired network's sigmoid score
+of each full-utterance pair (``_run_paired`` :1704). It runs on the card
+unless called with ``device="cpu"``. What is not ported raises
 ``NotImplementedError`` naming its ROADMAP row.
 
 Divergences from the JAX package: ``trainer.deterministic=true`` raises
@@ -40,12 +43,14 @@ from __future__ import annotations
 import pathlib
 import time
 from collections import deque
-from typing import Deque, Dict, List, Optional, Sequence, Tuple
+from typing import Deque, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
+from ..data.batching import PairedBatchProcessor
 from ..data.datamodule import VoxCelebConfig, VoxCelebDataModule
+from ..data.samples import collate_paired_batch
 from ..device import DeviceLike, resolve_device, set_float32_precision
 from ..eval.backends import LDAEvaluator, PLDAEvaluator
 from ..eval.evaluator import (
@@ -53,9 +58,11 @@ from ..eval.evaluator import (
 )
 from ..models.hf_convert import load_hf_checkpoint
 from ..models.wav2vec2 import BASE_CONFIG, LARGE_CONFIG, Wav2Vec2Config, init_parameters
+from ..models.wav2vec2_paired import Wav2Vec2PairedConfig, Wav2Vec2PairedModel
 from ..models.wav2vec2_speaker import Wav2Vec2SpeakerConfig, Wav2Vec2SpeakerModel
 from ..objectives import schedules
 from ..train.checkpoint import CheckpointManager, graft_into, load_params
+from ..train.paired_task import PairedSpeakerTask, paired_scores_to_metrics
 from ..train.speaker_task import SpeakerTask
 from ..train.state import AdamTx, ClipTx, TrainState, make_freeze_schedule_tx
 from ..train.steps import make_train_step
@@ -64,8 +71,8 @@ from .logging import MetricsLogger
 
 __all__ = [
     "CONFIG_DIR", "TINY_W2V2", "EarlyStopping", "build_augmenter", "build_data_module", "build_evaluator",
-    "build_model_and_task", "build_optimizer", "load_recipe", "run_train_eval", "speaker_model_config",
-    "w2v2_config",
+    "build_model_and_task", "build_optimizer", "load_recipe", "paired_model_config", "run_train_eval",
+    "speaker_model_config", "w2v2_config",
 ]
 
 _OPTIM_ROW = "ROADMAP.md Queue 1 item 3 (optimizers and schedules)"
@@ -157,10 +164,26 @@ def speaker_model_config(cfg: Dict) -> Tuple[Wav2Vec2SpeakerConfig, str]:
     return model_cfg, mode
 
 
-def build_model_and_task(cfg: Dict, num_speakers: int) -> Tuple[SpeakerTask, str]:
-    """``(task, "speaker")`` with a new ``Wav2Vec2SpeakerModel`` (parameters
-    allocated, not initialised: see ``models.wav2vec2.init_parameters``)
-    over ``network.explicit_num_speakers`` or ``num_speakers`` classes."""
+def paired_model_config(cfg: Dict) -> Wav2Vec2PairedConfig:
+    """The config of a merged config whose network is ``wav2vec2_paired``
+    (:513-521); the loss is BCE whatever ``optim.loss`` names."""
+    net, trainer = cfg["network"], cfg["trainer"]
+    return Wav2Vec2PairedConfig(
+        w2v2=w2v2_config(net, trainer["precision"], trainer.get("remat", False),
+                         int(trainer.get("accumulate_grad_batches") or 1)),
+        cls_token_constant=net["cls_token_constant"],
+        sep_token_constant=net["sep_token_constant"],
+    )
+
+
+def build_model_and_task(cfg: Dict, num_speakers: int) -> Tuple[Union[SpeakerTask, PairedSpeakerTask], str]:
+    """``(task, "speaker")`` with a new ``Wav2Vec2SpeakerModel`` over
+    ``network.explicit_num_speakers`` or ``num_speakers`` classes, or
+    ``(task, "paired")`` with a new ``Wav2Vec2PairedModel`` for the
+    ``wav2vec2_paired`` network; parameters allocated, not initialised
+    (see ``models.wav2vec2.init_parameters``)."""
+    if cfg["network"].get("name") == "wav2vec2_paired":
+        return PairedSpeakerTask(Wav2Vec2PairedModel(paired_model_config(cfg))), "paired"
     model_cfg, mode = speaker_model_config(cfg)
     n_out = cfg["network"].get("explicit_num_speakers") or num_speakers
     return SpeakerTask(Wav2Vec2SpeakerModel(model_cfg, num_speakers=n_out), mode), "speaker"
@@ -366,7 +389,7 @@ def _check_ported(cfg: Dict) -> None:
         raise NotImplementedError(f"verify_model is not ported yet: {_RUNTIME_ROW}")
     if t.get("dump_first_batch"):
         raise NotImplementedError(f"trainer.dump_first_batch is not ported yet: {_RUNTIME_ROW}")
-    if (cfg.get("callbacks") or {}).get("progress_tracker"):
+    if (cfg.get("callbacks") or {}).get("progress_tracker") and net.get("name") != "wav2vec2_paired":
         raise NotImplementedError(f"callbacks.progress_tracker is not ported yet: {_RUNTIME_ROW}")
     if net.get("use_transformers_as_ensembles"):
         raise NotImplementedError(
@@ -377,8 +400,8 @@ def _check_ported(cfg: Dict) -> None:
 
 
 def run_train_eval(cfg: Dict, device: DeviceLike = None) -> Optional[float]:
-    """Train and test the speaker recipe of ``cfg`` (:840); returns the
-    test EER (the validation EER without test trials), or None when
+    """Train and test the speaker or paired recipe of ``cfg`` (:840);
+    returns the test EER (the validation EER without test trials), or None when
     ``eval_model`` is false or the test phase is skipped. Runs on the card
     unless ``device="cpu"``, and raises without a card before it reads
     anything."""
@@ -407,19 +430,26 @@ def run_train_eval(cfg: Dict, device: DeviceLike = None) -> Optional[float]:
         task, kind = build_model_and_task(cfg, dm.num_speakers)
     task.model.to_empty(device=dev)
     init_parameters(task.model, torch.Generator(device=dev).manual_seed(seed))
-    return _run_speaker(cfg, dm, task, logger, dev)
+    run = _run_paired if kind == "paired" else _run_speaker
+    return run(cfg, dm, task, logger, dev)
 
 
-def _init_state(cfg: Dict, task: SpeakerTask) -> TrainState:
+def _init_state(cfg: Dict, task) -> TrainState:
     """The train state over ``task.model`` (:983): the converted HF backbone
     of ``network.pretrained_checkpoint`` grafted into ``wav2vec2``, then
     ``load_network_from_checkpoint`` grafted into the whole model, the
     optimizer of ``build_optimizer``, and the step generator seeded with
-    ``seed + 1``."""
+    ``seed + 1``. The paired model has no ``wav2vec2`` submodule, so, as in
+    the JAX package (:996), it keeps its initialisation under
+    ``pretrained_checkpoint``; a line says so."""
     model, net = task.model, cfg["network"]
     if net.get("pretrained_checkpoint"):
         ported = load_hf_checkpoint(net["pretrained_checkpoint"], model.cfg.w2v2)
-        graft_into(model.wav2vec2, ported, net["pretrained_checkpoint"])
+        if hasattr(model, "wav2vec2"):
+            graft_into(model.wav2vec2, ported, net["pretrained_checkpoint"])
+        else:
+            print(f"network.pretrained_checkpoint: {type(model).__name__} has no wav2vec2 submodule; "
+                  f"the checkpoint is not loaded, as in the JAX package")
     if cfg.get("load_network_from_checkpoint"):
         load_params(cfg["load_network_from_checkpoint"], model)
     return TrainState.create(model, build_optimizer(cfg), seed=int(cfg["seed"]) + 1)
@@ -593,7 +623,7 @@ def _train_loop(cfg, task, state: TrainState, logger, train_iter_fn, validate_fn
         epoch_batches = 0
         buf = []
         for batch in train_iter_fn(epoch):
-            rows = batch["features"].shape[0]
+            rows = batch["labels"].shape[0]
             if expected_rows is None:
                 expected_rows = rows
                 if rows % acc:
@@ -760,6 +790,79 @@ def _run_speaker(cfg, dm: VoxCelebDataModule, task: SpeakerTask, logger, device)
     if max_tr:  # centre with embeddings of the restored weights
         evaluator.fit_parameters(*collect_train_embeddings(max_tr))
     res = evaluator.evaluate(test_pairs, samples)
+    logger.log_eval(int(state.step), {**{f"test_{k}": v for k, v in res.items()},
+                                      "test_seconds": time.perf_counter() - t0}, split="test")
+    logger.close()
+    return float(res["eer"])
+
+
+def _run_paired(cfg, dm: VoxCelebDataModule, task: PairedSpeakerTask, logger, device) -> Optional[float]:
+    """Fit on generated pair batches, validate by scoring the validation
+    pairs through the network, restore the best checkpoint and score the
+    test trials on full-utterance pairs (:1704). The reference's throwaway
+    epoch-0 batch (:1722, an example for its init) is not drawn: each epoch
+    builds its processor and pipeline afresh from seeds, so the draw moves
+    nothing that training reads."""
+    if (cfg.get("callbacks") or {}).get("progress_tracker"):
+        print("progress tracker: unsupported for the paired task family; callback ignored")
+    dl = cfg["data"]["dataloader"]
+    ratio = cfg.get("pos_neg_training_batch_ratio", 0.5)
+    k = cfg["data"]["shards"]["sequential_same_speaker_samples"]
+    state = _init_state(cfg, task)
+
+    def train_iter(epoch=0):
+        proc = PairedBatchProcessor(
+            batch_size=dl["batch_size"], max_queue_size=_queue_size(cfg), mode="generate",
+            sequential_same_speaker_samples=k, collate_fn=collate_paired_batch,
+            pos_neg_training_batch_ratio=ratio, seed=cfg["seed"] + epoch * 9973,
+        )
+        return dm.train_batches(proc, prefetch_depth=dl.get("prefetch_depth", 4), epoch=epoch)
+
+    def score_pairs(pairs, split, max_batches=None):
+        """EER / minDCF of ``pairs`` from the sigmoid scores of full
+        utterances (val: the val pipeline's samples), batches in trial
+        order, each side padded to ``test_pad_to_multiple``."""
+        proc = PairedBatchProcessor(
+            batch_size=dl["batch_size"], max_queue_size=max(_queue_size(cfg), len(pairs) + 1),
+            mode="reproduce", sequential_same_speaker_samples=1,
+            collate_fn=lambda s: collate_paired_batch(s, pad_to_multiple=dl.get("test_pad_to_multiple", 16000)),
+            pairs=pairs,
+        )
+        samples = dm._pipeline("val", train=False) if split == "val" else dm.test_samples()
+        gts, scores = [], []
+        for i, batch in enumerate(proc(samples)):
+            if max_batches is not None and i >= max_batches:
+                break
+            scores.extend(task.score_fn(_to_device(batch, device)).cpu().tolist())
+            gts.extend(batch["labels"].tolist())
+        return paired_scores_to_metrics(gts, scores)
+
+    val_pairs = dm.val_evaluation_pairs()
+    limit_val = cfg["trainer"].get("limit_val_batches")
+
+    def validate(state, max_batches=None):
+        if not val_pairs:
+            return {"val_eer": 1.0}
+        m = score_pairs(val_pairs, "val", max_batches if max_batches is not None else limit_val)
+        return {"val_eer": m["eer"], "val_mdc": m["mdc"]}
+
+    state, ckpt = _train_loop(cfg, task, state, logger, train_iter, validate, device)
+    state = _restore_best(state, ckpt, int(cfg["trainer"].get("average_top_k", 1)))
+    if not cfg.get("eval_model", True):
+        logger.close()
+        return None
+    ltb = _limit_test_batches(cfg)
+    if ltb == 0:
+        print("limit_test_batches=0: skipping the test phase")
+        logger.close()
+        return None
+    test_pairs = dm.test_evaluation_pairs()
+    if not test_pairs:
+        final = validate(state)
+        logger.close()
+        return float(final["val_eer"])
+    t0 = time.perf_counter()
+    res = score_pairs(test_pairs, "test", max_batches=ltb)
     logger.log_eval(int(state.step), {**{f"test_{k}": v for k, v in res.items()},
                                       "test_seconds": time.perf_counter() - t0}, split="test")
     logger.close()

@@ -17,9 +17,11 @@ parameters, and a leaf that the checkpoint lacks, or holds in another
 shape, keeps its current value (a 5994-way head loaded into a 2-way
 predict model keeps its initialisation). The JAX package writes orbax
 checkpoints, which need JAX to read; ``tools/export_jax_params.py`` turns
-one into an ``.npz`` of the flattened params tree (``/``-joined keys),
-which ``load_params`` converts with ``convert.params_from_jax``. A torch
-``state_dict`` file of the port's own model loads as it is.
+one into an ``.npz`` of the flattened params tree (``/``-joined keys) and,
+under ``batch_stats/``, of its ``batch_stats`` collection (the running
+statistics of ``attentive`` pooling's BatchNorm), which ``load_params``
+converts with ``convert.params_from_jax`` into parameters and buffers. A
+torch ``state_dict`` file of the port's own model loads as it is.
 
 Unlike the JAX package, a graft in which no backbone entry matches raises:
 a file whose names differ (a ``module.`` prefix, a wrapper dict, an HF
@@ -167,6 +169,7 @@ class CheckpointManager:
         return state
 
 _STACKED = "encoder/layers/block/"
+_BATCH_STATS = "batch_stats/"  # the .npz prefix of the checkpoint's batch_stats leaves
 
 
 def graft(current: Mapping[str, torch.Tensor], loaded: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
@@ -220,7 +223,9 @@ def _npz_state_dict(path: pathlib.Path, model: nn.Module) -> Dict[str, torch.Ten
         # the stacked [L, ...] leaves are of another shape: they keep their
         # current values, as the JAX package's graft keeps them
         flat = {k: v for k, v in flat.items() if _STACKED not in k}
-    return params_from_jax(unflatten(flat), cfg)
+    stats = {k.removeprefix(_BATCH_STATS): v for k, v in flat.items() if k.startswith(_BATCH_STATS)}
+    params = {k: v for k, v in flat.items() if not k.startswith(_BATCH_STATS)}
+    return params_from_jax(unflatten(params), cfg, unflatten(stats))
 
 
 def load_params(path, model: nn.Module) -> nn.Module:

@@ -13,10 +13,11 @@ Queue 1 item 8.
 
 from __future__ import annotations
 
-from typing import Callable, Dict, List
+from typing import Callable, Dict, List, Union
 
 import torch
 
+from .paired_task import PairedSpeakerTask
 from .speaker_task import SpeakerTask
 from .state import TrainState
 
@@ -32,7 +33,7 @@ def _stack(per_step: List[Dict]) -> Dict:
 
 
 def make_train_step(
-    task: SpeakerTask,
+    task: Union[SpeakerTask, PairedSpeakerTask],
     accumulate_steps: int = 1,
     return_embeddings: bool = False,
     steps_per_dispatch: int = 1,
@@ -40,8 +41,11 @@ def make_train_step(
     """Returns ``step(state, batch) -> (state, metrics)``; the state is
     updated in place and returned.
 
-    ``batch``: ``features`` [B, N], optional ``mask`` [B, N], ``labels``
-    [B] (with ``steps_per_dispatch`` K > 1, every entry stacked [K, B, ...]
+    ``batch``: what ``task.loss_fn`` reads, every entry with the rows
+    leading: ``features`` [B, N], optional ``mask`` [B, N] and ``labels``
+    [B] for a ``SpeakerTask``; ``features_a`` / ``features_b``, optional
+    ``mask_a`` / ``mask_b`` and ``labels`` for a ``PairedSpeakerTask``
+    (with ``steps_per_dispatch`` K > 1, every entry stacked [K, B, ...]
     and the metrics stacked [K, ...]). With ``accumulate_steps`` A > 1 the
     batch is split into A microbatches along axis 0 and the gradients are
     averaged. Every random draw comes from ``state.generator``.
