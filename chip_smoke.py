@@ -17,7 +17,8 @@ the run by raising:
    over conv layers 1-6 at the BASE (B=66, no bias, no LN) and LARGE
    (B=48, bias + LN) training shapes and on ragged short inputs, in float32
    and bfloat16; each with kernel, plain, bound and library times, and at
-   each attention shape the dq + dk/dv pair beside SDPA's backward;
+   each attention shape the dq + dk/dv pair beside SDPA's backward (timed
+   alone on a retained graph, ``backward_ms``);
 4. serving main path: ``entry()`` (wav2vec2-BASE, mean pooling, FC head;
    bf16, B=48 x 48 000 samples), its launch counts, its speed, and a float32
    check of the same weights against the CPU on a small padded batch;
@@ -98,7 +99,29 @@ the run by raising:
    4 steps) with ``attentive`` pooling (its BatchNorm's running statistics
    moved and restored with the best checkpoint) and with ``first+cls``
    (attention at T=150), launches = kept layers in every step;
-16. one JSON line with every kernel's numbers (the attention kernels and
+16. speech end to end: ``run.main`` with ``+experiment=speech_wav2vec2_ctc``
+   (wav2vec2-BASE + CTC letter head, random init, bf16, the recipe's token
+   budget of 3.2 M samples a batch, buckets of 16 000 samples,
+   ``tri_stage``) on a LibriSpeech-layout corpus it writes (88 training
+   utterances of 2-24 s, four eval splits of 8 of 2-35 s, random-word
+   transcripts): 8 steps across an epoch boundary, a sanity validation and
+   validations every 4 on both validation splits, best-k by ``val_wer``,
+   the test WER of both test splits. Checks: WERs finite and >= 0, the
+   index ranked by ``val_wer``, launches = kept layers in every step, the
+   longest training batch at T > 1000; layer 0's q/k/v of that batch
+   (dropout on) through the forward and dq + dk/dv, and of the longest
+   eval batch through the forward, against their plain versions, then
+   timed there beside their bounds and SDPA; a float32 CTC step (2 layers
+   at full width, 3 padded rows with labels of 40, 25 and 9 tokens) card
+   against CPU. Prints each step's B, T and ms, audio s per s over steps
+   5-8, the host's wait, the busy share and device ms by category of step
+   3 (profiled), and the phase's own peak memory;
+17. speaker CTC end to end: ``run.main`` with
+   ``+experiment=speaker_wav2vec2_ctc`` (frame-level CTC over 5994 + 1
+   classes, the blank's bias 100, ``[66, 149, 5995]`` float32 logits) on
+   phase 13's shards: 4 steps in one dispatch, finite losses, launches =
+   kept layers, the mean-pooled test EER in [0, 1];
+18. one JSON line with every kernel's numbers (the attention kernels and
    the conv at the LARGE training shapes, launches of the LARGE training
    run), the card line, then the result line.
 
@@ -125,6 +148,7 @@ from w2v2_speaker_tpu_torch import predict
 from w2v2_speaker_tpu_torch.data.io import load_raw_audio, write_wav
 from w2v2_speaker_tpu_torch.data.normalize import normalize_waveform
 from w2v2_speaker_tpu_torch.data.samples import PairedSample, SpeakerSample, collate_paired_batch
+from w2v2_speaker_tpu_torch.data.tokenizer import CharTokenizer
 from w2v2_speaker_tpu_torch.data.trials import (
     generate_validation_pairs, load_evaluation_pairs, save_evaluation_pairs,
 )
@@ -137,15 +161,19 @@ from w2v2_speaker_tpu_torch.models.wav2vec2 import (
     BASE_CONFIG, LARGE_CONFIG, Wav2Vec2Config, feat_extract_output_lengths, init_parameters,
 )
 from w2v2_speaker_tpu_torch.models.wav2vec2_speaker import Wav2Vec2SpeakerConfig, Wav2Vec2SpeakerModel
+from w2v2_speaker_tpu_torch.models.wav2vec2_speech import Wav2Vec2SpeechConfig, Wav2Vec2SpeechModel
 from w2v2_speaker_tpu_torch.ops import _build
 from w2v2_speaker_tpu_torch.ops import conv_encoder as ce
 from w2v2_speaker_tpu_torch.ops import flash_attention as fa
 from w2v2_speaker_tpu_torch.eval.evaluator import CosineDistanceEvaluator, EmbeddingSample
 from w2v2_speaker_tpu_torch.runtime.config import load_config
-from w2v2_speaker_tpu_torch.runtime.experiment import build_model_and_task, build_optimizer, load_recipe
+from w2v2_speaker_tpu_torch.runtime.experiment import (
+    build_model_and_task, build_optimizer, load_recipe, speech_model_config,
+)
 from w2v2_speaker_tpu_torch.runtime.predict import build_predict_model, extract_embeddings
 from w2v2_speaker_tpu_torch.train.paired_task import PairedSpeakerTask
 from w2v2_speaker_tpu_torch.train.speaker_task import SpeakerTask
+from w2v2_speaker_tpu_torch.train.speech_task import SpeechTask
 from w2v2_speaker_tpu_torch.train.state import AdamTx, TrainState
 from w2v2_speaker_tpu_torch.train.steps import make_train_step
 
@@ -219,6 +247,18 @@ POOL_PADDING = ("first+cls", "attentive", "quantile")  # held to MAX_PAD_RATIO i
 # each pooling run: POOL_STEPS steps, a validation every POOL_VAL_EVERY; the
 # attentive one in two legs (the second resumed), its first leg's best pinned
 POOL_STEPS, POOL_VAL_EVERY = 4, 2
+# speech end to end (LibriSpeech layout): 88 training utterances of 2-24 s
+# over 12 speakers (1127 s at seed 16: 7 batches of the recipe's
+# 3.2 M-sample budget, T up to 1199, so 8 steps cross an epoch), four eval
+# splits of 8 utterances of 2-35 s; transcripts of random words at ~12
+# characters a second
+SPEECH_TRAIN, SPEECH_TRAIN_S, SPEECH_EVAL, SPEECH_EVAL_S = 88, (2.0, 24.0), 8, (2.0, 35.0)
+SPEECH_CHARS_PER_S = 12
+# the profiled step (counted from 0) lies before the timed steps 5-8: starting
+# and stopping the profiler costs host time that the timed window would hold
+SPEECH_STEPS, SPEECH_VAL_EVERY, SPEECH_PROFILED = 8, 4, 2
+SPEECH_F32_LABELS = (40, 25, 9)  # tokens of the f32 CTC step's rows of 32 000, 21 000 and 9 000 samples
+SPEAKER_CTC_STEPS = 4
 
 
 def cuda_ms(fn, reps: int, warmup: int = 3) -> float:
@@ -234,6 +274,24 @@ def cuda_ms(fn, reps: int, warmup: int = 3) -> float:
     start.record()
     for _ in range(reps):
         fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / reps
+
+
+def backward_ms(out, inputs, grad, reps: int, warmup: int = 3) -> float:
+    """Device ms of one backward of ``out`` (a graph kept across calls)
+    into ``inputs`` under ``grad``: CUDA events around ``reps`` backwards
+    alone, with the card idle (synchronised) before the start event. The
+    backward's own launches outlast its host path, so no sleep is queued
+    ahead of it; no forward runs in the window."""
+    for _ in range(warmup):
+        torch.autograd.grad(out, inputs, grad, retain_graph=True)
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        torch.autograd.grad(out, inputs, grad, retain_graph=True)
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
@@ -349,12 +407,9 @@ def attention_rows(tag, errors, args, common):
     def sdpa():
         return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, dropout_p=rate)
 
-    def sdpa_fwd_bwd():
-        torch.autograd.grad(sdpa(), (qt, kt, vt), dot)
-
     with torch.no_grad():
         lib_fwd = cuda_ms(sdpa, 10)
-    lib_bwd = cuda_ms(sdpa_fwd_bwd, 10) - lib_fwd
+    lib_bwd = backward_ms(sdpa(), (qt, kt, vt), dot, 10)
     plain_bwd = cuda_ms(lambda: fa.flash_attention_bwd_plain(*args), 2, warmup=1)
     (err, share, _), (lerr, lshare, _) = errors["o"], errors["lse"]
     dkv = max(errors["dk"][:2], errors["dv"][:2], key=lambda e: e[1])
@@ -778,6 +833,20 @@ def grads_of(model) -> dict:
     return {n: p.grad.detach().cpu().clone() for n, p in model.named_parameters()}
 
 
+def worst_grad_error(card_model, cpu_model) -> tuple:
+    """(the largest max abs error / max abs gradient over the parameters,
+    its parameter's name), card against CPU."""
+    g_card, g_cpu = grads_of(card_model), grads_of(cpu_model)
+    worst, worst_name = 0.0, ""
+    for n, g in g_cpu.items():
+        scale = float(g.abs().max())
+        err = float((g_card[n] - g).abs().max())
+        rel = err / scale if scale > 0 else (0.0 if err == 0 else float("inf"))
+        if rel > worst:
+            worst, worst_name = rel, n
+    return worst, worst_name
+
+
 def f32_train_phase(cfg=None, label: str = "BASE", conv_launches: int = 0) -> None:
     """Phases 7 and 11: one float32 step of the recipe ``cfg`` cut to 2
     layers, card against CPU, same weights and step generator seed,
@@ -800,14 +869,7 @@ def f32_train_phase(cfg=None, label: str = "BASE", conv_launches: int = 0) -> No
     card_launches = launches()["conv_encoder"]
     _, on_cpu = make_train_step(cpu_task)(cpu_state, batch)
     loss_rel = abs(float(on_card["loss"]) - float(on_cpu["loss"])) / abs(float(on_cpu["loss"]))
-    g_card, g_cpu = grads_of(state.model), grads_of(cpu_model)
-    worst, worst_name = 0.0, ""
-    for n, g in g_cpu.items():
-        scale = float(g.abs().max())
-        err = float((g_card[n] - g).abs().max())
-        rel = err / scale if scale > 0 else (0.0 if err == 0 else float("inf"))
-        if rel > worst:
-            worst, worst_name = rel, n
+    worst, worst_name = worst_grad_error(state.model, cpu_model)
     print(f"f32 {label} train step card vs cpu (2 layers, dropout on, layers run "
           f"{on_card['layers_run']}/{on_cpu['layers_run']}, conv launches {card_launches}): loss "
           f"{float(on_card['loss']):.6f} vs {float(on_cpu['loss']):.6f} (rel {loss_rel:.3e}); grads "
@@ -1151,18 +1213,22 @@ class RunProbe:
     host's wait for each train batch (the ``Prefetcher`` behind
     ``train_batches``); for ``PairedSpeakerTask`` also every
     ``score_fn`` call's batch, scores and launches, with the number of
-    evaluations logged before it. The first step keeps its task and registers forward
+    evaluations logged before it. Each step of a batch with ``features``
+    also records its (rows, samples, valid samples). The first step keeps its task and registers forward
     hooks on its model, which keep layer ``RUN_ATTN_LAYER``'s q/k/v,
-    heads, lengths and dropout seed from the first training forward. With
+    heads, lengths and dropout seed from the first training forward; with
+    ``longest``, from the training forward with the largest T instead, and
+    in ``eval_attn`` those of the evaluation forward with the largest T. With
     ``profile=(first, last)``, steps ``first``-``last`` of the run (counted
-    from 0) run under torch.profiler."""
+    from 0) run under torch.profiler. ``dm_cls`` is the data module whose
+    ``prepare_data`` and ``train_batches`` are timed."""
 
-    def __init__(self, profile=None, task_cls=SpeakerTask):
-        self.profile, self.task_cls = profile, task_cls
+    def __init__(self, profile=None, task_cls=SpeakerTask, longest: bool = False, dm_cls=None):
+        self.profile, self.task_cls, self.longest, self.dm_cls = profile, task_cls, longest, dm_cls
         self.starts, self.ends, self.steps, self.evals, self.waits = [], [], [], [], []
-        self.labels, self.scored = [], []
-        self.prepare_s, self.busy, self.attn, self.task = None, None, None, None
-        self._saved, self._prof = [], None
+        self.labels, self.scored, self.shapes, self.epochs = [], [], [], []
+        self.prepare_s, self.busy, self.attn, self.eval_attn, self.task = None, None, None, None, None
+        self._saved, self._prof, self._handles = [], None, []
 
     def _wrap(self, owner, name, make):
         orig = getattr(owner, name)
@@ -1174,18 +1240,26 @@ class RunProbe:
         seen = {}
 
         def pre(module, args):
+            seen.clear()
             if torch.is_grad_enabled() and args[2] is not None:
                 twin = torch.Generator().set_state(args[2].get_state())
                 seen.update(lengths=args[1], seed=fa.draw_seed(twin), rate=module.dropout,
-                            heads=module.num_heads)
+                            heads=module.num_heads, key="attn")
+            elif self.longest:
+                seen.update(lengths=args[1], seed=None, rate=0.0, heads=module.num_heads, key="eval_attn")
 
         def post(module, args, out):
-            if seen:
-                self.attn = {**seen, "qkv": out.detach().clone()}
-                for handle in handles:
+            if not seen:
+                return
+            key = seen.pop("key")
+            kept = getattr(self, key)
+            if kept is None or (self.longest and out.shape[1] > kept["qkv"].shape[1]):
+                setattr(self, key, {**seen, "qkv": out.detach().clone()})
+            if not self.longest:
+                for handle in self._handles:
                     handle.remove()
 
-        handles = [attn.register_forward_pre_hook(pre), attn.qkv_proj.register_forward_hook(post)]
+        self._handles = [attn.register_forward_pre_hook(pre), attn.qkv_proj.register_forward_hook(post)]
 
     def _step_start(self, task, batch) -> None:
         if not self.starts:
@@ -1198,6 +1272,9 @@ class RunProbe:
             self._prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
             self._prof.start()
         self.labels.append(batch["labels"])
+        if "features" in batch:  # not a paired batch
+            mask = batch.get("mask")
+            self.shapes.append((*batch["features"].shape[:2], None if mask is None else int(mask.sum())))
         self.starts.append((self._event(), launches()))
 
     def _step_end(self) -> None:
@@ -1216,6 +1293,8 @@ class RunProbe:
     def __enter__(self):
         from w2v2_speaker_tpu_torch.data.datamodule import VoxCelebDataModule
         from w2v2_speaker_tpu_torch.runtime.logging import MetricsLogger
+
+        dm_cls = self.dm_cls or VoxCelebDataModule
 
         probe = self
         self._wrap(self.task_cls, "loss_fn", lambda orig: lambda task, batch, *a, **kw: (
@@ -1248,6 +1327,7 @@ class RunProbe:
 
         def timed_batches(orig):
             def batches(dm, *a, **kw):
+                probe.epochs.append(kw.get("epoch", 0))
                 it = iter(orig(dm, *a, **kw))
                 while True:
                     t0 = time.perf_counter()
@@ -1258,13 +1338,15 @@ class RunProbe:
                     yield batch
             return batches
 
-        self._wrap(VoxCelebDataModule, "prepare_data", timed_prepare)
-        self._wrap(VoxCelebDataModule, "train_batches", timed_batches)
+        self._wrap(dm_cls, "prepare_data", timed_prepare)
+        self._wrap(dm_cls, "train_batches", timed_batches)
         return self
 
     def __exit__(self, *exc):
         if self._prof is not None:
             self._prof.stop()
+        for handle in self._handles:
+            handle.remove()
         for owner, name, orig in reversed(self._saved):
             setattr(owner, name, orig)
 
@@ -1618,6 +1700,201 @@ def pooling_phase(card: str, tmp: pathlib.Path, wav_dir, trials, shards) -> None
               flush=True)
 
 
+def write_speech_corpus(root: pathlib.Path, rng) -> tuple:
+    """A LibriSpeech-layout tree (``<spk>/<chapter>/<spk>-<chapter>-<utt>.wav``
+    and ``<spk>-<chapter>.trans.txt``): a train split of ``SPEECH_TRAIN``
+    utterances and four eval splits of ``SPEECH_EVAL``, noise over a
+    speaker's tone, each transcript random words at ~``SPEECH_CHARS_PER_S``
+    characters a second (so every row's frames, ~50 a second, cover its
+    label). Returns ({split key of data.module: directory}, seconds of
+    audio per split)."""
+    letters = np.array(list("ABCDEFGHIJKLMNOPQRSTUVWXYZ"))
+    splits = [("train", "train_dir", SPEECH_TRAIN, SPEECH_TRAIN_S)] + [
+        (name, f"{name}_dir", SPEECH_EVAL, SPEECH_EVAL_S)
+        for name in ("val_clean", "val_other", "test_clean", "test_other")]
+    dirs, seconds = {}, {}
+    for i, (split, key, n, (lo, hi)) in enumerate(splits):
+        seconds[split] = 0.0
+        for u in range(n):
+            spk, chapter = 1000 + 50 * i + u % 12, 7 + u % 2
+            d = root / split / str(spk) / str(chapter)
+            d.mkdir(parents=True, exist_ok=True)
+            sec = float(rng.uniform(lo, hi))
+            t = np.arange(int(sec * 16000)) / 16000
+            write_wav(d / f"{spk}-{chapter}-{u:04d}.wav",
+                      (0.05 * np.sin(2 * np.pi * (100 + 7 * (spk % 50)) * t)
+                       + rng.normal(0, 0.05, t.shape)).astype(np.float32))
+            words, chars = [], 0
+            while chars < SPEECH_CHARS_PER_S * sec:
+                words.append("".join(rng.choice(letters, int(rng.integers(2, 9)))))
+                chars += len(words[-1]) + 1
+            with open(d / f"{spk}-{chapter}.trans.txt", "a") as f:
+                f.write(f"{spk}-{chapter}-{u:04d} {' '.join(words)}\n")
+            seconds[split] += sec
+        dirs[key] = root / split
+    return dirs, seconds
+
+
+def speech_f32_errors() -> tuple:
+    """One float32 CTC step of the speech recipe cut to 2 layers at full
+    width, card against CPU from the same weights and step generator seed
+    (dropout, layerdrop and SpecAugment on), on a batch of 3 rows padded to
+    2 s with labels of ``SPEECH_F32_LABELS`` tokens: (loss rel error, the
+    largest per-parameter max gradient error / max abs gradient, its
+    parameter, the two losses)."""
+    cfg = load_recipe("speech_wav2vec2_ctc", ["trainer.precision=f32"])
+    tok = CharTokenizer.wav2vec2_base_960h()
+    mcfg = speech_model_config(cfg, tok.vocab_size)
+    mcfg = Wav2Vec2SpeechConfig(**{**mcfg.__dict__, "w2v2": Wav2Vec2Config(**{**mcfg.w2v2.__dict__, "num_layers": 2})})
+    dev = torch.device("cuda")
+    with torch.device("meta"):
+        model = Wav2Vec2SpeechModel(mcfg)
+    model.to_empty(device=dev)
+    init_parameters(model, torch.Generator(device=dev).manual_seed(16))
+    cpu_model = copy.deepcopy(model).cpu()
+    state = TrainState.create(model, build_optimizer(cfg), seed=1)
+    cpu_state = TrainState.create(cpu_model, build_optimizer(cfg), seed=1)
+    rng = np.random.default_rng(16)
+    lengths = np.array([32000, 21000, 9000])
+    mask = np.arange(32000)[None, :] < lengths[:, None]
+    labels = np.zeros((3, 40), np.int32)
+    for i, n in enumerate(SPEECH_F32_LABELS):
+        labels[i, :n] = rng.integers(5, tok.vocab_size, n)  # letters of the HF vocabulary
+    batch = {"features": torch.from_numpy(rng.normal(0, 0.1, (3, 32000)).astype(np.float32) * mask),
+             "mask": torch.from_numpy(mask), "labels": torch.from_numpy(labels),
+             "label_lengths": torch.tensor(SPEECH_F32_LABELS, dtype=torch.int32)}
+    _, on_card = make_train_step(SpeechTask(model, tok))(state, {k: v.cuda() for k, v in batch.items()})
+    _, on_cpu = make_train_step(SpeechTask(cpu_model, tok))(cpu_state, batch)
+    assert on_card["layers_run"] == on_cpu["layers_run"], "speech f32: the packages kept other layers"
+    card_loss, cpu_loss = float(on_card["loss"]), float(on_cpu["loss"])
+    worst, worst_name = worst_grad_error(model, cpu_model)
+    return abs(card_loss - cpu_loss) / abs(cpu_loss), worst, worst_name, card_loss, cpu_loss
+
+
+def check_eval_attention(rec) -> tuple:
+    """The longest eval forward's layer ``RUN_ATTN_LAYER`` q/k/v and lengths
+    through the forward (and, under a random upstream gradient, dq + dk/dv)
+    at rate 0, each against its plain version: (summary, errors, inputs)."""
+    # recorded under inference mode: a clone outside it is an ordinary tensor
+    qkv, heads, lens = rec["qkv"].clone(), rec["heads"], rec["lengths"]
+    lens = None if lens is None else lens.clone()
+    b, t, three_hidden = qkv.shape
+    hidden = three_hidden // 3
+    q, k, v = (part.view(b, t, heads, hidden // heads) for part in qkv.split(hidden, dim=-1))
+    lens = torch.full((b,), t, dtype=torch.int32, device="cuda") if lens is None else lens
+    do = torch.randn(q.shape, generator=torch.Generator(device="cuda").manual_seed(16), device="cuda").to(q.dtype)
+    errors, args, _ = attention_pair_errors(q, k, v, lens, 0.0, None, do)
+    for out, (err, share, zeros) in errors.items():
+        assert share <= 1 and zeros, f"speech eval attention {out}: err {err}, {share:.3f} of the limit"
+    return (f"layer {RUN_ATTN_LAYER} B={b} T={t} lengths {lens.tolist()} {q.dtype}: "
+            + ", ".join(f"{out} {share:.3f}" for out, (_, share, _) in errors.items()) + " of the limits",
+            errors, args)
+
+
+def speech_phase(card: str, tmp: pathlib.Path) -> None:
+    """Phase 16: ``w2v2_speaker_tpu_torch.run.main`` on the speech recipe
+    (``speech_wav2vec2_ctc``) at full BASE width on a LibriSpeech-layout
+    corpus it writes under ``tmp``."""
+    from w2v2_speaker_tpu_torch import run
+    from w2v2_speaker_tpu_torch.data.librispeech import LibriSpeechDataModule
+
+    rng = np.random.default_rng(16)
+    t0 = time.perf_counter()
+    dirs, seconds = write_speech_corpus(tmp / "librispeech", rng)
+    write_s = time.perf_counter() - t0
+    ckpt = tmp / "speech_ckpt"
+    argv = ["+experiment=speech_wav2vec2_ctc", *(f"data.module.{k}={v}" for k, v in dirs.items()),
+            f"data.module.shards_dir={tmp / 'speech_shards'}", f"trainer.max_steps={SPEECH_STEPS}",
+            f"trainer.val_check_interval={SPEECH_VAL_EVERY}", "callbacks=default_speech",
+            f"trainer.checkpoint_dir={ckpt}", "trainer.log_dir=null", "trainer.log_every=1", "seed=16"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    with RunProbe(profile=(SPEECH_PROFILED, SPEECH_PROFILED), task_cls=SpeechTask, longest=True,
+                  dm_cls=LibriSpeechDataModule) as probe:
+        t0 = time.perf_counter()
+        objective = run.main(argv)
+        run_s = time.perf_counter() - t0
+    peak_gib = (torch.cuda.max_memory_allocated() - held) / 2**30
+    kept = check_steps("speech", probe, SPEECH_STEPS)
+    assert max(probe.epochs) >= 1, f"speech: {SPEECH_STEPS} steps did not cross an epoch ({probe.epochs})"
+    index = json.loads((ckpt / "index.json").read_text())
+    best = [e["metric"] for e in index["best"]]
+    assert index["last"]["step"] == SPEECH_STEPS and best == sorted(best) and all(
+        "_val_wer=" in e["name"] for e in index["best"]), f"speech: index {index}"
+    wers = {k: v for _, m in probe.evals for k, v in m.items() if "wer" in k}
+    val = [m for _, m in probe.evals if "val_wer" in m]
+    test = next(m for _, m in probe.evals if "test_clean_wer" in m)
+    assert len(val) == SPEECH_STEPS // SPEECH_VAL_EVERY and "test_other_wer" in test, f"speech: {probe.evals}"
+    assert all(np.isfinite(v) and v >= 0 for v in wers.values()), f"speech: WERs {wers}"
+    assert objective == test["test_clean_wer"], f"speech: objective {objective}"
+
+    rows, frames = zip(*[(b, feat_extract_output_lengths(n)) for b, n, _ in probe.shapes])
+    # the longest training forward that kept layer 0 (layerdrop may have dropped it in the longest step)
+    assert probe.attn["qkv"].shape[1] > 1000, f"speech: held training T {probe.attn['qkv'].shape[1]}"
+    train_check, errors, args = check_run_attention(probe.attn)
+    q = args[0]
+    attention_rows("speech train", errors, args, {"shape": "speech_train", "dtype": "bfloat16", "rate": args[7],
+                                                   "B": q.shape[0], "T": q.shape[1], "H": q.shape[2]})
+    eval_check, errors, args = check_eval_attention(probe.eval_attn)
+    q = args[0]
+    attention_rows("speech eval", errors, args, {"shape": "speech_eval", "dtype": "bfloat16", "rate": 0.0,
+                                                  "B": q.shape[0], "T": q.shape[1], "H": q.shape[2]})
+
+    spans = probe.spans_ms(0, SPEECH_STEPS - 1)
+    window = probe.step_ms(SPEECH_VAL_EVERY, SPEECH_STEPS - 1) * (SPEECH_STEPS - SPEECH_VAL_EVERY)
+    audio = sum(v for _, _, v in probe.shapes[SPEECH_VAL_EVERY:]) / 16000
+    in_steps = sum(spans[SPEECH_VAL_EVERY:])
+    busy, window_ms, kernels, by_cat, (top_name, top_ms) = probe.busy
+    waits_ms = [1e3 * w for w in probe.waits]
+    losses = [round(m["loss"], 2) for _, m in probe.steps]
+    f32 = speech_f32_errors()
+    print(f"speech kernels vs plain on the longest training batch that kept layer {RUN_ATTN_LAYER} (longest T "
+          f"{max(frames)}): {train_check}; on the longest eval batch: {eval_check}", flush=True)
+    print("speech steps (B, T, ms): " + ", ".join(
+        f"({b}, {t}, {ms:.2f})" for b, t, ms in zip(rows, frames, spans)) + f" [{card}]", flush=True)
+    print(f"speech BASE bf16, budget 3.2 M samples: {sum(seconds.values()):.1f} s of audio written in {write_s:.2f} s "
+          f"({seconds['train']:.1f} s train); shard preparation {probe.prepare_s:.3f} s; steps "
+          f"{SPEECH_VAL_EVERY + 1}-{SPEECH_STEPS}: {audio:.1f} s of audio in {window:.1f} ms (CUDA events, start of "
+          f"step {SPEECH_VAL_EVERY + 1} to end of step {SPEECH_STEPS}), {1e3 * audio / window:.1f} audio s per s "
+          f"({1e3 * audio / in_steps:.1f} over the steps' own spans, {in_steps:.1f} ms); "
+          f"host wait on the Prefetcher per step: mean {np.mean(waits_ms):.2f} ms, by step "
+          f"{[round(w, 2) for w in waits_ms]}; device busy {100 * busy:.1f} % of step {SPEECH_PROFILED + 1} "
+          f"({window_ms:.1f} ms, {kernels} kernels; {per_step_categories(by_cat, top_name, top_ms, 1)}); "
+          f"losses {losses}; validation s {[round(m['val_seconds'], 3) for m in val]}, test "
+          f"{test['test_seconds']:.3f} s; WERs {json.dumps({k: round(v, 4) for k, v in wers.items()})}; whole run "
+          f"{run_s:.2f} s; layers kept {kept}; epochs read {probe.epochs}; peak {peak_gib:.2f} GiB above the "
+          f"{held / 2**30:.2f} GiB held at the phase's start [{card}]", flush=True)
+    print(f"speech f32 CTC step card vs cpu (2 layers, dropout on, labels {SPEECH_F32_LABELS}): loss {f32[3]:.6f} "
+          f"vs {f32[4]:.6f} (rel {f32[0]:.3e}); grads max err / max abs per parameter {f32[1]:.3e} ({f32[2]}) "
+          f"(limit {F32_REL_TOL})", flush=True)
+    assert f32[0] < F32_REL_TOL and f32[1] < F32_REL_TOL, "speech f32 CTC step: card vs cpu differ"
+
+
+def speaker_ctc_phase(card: str, tmp: pathlib.Path, wav_dir, trials, shards) -> None:
+    """Phase 17: ``run.main`` on ``speaker_wav2vec2_ctc`` (frame-level CTC
+    over 5994 speakers + the blank, its bias 100; mean-pooled test) at full
+    BASE width on phase 13's shards."""
+    from w2v2_speaker_tpu_torch import run
+
+    argv = ["+experiment=speaker_wav2vec2_ctc", f"data.shards.samples_per_shard={RUN_SHARD}",
+            f"trainer.max_steps={SPEAKER_CTC_STEPS}", f"trainer.val_check_interval={SPEAKER_CTC_STEPS}", "seed=17",
+            *corpus_args(wav_dir, trials, shards, tmp / "ctc_ckpt")]
+    reset_launches()
+    with RunProbe() as probe:
+        t0 = time.perf_counter()
+        objective = run.main(argv)
+        run_s = time.perf_counter() - t0
+    kept = check_steps("speaker ctc", probe, SPEAKER_CTC_STEPS)
+    assert objective is not None and np.isfinite(objective) and 0 <= objective <= 1, f"speaker ctc: {objective}"
+    steady = probe.step_ms(1, SPEAKER_CTC_STEPS - 1)
+    print(f"speaker ctc BASE bf16 B={probe.shapes[0][0]}: losses {[round(m['loss'], 3) for _, m in probe.steps]}, "
+          f"{steady:.3f} ms/step (steps 2-{SPEAKER_CTC_STEPS}, CUDA events), layers kept {kept}, launches = kept "
+          f"layers per step; test EER {objective:.4f}; whole run {run_s:.2f} s [{card}]", flush=True)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; this run needs a card")
@@ -1643,8 +1920,10 @@ def main() -> None:
         wav_dir, trials, shards = run_phase(card, tmp)  # 13
         pairs_phase(card, tmp, wav_dir, trials)  # 14
         pooling_phase(card, tmp, wav_dir, trials, shards)  # 15
+        speech_phase(card, tmp)  # 16
+        speaker_ctc_phase(card, tmp, wav_dir, trials, shards)  # 17
 
-    # 16. kernels line, card line, result line
+    # 18. kernels line, card line, result line
     kernels = []
     for name, source, replaces in KERNELS:
         row = main_rows[name]

@@ -241,7 +241,7 @@ def test_early_stopping_decisions_match_jax(kwargs, values):
     (["trainer.deterministic=true"], "item 9"), (["profiler=simple"], "item 9"),
     (["network.use_transformers_as_ensembles=true"], "item 5"), (["trainer.num_devices=2"], "item 8"),
     (["data.pipeline.augment.enabled=true", "data.pipeline.augment.noise_snr=[5,10]"], "item 2"),
-    (["data/module=librispeech"], "item 7"), (["optim/loss=triplet"], "item 7"),
+    (["+experiment=multitask_wav2vec2"], "item 7"), (["optim/loss=triplet"], "item 7"),
 ])
 def test_what_is_not_ported_raises(runs, tmp_path, extra, row):
     corpus, _, _, _, tmp = runs

@@ -93,10 +93,11 @@ def test_forward_logits_match_jax_and_padding_invariance():
 
 def test_unported_options_raise():
     w2v2 = tw.Wav2Vec2Config(**TINY)
-    for kw in (dict(feature_encoder_only=True), dict(ctc_head=True),
-               dict(final_channel_mask_prob=0.1), dict(stat_pooling_type="none")):
+    for kw in (dict(feature_encoder_only=True), dict(w2v2=tw.Wav2Vec2Config(**TINY, int8_matmuls=True))):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            ts.Wav2Vec2SpeakerModel(ts.Wav2Vec2SpeakerConfig(w2v2=w2v2, **kw))
+            ts.Wav2Vec2SpeakerModel(ts.Wav2Vec2SpeakerConfig(**{"w2v2": w2v2, **kw}))
+    for kw in (dict(ctc_head=True), dict(final_channel_mask_prob=0.1), dict(stat_pooling_type="none")):
+        ts.Wav2Vec2SpeakerModel(ts.Wav2Vec2SpeakerConfig(w2v2=w2v2, **kw))  # ported with the CTC slice
     with pytest.raises(ValueError, match="unknown pooling"):
         ts.Wav2Vec2SpeakerModel(ts.Wav2Vec2SpeakerConfig(w2v2=w2v2, stat_pooling_type="median"))
     with pytest.raises(ValueError, match="attention can not be learned at test time"):

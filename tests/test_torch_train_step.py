@@ -263,15 +263,15 @@ def test_unported_modes_and_options_raise():
     model = _regularised_model()
     assert ttask.SpeakerTask(model, "aam").mode == "aam"  # ported with the AAM head
     with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 5"):
-        ttask.SpeakerTask(model, "ce_no_pool")
+        ts.Wav2Vec2SpeakerModel(ts.Wav2Vec2SpeakerConfig(
+            w2v2=tw.Wav2Vec2Config(**TINY), feature_encoder_only=True))
     with pytest.raises(ValueError, match="unknown training mode"):
         ttask.SpeakerTask(model, "hinge")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 5"):
-        ts.Wav2Vec2SpeakerModel(ts.Wav2Vec2SpeakerConfig(
-            w2v2=tw.Wav2Vec2Config(**TINY), final_channel_mask_prob=0.1))
     base = texp.load_recipe("speaker_wav2vec2_ce")
+    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 5"):
+        texp._check_ported({**base, "network": {**base["network"], "use_transformers_as_ensembles": True}})
     for section, key, value in (("algo", "name", "sgd"), ("algo", "mu_dtype", "bfloat16"),
-                                ("algo", "weight_decay", 0.01), ("schedule", "name", "tri_stage")):
+                                ("algo", "weight_decay", 0.01), ("schedule", "name", "exp_decay")):
         cfg = {**base, "optim": {**base["optim"], section: {**base["optim"][section], key: value}}}
         with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 3"):
             texp.build_optimizer(cfg)

@@ -1,6 +1,6 @@
 """Batch processors: the port's copies of
-``w2v2_speaker_tpu/data/batching.py::RandomBatchProcessor`` (:43) and
-``PairedBatchProcessor`` (:154).
+``w2v2_speaker_tpu/data/batching.py::RandomBatchProcessor`` (:43),
+``PairedBatchProcessor`` (:154) and ``DynamicTokenBudgetBatcher`` (:338).
 
 ``RandomBatchProcessor``: samples fill a queue of ``max_queue_size``; each
 batch draws ``max_batch_size`` of them at random. ``PairedBatchProcessor``:
@@ -8,10 +8,13 @@ in ``generate`` mode it queues runs of ``sequential_same_speaker_samples``
 (k) samples and builds batches of positive and negative pairs at
 ``pos_neg_training_batch_ratio`` from speakers drawn with weights 2^count;
 in ``reproduce`` mode it yields the exact pairs of a trial list, the last
-partial batch kept. Every draw comes from the processor's own
+partial batch kept. ``DynamicTokenBudgetBatcher`` (the speech task's)
+sorts its queue by length, grows a batch around a drawn sample while rows
+x the longest row stay within the token budget, and skips a sample longer
+than the budget. Every draw comes from the processor's own
 ``np.random.default_rng(seed)``, in the JAX package's order, so both
-packages yield the same batches at one seed. The triplet and token-budget
-batch processors (:80, :339) are not ported yet: ROADMAP.md Queue 1 item 7.
+packages yield the same batches at one seed. The triplet batch processor
+(:80) is not ported yet: ROADMAP.md Queue 1 item 7.
 """
 
 from __future__ import annotations
@@ -21,10 +24,10 @@ from typing import Callable, Dict, Iterable, Iterator, List, Optional
 
 import numpy as np
 
-from .samples import PairedSample, SpeakerSample
+from .samples import PairedSample, SpeakerSample, SpeechSample
 from .trials import EvaluationPair
 
-__all__ = ["PairedBatchProcessor", "RandomBatchProcessor"]
+__all__ = ["DynamicTokenBudgetBatcher", "PairedBatchProcessor", "RandomBatchProcessor"]
 
 
 class RandomBatchProcessor:
@@ -202,3 +205,46 @@ class PairedBatchProcessor:
                 batch = []
         if batch:
             yield self.collate_fn(batch)
+
+
+class DynamicTokenBudgetBatcher:
+    def __init__(self, max_samples_in_batch: int, max_queue_size: int,
+                 collate_fn: Callable[[List[SpeechSample]], Dict],
+                 max_batch_size: Optional[int] = None, seed: int = 0):
+        self.budget = max_samples_in_batch  # rows x the longest row's samples
+        self.max_queue_size = max_queue_size
+        self.collate_fn = collate_fn
+        self.max_batch_size = max_batch_size
+        self.rng = np.random.default_rng(seed)
+
+    def __call__(self, samples: Iterable[SpeechSample]) -> Iterator[Dict]:
+        queue: List[SpeechSample] = []
+        for s in samples:
+            if s.wav.shape[-1] > self.budget:
+                print(f"skipping over-budget sample {s.key}")
+                continue
+            queue.append(s)
+            if len(queue) >= self.max_queue_size:
+                yield self._draw(queue)
+        while queue:
+            yield self._draw(queue)
+
+    def _draw(self, queue: List[SpeechSample]) -> Dict:
+        """A drawn sample of the length-sorted queue, grown to the right
+        while the budget allows, else to the left, up to
+        ``max_batch_size`` rows; the batch leaves the queue."""
+        queue.sort(key=lambda s: s.wav.shape[-1])
+        lo = hi = int(self.rng.integers(len(queue)))
+
+        def cost(l, h):  # sorted: row h is the longest
+            return (h - l + 1) * queue[h].wav.shape[-1]
+
+        while not (self.max_batch_size and hi - lo + 1 >= self.max_batch_size):
+            if hi + 1 < len(queue) and cost(lo, hi + 1) <= self.budget:
+                hi += 1
+            elif lo > 0 and cost(lo - 1, hi) <= self.budget:
+                lo -= 1
+            else:
+                break
+        batch = [queue.pop(i) for i in range(hi, lo - 1, -1)][::-1]
+        return self.collate_fn(batch)

@@ -1,7 +1,7 @@
 """Sample records and batch collation of the port: copies of
 ``w2v2_speaker_tpu/data/samples.py::SpeakerSample`` (:32), ``PairedSample``
-(:40), ``collate_speaker_batch`` (:61) and ``collate_paired_batch``
-(:87)."""
+(:40), ``SpeechSample`` (:49), ``collate_speaker_batch`` (:61),
+``collate_paired_batch`` (:87) and ``collate_speech_batch`` (:120)."""
 
 from __future__ import annotations
 
@@ -12,7 +12,10 @@ import numpy as np
 
 from .collate import collate_pad_right
 
-__all__ = ["PairedSample", "SpeakerSample", "collate_paired_batch", "collate_speaker_batch"]
+__all__ = [
+    "PairedSample", "SpeakerSample", "SpeechSample", "collate_paired_batch", "collate_speaker_batch",
+    "collate_speech_batch",
+]
 
 
 @dataclass
@@ -30,6 +33,15 @@ class PairedSample:
     secondary_key: str
     secondary_wav: np.ndarray
     ground_truth: int  # 1 same speaker, 0 different
+
+
+@dataclass
+class SpeechSample:
+    key: str  # LibriSpeech '<spk>-<chapter>-<utt>'
+    wav: np.ndarray
+    transcription: str
+    tokens: Optional[np.ndarray] = None  # int CTC targets
+    speaker_idx: Optional[int] = None  # the speaker's class, when asked for
 
 
 def collate_speaker_batch(
@@ -76,4 +88,30 @@ def collate_paired_batch(
     for name, side in zip(("mask_a", "mask_b"), sides):
         if not side.mask.all():
             out[name] = side.mask
+    return out
+
+
+def collate_speech_batch(
+    samples: Sequence[SpeechSample],
+    pad_to_multiple: Optional[int] = None,
+    label_pad_to_multiple: int = 8,
+) -> Dict[str, Any]:
+    """Right-padded ``features`` [B, N] float32 and ``mask`` [B, N] (always),
+    the token ids 0-padded to a multiple of ``label_pad_to_multiple`` as
+    ``labels`` [B, S] int32 with ``label_lengths`` [B], the host-only
+    ``transcriptions`` and ``keys``, and ``speaker_labels`` [B] int32 when
+    every sample has a speaker index."""
+    batch = collate_pad_right([s.wav for s in samples], pad_to_multiple=pad_to_multiple, dtype=np.float32)
+    labels = collate_pad_right([np.asarray(s.tokens, np.int32) for s in samples], value=0,
+                               pad_to_multiple=label_pad_to_multiple, dtype=np.int32)
+    out = {
+        "features": batch.values,
+        "mask": batch.mask,
+        "labels": labels.values,
+        "label_lengths": labels.lengths,
+        "transcriptions": [s.transcription for s in samples],
+        "keys": [s.key for s in samples],
+    }
+    if all(s.speaker_idx is not None for s in samples):
+        out["speaker_labels"] = np.asarray([s.speaker_idx for s in samples], np.int32)
     return out

@@ -6,21 +6,22 @@
   the piecewise-linear ROC, and its threshold;
 - ``calculate_mdc`` (:159): the Kaldi minimum detection cost sweep
   (p_target 0.05, c_miss = c_fa = 1), stable ascending sort, first
-  minimum.
-
-``calculate_wer`` is not here yet: it belongs to the speech family
-(ROADMAP.md Queue 1 item 7).
+  minimum;
+- ``calculate_wer`` (:226): the corpus word error rate of the speech task
+  (sum of word edits over sum of reference words), with
+  ``_edit_distance`` (:201), Levenshtein over words in two DP rows.
 """
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import List, Sequence, Tuple
 
 import numpy as np
 
 __all__ = [
     "calculate_eer",
     "calculate_mdc",
+    "calculate_wer",
     "roc_points",
 ]
 
@@ -192,3 +193,41 @@ def calculate_mdc(
     i = int(np.argmin(c_det))
     c_def = min(c_miss * p_target, c_fa * (1.0 - p_target))
     return float(c_det[i] / c_def), float(thresholds[i])
+
+
+def _edit_distance(ref: List[str], hyp: List[str]) -> int:
+    """Levenshtein distance between two word lists, in two DP rows."""
+    if not ref:
+        return len(hyp)
+    if not hyp:
+        return len(ref)
+    prev = np.arange(len(hyp) + 1, dtype=np.int64)
+    cur = np.zeros(len(hyp) + 1, dtype=np.int64)
+    hyp_arr = np.array(hyp)
+    for i, r in enumerate(ref, start=1):
+        cur[0] = i
+        # substitution or deletion at once; insertion runs along the row
+        np.minimum(prev[:-1] + (hyp_arr != r), prev[1:] + 1, out=cur[1:])
+        for j in range(1, len(hyp) + 1):
+            cur[j] = min(cur[j], cur[j - 1] + 1)
+        prev, cur = cur, prev
+    return int(prev[-1])
+
+
+def calculate_wer(transcriptions: Sequence[str], ground_truths: Sequence[str]) -> float:
+    """Corpus word error rate: the word edits of every hypothesis summed,
+    over the words of every reference summed (a single string is one
+    utterance)."""
+    if isinstance(transcriptions, str):
+        transcriptions = [transcriptions]
+    if isinstance(ground_truths, str):
+        ground_truths = [ground_truths]
+    if len(transcriptions) != len(ground_truths):
+        raise ValueError("transcriptions and ground_truths length mismatch")
+    edits = words = 0
+    for hyp, ref in zip(transcriptions, ground_truths):
+        edits += _edit_distance(ref.split(), hyp.split())
+        words += len(ref.split())
+    if words == 0:
+        raise ValueError("empty ground truth")
+    return edits / words

@@ -11,6 +11,9 @@ Counterpart of ``w2v2_speaker_tpu/models/heads.py``:
   ``embedding_layer_idx`` (-1 = the pooled input itself,
   ``len(hidden_sizes)`` = the logits). With ``use_aam`` the final Linear is
   left out and the logits are None: the AAM head consumes the embedding.
+  With ``ctc_blank_bias`` (the speaker-CTC head, :91-97) its
+  ``after_init_parameters``, which ``init_parameters`` calls last, sets the
+  output bias of class 0, the blank, to that value.
 """
 
 from __future__ import annotations
@@ -58,17 +61,25 @@ class FCHead(nn.Module):
         num_out: int,
         embedding_layer_idx: int = -1,
         use_aam: bool = False,
+        ctc_blank_bias: float = 0.0,
     ):
         super().__init__()
         self.embedding_layer_idx = embedding_layer_idx
+        self.ctc_blank_bias = ctc_blank_bias
         self.num_hidden = len(hidden_sizes)
         for i, size in enumerate(hidden_sizes):
             self.add_module(f"fc_{i}", nn.Linear(in_features, size))
             in_features = size
         self.fc_out = None if use_aam else nn.Linear(in_features, num_out)
 
+    @torch.no_grad()
+    def after_init_parameters(self) -> None:
+        if self.ctc_blank_bias and self.fc_out is not None:
+            self.fc_out.bias[0] = self.ctc_blank_bias
+
     def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-        """(embedding, logits); logits None under AAM."""
+        """(embedding, logits) over the last axis of ``x`` ([B, D] pooled or
+        [B, T, D] frames); logits None under AAM."""
         embedding = h = x
         for i in range(self.num_hidden):
             h = F.relu(getattr(self, f"fc_{i}")(h))

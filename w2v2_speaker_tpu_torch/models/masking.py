@@ -1,10 +1,11 @@
-"""SpecAugment-style span masks.
+"""Training-time masks: SpecAugment-style spans and the embedding masker.
 
-Counterpart of ``w2v2_speaker_tpu/models/masking.py::sample_span_mask``
-(:66). The JAX function draws its uniforms from a PRNG key; here the caller
-hands them in (``draw_uniform`` takes them from the train step's
-``torch.Generator``), so a test can feed both packages the same numbers.
-``embedding_mask`` (:39) is not ported yet (ROADMAP Queue 1 item 5).
+Counterpart of ``w2v2_speaker_tpu/models/masking.py``:
+``sample_span_mask`` (:66), ``expand_mask_width`` (:25) and
+``embedding_mask`` (:39). The JAX functions draw their uniforms from a PRNG
+key; here the caller hands them in or they come from the train step's
+``torch.Generator`` (``draw_uniform``), so a test can feed both packages
+the same numbers.
 """
 
 from __future__ import annotations
@@ -14,7 +15,7 @@ from typing import Optional, Sequence
 import torch
 import torch.nn.functional as F
 
-__all__ = ["draw_uniform", "sample_span_mask"]
+__all__ = ["draw_uniform", "embedding_mask", "expand_mask_width", "sample_span_mask"]
 
 
 def draw_uniform(
@@ -49,3 +50,43 @@ def sample_span_mask(
     for k in range(1, min(mask_span, length)):
         mask = mask | F.pad(starts[:, : length - k], (k, 0))
     return mask
+
+
+def expand_mask_width(dropped: torch.Tensor, width: int) -> torch.Tensor:
+    """Each True of the bool vector ``dropped`` widened to ``width``
+    consecutive indices to its right (cut at the end)."""
+    out = dropped
+    for k in range(1, min(width, dropped.shape[0])):
+        out = out | F.pad(dropped[: dropped.shape[0] - k], (k, 0))
+    return out
+
+
+def embedding_mask(
+    x: torch.Tensor,  # [B, T, C]
+    timestep_mask_prob: float,
+    timestep_mask_width: int,
+    channel_mask_prob: float,
+    channel_mask_width: int,
+    generator: Optional[torch.Generator] = None,
+    uniforms: Optional[Sequence[Optional[torch.Tensor]]] = None,
+) -> torch.Tensor:
+    """``x`` with whole time steps and whole channels zeroed, one mask for
+    the batch: step t (channel c) is dropped where its uniform is <= its
+    probability, and each drop is widened by ``expand_mask_width``. The
+    uniforms ([T] for time, [C] for channels, each only where its
+    probability is > 0) are ``uniforms`` or drawn from ``generator``,
+    time first. Training only: the caller gates it."""
+    if x.ndim != 3:
+        raise ValueError(f"expected [batch, time, channels], got {tuple(x.shape)}")
+    if timestep_mask_prob + channel_mask_prob == 0:
+        return x
+    _, t, c = x.shape
+    t_u, c_u = uniforms if uniforms is not None else (None, None)
+    keep = torch.ones((t, c), dtype=x.dtype, device=x.device)
+    if timestep_mask_prob > 0:
+        t_u = draw_uniform(generator, (t,), x.device) if t_u is None else t_u.to(x.device)
+        keep = keep * (~expand_mask_width(t_u <= timestep_mask_prob, timestep_mask_width)).to(x.dtype)[:, None]
+    if channel_mask_prob > 0:
+        c_u = draw_uniform(generator, (c,), x.device) if c_u is None else c_u.to(x.device)
+        keep = keep * (~expand_mask_width(c_u <= channel_mask_prob, channel_mask_width)).to(x.dtype)[None, :]
+    return x * keep[None]

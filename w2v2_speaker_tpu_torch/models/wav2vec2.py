@@ -584,7 +584,9 @@ def init_parameters(module: nn.Module, generator: torch.Generator) -> None:
     uniform in +-1/sqrt(fan_in) with ``weight_g`` its per-tap norm,
     ``masked_spec_embed`` uniform in [0, 1), and the AAM head's ``weights``
     xavier-normal (truncated, as flax's); any other module with a
-    ``reset_parameters`` sets its own fixed values. Values are drawn in
+    ``reset_parameters`` sets its own fixed values, and a module with an
+    ``after_init_parameters`` then overrides the values of its children
+    it fixes (the speaker-CTC head's blank bias). Values are drawn in
     float32 and rounded to each parameter's dtype. The generator must be on the
     parameters' device."""
 
@@ -622,3 +624,6 @@ def init_parameters(module: nn.Module, generator: torch.Generator) -> None:
             # A module of fixed initial values (the attentive pooling's
             # BatchNorm); every drawn parameter is one of the cases above.
             m.reset_parameters()
+    for m in module.modules():  # after the children's values above
+        if hasattr(m, "after_init_parameters"):
+            m.after_init_parameters()

@@ -13,10 +13,17 @@ output layer and the ``AAMSoftmaxHead`` ``aam`` (:97-103) takes the
 embedding: given labels, the forward also returns its ``loss`` and
 ``preds`` (:147-156).
 
+The frame-level path (:119-131, the ``ce_no_pool`` and ``speaker_ctc``
+modes): with ``stat_pooling_type`` ``none``, in training or where the test
+pooling is ``none`` too, the head runs on every frame and the forward
+returns ``[B, T, ...]`` embeddings and logits with the ``frame_mask``.
+``ctc_head`` adds the blank as class 0 (``num_speakers + 1`` outputs,
+:89) and ``ctc_blank_bias`` starts its bias high. In training,
+``final_channel_mask_prob`` zeroes whole channels of the pooled embedding
+(``embedding_mask``, :134-142), drawn from the step's generator.
+
 Not ported yet, and raising ``NotImplementedError``: the feature-encoder-only
-variant, the CTC head, the frame-level training mode (``stat_pooling_type``
-``none``), the final-embedding channel mask and layer-ensemble embeddings
-(ROADMAP Queue 1 items 5 and 7).
+variant and layer-ensemble embeddings (ROADMAP Queue 1 item 5).
 """
 
 from __future__ import annotations
@@ -28,6 +35,7 @@ import torch
 from torch import nn
 
 from .heads import AAMSoftmaxHead, FCHead
+from .masking import embedding_mask
 from .pooling import get_pooling, pooled_embedding_size
 from .wav2vec2 import BASE_CONFIG, Wav2Vec2Config, Wav2Vec2Model
 
@@ -58,26 +66,11 @@ class Wav2Vec2SpeakerModel(nn.Module):
         num_speakers: int = 100,
     ):
         super().__init__()
-        for name, row in (
-            ("feature_encoder_only", "Queue 1 item 5"),
-            ("ctc_head", "Queue 1 item 7"),
-        ):
-            if getattr(cfg, name):
-                raise NotImplementedError(
-                    f"Wav2Vec2SpeakerConfig.{name}=True is not ported yet: "
-                    f"ROADMAP.md {row}"
-                )
+        if cfg.feature_encoder_only:
+            raise NotImplementedError(
+                "Wav2Vec2SpeakerConfig.feature_encoder_only=True is not ported yet: ROADMAP.md Queue 1 item 5"
+            )
         self.cfg = cfg
-        if cfg.final_channel_mask_prob > 0:
-            raise NotImplementedError(
-                "final_channel_mask_prob > 0 (embedding_mask) is not ported yet: "
-                "ROADMAP.md Queue 1 item 5"
-            )
-        if cfg.stat_pooling_type == "none":
-            raise NotImplementedError(
-                "stat_pooling_type 'none' (the frame-level ce_no_pool / speaker_ctc path) is not "
-                "ported yet: ROADMAP.md Queue 1 item 5"
-            )
         feat = cfg.w2v2.hidden_size
         self.wav2vec2 = Wav2Vec2Model(cfg.w2v2, insert_cls_token=cfg.stat_pooling_type == "first+cls")
         self.stat_pooling = get_pooling(cfg.stat_pooling_type, feat)
@@ -93,9 +86,10 @@ class Wav2Vec2SpeakerModel(nn.Module):
         self.head = FCHead(
             self.pool_dim,
             cfg.hidden_fc_layers_out,
-            num_speakers,
+            num_speakers + (1 if cfg.ctc_head else 0),
             cfg.embedding_layer_idx,
             use_aam=cfg.use_aam,
+            ctc_blank_bias=cfg.ctc_blank_bias,
         )
         if cfg.use_aam:
             sizes = (self.pool_dim, *cfg.hidden_fc_layers_out)
@@ -112,13 +106,22 @@ class Wav2Vec2SpeakerModel(nn.Module):
         labels: Optional[torch.Tensor] = None,  # [B], read under AAM
     ) -> Dict[str, torch.Tensor]:
         """``{"embedding", "logits"}`` (logits None under AAM), and under
-        AAM with ``labels`` also ``loss`` and ``preds``. ``train=True`` runs
-        the backbone's regularisation with every draw from ``generator``
-        and pools with the train pooling (its BatchNorm on batch
-        statistics, ``random`` on a drawn frame)."""
+        AAM with ``labels`` also ``loss`` and ``preds``; on the frame-level
+        path ``[B, T, ...]`` embeddings and logits and the ``frame_mask``.
+        ``train=True`` runs the backbone's regularisation with every draw
+        from ``generator``, pools with the train pooling (its BatchNorm on
+        batch statistics, ``random`` on a drawn frame) and masks the pooled
+        embedding's channels."""
+        cfg = self.cfg
         features, frame_mask = self.wav2vec2(wav, wav_mask, train, generator)
+        if cfg.stat_pooling_type == "none" and (train or (cfg.test_stat_pooling_type or "none") == "none"):
+            embedding, logits = self.head(features)
+            return {"embedding": embedding, "logits": logits, "frame_mask": frame_mask}
         pool = self.stat_pooling if train else (self.test_stat_pooling or self.stat_pooling)
         pooled = pool(features, frame_mask, train=train, generator=generator)
+        if train and cfg.final_channel_mask_prob > 0:
+            pooled = embedding_mask(pooled[:, None, :], 0.0, 1, cfg.final_channel_mask_prob,
+                                    cfg.final_channel_mask_width, generator)[:, 0, :]
         embedding, logits = self.head(pooled)
         out = {"embedding": embedding, "logits": logits}
         if self.cfg.use_aam and labels is not None:

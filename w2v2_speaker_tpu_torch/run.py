@@ -7,11 +7,13 @@ runs on the CPU.
         data.module.data_dir=<spk/yt/utt.wav tree> \\
         data.module.shards_dir=<shard output> \\
         data.module.test_trial_path=<trials.txt> trainer.max_steps=1000
+    python -m w2v2_speaker_tpu_torch.run +experiment=speech_wav2vec2_ctc \
+        data_folder=<dir holding librispeech/train-clean-100, dev-*, test-*>
 
 Loads ``KEY=value`` lines of a ``.env`` file in the working directory into
 the environment (without overriding), composes the config, runs
-``runtime.experiment.run_train_eval`` once, prints ``objective: <EER>`` and
-returns it. Grid runs (``-m``), hyperparameter search (``+search``), the
+``runtime.experiment.run_train_eval`` once, prints ``objective: <EER>``
+(``<WER>`` for the speech recipe) and returns it. Grid runs (``-m``), hyperparameter search (``+search``), the
 SLURM launcher (``hydra/launcher=...``) and shell completion (``-sc``)
 are not ported yet (ROADMAP.md Queue 1 item 3); there is no compilation
 cache to enable (item 9).

@@ -1,28 +1,33 @@
-"""Recipe assembly and the train/validate/test loop of the speaker recipes.
+"""Recipe assembly and the train/validate/test loop of the speaker, paired
+and speech recipes.
 
 Counterpart of ``w2v2_speaker_tpu/runtime/experiment.py``: ``_w2v2_config``
 (:320) as ``w2v2_config``, ``build_model_and_task`` (:374) for the
-``wav2vec2_fc`` network in the ``ce`` and ``aam`` modes and for the
-``wav2vec2_paired`` network (:513-522), and
-``build_optimizer`` (:616) for Adam under the one-cycle schedule,
-global-norm clipping and the backbone freeze schedules, and
-``build_evaluator`` (:289) for the five evaluators of ``config/evaluator/``,
-read from the same keys of the merged Hydra config (``optim.algo``,
-``optim.schedule``, ``optim.loss``, ``trainer``, ``network``,
-``evaluator``). ``load_recipe`` composes a recipe from ``config/`` with
-the port's ``load_config``.
+``wav2vec2_fc`` network in the ``ce``, ``aam``, ``ce_no_pool`` and
+``speaker_ctc`` modes (:434-459), the ``wav2vec2_paired`` network
+(:513-522) and the ``wav2vec2_fc_letter`` speech network (:576-593), and
+``build_optimizer`` (:616) for Adam under the one-cycle or tri-stage
+schedule (``_normalize_schedule_cfg`` :596 folds the reference's nested
+schedule keys), global-norm clipping and the backbone freeze schedules,
+and ``build_evaluator`` (:289) for the five evaluators of
+``config/evaluator/``, read from the same keys of the merged Hydra config
+(``optim.algo``, ``optim.schedule``, ``optim.loss``, ``trainer``,
+``network``, ``evaluator``). ``load_recipe`` composes a recipe from
+``config/`` with the port's ``load_config``.
 
-The entry point is ``run_train_eval`` (:840) for the speaker and paired
-recipes on one card: the data module (``build_data_module`` :198), the
-model and its weights (``_init_state`` :983), the training loop
-(``_train_loop`` :1094: steps per dispatch, accumulation, sanity and
-interval validations, best-k and last checkpoints, resume, early stopping,
-step and epoch limits), then the best checkpoint (or the average of the
-best k) on the test trials: embeddings of full utterances scored by the
-evaluator (``_run_speaker`` :1469), or the paired network's sigmoid score
-of each full-utterance pair (``_run_paired`` :1704). It runs on the card
-unless called with ``device="cpu"``. What is not ported raises
-``NotImplementedError`` naming its ROADMAP row.
+The entry point is ``run_train_eval`` (:840) on one card: the data module
+(``build_data_module`` :198, VoxCeleb or LibriSpeech), the model and its
+weights (``_init_state`` :983), the training loop (``_train_loop`` :1094:
+steps per dispatch, accumulation, sanity and interval validations, best-k
+and last checkpoints, resume, early stopping, step and epoch limits), then
+the best checkpoint (or the average of the best k) on the test split:
+embeddings of full utterances scored by the evaluator (``_run_speaker``
+:1469), the paired network's sigmoid score of each full-utterance pair
+(``_run_paired`` :1704), or the WER of greedy CTC transcriptions of the
+clean and other test splits (``_run_speech`` :1874, which checkpoints on
+``val_wer`` and logs a tracked training utterance's transcription at each
+validation). It runs on the card unless called with ``device="cpu"``.
+What is not ported raises ``NotImplementedError`` naming its ROADMAP row.
 
 Divergences from the JAX package: ``trainer.deterministic=true`` raises
 (ROADMAP.md Queue 1 item 9): the card's cuDNN and cuBLAS calls are not
@@ -49,8 +54,11 @@ import numpy as np
 import torch
 
 from ..data.batching import PairedBatchProcessor
+from ..data.collate import pad_batch_rows
 from ..data.datamodule import VoxCelebConfig, VoxCelebDataModule
+from ..data.librispeech import LibriSpeechConfig, LibriSpeechDataModule
 from ..data.samples import collate_paired_batch
+from ..data.tokenizer import CharTokenizer
 from ..device import DeviceLike, resolve_device, set_float32_precision
 from ..eval.backends import LDAEvaluator, PLDAEvaluator
 from ..eval.evaluator import (
@@ -60,10 +68,12 @@ from ..models.hf_convert import load_hf_checkpoint
 from ..models.wav2vec2 import BASE_CONFIG, LARGE_CONFIG, Wav2Vec2Config, init_parameters
 from ..models.wav2vec2_paired import Wav2Vec2PairedConfig, Wav2Vec2PairedModel
 from ..models.wav2vec2_speaker import Wav2Vec2SpeakerConfig, Wav2Vec2SpeakerModel
+from ..models.wav2vec2_speech import Wav2Vec2SpeechConfig, Wav2Vec2SpeechModel
 from ..objectives import schedules
 from ..train.checkpoint import CheckpointManager, graft_into, load_params
 from ..train.paired_task import PairedSpeakerTask, paired_scores_to_metrics
 from ..train.speaker_task import SpeakerTask
+from ..train.speech_task import SpeechTask
 from ..train.state import AdamTx, ClipTx, TrainState, make_freeze_schedule_tx
 from ..train.steps import make_train_step
 from .config import load_config
@@ -72,7 +82,7 @@ from .logging import MetricsLogger
 __all__ = [
     "CONFIG_DIR", "TINY_W2V2", "EarlyStopping", "build_augmenter", "build_data_module", "build_evaluator",
     "build_model_and_task", "build_optimizer", "load_recipe", "paired_model_config", "run_train_eval",
-    "speaker_model_config", "w2v2_config",
+    "speaker_model_config", "speech_model_config", "w2v2_config",
 ]
 
 _OPTIM_ROW = "ROADMAP.md Queue 1 item 3 (optimizers and schedules)"
@@ -129,13 +139,15 @@ def w2v2_config(net: Dict, precision: str, remat: bool = False, accumulate: int 
     })
 
 
-_MODES = {"cross_entropy": "ce", "aam_softmax": "aam"}
+_MODES = {"cross_entropy": "ce", "aam_softmax": "aam", "ctc": "speaker_ctc"}
 
 
 def speaker_model_config(cfg: Dict) -> Tuple[Wav2Vec2SpeakerConfig, str]:
     """(model config, training mode) of a merged config whose network is
-    ``wav2vec2_fc`` and whose loss is cross entropy or AAM softmax, as the
-    JAX ``build_model_and_task`` (:434-459) reads them."""
+    ``wav2vec2_fc`` and whose loss is cross entropy, AAM softmax or CTC, as
+    the JAX ``build_model_and_task`` (:434-459) reads them: CTC adds the
+    blank class with a bias of 100, and cross entropy with
+    ``stat_pooling_type`` ``none`` is the frame-level ``ce_no_pool``."""
     net, loss = cfg["network"], cfg["optim"]["loss"]
     if net.get("name", "wav2vec2_fc") != "wav2vec2_fc":
         raise NotImplementedError(f"network {net['name']!r} is not ported yet: ROADMAP.md Queue 1 item 7")
@@ -157,6 +169,8 @@ def speaker_model_config(cfg: Dict) -> Tuple[Wav2Vec2SpeakerConfig, str]:
         aam_scale=loss.get("scale", 30.0),
         final_channel_mask_prob=net["final_channel_mask_prob"],
         final_channel_mask_width=net["final_channel_mask_width"],
+        ctc_head=loss["name"] == "ctc",
+        ctc_blank_bias=100.0 if loss["name"] == "ctc" else 0.0,
     )
     mode = _MODES[loss["name"]]
     if mode == "ce" and net["stat_pooling_type"] == "none":
@@ -176,40 +190,86 @@ def paired_model_config(cfg: Dict) -> Wav2Vec2PairedConfig:
     )
 
 
-def build_model_and_task(cfg: Dict, num_speakers: int) -> Tuple[Union[SpeakerTask, PairedSpeakerTask], str]:
+def speech_model_config(cfg: Dict, vocab_size: int) -> Wav2Vec2SpeechConfig:
+    """The config of a merged config whose network is ``wav2vec2_fc_letter``
+    (:576-593), over ``vocab_size`` tokens."""
+    net, trainer = cfg["network"], cfg["trainer"]
+    return Wav2Vec2SpeechConfig(
+        w2v2=w2v2_config(net, trainer["precision"], trainer.get("remat", False),
+                         int(trainer.get("accumulate_grad_batches") or 1)),
+        vocab_size=vocab_size,
+        head_dropout=net["head_dropout"],
+        timestep_mask_prob=net["timestep_mask_prob"],
+        timestep_mask_width=net["timestep_mask_width"],
+        channel_mask_prob=net["channel_mask_prob"],
+        channel_mask_width=net["channel_mask_width"],
+    )
+
+
+def build_model_and_task(
+    cfg: Dict, num_speakers: int, tokenizer: Optional[CharTokenizer] = None,
+) -> Tuple[Union[SpeakerTask, PairedSpeakerTask, SpeechTask], str]:
     """``(task, "speaker")`` with a new ``Wav2Vec2SpeakerModel`` over
-    ``network.explicit_num_speakers`` or ``num_speakers`` classes, or
+    ``network.explicit_num_speakers`` or ``num_speakers`` classes,
     ``(task, "paired")`` with a new ``Wav2Vec2PairedModel`` for the
-    ``wav2vec2_paired`` network; parameters allocated, not initialised
+    ``wav2vec2_paired`` network, or ``(task, "speech")`` with a new
+    ``Wav2Vec2SpeechModel`` over ``tokenizer``'s vocabulary for the
+    ``wav2vec2_fc_letter`` network; parameters allocated, not initialised
     (see ``models.wav2vec2.init_parameters``)."""
-    if cfg["network"].get("name") == "wav2vec2_paired":
+    name = cfg["network"].get("name")
+    if name == "wav2vec2_paired":
         return PairedSpeakerTask(Wav2Vec2PairedModel(paired_model_config(cfg))), "paired"
+    if name == "wav2vec2_fc_letter":
+        if tokenizer is None:
+            raise ValueError("speech network requires a tokenizer")
+        return SpeechTask(Wav2Vec2SpeechModel(speech_model_config(cfg, tokenizer.vocab_size)), tokenizer), "speech"
     model_cfg, mode = speaker_model_config(cfg)
     n_out = cfg["network"].get("explicit_num_speakers") or num_speakers
     return SpeakerTask(Wav2Vec2SpeakerModel(model_cfg, num_speakers=n_out), mode), "speaker"
 
 
+def _normalize_schedule_cfg(sched_cfg: Dict) -> Dict:
+    """The schedule config with the reference's nested override paths
+    (``optim.schedule.scheduler[.lr_lambda].<key>``) folded onto its flat
+    keys, the nested value winning (:596)."""
+    nested = sched_cfg.get("scheduler")
+    if not isinstance(nested, dict):
+        return sched_cfg
+    out = dict(sched_cfg)
+    for src in (nested, nested.get("lr_lambda")):
+        if isinstance(src, dict):
+            out.update({k: v for k, v in src.items() if not isinstance(v, dict)})
+    return out
+
+
 def build_optimizer(cfg: Dict):
-    """The update transform of a merged config: Adam under one-cycle,
-    optional global-norm clipping, then the freeze schedules, composed in
-    the order of the JAX ``build_optimizer``."""
+    """The update transform of a merged config: Adam under one-cycle or
+    tri-stage, optional global-norm clipping, then the freeze schedules,
+    composed in the order of the JAX ``build_optimizer``."""
     algo = cfg["optim"]["algo"]
-    sched_cfg = cfg["optim"]["schedule"]
+    sched_cfg = _normalize_schedule_cfg(cfg["optim"]["schedule"])
     if algo["name"] != "adam":
         raise NotImplementedError(f"optimizer {algo['name']!r} is not ported yet: {_OPTIM_ROW}")
     if algo.get("weight_decay"):
         raise NotImplementedError(f"adam weight_decay (adamw) is not ported yet: {_OPTIM_ROW}")
     if algo.get("mu_dtype"):
         raise NotImplementedError(f"adam mu_dtype is not ported yet: {_OPTIM_ROW}")
-    if sched_cfg["name"] != "one_cycle":
+    max_steps = cfg["trainer"]["max_steps"]
+    if sched_cfg["name"] == "one_cycle":
+        sched = schedules.one_cycle(
+            max_lr=algo["lr"],
+            total_steps=max_steps,
+            pct_start=sched_cfg["pct_start"],
+            div_factor=sched_cfg["div_factor"],
+            final_div_factor=sched_cfg["final_div_factor"],
+        )
+    elif sched_cfg["name"] == "tri_stage":
+        sched = schedules.tri_stage(
+            max_steps, sched_cfg["warmup_stage_ratio"], sched_cfg["constant_stage_ratio"],
+            sched_cfg["decay_stage_ratio"], sched_cfg["initial_lr"], algo["lr"], sched_cfg["final_lr"],
+        )
+    else:
         raise NotImplementedError(f"schedule {sched_cfg['name']!r} is not ported yet: {_OPTIM_ROW}")
-    sched = schedules.one_cycle(
-        max_lr=algo["lr"],
-        total_steps=cfg["trainer"]["max_steps"],
-        pct_start=sched_cfg["pct_start"],
-        div_factor=sched_cfg["div_factor"],
-        final_div_factor=sched_cfg["final_div_factor"],
-    )
     tx = AdamTx(sched, b1=algo["b1"], b2=algo["b2"])
     clip_val = float(cfg["trainer"].get("gradient_clip_val") or 0)
     if clip_val > 0:
@@ -287,12 +347,37 @@ def _queue_size(cfg: Dict) -> int:
     return cfg["data"]["shards"].get("queue_size") or cfg["data"]["dataloader"]["queue_size"]
 
 
-def build_data_module(cfg: Dict) -> VoxCelebDataModule:
-    """The prepared VoxCeleb data module of ``cfg`` (:198): shards, splits
-    and validation pairs written on first use."""
+_LIBRISPEECH_SPLITS = (("train", "train_dir"), ("val_clean", "val_clean_dir"), ("val_other", "val_other_dir"),
+                       ("test_clean", "test_clean_dir"), ("test_other", "test_other_dir"))
+
+
+def _librispeech_module(cfg: Dict) -> LibriSpeechDataModule:
+    """The prepared LibriSpeech module of ``cfg`` (:254-290): the splits
+    whose directory exists, the token budget, the tokenizer group's
+    vocabulary, speaker labels when asked for."""
+    m, dl = cfg["data"]["module"], cfg["data"]["dataloader"]
+    dm = LibriSpeechDataModule(LibriSpeechConfig(
+        split_dirs={split: pathlib.Path(m[key]) for split, key in _LIBRISPEECH_SPLITS
+                    if m.get(key) and pathlib.Path(m[key]).exists()},
+        shards_dir=pathlib.Path(m["shards_dir"]),
+        train_max_num_samples=dl["train_max_num_samples"],
+        max_batch_size=dl.get("max_batch_size"),
+        max_queue_size=_queue_size(cfg),
+        pad_to_multiple=dl["pad_to_multiple"],
+        tokenizer_name=(cfg.get("tokenizer") or {}).get("name", "corpus_char"),
+        with_speaker_labels=bool(m.get("with_speaker_labels")),
+        seed=cfg["seed"],
+    ))
+    dm.prepare_data()
+    return dm
+
+
+def build_data_module(cfg: Dict) -> Union[VoxCelebDataModule, LibriSpeechDataModule]:
+    """The prepared data module of ``cfg`` (:198): VoxCeleb (shards, splits
+    and validation pairs written on first use) or LibriSpeech."""
     m = cfg["data"]["module"]
     if m["name"] == "librispeech":
-        raise NotImplementedError(f"data.module librispeech is not ported yet: {_FAMILIES_ROW}")
+        return _librispeech_module(cfg)
     if m["name"] != "voxceleb":
         raise ValueError(f"unknown data module {m['name']}")
     p, s, dl = cfg["data"]["pipeline"], cfg["data"]["shards"], cfg["data"]["dataloader"]
@@ -389,8 +474,10 @@ def _check_ported(cfg: Dict) -> None:
         raise NotImplementedError(f"verify_model is not ported yet: {_RUNTIME_ROW}")
     if t.get("dump_first_batch"):
         raise NotImplementedError(f"trainer.dump_first_batch is not ported yet: {_RUNTIME_ROW}")
-    if (cfg.get("callbacks") or {}).get("progress_tracker") and net.get("name") != "wav2vec2_paired":
+    if (cfg.get("callbacks") or {}).get("progress_tracker") and net.get("name") == "wav2vec2_fc":
         raise NotImplementedError(f"callbacks.progress_tracker is not ported yet: {_RUNTIME_ROW}")
+    if net.get("name") == "wav2vec2_multitask":
+        raise NotImplementedError(f"network wav2vec2_multitask is not ported yet: {_FAMILIES_ROW}")
     if net.get("use_transformers_as_ensembles"):
         raise NotImplementedError(
             "network.use_transformers_as_ensembles is not ported yet: ROADMAP.md Queue 1 item 5")
@@ -400,8 +487,9 @@ def _check_ported(cfg: Dict) -> None:
 
 
 def run_train_eval(cfg: Dict, device: DeviceLike = None) -> Optional[float]:
-    """Train and test the speaker or paired recipe of ``cfg`` (:840);
-    returns the test EER (the validation EER without test trials), or None when
+    """Train and test the speaker, paired or speech recipe of ``cfg``
+    (:840); returns the test EER (the validation EER without test trials)
+    or the test-clean WER (the validation WER without it), or None when
     ``eval_model`` is false or the test phase is skipped. Runs on the card
     unless ``device="cpu"``, and raises without a card before it reads
     anything."""
@@ -425,12 +513,15 @@ def run_train_eval(cfg: Dict, device: DeviceLike = None) -> Optional[float]:
                            flush_every=cfg["trainer"].get("log_every", 100))
     print(f"experiment: {cfg.get('experiment_name')}")
     dm = build_data_module(cfg)
-    print(dm.summary())
+    speech = isinstance(dm, LibriSpeechDataModule)
+    if not speech:
+        print(dm.summary())
     with torch.device("meta"):
-        task, kind = build_model_and_task(cfg, dm.num_speakers)
+        task, kind = build_model_and_task(cfg, 0 if speech else dm.num_speakers,
+                                          tokenizer=dm.tokenizer if speech else None)
     task.model.to_empty(device=dev)
     init_parameters(task.model, torch.Generator(device=dev).manual_seed(seed))
-    run = _run_paired if kind == "paired" else _run_speaker
+    run = {"paired": _run_paired, "speaker": _run_speaker, "speech": _run_speech}[kind]
     return run(cfg, dm, task, logger, dev)
 
 
@@ -491,10 +582,10 @@ class EarlyStopping:
 
 
 def _to_device(batch: Dict, device: torch.device) -> Dict[str, torch.Tensor]:
-    """The tensors of a numpy batch on ``device`` (host-only ``keys``
-    dropped)."""
-    return {k: torch.from_numpy(np.asarray(v)).to(device, non_blocking=True)
-            for k, v in batch.items() if k != "keys"}
+    """The arrays of a numpy batch as tensors on ``device``; the host-only
+    lists (``keys``, ``transcriptions``) stay behind."""
+    return {k: torch.from_numpy(v).to(device, non_blocking=True)
+            for k, v in batch.items() if isinstance(v, np.ndarray)}
 
 
 def _to_host(metrics: Dict) -> Dict[str, torch.Tensor]:
@@ -503,9 +594,13 @@ def _to_host(metrics: Dict) -> Dict[str, torch.Tensor]:
 
 
 def _train_loop(cfg, task, state: TrainState, logger, train_iter_fn, validate_fn, device,
-                on_step=None):
+                on_step=None, kind: str = "speaker"):
     """The training loop of :1094 on one card. Returns ``(state, ckpt)``,
-    ``ckpt`` None when nothing was checkpointed (no fit, fast_dev_run)."""
+    ``ckpt`` None when nothing was checkpointed (no fit, fast_dev_run).
+    ``kind`` "speech" checkpoints on ``val_wer``, refuses
+    ``steps_per_dispatch`` > 1 and trains every token-budget batch as it
+    comes, its rows padded to a multiple of the accumulation count; the
+    other kinds drop a batch whose rows differ from the first one's."""
     if not cfg.get("fit_model", True):
         return state, None  # evaluation runs on the weights as loaded
     trainer = cfg["trainer"]
@@ -519,7 +614,9 @@ def _train_loop(cfg, task, state: TrainState, logger, train_iter_fn, validate_fn
     min_epochs = int(trainer.get("min_epochs") or 0)
     fast_dev = bool(trainer.get("fast_dev_run"))
 
-    ckpt = CheckpointManager(trainer["checkpoint_dir"], top_k=int(trainer.get("save_top_k", 1)))
+    speech = kind == "speech"
+    ckpt = CheckpointManager(trainer["checkpoint_dir"], monitor="val_wer" if speech else "val_eer",
+                             top_k=int(trainer.get("save_top_k", 1)))
     resumed_epoch = 0
     if trainer.get("resume"):
         try:
@@ -550,6 +647,9 @@ def _train_loop(cfg, task, state: TrainState, logger, train_iter_fn, validate_fn
     # whose metrics come to the host once; a dispatch never straddles a
     # validation, max_steps or limit_train_batches boundary
     spd = int(trainer.get("steps_per_dispatch") or 1)
+    if spd > 1 and speech:
+        raise ValueError("steps_per_dispatch needs fixed-shape batches; the speech token-budget batcher "
+                         "varies shapes by design")
     step_fns = {}
 
     def get_step_fn(k: int):
@@ -624,14 +724,19 @@ def _train_loop(cfg, task, state: TrainState, logger, train_iter_fn, validate_fn
         buf = []
         for batch in train_iter_fn(epoch):
             rows = batch["labels"].shape[0]
-            if expected_rows is None:
-                expected_rows = rows
-                if rows % acc:
-                    raise ValueError(f"batch size {rows} not divisible by accumulate_grad_batches={acc}")
-            if rows != expected_rows:
-                dropped_ragged += 1  # never silently: a mis-sized stream would train on a fraction
-                print(f"dropped ragged train batch #{dropped_ragged}: leading dim {rows} != {expected_rows}")
-                continue
+            if speech:
+                if rows % acc:  # padding rows have empty labels: left out of the CTC mean
+                    arrays = {k: v for k, v in batch.items() if isinstance(v, np.ndarray)}
+                    batch = {**batch, **pad_batch_rows(arrays, -(-rows // acc) * acc)}
+            else:
+                if expected_rows is None:
+                    expected_rows = rows
+                    if rows % acc:
+                        raise ValueError(f"batch size {rows} not divisible by accumulate_grad_batches={acc}")
+                if rows != expected_rows:
+                    dropped_ragged += 1  # never silently: a mis-sized stream would train on a fraction
+                    print(f"dropped ragged train batch #{dropped_ragged}: leading dim {rows} != {expected_rows}")
+                    continue
             buf.append(batch)
             if len(buf) < chunk_take():
                 continue
@@ -867,3 +972,82 @@ def _run_paired(cfg, dm: VoxCelebDataModule, task: PairedSpeakerTask, logger, de
                                       "test_seconds": time.perf_counter() - t0}, split="test")
     logger.close()
     return float(res["eer"])
+
+
+def _make_transcription_tracker(raw_batch: Dict, task: SpeechTask, logger):
+    """The first utterance of ``raw_batch``, tracked (:1804): its ground
+    truth logged once, the model's transcription of it at each call."""
+    one = {"features": raw_batch["features"][:1], "mask": raw_batch["mask"][:1]}
+    logger.log_text(0, "train/tracked_ground_truth", raw_batch["transcriptions"][0])
+
+    def track(state: TrainState) -> None:
+        logger.log_text(int(state.step), "train/tracked_transcription", task.transcribe(one)[0])
+
+    return track
+
+
+def _make_wer_fn(dm: LibriSpeechDataModule, task: SpeechTask, eval_bs: int):
+    """``wer(split, limit)``: the WER of ``split``'s first ``limit`` eval
+    batches of ``eval_bs`` (all without a limit), None for an empty split
+    (:1831)."""
+    def wer(split: str, limit: Optional[int] = None) -> Optional[float]:
+        batches = []
+        for i, b in enumerate(dm.eval_batches(split, batch_size=eval_bs)):
+            if limit and i >= limit:
+                break
+            batches.append(b)
+        return task.evaluate_wer(batches)["wer"] if batches else None
+
+    return wer
+
+
+def _run_speech(cfg, dm: LibriSpeechDataModule, task: SpeechTask, logger, device) -> Optional[float]:
+    """Fit on token-budget batches, validate the WER of the clean and other
+    validation splits, restore the best checkpoint by ``val_wer`` and
+    return the test-clean WER (:1874)."""
+    if (cfg.get("callbacks") or {}).get("progress_tracker"):
+        print("progress tracker: unsupported for the speech task family; callback ignored")
+    raw_example = next(iter(dm.train_batches()))
+    state = _init_state(cfg, task)
+    limit_val = cfg["trainer"].get("limit_val_batches")
+    track_transcription = _make_transcription_tracker(raw_example, task, logger)
+    wer = _make_wer_fn(dm, task, int(cfg["data"]["dataloader"].get("eval_batch_size", 8)))
+
+    def validate(state, max_batches=None):
+        track_transcription(state)
+        lim = max_batches if max_batches is not None else limit_val
+        metrics = {}
+        for split in ("val_clean", "val_other"):
+            if split in dm.cfg.split_dirs:
+                value = wer(split, limit=lim)
+                if value is not None:
+                    metrics[f"val_wer_{split.split('_')[1]}"] = value
+        metrics["val_wer"] = metrics.get("val_wer_clean", next(iter(metrics.values()), 1.0))
+        return metrics
+
+    def train_iter(epoch=0):
+        return dm.train_batches(prefetch_depth=cfg["data"]["dataloader"].get("prefetch_depth", 4), epoch=epoch)
+
+    state, ckpt = _train_loop(cfg, task, state, logger, train_iter, validate, device, kind="speech")
+    state = _restore_best(state, ckpt, int(cfg["trainer"].get("average_top_k", 1)))
+    if not cfg.get("eval_model", True):
+        logger.close()
+        return None
+    ltb = _limit_test_batches(cfg)
+    if ltb == 0:
+        print("limit_test_batches=0: skipping the test phase")
+        logger.close()
+        return None
+    t0 = time.perf_counter()
+    results = {}
+    for split in ("test_clean", "test_other"):
+        if split in dm.cfg.split_dirs:
+            value = wer(split, limit=ltb)
+            if value is not None:
+                results[split] = value
+    if results:
+        logger.log_eval(int(state.step), {**{f"{k}_wer": v for k, v in results.items()},
+                                          "test_seconds": time.perf_counter() - t0}, split="test")
+    objective = results["test_clean"] if "test_clean" in results else validate(state)["val_wer"]
+    logger.close()
+    return float(objective)

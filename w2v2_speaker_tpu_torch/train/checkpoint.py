@@ -4,8 +4,9 @@ starts and serving.
 ``CheckpointManager`` is the counterpart of
 ``w2v2_speaker_tpu/train/checkpoint.py::CheckpointManager`` (:62), with
 ``resolve_checkpoint_path`` (:33): after each validation it writes
-``last`` and keeps the ``top_k`` best checkpoints on the monitored metric
-in directories named ``step{step:08d}_{monitor}={metric:.4f}``, recorded
+``last`` and keeps the ``top_k`` lowest checkpoints on the monitored
+metric (``val_eer``, or ``val_wer`` for the speech task) in directories
+named ``step{step:08d}_{monitor}={metric:.4f}``, recorded
 in the same ``index.json`` (best entries in order, ``last`` with its step
 and epoch). Each directory holds ``state.pt``, a torch file of
 ``TrainState.state_dict()`` (the step, the model, the optimizer transform's
@@ -45,12 +46,12 @@ from ..models.convert import params_from_jax
 from .state import TrainState
 
 __all__ = [
-    "CheckpointManager", "MONITOR", "STATE_FILE", "graft", "graft_into", "load_params", "resolve_checkpoint_path",
+    "CheckpointManager", "MONITORS", "STATE_FILE", "graft", "graft_into", "load_params", "resolve_checkpoint_path",
     "unflatten",
 ]
 
 STATE_FILE = "state.pt"
-MONITOR = "val_eer"  # the metric best-k ranks, lowest first
+MONITORS = ("val_eer", "val_wer")  # the metrics best-k may rank, lowest first
 
 
 def resolve_checkpoint_path(path) -> pathlib.Path:
@@ -77,10 +78,13 @@ def _load_state(directory: pathlib.Path) -> Dict:
 
 class CheckpointManager:
     """Best-k and last checkpoints of a ``TrainState``: keeps the ``top_k``
-    lowest values of ``MONITOR`` (the validation EER), and always writes
-    ``last``, which resume reads."""
+    lowest values of ``monitor`` (the validation EER, or WER), and always
+    writes ``last``, which resume reads."""
 
-    def __init__(self, directory, top_k: int = 1):
+    def __init__(self, directory, monitor: str = "val_eer", top_k: int = 1):
+        if monitor not in MONITORS:
+            raise ValueError(f"monitor {monitor!r} is not one of {MONITORS}")
+        self.monitor = monitor
         self.dir = pathlib.Path(directory)
         self.dir.mkdir(parents=True, exist_ok=True)
         self.top_k = top_k
@@ -108,9 +112,9 @@ class CheckpointManager:
         self._index["last"] = {"step": step}
         if epoch is not None:
             self._index["last"]["epoch"] = int(epoch)
-        metric = None if metrics is None else metrics.get(MONITOR)
+        metric = None if metrics is None else metrics.get(self.monitor)
         if metric is not None and np.isfinite(metric):
-            name = f"step{step:08d}_{MONITOR}={metric:.4f}"
+            name = f"step{step:08d}_{self.monitor}={metric:.4f}"
             entries = self._index["best"]
             worst = max((e["metric"] for e in entries), default=np.inf)
             # a second validation at the same step names the same directory:

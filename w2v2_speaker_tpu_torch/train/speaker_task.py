@@ -1,17 +1,22 @@
-"""Speaker-recognition task: the losses of the ``ce`` and ``aam`` training
-modes.
+"""Speaker-recognition task: the losses of the ``ce``, ``aam``,
+``ce_no_pool`` and ``speaker_ctc`` training modes.
 
 Counterpart of ``w2v2_speaker_tpu/train/speaker_task.py::SpeakerTask``
 (:43): ``ce`` takes the model's logits against the speaker labels with
 ``cross_entropy``; ``aam`` hands the labels to the model, whose AAM head
-returns the loss and predictions (:91-92, :131-132). The loss and
-accuracy metrics as :114-126. The other training modes raise
-``NotImplementedError`` naming their ROADMAP rows.
+returns the loss and predictions (:91-92, :131-132); ``ce_no_pool``
+(:135-156) takes every frame's logits against its utterance's label, the
+mean over the valid frames of the model's ``frame_mask``; ``speaker_ctc``
+(:173-189) runs CTC over the frame logits (class 0 the blank) against a
+one-token target, the label + 1. The loss and accuracy metrics as
+:114-126. The triplet modes raise ``NotImplementedError`` naming their
+ROADMAP row.
 
 The model contract: ``model(features, mask, train=..., generator=...)``
 (and ``labels=`` under ``aam``) returns a dict with ``embedding`` [B, D],
 ``logits`` [B, C] (None under ``aam``), and under ``aam`` ``loss`` and
-``preds``.
+``preds``; in the frame-level modes ``[B, T, ...]`` embeddings and logits
+and ``frame_mask`` [B, T] (or None).
 """
 
 from __future__ import annotations
@@ -28,10 +33,8 @@ __all__ = ["SpeakerTask", "TRAINING_MODES"]
 
 TRAINING_MODES = ("ce", "ce_no_pool", "aam", "triplet", "triplet_ce", "speaker_ctc")
 _NOT_PORTED = {
-    "ce_no_pool": "Queue 1 item 5 (frame-level pooling 'none')",
     "triplet": "Queue 1 item 7 (triplet mining and losses)",
     "triplet_ce": "Queue 1 item 7 (triplet mining and losses)",
-    "speaker_ctc": "Queue 1 item 7 (speech CTC)",
 }
 
 
@@ -62,17 +65,31 @@ class SpeakerTask:
         kwargs = {"labels": labels} if self.mode == "aam" else {}
         out = self.model(batch["features"], batch.get("mask"), train=train, generator=generator,
                          **kwargs)
-        if self.mode == "aam":
-            loss, preds = out["loss"], out["preds"]
-        else:
-            loss, preds = losses.cross_entropy(out["logits"], labels)
+        loss, preds = self._compute_loss(out, batch)
         metrics: Dict[str, Any] = {"loss": loss.detach()}
-        if labels is not None and preds.ndim == 2 and preds.shape[0] == labels.shape[0]:
+        if labels is not None and preds is not None and preds.ndim == 2 and preds.shape[0] == labels.shape[0]:
             metrics["accuracy"] = (preds.argmax(-1) == labels).float().mean()
         encoder = getattr(getattr(self.model, "wav2vec2", None), "encoder", None)
         if train and encoder is not None:
             metrics["layers_run"] = encoder.layers_run
         return loss, {"metrics": metrics, "out": out}
+
+    def _compute_loss(self, out, batch) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        labels = batch.get("labels")
+        if self.mode == "aam":
+            return out["loss"], out["preds"]
+        if self.mode == "ce":
+            return losses.cross_entropy(out["logits"], labels)
+        logits = out["logits"]  # [B, T, C]
+        mask = out["frame_mask"]
+        if self.mode == "ce_no_pool":
+            b, t, c = logits.shape
+            weights = None if mask is None else mask.reshape(b * t)
+            return losses.cross_entropy(logits.reshape(b * t, c), labels.repeat_interleave(t), weights)
+        # speaker_ctc
+        lengths = losses.frame_lengths(logits, mask)
+        target = (labels + 1)[:, None]
+        return losses.ctc_loss(logits, lengths, target, torch.ones_like(labels)), None
 
     @torch.no_grad()
     def embed_fn(self, features: torch.Tensor, mask: Optional[torch.Tensor] = None):

@@ -19,6 +19,7 @@ import torch
 
 from .paired_task import PairedSpeakerTask
 from .speaker_task import SpeakerTask
+from .speech_task import SpeechTask
 from .state import TrainState
 
 __all__ = ["make_train_step"]
@@ -33,7 +34,7 @@ def _stack(per_step: List[Dict]) -> Dict:
 
 
 def make_train_step(
-    task: Union[SpeakerTask, PairedSpeakerTask],
+    task: Union[SpeakerTask, PairedSpeakerTask, SpeechTask],
     accumulate_steps: int = 1,
     return_embeddings: bool = False,
     steps_per_dispatch: int = 1,
@@ -44,7 +45,9 @@ def make_train_step(
     ``batch``: what ``task.loss_fn`` reads, every entry with the rows
     leading: ``features`` [B, N], optional ``mask`` [B, N] and ``labels``
     [B] for a ``SpeakerTask``; ``features_a`` / ``features_b``, optional
-    ``mask_a`` / ``mask_b`` and ``labels`` for a ``PairedSpeakerTask``
+    ``mask_a`` / ``mask_b`` and ``labels`` for a ``PairedSpeakerTask``;
+    ``features``, ``mask``, ``labels`` [B, S] and ``label_lengths`` for a
+    ``SpeechTask``
     (with ``steps_per_dispatch`` K > 1, every entry stacked [K, B, ...]
     and the metrics stacked [K, ...]). With ``accumulate_steps`` A > 1 the
     batch is split into A microbatches along axis 0 and the gradients are
