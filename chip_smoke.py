@@ -121,7 +121,39 @@ the run by raising:
    classes, the blank's bias 100, ``[66, 149, 5995]`` float32 logits) on
    phase 13's shards: 4 steps in one dispatch, finite losses, launches =
    kept layers, the mean-pooled test EER in [0, 1];
-18. one JSON line with every kernel's numbers (the attention kernels and
+18. multitask end to end: ``run.main`` with ``+experiment=multitask_wav2vec2``
+   (one BASE backbone under the CTC letter head and the speaker CE head,
+   random init, bf16, the 3.2 M-sample token budget, ``tri_stage``) on phase
+   16's training split and eval splits of 8 utterances over 2 speakers: 8
+   steps across an epoch, validations at 4 and 8 (both validation WERs and
+   the EER of 16 speaker trials), best-k by ``val_eer`` (as the JAX package
+   ranks every kind but speech), both test WERs and the test EER; then 4
+   steps with ``optim/loss=ctc_aam``; then the predict twin on the best
+   checkpoint (``network.explicit_vocab_size``). Checks: each step's loss
+   equal to loss_speech + loss_speaker, both finite, launches = kept layers,
+   WERs >= 0, EERs in [0, 1], the attention kernels at the longest training
+   batch's layer-0 inputs (dropout on) against their plain versions, then
+   timed there; the predict scores equal to ``extract_embeddings`` + the
+   cosine evaluator. Prints each step's B, T and ms, audio s per s over
+   steps 5-8, the host's wait, step 3's profile and the phase's peak memory;
+19. triplets end to end: ``run.main`` with ``+experiment=speaker_wav2vec2_triplet``
+   and ``speaker_wav2vec2_triplet_ce`` at full BASE width, bf16, B=66, on
+   phase 13's corpus in shards of runs of 2 (4 batches an epoch), 4 steps
+   in one dispatch each, triplets mined on the card: every batch holds >= 2
+   speakers and >= 2 samples of each, finite losses, launches = kept
+   layers, the test EER in [0, 1]; ms/step and the peak memory;
+20. item 5's options on phase 13's shards: (a) ``network.wav2vec_feature_encoder_only=true``
+   with ``network.conv_impl=fused_pallas`` (the conv stack alone), 4 steps:
+   6 conv launches and no attention launch a step, the conv kernel against
+   its plain version at the first training batch's own layer inputs (then
+   timed there), ms/step and peak memory; (b) ``network.use_transformers_as_ensembles=true``
+   with 12 ensembles at the test (``fit_model=false``): 12 pooled
+   embeddings per utterance, each trial's score the mean of the 12
+   per-layer cosine scores, the test EER, and float32 ensemble embeddings
+   card against CPU; (c) ``network.stat_pooling_type=none`` with the test
+   pooling ``none``: ``[T, D]`` test embeddings scored by the frame-level
+   cosine, the EER in [0, 1];
+21. one JSON line with every kernel's numbers (the attention kernels and
    the conv at the LARGE training shapes, launches of the LARGE training
    run), the card line, then the result line.
 
@@ -259,6 +291,25 @@ SPEECH_CHARS_PER_S = 12
 SPEECH_STEPS, SPEECH_VAL_EVERY, SPEECH_PROFILED = 8, 4, 2
 SPEECH_F32_LABELS = (40, 25, 9)  # tokens of the f32 CTC step's rows of 32 000, 21 000 and 9 000 samples
 SPEAKER_CTC_STEPS = 4
+# multitask end to end: phase 16's training split and seed, so the same 7
+# batches an epoch as the speech run; eval splits of 8 utterances over 2
+# speakers (4 each: 12 same-speaker pairs a split), 16 trials drawn from the
+# first validation and the first test split; 8 ctc_ce steps (step 3
+# profiled), then 4 ctc_aam steps; the predict twin on the best checkpoint
+MT_EVAL_SPEAKERS, MT_VAL_PAIRS = 2, 16
+MT_STEPS, MT_VAL_EVERY, MT_PROFILED, MT_AAM_STEPS = 8, 4, 2, 4
+MT_LOSS_RTOL = 1e-6  # loss against speech_weight x loss_speech + speaker_weight x loss_speaker (one float32 sum)
+MT_SAME_ATOL = 1e-6  # the predict twin's scores vs extract_embeddings + cosine evaluator on the same model
+# triplets end to end on phase 13's corpus: each training speaker's 6
+# utterances in runs of 2 (264 samples in shards of 24: 4 batches of 66 an
+# epoch, so one dispatch of 4 steps; runs of 4 keep 168, 2 batches), 4 steps
+# of each triplet recipe
+TRIPLET_RUN, TRIPLET_STEPS = 2, 4
+# item 5's options on phase 13's shards: the conv stack alone on the fused
+# conv (4 steps), 12 layer ensembles (test only), frame-level test embeddings
+LITE_STEPS, ENSEMBLES, FRAMES_STEPS = 4, 12, 2
+ENSEMBLE_SAME_ATOL = 1e-6  # the ensemble score vs the mean of the 12 per-layer cosine scores
+ENSEMBLE_F32_S = (1.2, 2.0, 3.0)  # the float32 card-vs-CPU ensemble utterances
 
 
 def cuda_ms(fn, reps: int, warmup: int = 3) -> float:
@@ -1236,7 +1287,10 @@ class RunProbe:
         setattr(owner, name, make(orig))
 
     def _hook_attention(self, model) -> None:
-        attn = getattr(model, "wav2vec2", model).encoder.layers[RUN_ATTN_LAYER].attention
+        encoder = getattr(getattr(model, "wav2vec2", model), "encoder", None)
+        if encoder is None:  # the conv stack alone: no attention to hook
+            return
+        attn = encoder.layers[RUN_ATTN_LAYER].attention
         seen = {}
 
         def pre(module, args):
@@ -1351,9 +1405,11 @@ class RunProbe:
             setattr(owner, name, orig)
 
     def per_step(self) -> list:
-        """(step, layers kept, launches in the step) of every training step."""
+        """(step, layers kept (None for a model without an encoder), launches
+        in the step) of every training step."""
         assert len(self.starts) == len(self.ends) == len(self.steps), "unpaired step events"
-        return [(step, int(m["layers_run"]), {k: end[1][k] - start[1][k] for k in end[1]})
+        return [(step, None if "layers_run" not in m else int(m["layers_run"]),
+                 {k: end[1][k] - start[1][k] for k in end[1]})
                 for (step, m), start, end in zip(self.steps, self.starts, self.ends)]
 
     def step_ms(self, first: int, last: int) -> float:
@@ -1700,23 +1756,26 @@ def pooling_phase(card: str, tmp: pathlib.Path, wav_dir, trials, shards) -> None
               flush=True)
 
 
-def write_speech_corpus(root: pathlib.Path, rng) -> tuple:
+def write_speech_corpus(root: pathlib.Path, rng, eval_speakers: int = 12, train: bool = True) -> tuple:
     """A LibriSpeech-layout tree (``<spk>/<chapter>/<spk>-<chapter>-<utt>.wav``
     and ``<spk>-<chapter>.trans.txt``): a train split of ``SPEECH_TRAIN``
-    utterances and four eval splits of ``SPEECH_EVAL``, noise over a
-    speaker's tone, each transcript random words at ~``SPEECH_CHARS_PER_S``
-    characters a second (so every row's frames, ~50 a second, cover its
-    label). Returns ({split key of data.module: directory}, seconds of
-    audio per split)."""
+    utterances over 12 speakers (left out without ``train``) and four eval
+    splits of ``SPEECH_EVAL`` over ``eval_speakers`` each (12: every
+    utterance its own speaker), noise over a speaker's tone, each transcript
+    random words at ~``SPEECH_CHARS_PER_S`` characters a second (so every
+    row's frames, ~50 a second, cover its label). Returns ({split key of
+    data.module: directory}, seconds of audio per split)."""
     letters = np.array(list("ABCDEFGHIJKLMNOPQRSTUVWXYZ"))
     splits = [("train", "train_dir", SPEECH_TRAIN, SPEECH_TRAIN_S)] + [
         (name, f"{name}_dir", SPEECH_EVAL, SPEECH_EVAL_S)
         for name in ("val_clean", "val_other", "test_clean", "test_other")]
     dirs, seconds = {}, {}
     for i, (split, key, n, (lo, hi)) in enumerate(splits):
+        if split == "train" and not train:
+            continue
         seconds[split] = 0.0
         for u in range(n):
-            spk, chapter = 1000 + 50 * i + u % 12, 7 + u % 2
+            spk, chapter = 1000 + 50 * i + u % (12 if split == "train" else eval_speakers), 7 + u % 2
             d = root / split / str(spk) / str(chapter)
             d.mkdir(parents=True, exist_ok=True)
             sec = float(rng.uniform(lo, hi))
@@ -1895,6 +1954,316 @@ def speaker_ctc_phase(card: str, tmp: pathlib.Path, wav_dir, trials, shards) -> 
           f"layers per step; test EER {objective:.4f}; whole run {run_s:.2f} s [{card}]", flush=True)
 
 
+def mt_checks(label, probe, steps) -> list:
+    """``check_steps`` of a multitask run, and each step's logged loss equal
+    to speech_weight x loss_speech + speaker_weight x loss_speaker (1, 1),
+    both parts finite; the layers kept."""
+    kept = check_steps(label, probe, steps)
+    for step, m in probe.steps:
+        parts = m["loss_speech"] + m["loss_speaker"]
+        assert np.isfinite(m["loss_speech"]) and np.isfinite(m["loss_speaker"]) and abs(
+            m["loss"] - parts) <= MT_LOSS_RTOL * abs(parts), f"{label} step {step}: {m}"
+        assert 0 <= m["accuracy"] <= 1, f"{label} step {step}: accuracy {m['accuracy']}"
+    return kept
+
+
+def multitask_phase(card: str, tmp: pathlib.Path) -> None:
+    """Phase 18: ``run.main`` on ``multitask_wav2vec2`` (one BASE backbone
+    under the CTC letter head and the speaker CE head, then AAM) at full
+    width on phase 16's training split and eval splits of repeated
+    speakers, then the predict twin on its best checkpoint."""
+    from w2v2_speaker_tpu_torch import run
+    from w2v2_speaker_tpu_torch.data.librispeech import LibriSpeechDataModule
+    from w2v2_speaker_tpu_torch.train.multitask_task import MultitaskTask
+
+    rng = np.random.default_rng(18)
+    dirs, seconds = write_speech_corpus(tmp / "mt_librispeech", rng, eval_speakers=MT_EVAL_SPEAKERS, train=False)
+    dirs["train_dir"] = tmp / "librispeech" / "train"  # phase 16's
+    ckpt = tmp / "mt_ckpt"
+    argv = ["+experiment=multitask_wav2vec2", *(f"data.module.{k}={v}" for k, v in dirs.items()),
+            f"data.module.shards_dir={tmp / 'mt_shards'}", f"data.module.num_val_pairs={MT_VAL_PAIRS}",
+            f"trainer.max_steps={MT_STEPS}", f"trainer.val_check_interval={MT_VAL_EVERY}",
+            "trainer.log_dir=null", "trainer.log_every=1", "seed=16"]  # phase 16's seed: its batches
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    with RunProbe(profile=(MT_PROFILED, MT_PROFILED), task_cls=MultitaskTask, longest=True,
+                  dm_cls=LibriSpeechDataModule) as probe:
+        t0 = time.perf_counter()
+        objective = run.main([*argv, f"trainer.checkpoint_dir={ckpt}"])
+        run_s = time.perf_counter() - t0
+    peak_gib = (torch.cuda.max_memory_allocated() - held) / 2**30
+    kept = mt_checks("multitask", probe, MT_STEPS)
+    assert max(probe.epochs) >= 1, f"multitask: {MT_STEPS} steps did not cross an epoch ({probe.epochs})"
+    index = json.loads((ckpt / "index.json").read_text())
+    best = [e["metric"] for e in index["best"]]
+    # the JAX package ranks every kind but speech by val_eer (_train_loop :1129)
+    assert index["last"]["step"] == MT_STEPS and best == sorted(best) and all(
+        "_val_eer=" in e["name"] for e in index["best"]), f"multitask: index {index}"
+    val = [m for _, m in probe.evals if "val_eer" in m]
+    test = next(m for _, m in probe.evals if "test_eer" in m)
+    assert len(val) == MT_STEPS // MT_VAL_EVERY, f"multitask: validations {probe.evals}"
+    for m in (*val, test):
+        wers = [v for k, v in m.items() if k.endswith("wer") or k.startswith("val_wer")]
+        assert wers and all(np.isfinite(v) and v >= 0 for v in wers), f"multitask: WERs {m}"
+        eer = m.get("val_eer", m.get("test_eer"))
+        assert 0 <= eer <= 1 and 0 <= m.get("val_mdc", m.get("test_mdc")) <= 1, f"multitask: EER {m}"
+    assert "test_other_wer" in test and objective == test["test_eer"], f"multitask: objective {objective}, {test}"
+
+    rows, frames = zip(*[(b, feat_extract_output_lengths(n)) for b, n, _ in probe.shapes])
+    train_check, errors, args = check_run_attention(probe.attn)
+    q = args[0]
+    attention_rows("multitask train", errors, args, {"shape": "multitask_train", "dtype": "bfloat16",
+                                                      "rate": args[7], "B": q.shape[0], "T": q.shape[1],
+                                                      "H": q.shape[2]})
+    spans = probe.spans_ms(0, MT_STEPS - 1)
+    window = probe.step_ms(MT_VAL_EVERY, MT_STEPS - 1) * (MT_STEPS - MT_VAL_EVERY)
+    audio = sum(v for _, _, v in probe.shapes[MT_VAL_EVERY:]) / 16000
+    busy, window_ms, kernels, by_cat, (top_name, top_ms) = probe.busy
+    waits_ms = [1e3 * w for w in probe.waits]
+    losses = [(round(m["loss_speech"], 2), round(m["loss_speaker"], 3)) for _, m in probe.steps]
+
+    # 4 steps with the AAM head on the same shards
+    with RunProbe(task_cls=MultitaskTask, dm_cls=LibriSpeechDataModule) as aam:
+        aam_objective = run.main([*argv, "optim/loss=ctc_aam", f"trainer.max_steps={MT_AAM_STEPS}",
+                                  f"trainer.val_check_interval={MT_AAM_STEPS}",
+                                  f"trainer.checkpoint_dir={tmp / 'mt_aam_ckpt'}"])
+    aam_kept = mt_checks("multitask aam", aam, MT_AAM_STEPS)
+    assert 0 <= aam_objective <= 1, f"multitask aam: objective {aam_objective}"
+
+    # the predict twin on the best ctc_ce checkpoint over the test split's files
+    folder = dirs["test_clean_dir"]
+    files = sorted(str(f.relative_to(folder)) for f in folder.rglob("*.wav"))
+    by_speaker = {}
+    for rel in files:
+        by_speaker.setdefault(rel.split("/")[0], []).append(rel.removesuffix(".wav"))
+    pair_file = tmp / "mt_trials.txt"
+    save_evaluation_pairs(generate_validation_pairs(by_speaker, MT_VAL_PAIRS, seed=18), pair_file)
+    vocab = CharTokenizer.load(tmp / "mt_shards" / "vocab.json").vocab_size
+    overrides = ["network=wav2vec2_multitask", "optim/loss=ctc_ce", "trainer.precision=bf16",
+                 f"network.explicit_vocab_size={vocab}", f"load_network_from_checkpoint={ckpt / 'best'}",
+                 f"data.dataloader.test_pad_to_multiple={PREDICT_PAD}",
+                 f"data.dataloader.test_batch_size={PREDICT_BATCH}", f"predict_folder_path={folder}",
+                 f"pair_prediction_path={pair_file}"]
+    reset_launches()
+    scores, pairs = read_scores(predict.main(overrides))
+    got = launches()
+    batches = -(-len(files) // PREDICT_BATCH)
+    assert got == {"flash_attention_fwd": 12 * batches, "flash_attention_bwd_dq": 0,
+                   "flash_attention_bwd_dkv": 0, "conv_encoder": 0}, f"multitask predict launched {got}"
+    model = build_predict_model(load_config(predict.CONFIG_DIR, "predict", overrides))
+    samples = [SpeakerSample(rel, normalize_waveform(load_raw_audio(folder / rel))) for rel in files]
+    direct = {e.sample_id: e.embedding for e in extract_embeddings(model, samples, PREDICT_PAD, PREDICT_BATCH)}
+    del model
+    same = float(np.abs(cosine_scores(direct, pairs) - scores).max())
+    assert np.all((scores >= 0) & (scores <= 1)) and same <= MT_SAME_ATOL, \
+        f"multitask predict: scores vs direct differ by {same}"
+
+    print(f"multitask kernels vs plain on the longest training batch that kept layer {RUN_ATTN_LAYER} "
+          f"(longest T {max(frames)}): {train_check}", flush=True)
+    print("multitask steps (B, T, ms): " + ", ".join(
+        f"({b}, {t}, {ms:.2f})" for b, t, ms in zip(rows, frames, spans)) + f" [{card}]", flush=True)
+    print(f"multitask BASE bf16 ctc_ce, budget 3.2 M samples: {sum(seconds.values()):.1f} s of eval audio written "
+          f"(eval speakers {MT_EVAL_SPEAKERS} a split); shard preparation {probe.prepare_s:.3f} s; steps "
+          f"{MT_VAL_EVERY + 1}-{MT_STEPS}: {audio:.1f} s of audio in {window:.1f} ms (CUDA events), "
+          f"{1e3 * audio / window:.1f} audio s per s ({1e3 * audio / sum(spans[MT_VAL_EVERY:]):.1f} over the steps' "
+          f"own spans); host wait on the Prefetcher per step: mean {np.mean(waits_ms):.2f} ms, by step "
+          f"{[round(w, 2) for w in waits_ms]}; device busy {100 * busy:.1f} % of step {MT_PROFILED + 1} "
+          f"({window_ms:.1f} ms, {kernels} kernels; {per_step_categories(by_cat, top_name, top_ms, 1)}); "
+          f"(speech, speaker) losses {losses}; validations "
+          f"{json.dumps([{k: round(v, 4) for k, v in m.items()} for m in val])}; "
+          f"test {json.dumps({k: round(v, 4) for k, v in test.items()})}; whole run {run_s:.2f} s; layers kept "
+          f"{kept}; epochs read {probe.epochs}; peak {peak_gib:.2f} GiB above the {held / 2**30:.2f} GiB held at "
+          f"the phase's start [{card}]", flush=True)
+    print(f"multitask ctc_aam: {MT_AAM_STEPS} steps, (speech, speaker) losses "
+          f"{[(round(m['loss_speech'], 2), round(m['loss_speaker'], 3)) for _, m in aam.steps]}, "
+          f"{aam.step_ms(1, MT_AAM_STEPS - 1):.3f} ms/step (steps 2-{MT_AAM_STEPS}), layers kept {aam_kept}, test EER "
+          f"{aam_objective:.4f}; predict twin on the best ctc_ce checkpoint: {len(files)} files, {len(pairs)} "
+          f"trials, launches {got}, scores vs extract_embeddings + cosine max diff {same:.3e} [{card}]", flush=True)
+
+
+def triplet_phase(card: str, tmp: pathlib.Path, wav_dir, trials) -> None:
+    """Phase 19: ``run.main`` on ``speaker_wav2vec2_triplet`` and
+    ``speaker_wav2vec2_triplet_ce`` at full BASE width, B=66, 4 steps in
+    one dispatch each, on phase 13's corpus in shards of its own."""
+    from w2v2_speaker_tpu_torch import run
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    report = []
+    for recipe in ("speaker_wav2vec2_triplet", "speaker_wav2vec2_triplet_ce"):
+        argv = [f"+experiment={recipe}", f"data.shards.samples_per_shard={RUN_SHARD + 2}",
+                f"data.shards.sequential_same_speaker_samples={TRIPLET_RUN}", f"trainer.max_steps={TRIPLET_STEPS}",
+                f"trainer.val_check_interval={TRIPLET_STEPS}", "seed=19",
+                *corpus_args(wav_dir, trials, tmp / "triplet_shards", tmp / f"{recipe}_ckpt")]
+        reset_launches()
+        with RunProbe() as probe:
+            objective = run.main(argv)
+        kept = check_steps(recipe, probe, TRIPLET_STEPS)
+        assert 0 <= objective <= 1, f"{recipe}: objective {objective}"
+        for labels in probe.labels:
+            _, counts = torch.unique(labels, return_counts=True)
+            assert labels.numel() == 66 and len(counts) >= 2 and int(counts.min()) >= 2, \
+                f"{recipe}: a batch without a positive for every anchor: {counts.tolist()}"
+        spans = probe.spans_ms(0, TRIPLET_STEPS - 1)
+        report.append(f"{recipe}: losses {[round(m['loss'], 4) for _, m in probe.steps]}, steps "
+                      f"{probe.step_ms(0, TRIPLET_STEPS - 1):.3f} ms/step over the dispatch (spans "
+                      f"{[round(x, 2) for x in spans]}), speakers per batch "
+                      f"{[len(torch.unique(lab)) for lab in probe.labels]}, layers kept {kept}, test EER "
+                      f"{objective:.4f}")
+    peak_gib = (torch.cuda.max_memory_allocated() - held) / 2**30
+    print(f"triplet BASE bf16 B=66: {'; '.join(report)}; peak {peak_gib:.2f} GiB above the {held / 2**30:.2f} GiB "
+          f"held at the phase's start [{card}]", flush=True)
+
+
+class ConvRecorder:
+    """Keeps the inputs of the first training forward's fused conv calls
+    (``StridedConvFusedFunction.apply``), as (x, w in x's type, bias, LN
+    scale, LN bias), for the length of a ``with`` block."""
+
+    def __init__(self):
+        self.layers = []
+
+    def __enter__(self):
+        orig = ce.StridedConvFusedFunction.apply
+
+        def apply(x, w, bias, scale, shift, *rest):
+            if torch.is_grad_enabled() and len(self.layers) < 6:
+                self.layers.append(tuple(None if t is None else t.detach().contiguous().clone()
+                                         for t in (x, w.to(x.dtype), bias, scale, shift)))
+            return orig(x, w, bias, scale, shift, *rest)
+
+        ce.StridedConvFusedFunction.apply = apply  # shadows the inherited classmethod
+        return self
+
+    def __exit__(self, *exc):
+        del ce.StridedConvFusedFunction.apply
+
+
+def options_phase(card: str, tmp: pathlib.Path, wav_dir, trials, shards) -> None:
+    """Phase 20: item 5's options on phase 13's shards: (a) the conv stack
+    alone on the fused conv kernel, trained; (b) 12 layer-ensemble
+    embeddings at the test; (c) frame-level test embeddings."""
+    from w2v2_speaker_tpu_torch import run
+    from w2v2_speaker_tpu_torch.runtime import predict as rpredict
+
+    common = ["+experiment=speaker_wav2vec2_ce", f"data.shards.samples_per_shard={RUN_SHARD}", "seed=20"]
+
+    # (a) wav2vec_feature_encoder_only on the fused conv: 6 conv launches a step, no attention
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    with RunProbe() as probe, ConvRecorder() as conv:
+        lite_objective = run.main([*common, "network.wav2vec_feature_encoder_only=true",
+                                   "network.conv_impl=fused_pallas",
+                                   f"trainer.max_steps={LITE_STEPS}", f"trainer.val_check_interval={LITE_STEPS}",
+                                   *corpus_args(wav_dir, trials, shards, tmp / "lite_ckpt")])
+    peak_gib = (torch.cuda.max_memory_allocated() - held) / 2**30
+    assert [s for s, _ in probe.steps] == list(range(1, LITE_STEPS + 1)) and all(
+        np.isfinite(m["loss"]) for _, m in probe.steps), f"lite: steps {probe.steps}"
+    for step, layers, got in probe.per_step():
+        assert layers is None and got == {**{k: 0 for k in ATTENTION}, "conv_encoder": 6}, \
+            f"lite step {step}: launched {got}"
+    assert 0 <= lite_objective <= 1, f"lite: objective {lite_objective}"
+    assert len(conv.layers) == 6 and conv.layers[0][0].shape[0] == 66, "lite: conv inputs not recorded"
+    lite_row = check_conv("lite_train", conv.layers)
+    lite_ms = probe.step_ms(1, LITE_STEPS - 1)
+    del conv
+    print(f"lite (conv stack alone, fused conv) BASE bf16 B=66: losses {[round(m['loss'], 4) for _, m in probe.steps]}, "
+          f"{lite_ms:.3f} ms/step (CUDA events, steps 2-{LITE_STEPS}), launches per step {probe.per_step()[0][2]}, "
+          f"conv kernel at the first training batch's layer inputs T_in {lite_row['T_in']}: max abs err "
+          f"{lite_row['max_abs_err']:.3e}, {lite_row['limit_share']:.3f} of the limit, {lite_row['ms']:.3f} ms "
+          f"(bound {lite_row['bound_ms']:.3f}, plain {lite_row['plain_ms']:.3f}, cuDNN route "
+          f"{lite_row['library_ms']:.3f}); test EER {lite_objective:.4f}; peak {peak_gib:.2f} GiB above the "
+          f"{held / 2**30:.2f} GiB held at the phase's start [{card}]", flush=True)
+
+    # (b) 12 layer ensembles at the test (weights as initialised: fit_model=false)
+    extracted = []
+    orig_extract = rpredict.extract_embeddings
+
+    def recording_extract(*a, **kw):
+        out = orig_extract(*a, **kw)
+        extracted.append(out)
+        return out
+
+    rpredict.extract_embeddings = recording_extract
+    try:
+        reset_launches()
+        ens_objective = run.main([*common, "network.use_transformers_as_ensembles=true",
+                                  f"network.num_ensembles={ENSEMBLES}", "fit_model=false",
+                                  *corpus_args(wav_dir, trials, shards, tmp / "ens_ckpt")])
+    finally:
+        rpredict.extract_embeddings = orig_extract
+    samples = extracted[-1]
+    assert all(isinstance(e.embedding, list) and len(e.embedding) == ENSEMBLES
+               and all(x.shape == (BASE_CONFIG.hidden_size,) for x in e.embedding) for e in samples), \
+        "ensembles: not 12 pooled embeddings per utterance"
+    test_pairs = load_evaluation_pairs(trials)
+    by_id = {e.sample_id: e for e in samples}
+    pairs = [(by_id[p.sample1_id], by_id[p.sample2_id]) for p in test_pairs]
+    evaluator = CosineDistanceEvaluator()
+    ens_scores = np.asarray(evaluator._compute_prediction_scores(pairs))
+    per_layer = np.mean([evaluator._compute_prediction_scores(
+        [(EmbeddingSample(a.sample_id, a.embedding[i]), EmbeddingSample(b.sample_id, b.embedding[i]))
+         for a, b in pairs]) for i in range(ENSEMBLES)], axis=0)
+    ens_same = float(np.abs(ens_scores - per_layer).max())
+    assert ens_same <= ENSEMBLE_SAME_ATOL, f"ensembles: scores vs the per-layer mean differ by {ens_same}"
+    metrics = evaluator.evaluate(test_pairs, samples)
+    assert metrics["eer"] == ens_objective and 0 <= ens_objective <= 1, f"ensembles: {metrics} vs {ens_objective}"
+    ens_f32 = ensemble_f32_error()
+    assert ens_f32 < F32_REL_TOL, f"ensembles: f32 card vs cpu {ens_f32}"
+    print(f"ensembles BASE bf16: {len(samples)} test utterances x {ENSEMBLES} pooled layer embeddings, launches "
+          f"{launches()}; ensemble scores vs the mean of the per-layer cosine scores max diff {ens_same:.3e} over "
+          f"{len(pairs)} trials; test EER {ens_objective:.4f}; f32 ensemble embeddings card vs cpu max err / max abs "
+          f"{ens_f32:.3e} (limit {F32_REL_TOL}) [{card}]", flush=True)
+
+    # (c) frame-level test embeddings ([T, D]) scored by the frame-level cosine
+    extracted.clear()
+    rpredict.extract_embeddings = recording_extract
+    try:
+        frames_objective = run.main([*common, "network.stat_pooling_type=none", "network.test_stat_pooling_type=none",
+                                     f"trainer.max_steps={FRAMES_STEPS}", f"trainer.val_check_interval={FRAMES_STEPS}",
+                                     *corpus_args(wav_dir, trials, shards, tmp / "frames_ckpt")])
+    finally:
+        rpredict.extract_embeddings = orig_extract
+    shapes = [e.embedding.shape for e in extracted[-1]]
+    assert all(len(sh) == 2 and sh[1] == BASE_CONFIG.hidden_size and sh[0] > 150 for sh in shapes), \
+        f"frames: test embeddings {shapes}"
+    assert 0 <= frames_objective <= 1, f"frames: objective {frames_objective}"
+    print(f"frames (ce_no_pool, test pooling none) BASE bf16: {FRAMES_STEPS} steps, test embeddings [T, D] with T "
+          f"{min(sh[0] for sh in shapes)}-{max(sh[0] for sh in shapes)}, test EER {frames_objective:.4f} [{card}]",
+          flush=True)
+
+
+def ensemble_f32_error() -> float:
+    """``compute_ensemble_embeddings`` of a float32 BASE speaker model
+    (seeded) on 3 padded utterances, card against CPU: the largest max abs
+    error / max abs over the 12 layers."""
+    cfg = Wav2Vec2SpeakerConfig(w2v2=BASE_CONFIG)
+    dev = torch.device("cuda")
+    with torch.device("meta"):
+        model = Wav2Vec2SpeakerModel(cfg, num_speakers=NUM_SPEAKERS)
+    model.to_empty(device=dev)
+    init_parameters(model, torch.Generator(device=dev).manual_seed(20))
+    model.eval().requires_grad_(False)
+    rng = np.random.default_rng(20)
+    n = int(max(ENSEMBLE_F32_S) * 16000)
+    lengths = np.array([int(s * 16000) for s in ENSEMBLE_F32_S])
+    mask = np.arange(n)[None, :] < lengths[:, None]
+    wav = torch.from_numpy(rng.normal(0, 0.1, (len(lengths), n)).astype(np.float32) * mask)
+    mask = torch.from_numpy(mask)
+    with torch.inference_mode():
+        on_card = [e.cpu() for e in model.compute_ensemble_embeddings(wav.to(dev), mask.to(dev), ENSEMBLES)]
+        on_cpu = copy.deepcopy(model).cpu().compute_ensemble_embeddings(wav, mask, ENSEMBLES)
+    return max(float((a - b).abs().max() / b.abs().max()) for a, b in zip(on_card, on_cpu))
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; this run needs a card")
@@ -1922,8 +2291,11 @@ def main() -> None:
         pooling_phase(card, tmp, wav_dir, trials, shards)  # 15
         speech_phase(card, tmp)  # 16
         speaker_ctc_phase(card, tmp, wav_dir, trials, shards)  # 17
+        multitask_phase(card, tmp)  # 18
+        triplet_phase(card, tmp, wav_dir, trials)  # 19
+        options_phase(card, tmp, wav_dir, trials, shards)  # 20
 
-    # 18. kernels line, card line, result line
+    # 21. kernels line, card line, result line
     kernels = []
     for name, source, replaces in KERNELS:
         row = main_rows[name]

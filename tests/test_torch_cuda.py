@@ -290,3 +290,18 @@ def test_layer_norm_outputs_are_bf16_in_a_bf16_training_forward(cuda, recipe):
     want = 2 + 2 * kept if recipe == "speaker_wav2vec2_ce" else 9 + 2 * kept
     assert len(seen) == want, sorted(seen)
     assert set(seen.values()) == {torch.bfloat16}, seen
+
+
+def test_triplet_mining_stays_on_the_card(cuda):
+    """Labels on the card and the step's CPU generator: the picks are drawn
+    on the card (no host copy of the labels), valid, and the same for the
+    same generator state."""
+    from w2v2_speaker_tpu_torch.objectives.losses import mine_triplets
+
+    labels = torch.tensor([0, 0, 1, 1, 1, 2, 2, 0], device=cuda)
+    pos, neg = mine_triplets(labels, torch.Generator().manual_seed(3))
+    assert pos.device.type == neg.device.type == "cuda"
+    assert torch.all(labels[pos] == labels) and torch.all(pos != torch.arange(8, device=cuda))
+    assert torch.all(labels[neg] != labels)
+    again = mine_triplets(labels, torch.Generator().manual_seed(3))
+    assert torch.equal(again[0], pos) and torch.equal(again[1], neg)

@@ -173,9 +173,16 @@ def test_evaluate_sentinels_and_unported_embeddings_match():
             "eer": -1, "eer_threshold": -1, "mdc": -1, "mdc_threshold": -1}
     with pytest.raises(ValueError, match="duplicate key"):
         e.evaluate([], samples + samples[:1])
+    # layer ensembles and [T, D] frame embeddings, unported until the
+    # ensemble slice: now scored as the JAX package scores them
     for embedding in ([x[0], x[1]], np.stack([x[0], x[1]])):
-        pair = [(teval.EmbeddingSample("a", embedding), teval.EmbeddingSample("b", embedding))]
-        with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-            e._compute_prediction_scores(pair)
+        for other in ([x[2], x[3]], np.stack([x[2], x[3], x[4]])):
+            if isinstance(embedding, list) != isinstance(other, list):
+                continue
+            got = e._compute_prediction_scores([(teval.EmbeddingSample("a", embedding),
+                                                 teval.EmbeddingSample("b", other))])
+            want = jeval.CosineDistanceEvaluator()._compute_prediction_scores(
+                [(jeval.EmbeddingSample("a", embedding), jeval.EmbeddingSample("b", other))])
+            np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
     with pytest.raises(ValueError, match="fitted cohort"):
         teval.ASNormCosineEvaluator()._compute_prediction_scores(_pairs(teval, x, ids, n=2))

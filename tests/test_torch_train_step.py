@@ -262,14 +262,17 @@ def test_steps_per_dispatch_and_embeddings():
 def test_unported_modes_and_options_raise():
     model = _regularised_model()
     assert ttask.SpeakerTask(model, "aam").mode == "aam"  # ported with the AAM head
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 5"):
+    for mode in ("triplet", "triplet_ce"):  # ported with the triplet slice
+        assert ttask.SpeakerTask(model, mode).mode == mode
+    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 6"):
         ts.Wav2Vec2SpeakerModel(ts.Wav2Vec2SpeakerConfig(
-            w2v2=tw.Wav2Vec2Config(**TINY), feature_encoder_only=True))
+            w2v2=tw.Wav2Vec2Config(**TINY, int8_matmuls=True)))
     with pytest.raises(ValueError, match="unknown training mode"):
         ttask.SpeakerTask(model, "hinge")
     base = texp.load_recipe("speaker_wav2vec2_ce")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 5"):
-        texp._check_ported({**base, "network": {**base["network"], "use_transformers_as_ensembles": True}})
+    texp._check_ported({**base, "network": {**base["network"], "use_transformers_as_ensembles": True}})
+    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 3"):
+        texp._check_ported({**base, "callbacks": {"progress_tracker": {"every_n_steps": 1}}})
     for section, key, value in (("algo", "name", "sgd"), ("algo", "mu_dtype", "bfloat16"),
                                 ("algo", "weight_decay", 0.01), ("schedule", "name", "exp_decay")):
         cfg = {**base, "optim": {**base["optim"], section: {**base["optim"][section], key: value}}}

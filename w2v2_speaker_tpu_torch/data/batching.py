@@ -1,9 +1,17 @@
 """Batch processors: the port's copies of
 ``w2v2_speaker_tpu/data/batching.py::RandomBatchProcessor`` (:43),
-``PairedBatchProcessor`` (:154) and ``DynamicTokenBudgetBatcher`` (:338).
+``TripletBatchProcessor`` (:78), ``PairedBatchProcessor`` (:154) and
+``DynamicTokenBudgetBatcher`` (:338).
 
 ``RandomBatchProcessor``: samples fill a queue of ``max_queue_size``; each
-batch draws ``max_batch_size`` of them at random. ``PairedBatchProcessor``:
+batch draws ``max_batch_size`` of them at random. ``TripletBatchProcessor``
+(the triplet recipes'): samples queue by speaker until a full batch of
+same-speaker (anchor, positive) couples over at least two speakers can be
+drawn, so every anchor has an in-batch positive and a negative and the
+batch shape stays fixed; it raises when the queue grows to twice its limit
+without such a batch, and drops the samples left at the end (the JAX
+package's ``ensure_all_samples_seen``, which yields them as a last batch,
+has no caller in either package). ``PairedBatchProcessor``:
 in ``generate`` mode it queues runs of ``sequential_same_speaker_samples``
 (k) samples and builds batches of positive and negative pairs at
 ``pos_neg_training_batch_ratio`` from speakers drawn with weights 2^count;
@@ -13,8 +21,7 @@ sorts its queue by length, grows a batch around a drawn sample while rows
 x the longest row stay within the token budget, and skips a sample longer
 than the budget. Every draw comes from the processor's own
 ``np.random.default_rng(seed)``, in the JAX package's order, so both
-packages yield the same batches at one seed. The triplet batch processor
-(:80) is not ported yet: ROADMAP.md Queue 1 item 7.
+packages yield the same batches at one seed.
 """
 
 from __future__ import annotations
@@ -27,7 +34,7 @@ import numpy as np
 from .samples import PairedSample, SpeakerSample, SpeechSample
 from .trials import EvaluationPair
 
-__all__ = ["DynamicTokenBudgetBatcher", "PairedBatchProcessor", "RandomBatchProcessor"]
+__all__ = ["DynamicTokenBudgetBatcher", "PairedBatchProcessor", "RandomBatchProcessor", "TripletBatchProcessor"]
 
 
 class RandomBatchProcessor:
@@ -55,6 +62,64 @@ class RandomBatchProcessor:
         batch = []
         while len(batch) < self.max_batch_size and queue:
             batch.append(queue.pop(int(self.rng.integers(len(queue)))))
+        return self.collate_fn(batch)
+
+
+class TripletBatchProcessor:
+    def __init__(self, max_batch_size: int, max_queue_size: int,
+                 collate_fn: Callable[[List[SpeakerSample]], Dict], seed: int = 0):
+        if max_batch_size % 2 == 1:
+            raise ValueError("batch size needs to be even to allow triplets")
+        self.max_batch_size = max_batch_size
+        self.max_queue_size = max_queue_size
+        self.collate_fn = collate_fn
+        self.rng = np.random.default_rng(seed)
+
+    def __call__(self, samples: Iterable[SpeakerSample]) -> Iterator[Dict]:
+        by_speaker: Dict[int, List[SpeakerSample]] = defaultdict(list)
+        size = 0
+        seen_keys = set()
+
+        def can_fill():
+            """A full batch of (anchor, positive) couples over >= 2 speakers
+            can be drawn."""
+            valid = [k for k, v in by_speaker.items() if len(v) >= 2]
+            pairs = sum(len(v) // 2 for v in by_speaker.values())
+            return len(valid) >= 2 and pairs >= self.max_batch_size // 2
+
+        for s in samples:
+            if s.key in seen_keys:
+                raise ValueError(f"duplicate sample {s.key}")
+            seen_keys.add(s.key)
+            by_speaker[s.ground_truth].append(s)
+            size += 1
+            if size >= self.max_queue_size and can_fill():
+                yield self._draw(by_speaker)
+                size = sum(len(v) for v in by_speaker.values())
+            if size >= self.max_queue_size * 2:
+                raise ValueError("queue exceeded limit while unable to ensure triplets")
+        while can_fill():
+            yield self._draw(by_speaker)
+            size = sum(len(v) for v in by_speaker.values())
+        leftovers = sum(len(v) for v in by_speaker.values())
+        if leftovers:
+            print(f"discarding {leftovers} samples due to no triplet")
+
+    def _draw(self, by_speaker) -> Dict:
+        """``max_batch_size`` samples popped as same-speaker couples of
+        speakers drawn without replacement, round after round while the
+        batch is short (a speaker may give several couples)."""
+        batch = []
+        while len(batch) < self.max_batch_size:
+            valid = [k for k, v in by_speaker.items() if len(v) >= 2]
+            take = min(len(valid), (self.max_batch_size - len(batch)) // 2)
+            chosen = self.rng.choice(np.asarray(valid), size=take, replace=False)
+            for k in chosen.tolist():
+                lst = by_speaker[k]
+                for _ in range(2):
+                    batch.append(lst.pop(int(self.rng.integers(len(lst)))))
+                if not lst:
+                    del by_speaker[k]
         return self.collate_fn(batch)
 
 

@@ -9,27 +9,28 @@
   evaluator, EER and minDCF with the 1 / 1337 sentinels on failure;
 - ``CosineDistanceEvaluator`` (:176): row-wise cosine (torch
   ``CosineSimilarity`` eps), optional centering and length-norm fitted on
-  a training buffer;
+  a training buffer; a layer ensemble (each embedding a list of one ``[D]``
+  per layer) scores the mean of the per-layer scores (``_ensemble_scores``
+  :212), and non-pooled ``[T, D]`` frame embeddings the mean pairwise
+  cosine over up to 50 x 50 frames drawn per pair, in pair order, from one
+  ``default_rng(0)`` per call (``_non_pooled_scores`` :252);
 - ``ASNormCosineEvaluator`` (:270): adaptive symmetric score normalisation
   against the top-K of an impostor cohort, self-matches excluded
-  (``_cohort_stats`` :329), squashed by s / (1 + |s|).
-
-Layer-ensemble and non-pooled ``[T, D]`` embeddings (:212, :252) raise:
-they wait for the ensemble embeddings of ROADMAP.md Queue 1 item 5.
+  (``_cohort_stats`` :329), squashed by s / (1 + |s|); for ensembles and
+  frame embeddings it warns and falls back to the cosine's dispatch (each
+  ensemble layer then scored with AS-Norm), as the JAX package does.
 """
 
 from __future__ import annotations
 
 import warnings
 from dataclasses import dataclass
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 
 from ..data.trials import EvaluationPair
 from .metrics import calculate_eer, calculate_mdc
-
-_ENSEMBLE_ROW = "ROADMAP.md Queue 1 item 5 (layer ensembles)"
 
 __all__ = [
     "EmbeddingSample",
@@ -45,7 +46,7 @@ __all__ = [
 @dataclass
 class EmbeddingSample:
     sample_id: str
-    embedding: np.ndarray  # [D] pooled
+    embedding: Union[np.ndarray, List[np.ndarray]]  # [D] pooled, [T, D] frames, or one [D] per layer
 
 
 def compute_mean_std(embeddings: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
@@ -201,12 +202,26 @@ class CosineDistanceEvaluator(SpeakerRecognitionEvaluator):
 
     def _compute_prediction_scores(self, pairs):
         first = pairs[0][0].embedding
-        if isinstance(first, list) or np.asarray(first).ndim == 2:
-            raise NotImplementedError(
-                "layer-ensemble and non-pooled [T, D] embeddings are not "
-                f"ported yet: {_ENSEMBLE_ROW}"
-            )
+        if isinstance(first, list):
+            return self._ensemble_scores(pairs)
+        if np.asarray(first).ndim == 2:
+            return self._non_pooled_scores(pairs)
         return self._pooled_pair_scores(pairs).tolist()
+
+    def _ensemble_scores(self, pairs):
+        """The mean over the layers of this evaluator's scores of each layer
+        alone; every sample must hold as many layers as the first."""
+        num_ensembles = len(pairs[0][0].embedding)
+        for a, b in pairs:
+            if (not isinstance(a.embedding, list) or not isinstance(b.embedding, list)
+                    or len(a.embedding) != num_ensembles or len(b.embedding) != num_ensembles):
+                raise ValueError(f"every sample must be an ensemble of {num_ensembles}")
+        total = np.zeros(len(pairs))
+        for i in range(num_ensembles):
+            sub = [(EmbeddingSample(a.sample_id, a.embedding[i]), EmbeddingSample(b.sample_id, b.embedding[i]))
+                   for a, b in pairs]
+            total += np.asarray(self._compute_prediction_scores(sub))
+        return (total / num_ensembles).tolist()
 
     def _pooled_pair_scores(self, pairs) -> np.ndarray:
         """Raw cosine over pooled [D] pairs after this evaluator's
@@ -223,6 +238,21 @@ class CosineDistanceEvaluator(SpeakerRecognitionEvaluator):
         if self.length_norm_before_scoring:
             embeddings = length_norm(embeddings)
         return embeddings
+
+    def _non_pooled_scores(self, pairs, max_frames: int = 50, seed: int = 0):
+        """Mean pairwise cosine over (up to) 50 x 50 random frames of each
+        pair, the frames drawn pair after pair from one generator."""
+        rng = np.random.default_rng(seed)
+        scores = []
+        for a, b in pairs:
+            ea, eb = np.asarray(a.embedding), np.asarray(b.embedding)
+            if ea.shape[0] > max_frames:
+                ea = ea[rng.choice(ea.shape[0], max_frames, replace=False)]
+            if eb.shape[0] > max_frames:
+                eb = eb[rng.choice(eb.shape[0], max_frames, replace=False)]
+            sim = _cosine_rowwise(np.repeat(ea, eb.shape[0], axis=0), np.tile(eb, (ea.shape[0], 1)))
+            scores.append(float(sim.mean()))
+        return scores
 
 
 class ASNormCosineEvaluator(CosineDistanceEvaluator):
@@ -308,7 +338,8 @@ class ASNormCosineEvaluator(CosineDistanceEvaluator):
     def _compute_prediction_scores(self, pairs):
         first = pairs[0][0].embedding
         if isinstance(first, list) or np.asarray(first).ndim == 2:
-            return super()._compute_prediction_scores(pairs)  # raises
+            warnings.warn("AS-norm supports pooled [D] embeddings only; falling back to plain cosine scoring")
+            return super()._compute_prediction_scores(pairs)
         if self.cohort is None or self.cohort.shape[0] < 2:
             raise ValueError(
                 "ASNormCosineEvaluator needs a fitted cohort: set "

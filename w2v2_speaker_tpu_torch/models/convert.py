@@ -1,8 +1,10 @@
 """Weight bridge from the JAX package's parameter tree to the port.
 
 ``params_from_jax(params, cfg, batch_stats)`` takes the flax ``params``
-tree of ``w2v2_speaker_tpu``'s ``Wav2Vec2Model``, ``Wav2Vec2SpeakerModel``,
-``Wav2Vec2PairedModel`` or ``Wav2Vec2SpeechModel`` as nested dicts of
+tree of ``w2v2_speaker_tpu``'s ``Wav2Vec2Model``, ``Wav2Vec2SpeakerModel``
+(with the full backbone or, under ``feature_encoder_only``, the conv stack
+alone), ``Wav2Vec2PairedModel``, ``Wav2Vec2SpeechModel`` or
+``Wav2Vec2MultitaskModel`` as nested dicts of
 numpy arrays (what ``jax.device_get(variables["params"])`` gives), and
 optionally the ``batch_stats`` collection beside it, and returns the
 ``state_dict`` of the port's module of the same name. It imports neither
@@ -28,6 +30,7 @@ import numpy as np
 import torch
 
 from .wav2vec2 import Wav2Vec2Config
+from .wav2vec2_multitask import Wav2Vec2MultitaskConfig
 from .wav2vec2_paired import Wav2Vec2PairedConfig
 from .wav2vec2_speaker import Wav2Vec2SpeakerConfig
 from .wav2vec2_speech import Wav2Vec2SpeechConfig
@@ -58,7 +61,8 @@ def _torch_leaf(path: Tuple[str, ...], x: np.ndarray) -> Tuple[str, np.ndarray]:
 
 def params_from_jax(
     params: Mapping,
-    cfg: Union[Wav2Vec2Config, Wav2Vec2SpeakerConfig, Wav2Vec2PairedConfig, Wav2Vec2SpeechConfig],
+    cfg: Union[Wav2Vec2Config, Wav2Vec2SpeakerConfig, Wav2Vec2PairedConfig, Wav2Vec2SpeechConfig,
+               Wav2Vec2MultitaskConfig],
     batch_stats: Optional[Mapping] = None,
 ) -> Dict[str, torch.Tensor]:
     """The port's ``state_dict`` (float32 CPU tensors) for a flax params

@@ -4,8 +4,9 @@ Counterpart of ``w2v2_speaker_tpu/models/heads.py``:
 
 - ``AAMSoftmaxHead`` (:29): the angular-additive-margin softmax head,
   owning its ``weights`` ``[num_classes, D]``; with labels it returns (loss,
-  softmax predictions) of the margin logits, without them the scaled
-  cosines;
+  softmax predictions) of the margin logits, the loss a mean weighted by
+  the optional per-row ``weights`` (0 for padding rows, the multitask
+  recipe's), without labels the scaled cosines;
 - ``FCHead`` (:65): one (Linear -> ReLU) block per hidden size, then a
   plain Linear to ``num_out``; the speaker embedding is the output of block
   ``embedding_layer_idx`` (-1 = the pooled input itself,
@@ -34,8 +35,8 @@ def _unit_rows(x: torch.Tensor) -> torch.Tensor:
 
 
 class AAMSoftmaxHead(nn.Module):
-    """The JAX head with its defaults (``easy_margin`` False, no per-row
-    loss weights), as ``Wav2Vec2SpeakerModel`` builds it."""
+    """The JAX head with its default ``easy_margin`` (False), as the speaker
+    and multitask models build it."""
 
     def __init__(self, in_features: int, num_classes: int, margin: float = 0.2,
                  scale: float = 30.0):
@@ -43,14 +44,16 @@ class AAMSoftmaxHead(nn.Module):
         self.margin, self.scale = margin, scale
         self.weights = nn.Parameter(torch.empty(num_classes, in_features))
 
-    def forward(self, embedding: torch.Tensor, labels: Optional[torch.Tensor] = None):
-        """``embedding`` [B, D], ``labels`` [B] int. With labels: (mean CE
-        of the margin logits, softmax predictions). Without: the cosines
-        times ``scale``."""
+    def forward(self, embedding: torch.Tensor, labels: Optional[torch.Tensor] = None,
+                weights: Optional[torch.Tensor] = None):
+        """``embedding`` [B, D], ``labels`` [B] int, ``weights`` [B] or None.
+        With labels: (CE of the margin logits, its mean weighted by
+        ``weights``; softmax predictions). Without: the cosines times
+        ``scale``."""
         cosine = _unit_rows(embedding.float()) @ _unit_rows(self.weights.float()).T
         if labels is None:
             return cosine * self.scale
-        return cross_entropy(aam_margin_logits(cosine, labels, self.margin, self.scale), labels)
+        return cross_entropy(aam_margin_logits(cosine, labels, self.margin, self.scale), labels, weights)
 
 
 class FCHead(nn.Module):

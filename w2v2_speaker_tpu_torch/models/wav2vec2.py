@@ -12,8 +12,9 @@ Counterpart of ``w2v2_speaker_tpu/models/wav2vec2.py``:
 - ``PosConvEmbedding`` (:437)
 - ``SelfAttention`` (:550)
 - ``EncoderLayer`` (:602)
-- ``Encoder`` (:713)
-- ``Wav2Vec2Model`` (:777)
+- ``Encoder`` (:713), with ``output_hidden_states`` (:722-773)
+- ``Wav2Vec2Model`` (:777), with ``output_hidden_states`` (:794, :863-875)
+- ``Wav2Vec2LiteEncoder`` (:879): the conv feature encoder alone
 
 Public layouts are the JAX package's: waveforms ``[B, N]``, features
 channels-last ``[B, T, F]``. Inside, the conv stack runs in PyTorch's
@@ -65,6 +66,7 @@ __all__ = [
     "HashDropout",
     "LayerNorm",
     "Wav2Vec2Config",
+    "Wav2Vec2LiteEncoder",
     "Wav2Vec2Model",
     "BASE_CONFIG",
     "LARGE_CONFIG",
@@ -457,12 +459,16 @@ class Encoder(nn.Module):
         x: torch.Tensor,
         attention_mask: Optional[torch.Tensor] = None,
         generator: Optional[torch.Generator] = None,
-    ) -> torch.Tensor:
+        output_hidden_states: bool = False,
+    ):
         """``attention_mask`` ``[B, T]`` is suffix-contiguous (a True
         prefix); the attention kernels take it as one int32 length per row,
         counted here once for all layers. With a ``generator`` (training)
         each layer is kept where a uniform drawn from it is below
-        1 - layerdrop (:620-625), and skipped otherwise."""
+        1 - layerdrop (:620-625), and skipped otherwise (its state is its
+        input). With ``output_hidden_states`` returns (output, states):
+        the layers' input, then each layer's output, the last one replaced
+        by the final LayerNorm's output in the pre-norm layout."""
         lengths = None
         if attention_mask is not None:
             # zero padded frames before the pos conv (HF does the same)
@@ -472,17 +478,21 @@ class Encoder(nn.Module):
         if not self.pre:
             x = self.layer_norm(x)
         x = self.dropout(x, generator)
+        states = [x] if output_hidden_states else None
         self.layers_run = 0
         for layer in self.layers:
-            if generator is not None and self.layerdrop > 0.0 and not (
+            if generator is None or self.layerdrop <= 0.0 or (
                 float(torch.rand((), generator=generator)) < 1.0 - self.layerdrop
             ):
-                continue
-            x = layer(x, lengths, generator)
-            self.layers_run += 1
+                x = layer(x, lengths, generator)
+                self.layers_run += 1
+            if states is not None:
+                states.append(x)
         if self.pre:
             x = self.layer_norm(x)
-        return x
+            if states is not None:
+                states[-1] = x
+        return x if states is None else (x, states)
 
 
 def _compute_context(device: torch.device, compute: torch.dtype, params: torch.dtype):
@@ -528,9 +538,12 @@ class Wav2Vec2Model(nn.Module):
         wav_mask: Optional[torch.Tensor] = None,  # [B, N] validity
         train: bool = False,
         generator: Optional[torch.Generator] = None,
+        output_hidden_states: bool = False,
     ):
         """``train=True`` applies dropout, SpecAugment and layerdrop, with
-        every random draw from ``generator`` (required then)."""
+        every random draw from ``generator`` (required then). With
+        ``output_hidden_states`` a third result: the encoder's
+        ``num_layers + 1`` states (``Encoder``), each float32."""
         if train and generator is None:
             raise ValueError("train=True needs the train step's torch.Generator")
         gen = generator if train else None
@@ -550,8 +563,11 @@ class Wav2Vec2Model(nn.Module):
                 x = torch.cat([x.new_ones((b, 1, x.shape[2])), x], dim=1)
                 if frame_mask is not None:
                     frame_mask = torch.cat([frame_mask.new_ones((b, 1)), frame_mask], dim=1)
-            x = self.encoder(x, frame_mask, gen)
-        return x.float(), frame_mask
+            out = self.encoder(x, frame_mask, gen, output_hidden_states)
+        if output_hidden_states:
+            x, states = out
+            return x.float(), frame_mask, [h.float() for h in states]
+        return out.float(), frame_mask
 
     def _spec_augment(self, x, frame_mask, generator):
         """Time spans replaced by ``masked_spec_embed``, feature spans
@@ -574,6 +590,30 @@ class Wav2Vec2Model(nn.Module):
             )
             x = x * (~feat_mask)[:, None, :].to(x.dtype)
         return x
+
+
+class Wav2Vec2LiteEncoder(nn.Module):
+    """The conv feature encoder alone (the ``feature_encoder_only`` speaker
+    model's backbone): raw waveform ``[B, N]`` -> (float32 features
+    ``[B, T, conv_dim[-1]]``, frame mask ``[B, T]`` or None). No
+    projection, SpecAugment, pos conv or transformer; nothing random, so
+    ``train`` and ``generator`` change nothing. Its parameters are
+    ``feature_encoder.*``, as the JAX module's (:879-901)."""
+
+    def __init__(self, cfg: Wav2Vec2Config = BASE_CONFIG):
+        super().__init__()
+        self.cfg = cfg
+        self.feature_encoder = ConvFeatureEncoder(cfg)
+
+    def forward(self, wav: torch.Tensor, wav_mask: Optional[torch.Tensor] = None, train: bool = False,
+                generator: Optional[torch.Generator] = None):
+        cfg = self.cfg
+        with _compute_context(wav.device, getattr(torch, cfg.dtype), self.feature_encoder.conv_0.weight.dtype):
+            features = self.feature_encoder(wav, wav_mask)
+        frame_mask = None
+        if wav_mask is not None:
+            frame_mask = _suffix_mask(feat_extract_output_lengths(wav_mask.sum(-1), cfg), features.shape[1])
+        return features.float(), frame_mask
 
 
 @torch.no_grad()

@@ -22,14 +22,17 @@ returns ``[B, T, ...]`` embeddings and logits with the ``frame_mask``.
 ``final_channel_mask_prob`` zeroes whole channels of the pooled embedding
 (``embedding_mask``, :134-142), drawn from the step's generator.
 
-Not ported yet, and raising ``NotImplementedError``: the feature-encoder-only
-variant and layer-ensemble embeddings (ROADMAP Queue 1 item 5).
+``feature_encoder_only`` (:68-71) takes ``Wav2Vec2LiteEncoder`` as the
+backbone: the conv stack's 512 float32 features are pooled, with no
+transformer. ``compute_ensemble_embeddings`` (:163-181) pools the last
+``num_ensembles`` of the backbone's hidden states, each with the training
+pooling, for layer-ensemble scoring.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
@@ -37,7 +40,7 @@ from torch import nn
 from .heads import AAMSoftmaxHead, FCHead
 from .masking import embedding_mask
 from .pooling import get_pooling, pooled_embedding_size
-from .wav2vec2 import BASE_CONFIG, Wav2Vec2Config, Wav2Vec2Model
+from .wav2vec2 import BASE_CONFIG, Wav2Vec2Config, Wav2Vec2LiteEncoder, Wav2Vec2Model
 
 __all__ = ["Wav2Vec2SpeakerConfig", "Wav2Vec2SpeakerModel"]
 
@@ -66,13 +69,13 @@ class Wav2Vec2SpeakerModel(nn.Module):
         num_speakers: int = 100,
     ):
         super().__init__()
-        if cfg.feature_encoder_only:
-            raise NotImplementedError(
-                "Wav2Vec2SpeakerConfig.feature_encoder_only=True is not ported yet: ROADMAP.md Queue 1 item 5"
-            )
         self.cfg = cfg
-        feat = cfg.w2v2.hidden_size
-        self.wav2vec2 = Wav2Vec2Model(cfg.w2v2, insert_cls_token=cfg.stat_pooling_type == "first+cls")
+        if cfg.feature_encoder_only:
+            self.wav2vec2 = Wav2Vec2LiteEncoder(cfg.w2v2)
+            feat = cfg.w2v2.conv_dim[-1]
+        else:
+            self.wav2vec2 = Wav2Vec2Model(cfg.w2v2, insert_cls_token=cfg.stat_pooling_type == "first+cls")
+            feat = cfg.w2v2.hidden_size
         self.stat_pooling = get_pooling(cfg.stat_pooling_type, feat)
         test_type = cfg.test_stat_pooling_type or cfg.stat_pooling_type
         if test_type == "attentive" and cfg.stat_pooling_type != "attentive":
@@ -133,3 +136,15 @@ class Wav2Vec2SpeakerModel(nn.Module):
     ) -> torch.Tensor:
         """Deterministic embedding extraction (test-time pooling)."""
         return self.forward(wav, wav_mask)["embedding"]
+
+    def compute_ensemble_embeddings(
+        self, wav: torch.Tensor, wav_mask: Optional[torch.Tensor] = None, num_ensembles: int = 12
+    ) -> List[torch.Tensor]:
+        """The last ``num_ensembles`` of the backbone's hidden states (the
+        encoder's input, then each layer's output), each pooled on its
+        device with the training pooling: ``num_ensembles`` float32 tensors
+        ``[B, D]``."""
+        if self.cfg.feature_encoder_only:
+            raise ValueError("ensembles need the transformer encoder")
+        _, frame_mask, hiddens = self.wav2vec2(wav, wav_mask, output_hidden_states=True)
+        return [self.stat_pooling(h, frame_mask, train=False) for h in hiddens[len(hiddens) - num_ensembles:]]

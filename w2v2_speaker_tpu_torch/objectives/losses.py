@@ -1,9 +1,18 @@
 """Training losses.
 
 Counterpart of ``w2v2_speaker_tpu/objectives/losses.py``: ``cross_entropy``
-(:43), ``binary_cross_entropy`` (:63), ``aam_margin_logits`` (:74) and
-``ctc_loss`` (:176). The triplet losses are not ported yet (ROADMAP Queue 1
-item 7).
+(:43), ``binary_cross_entropy`` (:63), ``aam_margin_logits`` (:74),
+``mine_triplets`` (:104), ``triplet_loss`` (:136),
+``triplet_cross_entropy`` (:165) and ``ctc_loss`` (:176).
+
+``mine_triplets`` draws on the labels' device: for each anchor a uniform
+positive (same label, another row) and a uniform negative (another label),
+each the argmax of Gumbel noise over the valid candidates, with no loop
+over rows and no host sync. Its noise comes from a generator on that
+device seeded with one draw of the step's generator (a CPU one in
+training). The JAX package draws with ``jax.random.gumbel``, so the picks
+are not equal draw for draw across the packages; the losses are, given the
+same indices.
 
 ``ctc_loss`` keeps the ``zero_infinity`` semantics that the JAX function's
 docstring and the original PyTorch reference promise: a row whose frames
@@ -22,7 +31,10 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-__all__ = ["aam_margin_logits", "binary_cross_entropy", "cross_entropy", "ctc_loss", "frame_lengths"]
+__all__ = [
+    "aam_margin_logits", "binary_cross_entropy", "cross_entropy", "ctc_loss", "frame_lengths", "mine_triplets",
+    "triplet_cross_entropy", "triplet_loss",
+]
 
 
 def cross_entropy(
@@ -74,6 +86,69 @@ def aam_margin_logits(
                           cosine - math.sin(math.pi - margin) * margin)
     one_hot = F.one_hot(labels.long(), cosine.shape[-1]).to(cosine.dtype)
     return (one_hot * phi + (1.0 - one_hot) * cosine) * scale
+
+
+def mine_triplets(labels: torch.Tensor, generator: Optional[torch.Generator] = None
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(positive index [B], negative index [B]) per anchor: uniform over the
+    rows with the anchor's label but another row, and over the rows with
+    another label. An anchor without a valid positive or negative gets an
+    arbitrary index (``triplet_loss`` leaves it out of the mean)."""
+    b, dev = labels.shape[0], labels.device
+    if generator is not None and generator.device.type != dev.type:
+        seed = int(torch.randint(0, 2**62, (1,), generator=generator))
+        generator = torch.Generator(device=dev).manual_seed(seed)
+    same = labels[:, None] == labels[None, :]
+    eye = torch.eye(b, dtype=torch.bool, device=dev)
+    neg_inf = torch.finfo(torch.float32).min
+    picks = []
+    for valid in (same & ~eye, ~same):
+        u = torch.rand((b, b), generator=generator, device=dev).clamp_min(1e-20)
+        gumbel = -torch.log((-torch.log(u)).clamp_min(1e-20))
+        picks.append(torch.where(valid, gumbel, neg_inf).argmax(dim=1))
+    return picks[0], picks[1]
+
+
+def _triplet_valid(labels: torch.Tensor) -> torch.Tensor:
+    """[B] float: 1 for an anchor with a positive and a negative in the batch."""
+    same = labels[:, None] == labels[None, :]
+    eye = torch.eye(labels.shape[0], dtype=torch.bool, device=labels.device)
+    return ((same & ~eye).any(dim=1) & (~same).any(dim=1)).float()
+
+
+def triplet_loss(
+    embeddings: torch.Tensor,  # [B, D]
+    labels: torch.Tensor,  # [B] int
+    generator: Optional[torch.Generator] = None,
+    margin: float = 1.0,
+) -> torch.Tensor:
+    """mean(max(d(a, p) - d(a, n) + margin, 0)) over the anchors that have
+    a positive and a negative, d(a, b) = sqrt(sum((a - b + 1e-6)^2)) (torch
+    ``triplet_margin_loss``'s, p=2, eps=1e-6), over ``mine_triplets``'
+    picks."""
+    pos_idx, neg_idx = mine_triplets(labels, generator)
+    emb = embeddings.float()
+
+    def dist(a, b):
+        return ((a - b + 1e-6) ** 2).sum(-1).sqrt()
+
+    per_anchor = (dist(emb, emb[pos_idx]) - dist(emb, emb[neg_idx]) + margin).clamp_min(0.0)
+    valid = _triplet_valid(labels)
+    return (per_anchor * valid).sum() / valid.sum().clamp_min(1.0)
+
+
+def triplet_cross_entropy(
+    embeddings: torch.Tensor,
+    logits: torch.Tensor,
+    labels: torch.Tensor,
+    generator: Optional[torch.Generator] = None,
+    c_ce: float = 1.0,
+    c_triplet: float = 1.0,
+    margin: float = 1.0,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(c_ce x CE + c_triplet x the triplet loss, softmax predictions)."""
+    ce, preds = cross_entropy(logits, labels)
+    return c_ce * ce + c_triplet * triplet_loss(embeddings, labels, generator, margin), preds
 
 
 def frame_lengths(logits: torch.Tensor, frame_mask: Optional[torch.Tensor]) -> torch.Tensor:

@@ -9,9 +9,15 @@ runs on the CPU.
         data.module.test_trial_path=<trials.txt> trainer.max_steps=1000
     python -m w2v2_speaker_tpu_torch.run +experiment=speech_wav2vec2_ctc \
         data_folder=<dir holding librispeech/train-clean-100, dev-*, test-*>
+    python -m w2v2_speaker_tpu_torch.run +experiment=multitask_wav2vec2 \
+        data_folder=<the same> [optim/loss=ctc_aam]
 
-Loads ``KEY=value`` lines of a ``.env`` file in the working directory into
-the environment (without overriding), composes the config, runs
+Every ``wav2vec2`` recipe of ``config/experiment/`` runs, with its options
+(``speaker_wav2vec2_triplet`` / ``_triplet_ce``,
+``network.wav2vec_feature_encoder_only=true``,
+``network.use_transformers_as_ensembles=true``). Loads ``KEY=value``
+lines of a ``.env`` file in the working directory into the environment
+(without overriding), composes the config, runs
 ``runtime.experiment.run_train_eval`` once, prints ``objective: <EER>``
 (``<WER>`` for the speech recipe) and returns it. Grid runs (``-m``), hyperparameter search (``+search``), the
 SLURM launcher (``hydra/launcher=...``) and shell completion (``-sc``)

@@ -1,11 +1,12 @@
-"""Recipe assembly and the train/validate/test loop of the speaker, paired
-and speech recipes.
+"""Recipe assembly and the train/validate/test loop of the speaker, paired,
+speech and multitask recipes.
 
 Counterpart of ``w2v2_speaker_tpu/runtime/experiment.py``: ``_w2v2_config``
 (:320) as ``w2v2_config``, ``build_model_and_task`` (:374) for the
-``wav2vec2_fc`` network in the ``ce``, ``aam``, ``ce_no_pool`` and
-``speaker_ctc`` modes (:434-459), the ``wav2vec2_paired`` network
-(:513-522) and the ``wav2vec2_fc_letter`` speech network (:576-593), and
+``wav2vec2_fc`` network in the ``ce``, ``aam``, ``ce_no_pool``, ``triplet``,
+``triplet_ce`` and ``speaker_ctc`` modes (:434-459), the ``wav2vec2_paired``
+network (:513-522), the ``wav2vec2_multitask`` network (:524-574) and the
+``wav2vec2_fc_letter`` speech network (:576-593), and
 ``build_optimizer`` (:616) for Adam under the one-cycle or tri-stage
 schedule (``_normalize_schedule_cfg`` :596 folds the reference's nested
 schedule keys), global-norm clipping and the backbone freeze schedules,
@@ -22,11 +23,16 @@ steps per dispatch, accumulation, sanity and interval validations, best-k
 and last checkpoints, resume, early stopping, step and epoch limits), then
 the best checkpoint (or the average of the best k) on the test split:
 embeddings of full utterances scored by the evaluator (``_run_speaker``
-:1469), the paired network's sigmoid score of each full-utterance pair
-(``_run_paired`` :1704), or the WER of greedy CTC transcriptions of the
+:1469; the triplet modes train on ``TripletBatchProcessor`` batches, and
+``use_transformers_as_ensembles`` scores the mean over per-layer
+embeddings), the paired network's sigmoid score of each full-utterance
+pair (``_run_paired`` :1704), the WER of greedy CTC transcriptions of the
 clean and other test splits (``_run_speech`` :1874, which checkpoints on
 ``val_wer`` and logs a tracked training utterance's transcription at each
-validation). It runs on the card unless called with ``device="cpu"``.
+validation), or both WERs and the cosine EER of speaker trials over the
+first test split (``_run_multitask`` :1949, which checkpoints on
+``val_eer``, as the JAX package's ``_train_loop`` :1129 does for every kind
+but speech). It runs on the card unless called with ``device="cpu"``.
 What is not ported raises ``NotImplementedError`` naming its ROADMAP row.
 
 Divergences from the JAX package: ``trainer.deterministic=true`` raises
@@ -40,7 +46,10 @@ steps with ``PRNGKey(seed + 1)``), so the two packages agree on a run only
 from the same weights (``load_network_from_checkpoint``) with dropout,
 layerdrop and masking at 0. The epoch-in-progress save of the JAX
 package (``_train_loop`` :1287, whose resumed run retrains the epoch it
-was saved in) is carried over unchanged.
+was saved in) is carried over unchanged. The triplet losses read
+``optim.loss.margin``, ``c_ce`` and ``c_triplet``, which the JAX package's
+``build_model_and_task`` (:459) leaves at the task's defaults whatever the
+config says (the shipped values are those defaults).
 """
 
 from __future__ import annotations
@@ -53,11 +62,11 @@ from typing import Deque, Dict, List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
-from ..data.batching import PairedBatchProcessor
+from ..data.batching import PairedBatchProcessor, TripletBatchProcessor
 from ..data.collate import pad_batch_rows
 from ..data.datamodule import VoxCelebConfig, VoxCelebDataModule
 from ..data.librispeech import LibriSpeechConfig, LibriSpeechDataModule
-from ..data.samples import collate_paired_batch
+from ..data.samples import collate_paired_batch, collate_speaker_batch
 from ..data.tokenizer import CharTokenizer
 from ..device import DeviceLike, resolve_device, set_float32_precision
 from ..eval.backends import LDAEvaluator, PLDAEvaluator
@@ -66,11 +75,13 @@ from ..eval.evaluator import (
 )
 from ..models.hf_convert import load_hf_checkpoint
 from ..models.wav2vec2 import BASE_CONFIG, LARGE_CONFIG, Wav2Vec2Config, init_parameters
+from ..models.wav2vec2_multitask import Wav2Vec2MultitaskConfig, Wav2Vec2MultitaskModel
 from ..models.wav2vec2_paired import Wav2Vec2PairedConfig, Wav2Vec2PairedModel
 from ..models.wav2vec2_speaker import Wav2Vec2SpeakerConfig, Wav2Vec2SpeakerModel
 from ..models.wav2vec2_speech import Wav2Vec2SpeechConfig, Wav2Vec2SpeechModel
 from ..objectives import schedules
 from ..train.checkpoint import CheckpointManager, graft_into, load_params
+from ..train.multitask_task import MultitaskTask
 from ..train.paired_task import PairedSpeakerTask, paired_scores_to_metrics
 from ..train.speaker_task import SpeakerTask
 from ..train.speech_task import SpeechTask
@@ -81,8 +92,8 @@ from .logging import MetricsLogger
 
 __all__ = [
     "CONFIG_DIR", "TINY_W2V2", "EarlyStopping", "build_augmenter", "build_data_module", "build_evaluator",
-    "build_model_and_task", "build_optimizer", "load_recipe", "paired_model_config", "run_train_eval",
-    "speaker_model_config", "speech_model_config", "w2v2_config",
+    "build_model_and_task", "build_optimizer", "load_recipe", "multitask_model_config", "paired_model_config",
+    "run_train_eval", "speaker_model_config", "speech_model_config", "w2v2_config",
 ]
 
 _OPTIM_ROW = "ROADMAP.md Queue 1 item 3 (optimizers and schedules)"
@@ -139,20 +150,23 @@ def w2v2_config(net: Dict, precision: str, remat: bool = False, accumulate: int 
     })
 
 
-_MODES = {"cross_entropy": "ce", "aam_softmax": "aam", "ctc": "speaker_ctc"}
+_MODES = {"cross_entropy": "ce", "aam_softmax": "aam", "triplet": "triplet", "triplet_ce": "triplet_ce",
+          "ctc": "speaker_ctc"}
 
 
 def speaker_model_config(cfg: Dict) -> Tuple[Wav2Vec2SpeakerConfig, str]:
     """(model config, training mode) of a merged config whose network is
-    ``wav2vec2_fc`` and whose loss is cross entropy, AAM softmax or CTC, as
-    the JAX ``build_model_and_task`` (:434-459) reads them: CTC adds the
-    blank class with a bias of 100, and cross entropy with
-    ``stat_pooling_type`` ``none`` is the frame-level ``ce_no_pool``."""
+    ``wav2vec2_fc`` and whose loss is cross entropy, AAM softmax, triplet,
+    triplet + CE or CTC, as the JAX ``build_model_and_task`` (:434-459)
+    reads them: CTC adds the blank class with a bias of 100, and cross
+    entropy with ``stat_pooling_type`` ``none`` is the frame-level
+    ``ce_no_pool``."""
     net, loss = cfg["network"], cfg["optim"]["loss"]
     if net.get("name", "wav2vec2_fc") != "wav2vec2_fc":
-        raise NotImplementedError(f"network {net['name']!r} is not ported yet: ROADMAP.md Queue 1 item 7")
+        raise NotImplementedError(f"network {net['name']!r} is not ported yet: {_FAMILIES_ROW}")
     if loss["name"] not in _MODES:
-        raise NotImplementedError(f"loss {loss['name']!r} is not ported yet: ROADMAP.md Queue 1 item 7")
+        raise NotImplementedError(f"loss {loss['name']!r} of the wav2vec2_fc network is not ported yet: "
+                                  f"{_FAMILIES_ROW}")
     trainer = cfg["trainer"]
     w2v2 = w2v2_config(net, trainer["precision"], trainer.get("remat", False),
                        int(trainer.get("accumulate_grad_batches") or 1))
@@ -176,6 +190,17 @@ def speaker_model_config(cfg: Dict) -> Tuple[Wav2Vec2SpeakerConfig, str]:
     if mode == "ce" and net["stat_pooling_type"] == "none":
         mode = "ce_no_pool"
     return model_cfg, mode
+
+
+def _speaker_task(cfg: Dict, model: Wav2Vec2SpeakerModel, mode: str) -> SpeakerTask:
+    """The speaker task of ``mode``; the triplet modes read the loss
+    config's ``margin``, ``c_ce`` and ``c_triplet`` (the JAX package keeps
+    the task's defaults, 1.0, whatever they say: ROADMAP Queue 3)."""
+    loss = cfg["optim"]["loss"]
+    if mode not in ("triplet", "triplet_ce"):
+        return SpeakerTask(model, mode)
+    return SpeakerTask(model, mode, triplet_margin=float(loss.get("margin", 1.0)),
+                       c_ce=float(loss.get("c_ce", 1.0)), c_triplet=float(loss.get("c_triplet", 1.0)))
 
 
 def paired_model_config(cfg: Dict) -> Wav2Vec2PairedConfig:
@@ -206,26 +231,61 @@ def speech_model_config(cfg: Dict, vocab_size: int) -> Wav2Vec2SpeechConfig:
     )
 
 
+def multitask_model_config(cfg: Dict, vocab_size: int) -> Wav2Vec2MultitaskConfig:
+    """The config of a merged config whose network is ``wav2vec2_multitask``
+    (:547-565), over ``vocab_size`` tokens; ``ctc_aam`` adds the AAM head."""
+    net, trainer, loss = cfg["network"], cfg["trainer"], cfg["optim"]["loss"]
+    return Wav2Vec2MultitaskConfig(
+        w2v2=w2v2_config(net, trainer["precision"], trainer.get("remat", False),
+                         int(trainer.get("accumulate_grad_batches") or 1)),
+        vocab_size=vocab_size,
+        head_dropout=net["head_dropout"],
+        stat_pooling_type=net["stat_pooling_type"],
+        hidden_fc_layers_out=tuple(net["hidden_fc_layers_out"]),
+        embedding_layer_idx=net["embedding_layer_idx"],
+        use_aam=loss["name"] == "ctc_aam",
+        aam_margin=loss.get("margin", 0.2),
+        aam_scale=loss.get("scale", 30.0),
+    )
+
+
 def build_model_and_task(
     cfg: Dict, num_speakers: int, tokenizer: Optional[CharTokenizer] = None,
-) -> Tuple[Union[SpeakerTask, PairedSpeakerTask, SpeechTask], str]:
+) -> Tuple[Union[SpeakerTask, PairedSpeakerTask, SpeechTask, MultitaskTask], str]:
     """``(task, "speaker")`` with a new ``Wav2Vec2SpeakerModel`` over
     ``network.explicit_num_speakers`` or ``num_speakers`` classes,
     ``(task, "paired")`` with a new ``Wav2Vec2PairedModel`` for the
-    ``wav2vec2_paired`` network, or ``(task, "speech")`` with a new
+    ``wav2vec2_paired`` network, ``(task, "speech")`` with a new
     ``Wav2Vec2SpeechModel`` over ``tokenizer``'s vocabulary for the
-    ``wav2vec2_fc_letter`` network; parameters allocated, not initialised
-    (see ``models.wav2vec2.init_parameters``)."""
-    name = cfg["network"].get("name")
+    ``wav2vec2_fc_letter`` network, or ``(task, "multitask")`` with a new
+    ``Wav2Vec2MultitaskModel`` over the speakers and ``tokenizer``'s
+    vocabulary (or ``network.explicit_vocab_size`` tokens without one, for
+    serving) for the ``wav2vec2_multitask`` network; parameters allocated,
+    not initialised (see ``models.wav2vec2.init_parameters``)."""
+    net = cfg["network"]
+    name = net.get("name")
+    n_out = net.get("explicit_num_speakers") or num_speakers
     if name == "wav2vec2_paired":
         return PairedSpeakerTask(Wav2Vec2PairedModel(paired_model_config(cfg))), "paired"
     if name == "wav2vec2_fc_letter":
         if tokenizer is None:
             raise ValueError("speech network requires a tokenizer")
         return SpeechTask(Wav2Vec2SpeechModel(speech_model_config(cfg, tokenizer.vocab_size)), tokenizer), "speech"
+    if name == "wav2vec2_multitask":
+        if tokenizer is None and not net.get("explicit_vocab_size"):
+            raise ValueError(
+                "multitask network requires a tokenizer (or network.explicit_vocab_size for tokenizer-free "
+                "embedding extraction, e.g. predict.py)")
+        loss = cfg["optim"]["loss"]
+        if loss["name"] not in ("ctc_ce", "ctc_aam"):
+            raise ValueError("multitask network requires optim/loss=ctc_ce or ctc_aam")
+        vocab = tokenizer.vocab_size if tokenizer is not None else int(net["explicit_vocab_size"])
+        model = Wav2Vec2MultitaskModel(multitask_model_config(cfg, vocab), num_speakers=n_out)
+        return MultitaskTask(model, tokenizer, mode="aam" if loss["name"] == "ctc_aam" else "ce",
+                             speech_weight=loss.get("speech_weight", 1.0),
+                             speaker_weight=loss.get("speaker_weight", 1.0)), "multitask"
     model_cfg, mode = speaker_model_config(cfg)
-    n_out = cfg["network"].get("explicit_num_speakers") or num_speakers
-    return SpeakerTask(Wav2Vec2SpeakerModel(model_cfg, num_speakers=n_out), mode), "speaker"
+    return _speaker_task(cfg, Wav2Vec2SpeakerModel(model_cfg, num_speakers=n_out), mode), "speaker"
 
 
 def _normalize_schedule_cfg(sched_cfg: Dict) -> Dict:
@@ -354,7 +414,8 @@ _LIBRISPEECH_SPLITS = (("train", "train_dir"), ("val_clean", "val_clean_dir"), (
 def _librispeech_module(cfg: Dict) -> LibriSpeechDataModule:
     """The prepared LibriSpeech module of ``cfg`` (:254-290): the splits
     whose directory exists, the token budget, the tokenizer group's
-    vocabulary, speaker labels when asked for."""
+    vocabulary, speaker labels when asked for and always for the
+    ``wav2vec2_multitask`` network."""
     m, dl = cfg["data"]["module"], cfg["data"]["dataloader"]
     dm = LibriSpeechDataModule(LibriSpeechConfig(
         split_dirs={split: pathlib.Path(m[key]) for split, key in _LIBRISPEECH_SPLITS
@@ -365,7 +426,7 @@ def _librispeech_module(cfg: Dict) -> LibriSpeechDataModule:
         max_queue_size=_queue_size(cfg),
         pad_to_multiple=dl["pad_to_multiple"],
         tokenizer_name=(cfg.get("tokenizer") or {}).get("name", "corpus_char"),
-        with_speaker_labels=bool(m.get("with_speaker_labels")),
+        with_speaker_labels=bool(m.get("with_speaker_labels")) or cfg["network"]["name"] == "wav2vec2_multitask",
         seed=cfg["seed"],
     ))
     dm.prepare_data()
@@ -476,23 +537,18 @@ def _check_ported(cfg: Dict) -> None:
         raise NotImplementedError(f"trainer.dump_first_batch is not ported yet: {_RUNTIME_ROW}")
     if (cfg.get("callbacks") or {}).get("progress_tracker") and net.get("name") == "wav2vec2_fc":
         raise NotImplementedError(f"callbacks.progress_tracker is not ported yet: {_RUNTIME_ROW}")
-    if net.get("name") == "wav2vec2_multitask":
-        raise NotImplementedError(f"network wav2vec2_multitask is not ported yet: {_FAMILIES_ROW}")
-    if net.get("use_transformers_as_ensembles"):
-        raise NotImplementedError(
-            "network.use_transformers_as_ensembles is not ported yet: ROADMAP.md Queue 1 item 5")
     nd = t.get("num_devices", "all")
     if nd != "all" and int(nd) != 1:
         raise NotImplementedError(f"trainer.num_devices={nd}: data parallelism is ROADMAP.md Queue 1 item 8")
 
 
 def run_train_eval(cfg: Dict, device: DeviceLike = None) -> Optional[float]:
-    """Train and test the speaker, paired or speech recipe of ``cfg``
-    (:840); returns the test EER (the validation EER without test trials)
-    or the test-clean WER (the validation WER without it), or None when
-    ``eval_model`` is false or the test phase is skipped. Runs on the card
-    unless ``device="cpu"``, and raises without a card before it reads
-    anything."""
+    """Train and test the speaker, paired, speech or multitask recipe of
+    ``cfg`` (:840); returns the test EER (the validation EER without test
+    trials), the test-clean WER (the validation WER without it) for speech,
+    or None when ``eval_model`` is false or the test phase is skipped. Runs
+    on the card unless ``device="cpu"``, and raises without a card before it
+    reads anything."""
     dev = resolve_device(device)
     seed = int(cfg["seed"])
     np.random.seed(seed)
@@ -516,12 +572,14 @@ def run_train_eval(cfg: Dict, device: DeviceLike = None) -> Optional[float]:
     speech = isinstance(dm, LibriSpeechDataModule)
     if not speech:
         print(dm.summary())
+    multitask = cfg["network"]["name"] == "wav2vec2_multitask"
     with torch.device("meta"):
-        task, kind = build_model_and_task(cfg, 0 if speech else dm.num_speakers,
+        task, kind = build_model_and_task(cfg, dm.num_speakers if multitask or not speech else 0,
                                           tokenizer=dm.tokenizer if speech else None)
     task.model.to_empty(device=dev)
     init_parameters(task.model, torch.Generator(device=dev).manual_seed(seed))
-    run = {"paired": _run_paired, "speaker": _run_speaker, "speech": _run_speech}[kind]
+    run = {"paired": _run_paired, "speaker": _run_speaker, "speech": _run_speech,
+           "multitask": _run_multitask}[kind]
     return run(cfg, dm, task, logger, dev)
 
 
@@ -597,10 +655,11 @@ def _train_loop(cfg, task, state: TrainState, logger, train_iter_fn, validate_fn
                 on_step=None, kind: str = "speaker"):
     """The training loop of :1094 on one card. Returns ``(state, ckpt)``,
     ``ckpt`` None when nothing was checkpointed (no fit, fast_dev_run).
-    ``kind`` "speech" checkpoints on ``val_wer``, refuses
-    ``steps_per_dispatch`` > 1 and trains every token-budget batch as it
-    comes, its rows padded to a multiple of the accumulation count; the
-    other kinds drop a batch whose rows differ from the first one's."""
+    ``kind`` "speech" checkpoints on ``val_wer``, the others on
+    ``val_eer``. "speech" and "multitask" refuse ``steps_per_dispatch`` > 1
+    and train every token-budget batch as it comes, its rows padded to a
+    multiple of the accumulation count; the other kinds drop a batch whose
+    rows differ from the first one's."""
     if not cfg.get("fit_model", True):
         return state, None  # evaluation runs on the weights as loaded
     trainer = cfg["trainer"]
@@ -614,8 +673,8 @@ def _train_loop(cfg, task, state: TrainState, logger, train_iter_fn, validate_fn
     min_epochs = int(trainer.get("min_epochs") or 0)
     fast_dev = bool(trainer.get("fast_dev_run"))
 
-    speech = kind == "speech"
-    ckpt = CheckpointManager(trainer["checkpoint_dir"], monitor="val_wer" if speech else "val_eer",
+    speech = kind in ("speech", "multitask")  # token-budget batches
+    ckpt = CheckpointManager(trainer["checkpoint_dir"], monitor="val_wer" if kind == "speech" else "val_eer",
                              top_k=int(trainer.get("save_top_k", 1)))
     resumed_epoch = 0
     if trainer.get("resume"):
@@ -648,8 +707,8 @@ def _train_loop(cfg, task, state: TrainState, logger, train_iter_fn, validate_fn
     # validation, max_steps or limit_train_batches boundary
     spd = int(trainer.get("steps_per_dispatch") or 1)
     if spd > 1 and speech:
-        raise ValueError("steps_per_dispatch needs fixed-shape batches; the speech token-budget batcher "
-                         "varies shapes by design")
+        raise ValueError("steps_per_dispatch needs fixed-shape batches; the speech/multitask token-budget "
+                         "batcher varies shapes by design")
     step_fns = {}
 
     def get_step_fn(k: int):
@@ -800,7 +859,10 @@ def _embed_batch(model, batch: Dict, device: torch.device) -> np.ndarray:
 
 def _run_speaker(cfg, dm: VoxCelebDataModule, task: SpeakerTask, logger, device) -> Optional[float]:
     """Fit, validate, restore the best checkpoint and score the test trials
-    on full utterances (:1469)."""
+    on full utterances (:1469). The triplet modes train on
+    ``TripletBatchProcessor`` batches, seeded ``seed + epoch * 9973``
+    (:1586-1601); ``network.use_transformers_as_ensembles`` scores the test
+    trials on ``num_ensembles`` per-layer embeddings (:1636-1660)."""
     from .predict import extract_embeddings
 
     dl = cfg["data"]["dataloader"]
@@ -858,8 +920,18 @@ def _run_speaker(cfg, dm: VoxCelebDataModule, task: SpeakerTask, logger, device)
         res = evaluator.evaluate(usable, samples)
         return {"val_eer": res["eer"], "val_mdc": res["mdc"]}
 
+    def make_batch_processor(epoch):
+        """Triplet modes need two samples of every speaker in a batch, so
+        that each anchor has an in-batch positive; the others draw
+        uniformly (the data module's default)."""
+        if task.mode not in ("triplet", "triplet_ce"):
+            return None
+        return TripletBatchProcessor(max_batch_size=dl["batch_size"], max_queue_size=_queue_size(cfg),
+                                     collate_fn=collate_speaker_batch, seed=cfg["seed"] + epoch * 9973)
+
     def train_iter(epoch=0):
-        return dm.train_batches(prefetch_depth=dl.get("prefetch_depth", 4), epoch=epoch)
+        return dm.train_batches(batch_processor=make_batch_processor(epoch),
+                                prefetch_depth=dl.get("prefetch_depth", 4), epoch=epoch)
 
     state, ckpt = _train_loop(cfg, task, state, logger, train_iter, validate, device,
                               on_step=on_step if max_tr else None)
@@ -882,8 +954,11 @@ def _run_speaker(cfg, dm: VoxCelebDataModule, task: SpeakerTask, logger, device)
     test_samples = list(dm.test_samples())
     if ltb:
         test_samples = test_samples[: ltb * dl.get("test_batch_size", 8)]
+    net = cfg["network"]
     samples = extract_embeddings(model, test_samples, pad_to_multiple=dl.get("test_pad_to_multiple", 16000),
-                                 batch_size=dl.get("test_batch_size", 8), device=device)
+                                 batch_size=dl.get("test_batch_size", 8), device=device,
+                                 ensemble=bool(net.get("use_transformers_as_ensembles")),
+                                 num_ensembles=int(net.get("num_ensembles", 12)))
     if ltb:  # a prefix of the test split: score the trials whose both sides it holds
         seen = {s.sample_id for s in samples}
         test_pairs = [p for p in test_pairs if p.sample1_id in seen and p.sample2_id in seen]
@@ -901,6 +976,13 @@ def _run_speaker(cfg, dm: VoxCelebDataModule, task: SpeakerTask, logger, device)
     return float(res["eer"])
 
 
+def _warn_unsupported_progress_tracker(cfg, family: str) -> None:
+    """The progress tracker probes the speaker recipe's embeddings: another
+    family warns that it ignores a configured one (:1694)."""
+    if (cfg.get("callbacks") or {}).get("progress_tracker"):
+        print(f"progress tracker: unsupported for the {family} task family; callback ignored")
+
+
 def _run_paired(cfg, dm: VoxCelebDataModule, task: PairedSpeakerTask, logger, device) -> Optional[float]:
     """Fit on generated pair batches, validate by scoring the validation
     pairs through the network, restore the best checkpoint and score the
@@ -908,8 +990,7 @@ def _run_paired(cfg, dm: VoxCelebDataModule, task: PairedSpeakerTask, logger, de
     epoch-0 batch (:1722, an example for its init) is not drawn: each epoch
     builds its processor and pipeline afresh from seeds, so the draw moves
     nothing that training reads."""
-    if (cfg.get("callbacks") or {}).get("progress_tracker"):
-        print("progress tracker: unsupported for the paired task family; callback ignored")
+    _warn_unsupported_progress_tracker(cfg, "paired")
     dl = cfg["data"]["dataloader"]
     ratio = cfg.get("pos_neg_training_batch_ratio", 0.5)
     k = cfg["data"]["shards"]["sequential_same_speaker_samples"]
@@ -1005,8 +1086,7 @@ def _run_speech(cfg, dm: LibriSpeechDataModule, task: SpeechTask, logger, device
     """Fit on token-budget batches, validate the WER of the clean and other
     validation splits, restore the best checkpoint by ``val_wer`` and
     return the test-clean WER (:1874)."""
-    if (cfg.get("callbacks") or {}).get("progress_tracker"):
-        print("progress tracker: unsupported for the speech task family; callback ignored")
+    _warn_unsupported_progress_tracker(cfg, "speech")
     raw_example = next(iter(dm.train_batches()))
     state = _init_state(cfg, task)
     limit_val = cfg["trainer"].get("limit_val_batches")
@@ -1051,3 +1131,98 @@ def _run_speech(cfg, dm: LibriSpeechDataModule, task: SpeechTask, logger, device
     objective = results["test_clean"] if "test_clean" in results else validate(state)["val_wer"]
     logger.close()
     return float(objective)
+
+
+def _run_multitask(cfg, dm: LibriSpeechDataModule, task: MultitaskTask, logger, device) -> Optional[float]:
+    """Fit on token-budget batches with speaker labels, validate the WER of
+    both validation splits and the cosine EER of ``num_val_pairs`` speaker
+    trials over the first, restore the best checkpoint by ``val_eer``, then
+    log both test WERs and the trials' EER over the first test split;
+    returns the test EER (:1949)."""
+    _warn_unsupported_progress_tracker(cfg, "multitask")
+    raw_example = next(iter(dm.train_batches()))
+    state = _init_state(cfg, task)
+    limit_val = cfg["trainer"].get("limit_val_batches")
+    evaluator = build_evaluator(cfg)
+    eval_bs = int(cfg["data"]["dataloader"].get("eval_batch_size", 8))
+    track_transcription = _make_transcription_tracker(raw_example, task, logger)
+    val_splits = [s for s in ("val_clean", "val_other") if s in dm.cfg.split_dirs]
+    num_pairs = int(cfg["data"]["module"].get("num_val_pairs", 200))
+    val_pairs = dm.val_evaluation_pairs(val_splits[0], num_pairs) if val_splits else []
+    wer = _make_wer_fn(dm, task, eval_bs)
+
+    def embeddings(split, limit=None) -> List[EmbeddingSample]:
+        samples: List[EmbeddingSample] = []
+        for i, batch in enumerate(dm.eval_batches(split, batch_size=eval_bs)):
+            if limit and i >= limit:
+                break
+            e = _embed_batch(task.model, batch, device)
+            samples.extend(EmbeddingSample(k, e[j]) for j, k in enumerate(batch["keys"]))
+        return samples
+
+    def eer(split, pairs, limit=None) -> Optional[Dict]:
+        if not pairs:
+            return None
+        samples = embeddings(split, limit=limit)
+        seen = {s.sample_id for s in samples}
+        usable = [p for p in pairs if p.sample1_id in seen and p.sample2_id in seen]
+        if not usable:
+            return None
+        evaluator.reset_parameters()
+        if evaluator.max_num_training_samples:  # centring statistics from training embeddings
+            max_tr = int(evaluator.max_num_training_samples)
+            tr_embs, tr_labels = [], []
+            for batch in dm.train_batches():
+                e = _embed_batch(task.model, batch, device)
+                tr_embs.extend(e)
+                tr_labels.extend(np.asarray(batch["speaker_labels"]).tolist()[: len(e)])
+                if len(tr_embs) >= max_tr:
+                    break
+            evaluator.fit_parameters(tr_embs[:max_tr], tr_labels[:max_tr])
+        return evaluator.evaluate(usable, samples)
+
+    def validate(state, max_batches=None):
+        track_transcription(state)
+        lim = max_batches if max_batches is not None else limit_val
+        metrics = {}
+        for split in val_splits:
+            value = wer(split, limit=lim)
+            if value is not None:
+                metrics[f"val_wer_{split.split('_')[1]}"] = value
+        metrics["val_wer"] = metrics.get("val_wer_clean", 1.0)
+        res = eer(val_splits[0], val_pairs, limit=max_batches) if val_splits else None
+        metrics.update({"val_eer": res["eer"], "val_mdc": res["mdc"]} if res is not None else {"val_eer": 1.0})
+        return metrics
+
+    def train_iter(epoch=0):
+        return dm.train_batches(prefetch_depth=cfg["data"]["dataloader"].get("prefetch_depth", 4), epoch=epoch)
+
+    state, ckpt = _train_loop(cfg, task, state, logger, train_iter, validate, device, kind="multitask")
+    state = _restore_best(state, ckpt, int(cfg["trainer"].get("average_top_k", 1)))
+    if not cfg.get("eval_model", True):
+        logger.close()
+        return None
+    ltb = _limit_test_batches(cfg)
+    if ltb == 0:
+        print("limit_test_batches=0: skipping the test phase")
+        logger.close()
+        return None
+    t0 = time.perf_counter()
+    results = {}
+    test_splits = [s for s in ("test_clean", "test_other") if s in dm.cfg.split_dirs]
+    for split in test_splits:
+        value = wer(split, limit=ltb)
+        if value is not None:
+            results[f"{split}_wer"] = value
+    test_eer = None
+    if test_splits:
+        res = eer(test_splits[0], dm.val_evaluation_pairs(test_splits[0], num_pairs), limit=ltb)
+        if res is not None:
+            test_eer = results["test_eer"] = res["eer"]
+            results["test_mdc"] = res["mdc"]
+    if results:
+        logger.log_eval(int(state.step), {**results, "test_seconds": time.perf_counter() - t0}, split="test")
+    if test_eer is None:
+        test_eer = validate(state)["val_eer"]  # before the logger closes: it logs the tracked transcription
+    logger.close()
+    return float(test_eer)

@@ -5,12 +5,16 @@ Counterparts:
 - ``extract_embeddings`` <- ``w2v2_speaker_tpu/runtime/experiment.py::
   extract_embeddings`` (:742): sort by length, right-pad each batch to a
   multiple of ``pad_to_multiple`` samples, pad the last batch with
-  all-invalid rows, run the masked model, slice the rows back;
+  all-invalid rows, run the masked model, slice the rows back; a frame-level
+  model's ``[T, D]`` embeddings come back unpooled, each cut to its
+  utterance's valid frames, and with ``ensemble`` each sample holds its
+  list of per-layer embeddings;
 - ``read_pair_file`` <- ``w2v2_speaker_tpu/runtime/predict.py::
   read_pair_file`` (:74);
 - ``run_predictions`` <- ``w2v2_speaker_tpu/runtime/predict.py::
   run_predictions`` (:85): the pair file's sorted unique ids, the
-  configured evaluator, the ``wav2vec2_fc`` model with its weights
+  configured evaluator, the ``wav2vec2_fc`` or ``wav2vec2_multitask``
+  model (whose speaker branch embeds) with its weights
   (``network.pretrained_checkpoint``, then ``load_network_from_checkpoint``),
   16 kHz audio read and normalised per utterance, embeddings cached as
   ``<folder>/embeddings/<id>.npy``, AS-Norm fitted on the extraction set,
@@ -18,8 +22,12 @@ Counterparts:
   ``<pairs-stem>_scores.txt`` lines ``<score> <a> <b>``.
 
 Differences from the JAX package: no optimizer is built (serving needs
-none), there is no mesh (one card), and ``network.int8_matmuls`` other than
-false raises (``BucketDispatchEmbed`` waits for ROADMAP.md Queue 1 item 6).
+none), there is no mesh (one card), ``network.int8_matmuls`` other than
+false raises (``BucketDispatchEmbed`` waits for ROADMAP.md Queue 1 item 6),
+and frame-level embeddings keep only their valid frames: the JAX package's
+``extract_embeddings`` (:771) hands on every frame of the padded batch, so
+the frame-level scorer draws padding frames too and a trial's score moves
+with its batch's padding (ROADMAP Queue 3).
 In bf16 the model keeps float32 parameters and computes under autocast, as
 the JAX package's model keeps float32 parameters and computes in bf16.
 """
@@ -39,7 +47,7 @@ from ..data.samples import SpeakerSample
 from ..device import DeviceLike, resolve_device, set_float32_precision
 from ..eval.evaluator import ASNormCosineEvaluator, EmbeddingSample
 from ..models.hf_convert import load_hf_checkpoint
-from ..models.wav2vec2 import init_parameters
+from ..models.wav2vec2 import feat_extract_output_lengths, init_parameters
 from ..train.checkpoint import graft_into, load_params
 from .experiment import _canon_int8, build_evaluator, build_model_and_task, speaker_model_config
 
@@ -53,10 +61,17 @@ def extract_embeddings(
     pad_to_multiple: int = 16000,
     batch_size: int = 8,
     device: DeviceLike = None,
+    ensemble: bool = False,
+    num_ensembles: int = 12,
 ) -> List[EmbeddingSample]:
     """Batched, bucketed, masked embedding extraction with
-    ``model.compute_embedding(wav, mask)``. ``model`` must already live on
-    ``device`` (the card unless ``device="cpu"``)."""
+    ``model.compute_embedding(wav, mask)``, or with ``ensemble``
+    ``model.compute_ensemble_embeddings(wav, mask, num_ensembles)`` (each
+    sample's embedding then a list of one ``[D]`` per layer; the layers are
+    pooled on the device, and only the pooled rows come to the host). A
+    frame-level embedding ``[T, D]`` keeps the utterance's valid frames.
+    ``model`` must already live on ``device`` (the card unless
+    ``device="cpu"``)."""
     dev = resolve_device(device)
     out: List[EmbeddingSample] = []
     samples = sorted(samples, key=lambda s: s.wav.shape[-1])
@@ -68,9 +83,21 @@ def extract_embeddings(
         padded = pad_batch_rows({"features": batch.values, "mask": batch.mask}, batch_size)
         wav = torch.from_numpy(padded["features"]).to(dev)
         mask = torch.from_numpy(padded["mask"]).to(dev)
-        embs = model.compute_embedding(wav, mask).float().cpu().numpy()[: len(chunk)]
-        out.extend(EmbeddingSample(s.key, embs[j]) for j, s in enumerate(chunk))
+        if ensemble:
+            layers = [e.float().cpu().numpy() for e in model.compute_ensemble_embeddings(wav, mask, num_ensembles)]
+        else:
+            layers = [model.compute_embedding(wav, mask).float().cpu().numpy()]
+        rows = [[_valid_frames(e, j, s, model) for e in layers] for j, s in enumerate(chunk)]
+        out.extend(EmbeddingSample(s.key, r if ensemble else r[0]) for s, r in zip(chunk, rows))
     return out
+
+
+def _valid_frames(embs: np.ndarray, j: int, sample: SpeakerSample, model) -> np.ndarray:
+    """Row ``j`` of a batch's embeddings; a frame-level row ``[T, D]`` cut
+    to ``sample``'s valid frames."""
+    if embs.ndim == 2:
+        return embs[j]
+    return embs[j, : max(int(feat_extract_output_lengths(sample.wav.shape[-1], model.wav2vec2.cfg)), 0)]
 
 
 def read_pair_file(path: pathlib.Path) -> List[Tuple[str, str]]:
@@ -86,10 +113,15 @@ def read_pair_file(path: pathlib.Path) -> List[Tuple[str, str]]:
 
 
 def _check_servable(cfg: Dict) -> None:
-    """Raise for what predict cannot serve yet: another network than
-    ``wav2vec2_fc`` or an unported loss (``speaker_model_config``), and int8
+    """Raise for what predict cannot serve: a network without a speaker
+    embedding (the speech and paired networks; the JAX package raises
+    too), an unported network or loss (``speaker_model_config``), and int8
     matmuls."""
-    speaker_model_config(cfg)
+    name = cfg["network"].get("name")
+    if name in ("wav2vec2_fc_letter", "wav2vec2_paired"):
+        raise ValueError("predict supports speaker (or multitask) models")
+    if name != "wav2vec2_multitask":
+        speaker_model_config(cfg)
     int8 = cfg["network"].get("int8_matmuls", False)
     if _canon_int8(int8) is not False:
         raise NotImplementedError(

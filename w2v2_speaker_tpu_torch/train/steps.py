@@ -17,6 +17,7 @@ from typing import Callable, Dict, List, Union
 
 import torch
 
+from .multitask_task import MultitaskTask
 from .paired_task import PairedSpeakerTask
 from .speaker_task import SpeakerTask
 from .speech_task import SpeechTask
@@ -34,7 +35,7 @@ def _stack(per_step: List[Dict]) -> Dict:
 
 
 def make_train_step(
-    task: Union[SpeakerTask, PairedSpeakerTask, SpeechTask],
+    task: Union[SpeakerTask, PairedSpeakerTask, SpeechTask, MultitaskTask],
     accumulate_steps: int = 1,
     return_embeddings: bool = False,
     steps_per_dispatch: int = 1,
@@ -47,7 +48,7 @@ def make_train_step(
     [B] for a ``SpeakerTask``; ``features_a`` / ``features_b``, optional
     ``mask_a`` / ``mask_b`` and ``labels`` for a ``PairedSpeakerTask``;
     ``features``, ``mask``, ``labels`` [B, S] and ``label_lengths`` for a
-    ``SpeechTask``
+    ``SpeechTask``, and also ``speaker_labels`` [B] for a ``MultitaskTask``
     (with ``steps_per_dispatch`` K > 1, every entry stacked [K, B, ...]
     and the metrics stacked [K, ...]). With ``accumulate_steps`` A > 1 the
     batch is split into A microbatches along axis 0 and the gradients are
