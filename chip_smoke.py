@@ -138,15 +138,21 @@ the run by raising:
    steps 5-8, the host's wait, step 3's profile and the phase's peak memory;
 19. triplets end to end: ``run.main`` with ``+experiment=speaker_wav2vec2_triplet``
    and ``speaker_wav2vec2_triplet_ce`` at full BASE width, bf16, B=66, on
-   phase 13's corpus in shards of runs of 2 (4 batches an epoch), 4 steps
-   in one dispatch each, triplets mined on the card: every batch holds >= 2
-   speakers and >= 2 samples of each, finite losses, launches = kept
-   layers, the test EER in [0, 1]; ms/step and the peak memory;
+   a corpus of phase 13's layout with 8 utterances a speaker, in shards of
+   the recipe's runs of 4 (every sample kept: 5 batches an epoch) and a
+   sample queue of 100, below the epoch's 352, so that batches are drawn
+   while samples still stream in; 4 steps in one dispatch each, triplets
+   mined on the card: every batch holds >= 2 speakers and >= 2 samples of
+   each, drawn before the epoch's last sample arrived, finite losses,
+   launches = kept layers, the test EER in [0, 1]; ms/step and the peak
+   memory;
 20. item 5's options on phase 13's shards: (a) ``network.wav2vec_feature_encoder_only=true``
    with ``network.conv_impl=fused_pallas`` (the conv stack alone), 4 steps:
    6 conv launches and no attention launch a step, the conv kernel against
    its plain version at the first training batch's own layer inputs (then
-   timed there), ms/step and peak memory; (b) ``network.use_transformers_as_ensembles=true``
+   timed there), ms/step, step 4 under torch.profiler (device ms by
+   category, the ops with the most device time and memory), the memory
+   held after each forward and each step's peak; (b) ``network.use_transformers_as_ensembles=true``
    with 12 ensembles at the test (``fit_model=false``): 12 pooled
    embeddings per utterance, each trial's score the mean of the 12
    per-layer cosine scores, the test EER, and float32 ensemble embeddings
@@ -300,14 +306,16 @@ MT_EVAL_SPEAKERS, MT_VAL_PAIRS = 2, 16
 MT_STEPS, MT_VAL_EVERY, MT_PROFILED, MT_AAM_STEPS = 8, 4, 2, 4
 MT_LOSS_RTOL = 1e-6  # loss against speech_weight x loss_speech + speaker_weight x loss_speaker (one float32 sum)
 MT_SAME_ATOL = 1e-6  # the predict twin's scores vs extract_embeddings + cosine evaluator on the same model
-# triplets end to end on phase 13's corpus: each training speaker's 6
-# utterances in runs of 2 (264 samples in shards of 24: 4 batches of 66 an
-# epoch, so one dispatch of 4 steps; runs of 4 keep 168, 2 batches), 4 steps
-# of each triplet recipe
-TRIPLET_RUN, TRIPLET_STEPS = 2, 4
+# triplets end to end on a corpus of phase 13's layout with 8 utterances a
+# speaker: the recipe's runs of 4 keep all 352 training samples (5 batches
+# of 66 an epoch, so one dispatch of 4 steps); a queue of 100 samples makes
+# the processor draw while the epoch still streams in; 4 steps of each
+# triplet recipe
+TRIPLET_UTTERANCES, TRIPLET_QUEUE, TRIPLET_STEPS = 8, 100, 4
 # item 5's options on phase 13's shards: the conv stack alone on the fused
 # conv (4 steps), 12 layer ensembles (test only), frame-level test embeddings
 LITE_STEPS, ENSEMBLES, FRAMES_STEPS = 4, 12, 2
+TOP_OPS = 6  # ops listed from a profile with memory, by device time and by memory
 ENSEMBLE_SAME_ATOL = 1e-6  # the ensemble score vs the mean of the 12 per-layer cosine scores
 ENSEMBLE_F32_S = (1.2, 2.0, 3.0)  # the float32 card-vs-CPU ensemble utterances
 
@@ -1207,14 +1215,14 @@ def predict_phase(card: str) -> None:
           f"(limit {PREDICT_F32_ATOL}) [{card}]", flush=True)
 
 
-def write_run_corpus(root: pathlib.Path, rng) -> tuple:
-    """``RUN_SPEAKERS`` x 6 WAV files of 3.5-5 s under
+def write_run_corpus(root: pathlib.Path, rng, utterances: int = 6) -> tuple:
+    """``RUN_SPEAKERS`` x ``utterances`` WAV files of 3.5-5 s under
     ``idNNNNN/ytY/NNNNN.wav`` (``write_predict_folder``'s tones and noise)
     and a trial file of every pair of the last ``RUN_TEST`` speakers'
     utterances; returns (WAV root, trial file, seconds of audio)."""
     wav_dir, seconds = root / "wav", 0.0
     for spk in range(RUN_SPEAKERS):
-        t_spk = rng.uniform(3.5, 5.0, 6)
+        t_spk = rng.uniform(3.5, 5.0, utterances)
         for i, sec in enumerate(t_spk):
             rel = f"id{20000 + spk:05d}/yt{i // 2}/{i % 2:05d}.wav"
             t = np.arange(int(sec * 16000)) / 16000
@@ -1223,7 +1231,7 @@ def write_run_corpus(root: pathlib.Path, rng) -> tuple:
             write_wav(wav_dir / rel, (0.05 * tone + rng.normal(0, 0.05, t.shape)).astype(np.float32))
         seconds += float(t_spk.sum())
     test = [f"id{20000 + spk:05d}/yt{i // 2}/{i % 2:05d}.wav"
-            for spk in range(RUN_SPEAKERS - RUN_TEST, RUN_SPEAKERS) for i in range(6)]
+            for spk in range(RUN_SPEAKERS - RUN_TEST, RUN_SPEAKERS) for i in range(utterances)]
     trials = root / "trials.txt"
     trials.write_text("".join(f"{int(a[:7] == b[:7])} {a} {b}\n" for i, a in enumerate(test) for b in test[i + 1:]))
     return wav_dir, trials, seconds
@@ -1245,6 +1253,17 @@ def device_busy(prof) -> tuple:
         by_name[name] = by_name.get(name, 0.0) + (stop - start) / 1e3
     return (busy / (end - spans[0][0]), (end - spans[0][0]) / 1e3, len(spans), by_cat,
             max(by_name.items(), key=lambda kv: kv[1]))
+
+
+def top_ops(prof, n: int) -> tuple:
+    """(the ``n`` ops with the most self device ms, the ``n`` with the most
+    device memory allocated in them and not freed there) of a torch.profiler
+    run with shapes and memory recorded, each as (op, input shapes, ms,
+    GiB)."""
+    rows = [(a.key, str(a.input_shapes)[:120], a.self_device_time_total / 1e3,
+             getattr(a, "self_device_memory_usage", 0) / 2**30)
+            for a in prof.key_averages(group_by_input_shape=True)]
+    return sorted(rows, key=lambda r: -r[2])[:n], sorted(rows, key=lambda r: -r[3])[:n]
 
 
 def per_step_categories(by_cat, top_name, top_ms, steps) -> str:
@@ -1272,10 +1291,19 @@ class RunProbe:
     in ``eval_attn`` those of the evaluation forward with the largest T. With
     ``profile=(first, last)``, steps ``first``-``last`` of the run (counted
     from 0) run under torch.profiler. ``dm_cls`` is the data module whose
-    ``prepare_data`` and ``train_batches`` are timed."""
+    ``prepare_data`` and ``train_batches`` are timed. With ``memory``, each
+    step records the memory allocated at its start and after its forward
+    and its own peak (the peak counter is reset where each step starts;
+    ``peak_gib`` gives the largest over the run), and the profiled steps
+    also keep the ``TOP_OPS`` ops with the most device time and those with
+    the most device memory allocated in them and not freed there."""
 
-    def __init__(self, profile=None, task_cls=SpeakerTask, longest: bool = False, dm_cls=None):
+    def __init__(self, profile=None, task_cls=SpeakerTask, longest: bool = False, dm_cls=None,
+                 memory: bool = False):
         self.profile, self.task_cls, self.longest, self.dm_cls = profile, task_cls, longest, dm_cls
+        self.memory, self.ops = memory, None
+        self.mem = []  # with memory: per step (bytes at its start, after its forward, its peak)
+        self._peak_before = []  # with memory: the peak counter where each step starts, before its reset
         self.starts, self.ends, self.steps, self.evals, self.waits = [], [], [], [], []
         self.labels, self.scored, self.shapes, self.epochs = [], [], [], []
         self.prepare_s, self.busy, self.attn, self.eval_attn, self.task = None, None, None, None, None
@@ -1323,20 +1351,40 @@ class RunProbe:
             from torch.profiler import ProfilerActivity, profile
 
             torch.cuda.synchronize()
-            self._prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+            self._prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                                 record_shapes=self.memory, profile_memory=self.memory)
             self._prof.start()
+        if self.memory:
+            self._peak_before.append(torch.cuda.max_memory_allocated())
+            torch.cuda.reset_peak_memory_stats()
+            self.mem.append([torch.cuda.memory_allocated()])
         self.labels.append(batch["labels"])
         if "features" in batch:  # not a paired batch
             mask = batch.get("mask")
             self.shapes.append((*batch["features"].shape[:2], None if mask is None else int(mask.sum())))
         self.starts.append((self._event(), launches()))
 
+    def _after_forward(self) -> None:
+        if self.memory:
+            self.mem[-1].append(torch.cuda.memory_allocated())
+
     def _step_end(self) -> None:
         self.ends.append((self._event(), launches()))
+        if self.memory:
+            self.mem[-1].append(torch.cuda.max_memory_allocated())
         if self._prof is not None and len(self.ends) == self.profile[1] + 1:
             torch.cuda.synchronize()
             self._prof.stop()
-            self.busy, self._prof = device_busy(self._prof), None
+            self.busy = device_busy(self._prof)
+            if self.memory:
+                self.ops = top_ops(self._prof, TOP_OPS)
+            self._prof = None
+
+    def peak_gib(self, held: int) -> float:
+        """With ``memory``: the largest memory allocated over the run so
+        far, above ``held`` bytes, in GiB."""
+        return (max([*self._peak_before, *(m[-1] for m in self.mem), torch.cuda.max_memory_allocated()])
+                - held) / 2**30
 
     @staticmethod
     def _event():
@@ -1352,7 +1400,7 @@ class RunProbe:
 
         probe = self
         self._wrap(self.task_cls, "loss_fn", lambda orig: lambda task, batch, *a, **kw: (
-            probe._step_start(task, batch), orig(task, batch, *a, **kw))[1])
+            probe._step_start(task, batch), orig(task, batch, *a, **kw), probe._after_forward())[1])
 
         def recorded_scores(orig):
             def score_fn(task, batch):
@@ -2084,40 +2132,68 @@ def multitask_phase(card: str, tmp: pathlib.Path) -> None:
           f"trials, launches {got}, scores vs extract_embeddings + cosine max diff {same:.3e} [{card}]", flush=True)
 
 
-def triplet_phase(card: str, tmp: pathlib.Path, wav_dir, trials) -> None:
+def triplet_phase(card: str, tmp: pathlib.Path) -> None:
     """Phase 19: ``run.main`` on ``speaker_wav2vec2_triplet`` and
     ``speaker_wav2vec2_triplet_ce`` at full BASE width, B=66, 4 steps in
-    one dispatch each, on phase 13's corpus in shards of its own."""
+    one dispatch each, on a corpus of its own in the recipes' runs of 4,
+    with a sample queue below the epoch's size."""
     from w2v2_speaker_tpu_torch import run
+    from w2v2_speaker_tpu_torch.runtime import experiment as rexp
 
     gc.collect()
     torch.cuda.empty_cache()
     held = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
+    wav_dir, trials, _ = write_run_corpus(tmp / "triplet", np.random.default_rng(19), TRIPLET_UTTERANCES)
+    epoch = (RUN_SPEAKERS - RUN_TEST - RUN_VAL) * TRIPLET_UTTERANCES
+    draws = []  # per epoch, the samples the processor had read at each batch it drew
+    orig_call = rexp.TripletBatchProcessor.__call__
+
+    def counted_call(proc, samples):
+        read, at = [0], []
+        draws.append(at)
+
+        def counted():
+            for sample in samples:
+                read[0] += 1
+                yield sample
+
+        orig_draw = proc._draw
+        proc._draw = lambda by_speaker: (at.append(read[0]), orig_draw(by_speaker))[1]
+        return orig_call(proc, counted())
+
     report = []
-    for recipe in ("speaker_wav2vec2_triplet", "speaker_wav2vec2_triplet_ce"):
-        argv = [f"+experiment={recipe}", f"data.shards.samples_per_shard={RUN_SHARD + 2}",
-                f"data.shards.sequential_same_speaker_samples={TRIPLET_RUN}", f"trainer.max_steps={TRIPLET_STEPS}",
-                f"trainer.val_check_interval={TRIPLET_STEPS}", "seed=19",
-                *corpus_args(wav_dir, trials, tmp / "triplet_shards", tmp / f"{recipe}_ckpt")]
-        reset_launches()
-        with RunProbe() as probe:
-            objective = run.main(argv)
-        kept = check_steps(recipe, probe, TRIPLET_STEPS)
-        assert 0 <= objective <= 1, f"{recipe}: objective {objective}"
-        for labels in probe.labels:
-            _, counts = torch.unique(labels, return_counts=True)
-            assert labels.numel() == 66 and len(counts) >= 2 and int(counts.min()) >= 2, \
-                f"{recipe}: a batch without a positive for every anchor: {counts.tolist()}"
-        spans = probe.spans_ms(0, TRIPLET_STEPS - 1)
-        report.append(f"{recipe}: losses {[round(m['loss'], 4) for _, m in probe.steps]}, steps "
-                      f"{probe.step_ms(0, TRIPLET_STEPS - 1):.3f} ms/step over the dispatch (spans "
-                      f"{[round(x, 2) for x in spans]}), speakers per batch "
-                      f"{[len(torch.unique(lab)) for lab in probe.labels]}, layers kept {kept}, test EER "
-                      f"{objective:.4f}")
+    rexp.TripletBatchProcessor.__call__ = counted_call
+    try:
+        for recipe in ("speaker_wav2vec2_triplet", "speaker_wav2vec2_triplet_ce"):
+            argv = [f"+experiment={recipe}", f"data.shards.samples_per_shard={RUN_SHARD + 2}",
+                    f"data.dataloader.queue_size={TRIPLET_QUEUE}", f"trainer.max_steps={TRIPLET_STEPS}",
+                    f"trainer.val_check_interval={TRIPLET_STEPS}", "seed=19",
+                    *corpus_args(wav_dir, trials, tmp / "triplet_shards", tmp / f"{recipe}_ckpt")]
+            draws.clear()
+            reset_launches()
+            with RunProbe() as probe:
+                objective = run.main(argv)
+            kept = check_steps(recipe, probe, TRIPLET_STEPS)
+            assert 0 <= objective <= 1, f"{recipe}: objective {objective}"
+            for labels in probe.labels:
+                _, counts = torch.unique(labels, return_counts=True)
+                assert labels.numel() == 66 and len(counts) >= 2 and int(counts.min()) >= 2, \
+                    f"{recipe}: a batch without a positive for every anchor: {counts.tolist()}"
+            first = draws[0]
+            assert len(first) >= TRIPLET_STEPS and first[TRIPLET_STEPS - 1] < epoch, \
+                f"{recipe}: the first epoch's batches were drawn after reading {first} of {epoch} samples"
+            spans = probe.spans_ms(0, TRIPLET_STEPS - 1)
+            report.append(f"{recipe}: losses {[round(m['loss'], 4) for _, m in probe.steps]}, steps "
+                          f"{probe.step_ms(0, TRIPLET_STEPS - 1):.3f} ms/step over the dispatch (spans "
+                          f"{[round(x, 2) for x in spans]}), speakers per batch "
+                          f"{[len(torch.unique(lab)) for lab in probe.labels]}, batches drawn after reading "
+                          f"{first} of the epoch's {epoch} samples, layers kept {kept}, test EER {objective:.4f}")
+    finally:
+        rexp.TripletBatchProcessor.__call__ = orig_call
     peak_gib = (torch.cuda.max_memory_allocated() - held) / 2**30
-    print(f"triplet BASE bf16 B=66: {'; '.join(report)}; peak {peak_gib:.2f} GiB above the {held / 2**30:.2f} GiB "
-          f"held at the phase's start [{card}]", flush=True)
+    print(f"triplet BASE bf16 B=66, runs of 4, queue {TRIPLET_QUEUE}: {'; '.join(report)}; peak {peak_gib:.2f} GiB "
+          f"above the {held / 2**30:.2f} GiB held at the phase's start [{card}]", flush=True)
 
 
 class ConvRecorder:
@@ -2159,12 +2235,13 @@ def options_phase(card: str, tmp: pathlib.Path, wav_dir, trials, shards) -> None
     held = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
-    with RunProbe() as probe, ConvRecorder() as conv:
+    with RunProbe(profile=(LITE_STEPS - 1, LITE_STEPS - 1), memory=True) as probe, \
+            ConvRecorder() as conv:
         lite_objective = run.main([*common, "network.wav2vec_feature_encoder_only=true",
                                    "network.conv_impl=fused_pallas",
                                    f"trainer.max_steps={LITE_STEPS}", f"trainer.val_check_interval={LITE_STEPS}",
                                    *corpus_args(wav_dir, trials, shards, tmp / "lite_ckpt")])
-    peak_gib = (torch.cuda.max_memory_allocated() - held) / 2**30
+    peak_gib = probe.peak_gib(held)
     assert [s for s, _ in probe.steps] == list(range(1, LITE_STEPS + 1)) and all(
         np.isfinite(m["loss"]) for _, m in probe.steps), f"lite: steps {probe.steps}"
     for step, layers, got in probe.per_step():
@@ -2173,10 +2250,18 @@ def options_phase(card: str, tmp: pathlib.Path, wav_dir, trials, shards) -> None
     assert 0 <= lite_objective <= 1, f"lite: objective {lite_objective}"
     assert len(conv.layers) == 6 and conv.layers[0][0].shape[0] == 66, "lite: conv inputs not recorded"
     lite_row = check_conv("lite_train", conv.layers)
-    lite_ms = probe.step_ms(1, LITE_STEPS - 1)
+    lite_ms = probe.step_ms(1, LITE_STEPS - 2)
     del conv
+    busy, window_ms, kernels, by_cat, (top_name, top_ms) = probe.busy
+    by_time, by_memory = probe.ops
+    gib = [[round((x - held) / 2**30, 2) for x in m] for m in probe.mem]
+    print(f"lite profile of step {LITE_STEPS} (torch.profiler): device busy {100 * busy:.1f} % of {window_ms:.1f} ms, "
+          f"{kernels} kernels; {per_step_categories(by_cat, top_name, top_ms, 1)}; ops by self device ms "
+          f"{[(op, shapes, round(ms, 3)) for op, shapes, ms, _ in by_time]}; ops by device memory allocated and "
+          f"kept (GiB) {[(op, shapes, round(g, 3)) for op, shapes, _, g in by_memory]}; memory above the phase's "
+          f"start per step (GiB: at its start, after its forward, its peak) {gib} [{card}]", flush=True)
     print(f"lite (conv stack alone, fused conv) BASE bf16 B=66: losses {[round(m['loss'], 4) for _, m in probe.steps]}, "
-          f"{lite_ms:.3f} ms/step (CUDA events, steps 2-{LITE_STEPS}), launches per step {probe.per_step()[0][2]}, "
+          f"{lite_ms:.3f} ms/step (CUDA events, steps 2-{LITE_STEPS - 1}), launches per step {probe.per_step()[0][2]}, "
           f"conv kernel at the first training batch's layer inputs T_in {lite_row['T_in']}: max abs err "
           f"{lite_row['max_abs_err']:.3e}, {lite_row['limit_share']:.3f} of the limit, {lite_row['ms']:.3f} ms "
           f"(bound {lite_row['bound_ms']:.3f}, plain {lite_row['plain_ms']:.3f}, cuDNN route "
@@ -2292,7 +2377,7 @@ def main() -> None:
         speech_phase(card, tmp)  # 16
         speaker_ctc_phase(card, tmp, wav_dir, trials, shards)  # 17
         multitask_phase(card, tmp)  # 18
-        triplet_phase(card, tmp, wav_dir, trials)  # 19
+        triplet_phase(card, tmp)  # 19
         options_phase(card, tmp, wav_dir, trials, shards)  # 20
 
     # 21. kernels line, card line, result line

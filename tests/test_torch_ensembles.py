@@ -2,7 +2,7 @@
 the CPU at tiny widths: the backbone's hidden states (post-norm and
 pre-norm layouts), layer-ensemble embeddings, the feature-encoder-only
 model, the ensemble and frame-level (``[T, D]``) scorers of the cosine
-evaluators, ``extract_embeddings(ensemble=True)``, and the predict twin
+evaluators, ``extract_embeddings(num_ensembles=...)``, and the predict twin
 serving a multitask checkpoint.
 
 Limits: hidden states and embeddings rtol 1e-4, atol 1e-5 (the port's
@@ -224,24 +224,36 @@ def test_ensemble_scores_are_the_mean_of_each_layers_and_check_shapes():
         e._compute_prediction_scores([(got_s[0], short)])
 
 
-@pytest.mark.parametrize("ensemble", [True, False])
-def test_extract_embeddings_matches_jax(ensemble):
-    """Bucketed extraction of 5 utterances (the last batch padded with
-    empty rows): per-layer ensembles, or (test pooling ``none``) ``[T, D]``
-    frame embeddings. The port cuts those to the utterance's valid frames,
-    the JAX package hands on every frame of the padded batch (the
-    deliberate divergence of ROADMAP Queue 3): the valid frames agree."""
-    kw = dict(stat_pooling_type="mean") if ensemble else dict(stat_pooling_type="none", test_stat_pooling_type="none")
+def _extract_pair(wavs, ensemble, batch_size=2, **kw):
+    """(the port's, the JAX package's) ``extract_embeddings`` of ``wavs`` on
+    the same model: per-layer ensembles of 2, or ``[T, D]`` frames."""
     jmodel, params, tmodel = _speaker_pair(**kw)
-    rng = np.random.default_rng(4)
-    wavs = [rng.normal(0, 0.5, n).astype(np.float32) for n in (900, 1500, 700, 1300, 1100)]
     method = (functools.partial(js.Wav2Vec2SpeakerModel.compute_ensemble_embeddings, num_ensembles=2) if ensemble
               else js.Wav2Vec2SpeakerModel.compute_embedding)
     embed = jax.jit(lambda state, x, m: jmodel.apply(state, x, m, method=method))
     want = jexp.extract_embeddings(embed, params, [jsamples.SpeakerSample(f"k{i}", w, -1) for i, w in enumerate(wavs)],
-                                   pad_to_multiple=800, batch_size=2, ensemble=ensemble)
+                                   pad_to_multiple=800, batch_size=batch_size, ensemble=ensemble)
     got = extract_embeddings(tmodel, [tsamples.SpeakerSample(f"k{i}", w, -1) for i, w in enumerate(wavs)],
-                             pad_to_multiple=800, batch_size=2, device="cpu", ensemble=ensemble, num_ensembles=2)
+                             pad_to_multiple=800, batch_size=batch_size, device="cpu",
+                             num_ensembles=2 if ensemble else None)
+    return got, want
+
+
+FRAMES = dict(stat_pooling_type="none", test_stat_pooling_type="none")
+
+
+@pytest.mark.parametrize("ensemble", [True, False])
+def test_extract_embeddings_matches_jax(ensemble):
+    """Bucketed extraction of 5 utterances (the last batch padded with
+    empty rows): per-layer ensembles, or (test pooling ``none``) ``[T, D]``
+    frame embeddings, which hold every frame of their padded batch in both
+    packages. Frames are compared where they are valid: what a padded frame
+    holds is neither package's contract (the port's attention writes 0 on
+    padded query rows, the JAX package's XLA path attends them to the valid
+    keys)."""
+    rng = np.random.default_rng(4)
+    wavs = [rng.normal(0, 0.5, n).astype(np.float32) for n in (900, 1500, 700, 1300, 1100)]
+    got, want = _extract_pair(wavs, ensemble, **(dict(stat_pooling_type="mean") if ensemble else FRAMES))
     assert [s.sample_id for s in got] == [s.sample_id for s in want]
     for g, w in zip(got, want):
         if ensemble:
@@ -250,8 +262,30 @@ def test_extract_embeddings_matches_jax(ensemble):
                 np.testing.assert_allclose(a, np.asarray(b), rtol=RTOL, atol=ATOL)
         else:
             n = jw.feat_extract_output_lengths(len(wavs[int(g.sample_id[1:])]), jw.Wav2Vec2Config(**TINY))
-            assert g.embedding.shape == (n, TINY["hidden_size"]) and np.asarray(w.embedding).shape[0] > n
-            np.testing.assert_allclose(g.embedding, np.asarray(w.embedding)[:n], rtol=RTOL, atol=ATOL)
+            assert g.embedding.shape == np.asarray(w.embedding).shape and g.embedding.shape[0] >= n
+            np.testing.assert_allclose(g.embedding[:n], np.asarray(w.embedding)[:n], rtol=RTOL, atol=ATOL)
+
+
+def test_frame_scores_move_with_the_batch_padding_as_in_jax():
+    """The reference's defect, kept (ROADMAP Queue 3): a ``[T, D]`` test
+    embedding holds its batch's padding frames, so the frame-level scorer
+    draws them too and a trial's score depends on what it was batched
+    with. The short utterance batched alone, then with a longer one: as
+    many frames in both packages, more of them in the longer batch, and in
+    each package another score (by more than 100x the 1e-6 score limit)."""
+    rng = np.random.default_rng(5)
+    short, other, long_ = (rng.normal(0, 0.5, n).astype(np.float32) for n in (700, 900, 3100))
+    frames, scores = {}, {}
+    for name, wavs, batch in (("alone", [short, other], 1), ("with_long", [short, other, long_], 3)):
+        got, want = _extract_pair(wavs, False, batch_size=batch, **FRAMES)
+        frames[name] = got[0].embedding.shape[0]
+        assert np.asarray(want[0].embedding).shape[0] == frames[name]
+        scores[name] = {k: mod.CosineDistanceEvaluator()._non_pooled_scores([(e[0], e[1])])[0]
+                        for k, e, mod in (("torch", got, teval), ("jax", want, jeval))}
+    n = jw.feat_extract_output_lengths(700, jw.Wav2Vec2Config(**TINY))
+    assert n <= frames["alone"] < frames["with_long"]
+    for k in ("torch", "jax"):
+        assert abs(scores["alone"][k] - scores["with_long"][k]) > 100 * SCORE_TOL, k
 
 
 PREDICT_MT = ["network=wav2vec2_multitask", "optim/loss=ctc_ce", "network.wav2vec2_size=tiny",

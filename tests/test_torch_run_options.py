@@ -11,15 +11,20 @@ same parameters, exported with ``tools/export_jax_params.py``), on
   pooled embeddings;
 - ``network.stat_pooling_type=none network.test_stat_pooling_type=none``
   (the frame-level ``ce_no_pool`` mode): ``[T, D]`` validation and test
-  embeddings scored by the frame-level cosine. The JAX package's test
-  embeddings also hold the frames of their batch's padding, which the port
-  cuts off (ROADMAP Queue 3); its run here gets them cut too
-  (``_valid_frames_only``), so that both score the same frames.
+  embeddings, each test embedding with its batch's padding frames as in
+  the JAX package, scored by the frame-level cosine.
 
 Each trains 2 steps of a 4-step schedule (the JAX package's one-cycle rate
 is NaN below 1 / pct_start steps) and validates at the epoch's end. Limits,
 as ``test_torch_run.py``'s: losses 1e-5; EERs and minDCFs exact, their
-thresholds 1e-5."""
+thresholds 1e-5. One exception, the frame-level test: its scorer draws
+padding frames too (the reference's defect, ROADMAP Queue 3), and what a
+padded frame holds is neither package's contract (the port's attention
+writes 0 on padded query rows, the JAX package's XLA path attends them to
+the valid keys), so its metrics cannot agree. There the test embeddings are
+held instead: the same utterances, shapes and padding, and the valid
+frames within ``test_torch_ensembles``' embedding limit (rtol 1e-4, atol
+1e-5); the metrics lie in [0, 1]."""
 
 import contextlib
 import importlib.util
@@ -37,11 +42,13 @@ from test_torch_run_paired import write_corpus
 from w2v2_speaker_tpu.runtime import experiment as jexp
 from w2v2_speaker_tpu_torch import run as trun
 from w2v2_speaker_tpu_torch.models.wav2vec2 import feat_extract_output_lengths
+from w2v2_speaker_tpu_torch.runtime import predict as tpredict
 from w2v2_speaker_tpu_torch.runtime.experiment import TINY_W2V2
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 SR = 16000
 LOSS_ATOL = 1e-5
+EMB_RTOL, EMB_ATOL = 1e-4, 1e-5
 OPTIONS = {
     "feature_encoder_only": ["network.wav2vec_feature_encoder_only=true"],
     "ensembles": ["network.use_transformers_as_ensembles=true", "network.num_ensembles=3"],
@@ -65,20 +72,6 @@ def overrides(corpus, out: pathlib.Path, *extra):
     ]
 
 
-def _valid_frames_only(extract):
-    """The JAX package's ``extract_embeddings`` with each ``[T, D]``
-    embedding cut to its utterance's valid frames."""
-    def extract_valid(embed_fn, state, samples, *a, **kw):
-        samples = list(samples)
-        frames = {s.key: int(feat_extract_output_lengths(s.wav.shape[-1], TINY_W2V2)) for s in samples}
-        out = extract(embed_fn, state, samples, *a, **kw)
-        for s in out:
-            if not isinstance(s.embedding, list) and np.asarray(s.embedding).ndim == 2:
-                s.embedding = np.asarray(s.embedding)[: frames[s.sample_id]]
-        return out
-    return extract_valid
-
-
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
     """Per option, both packages' recorded steps and evaluations and their
@@ -94,7 +87,13 @@ def runs(tmp_path_factory):
     spec.loader.exec_module(export)
     monkeypatch = pytest.MonkeyPatch()
     rec = Recorder(monkeypatch)
-    monkeypatch.setattr(jexp, "extract_embeddings", _valid_frames_only(jexp.extract_embeddings))
+    extracted = {"jax": [], "torch": []}
+    for name, mod, at in (("jax", jexp, 2), ("torch", tpredict, 1)):
+        def recording(*a, orig=mod.extract_embeddings, name=name, at=at, **kw):
+            out = orig(*a, **kw)
+            extracted[name].append(({s.key: s.wav.shape[-1] for s in a[at]}, out))
+            return out
+        monkeypatch.setattr(mod, "extract_embeddings", recording)
     results = {}
     try:
         for option, extra in OPTIONS.items():
@@ -104,7 +103,7 @@ def runs(tmp_path_factory):
             params, _ = task.init(jax.random.PRNGKey(7), {"features": jnp.zeros((2, SR // 10))})
             save_params(out / "init", params)
             export.main([str(out / "init"), str(out / "init.npz")])
-            marks = {n: (len(rec.steps[n]), len(rec.evals[n])) for n in ("jax", "torch")}
+            marks = {n: (len(rec.steps[n]), len(rec.evals[n]), len(extracted[n])) for n in ("jax", "torch")}
             objectives = {}
             for name, init in (("jax", out / "init"), ("torch", out / "init.npz")):
                 argv = overrides(corpus, out / name, *extra, f"load_network_from_checkpoint={init}")
@@ -113,7 +112,8 @@ def runs(tmp_path_factory):
                     objectives[name] = jrun.main(argv) if name == "jax" else trun.main(argv, device="cpu")
                 sys.stdout.write(printed.getvalue())
             results[option] = ({n: rec.steps[n][marks[n][0]:] for n in marks},
-                               {n: rec.evals[n][marks[n][1]:] for n in marks}, objectives)
+                               {n: rec.evals[n][marks[n][1]:] for n in marks}, objectives,
+                               {n: extracted[n][marks[n][2]:] for n in marks})
     finally:
         monkeypatch.undo()
     return results
@@ -123,16 +123,36 @@ def runs(tmp_path_factory):
 def test_run_with_option_matches_jax_run(runs, option):
     """2 steps with the same losses, the epoch-end validation and the test
     (ensemble or frame-level scoring where the option asks for it) with
-    the same metrics, the same objective."""
-    steps, evals, objectives = runs[option]
+    the same metrics, the same objective; the frame-level test with the
+    same embeddings on the valid frames (see the module's docstring)."""
+    steps, evals, objectives, extracted = runs[option]
     assert [s for s, _ in steps["torch"]] == [s for s, _ in steps["jax"]] == [1, 2]
     np.testing.assert_allclose([v for _, v in steps["torch"]], [v for _, v in steps["jax"]],
                                rtol=0, atol=LOSS_ATOL)
     assert all(np.isfinite(v) for _, v in steps["torch"])
     assert [s for s, _ in evals["torch"]] == [s for s, _ in evals["jax"]] and len(evals["torch"]) == 2
-    for (_, got), (_, want) in zip(evals["torch"], evals["jax"]):
+    frame_test = option == "frames"
+    for i, ((_, got), (_, want)) in enumerate(zip(evals["torch"], evals["jax"])):
         assert sorted(got) == sorted(want)
+        if frame_test and i == 1:
+            assert all(0 <= got[k] <= 1 for k in ("test_eer", "test_min_dcf") if k in got)
+            continue
         for k, v in got.items():
             assert v == pytest.approx(want[k], rel=0, abs=1e-5 if k.endswith("threshold") else 0), k
     assert "test_eer" in evals["torch"][-1][1]
-    assert objectives["torch"] == objectives["jax"] and 0 <= objectives["torch"] <= 1
+    if not frame_test:
+        assert objectives["torch"] == objectives["jax"] and 0 <= objectives["torch"] <= 1
+        return
+    assert 0 <= objectives["torch"] <= 1 and 0 <= objectives["jax"] <= 1
+    assert len(extracted["torch"]) == len(extracted["jax"]) == 1
+    (lengths, got), (jax_lengths, want) = extracted["torch"][0], extracted["jax"][0]
+    assert lengths == jax_lengths
+    assert [e.sample_id for e in got] == [e.sample_id for e in want]
+    padded = 0
+    for g, w in zip(got, want):
+        w = np.asarray(w.embedding)
+        assert g.embedding.ndim == 2 and g.embedding.shape == w.shape
+        n = int(feat_extract_output_lengths(lengths[g.sample_id], TINY_W2V2))
+        padded += w.shape[0] > n
+        np.testing.assert_allclose(g.embedding[:n], w[:n], rtol=EMB_RTOL, atol=EMB_ATOL)
+    assert padded > 0

@@ -42,6 +42,9 @@ __all__ = [
     "length_norm",
 ]
 
+NON_POOLED_FRAMES = 50  # frames drawn from each side of a [T, D] trial
+NON_POOLED_SEED = 0  # one default_rng per call, drawn pair after pair
+
 
 @dataclass
 class EmbeddingSample:
@@ -239,17 +242,18 @@ class CosineDistanceEvaluator(SpeakerRecognitionEvaluator):
             embeddings = length_norm(embeddings)
         return embeddings
 
-    def _non_pooled_scores(self, pairs, max_frames: int = 50, seed: int = 0):
-        """Mean pairwise cosine over (up to) 50 x 50 random frames of each
-        pair, the frames drawn pair after pair from one generator."""
-        rng = np.random.default_rng(seed)
+    def _non_pooled_scores(self, pairs):
+        """Mean pairwise cosine over (up to) NON_POOLED_FRAMES x
+        NON_POOLED_FRAMES random frames of each pair, the frames drawn pair
+        after pair from one generator seeded NON_POOLED_SEED."""
+        rng = np.random.default_rng(NON_POOLED_SEED)
         scores = []
         for a, b in pairs:
             ea, eb = np.asarray(a.embedding), np.asarray(b.embedding)
-            if ea.shape[0] > max_frames:
-                ea = ea[rng.choice(ea.shape[0], max_frames, replace=False)]
-            if eb.shape[0] > max_frames:
-                eb = eb[rng.choice(eb.shape[0], max_frames, replace=False)]
+            if ea.shape[0] > NON_POOLED_FRAMES:
+                ea = ea[rng.choice(ea.shape[0], NON_POOLED_FRAMES, replace=False)]
+            if eb.shape[0] > NON_POOLED_FRAMES:
+                eb = eb[rng.choice(eb.shape[0], NON_POOLED_FRAMES, replace=False)]
             sim = _cosine_rowwise(np.repeat(ea, eb.shape[0], axis=0), np.tile(eb, (ea.shape[0], 1)))
             scores.append(float(sim.mean()))
         return scores

@@ -957,8 +957,8 @@ def _run_speaker(cfg, dm: VoxCelebDataModule, task: SpeakerTask, logger, device)
     net = cfg["network"]
     samples = extract_embeddings(model, test_samples, pad_to_multiple=dl.get("test_pad_to_multiple", 16000),
                                  batch_size=dl.get("test_batch_size", 8), device=device,
-                                 ensemble=bool(net.get("use_transformers_as_ensembles")),
-                                 num_ensembles=int(net.get("num_ensembles", 12)))
+                                 num_ensembles=(int(net.get("num_ensembles", 12))
+                                                if net.get("use_transformers_as_ensembles") else None))
     if ltb:  # a prefix of the test split: score the trials whose both sides it holds
         seen = {s.sample_id for s in samples}
         test_pairs = [p for p in test_pairs if p.sample1_id in seen and p.sample2_id in seen]

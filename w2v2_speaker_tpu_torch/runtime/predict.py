@@ -6,9 +6,9 @@ Counterparts:
   extract_embeddings`` (:742): sort by length, right-pad each batch to a
   multiple of ``pad_to_multiple`` samples, pad the last batch with
   all-invalid rows, run the masked model, slice the rows back; a frame-level
-  model's ``[T, D]`` embeddings come back unpooled, each cut to its
-  utterance's valid frames, and with ``ensemble`` each sample holds its
-  list of per-layer embeddings;
+  model's ``[T, D]`` embeddings come back unpooled, with every frame of the
+  padded batch, and with ``num_ensembles`` each sample holds its list of
+  per-layer embeddings;
 - ``read_pair_file`` <- ``w2v2_speaker_tpu/runtime/predict.py::
   read_pair_file`` (:74);
 - ``run_predictions`` <- ``w2v2_speaker_tpu/runtime/predict.py::
@@ -23,11 +23,7 @@ Counterparts:
 
 Differences from the JAX package: no optimizer is built (serving needs
 none), there is no mesh (one card), ``network.int8_matmuls`` other than
-false raises (``BucketDispatchEmbed`` waits for ROADMAP.md Queue 1 item 6),
-and frame-level embeddings keep only their valid frames: the JAX package's
-``extract_embeddings`` (:771) hands on every frame of the padded batch, so
-the frame-level scorer draws padding frames too and a trial's score moves
-with its batch's padding (ROADMAP Queue 3).
+false and raises (``BucketDispatchEmbed`` waits for ROADMAP.md Queue 1 item 6).
 In bf16 the model keeps float32 parameters and computes under autocast, as
 the JAX package's model keeps float32 parameters and computes in bf16.
 """
@@ -35,7 +31,7 @@ the JAX package's model keeps float32 parameters and computes in bf16.
 from __future__ import annotations
 
 import pathlib
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -47,7 +43,7 @@ from ..data.samples import SpeakerSample
 from ..device import DeviceLike, resolve_device, set_float32_precision
 from ..eval.evaluator import ASNormCosineEvaluator, EmbeddingSample
 from ..models.hf_convert import load_hf_checkpoint
-from ..models.wav2vec2 import feat_extract_output_lengths, init_parameters
+from ..models.wav2vec2 import init_parameters
 from ..train.checkpoint import graft_into, load_params
 from .experiment import _canon_int8, build_evaluator, build_model_and_task, speaker_model_config
 
@@ -61,17 +57,16 @@ def extract_embeddings(
     pad_to_multiple: int = 16000,
     batch_size: int = 8,
     device: DeviceLike = None,
-    ensemble: bool = False,
-    num_ensembles: int = 12,
+    num_ensembles: Optional[int] = None,
 ) -> List[EmbeddingSample]:
     """Batched, bucketed, masked embedding extraction with
-    ``model.compute_embedding(wav, mask)``, or with ``ensemble``
+    ``model.compute_embedding(wav, mask)``, or, given ``num_ensembles``,
     ``model.compute_ensemble_embeddings(wav, mask, num_ensembles)`` (each
     sample's embedding then a list of one ``[D]`` per layer; the layers are
     pooled on the device, and only the pooled rows come to the host). A
-    frame-level embedding ``[T, D]`` keeps the utterance's valid frames.
-    ``model`` must already live on ``device`` (the card unless
-    ``device="cpu"``)."""
+    frame-level embedding ``[T, D]`` holds every frame of its padded batch,
+    as the JAX package's does. ``model`` must already live on ``device``
+    (the card unless ``device="cpu"``)."""
     dev = resolve_device(device)
     out: List[EmbeddingSample] = []
     samples = sorted(samples, key=lambda s: s.wav.shape[-1])
@@ -83,21 +78,13 @@ def extract_embeddings(
         padded = pad_batch_rows({"features": batch.values, "mask": batch.mask}, batch_size)
         wav = torch.from_numpy(padded["features"]).to(dev)
         mask = torch.from_numpy(padded["mask"]).to(dev)
-        if ensemble:
+        if num_ensembles is not None:
             layers = [e.float().cpu().numpy() for e in model.compute_ensemble_embeddings(wav, mask, num_ensembles)]
+            out.extend(EmbeddingSample(s.key, [lay[j] for lay in layers]) for j, s in enumerate(chunk))
         else:
-            layers = [model.compute_embedding(wav, mask).float().cpu().numpy()]
-        rows = [[_valid_frames(e, j, s, model) for e in layers] for j, s in enumerate(chunk)]
-        out.extend(EmbeddingSample(s.key, r if ensemble else r[0]) for s, r in zip(chunk, rows))
+            embs = model.compute_embedding(wav, mask).float().cpu().numpy()
+            out.extend(EmbeddingSample(s.key, embs[j]) for j, s in enumerate(chunk))
     return out
-
-
-def _valid_frames(embs: np.ndarray, j: int, sample: SpeakerSample, model) -> np.ndarray:
-    """Row ``j`` of a batch's embeddings; a frame-level row ``[T, D]`` cut
-    to ``sample``'s valid frames."""
-    if embs.ndim == 2:
-        return embs[j]
-    return embs[j, : max(int(feat_extract_output_lengths(sample.wav.shape[-1], model.wav2vec2.cfg)), 0)]
 
 
 def read_pair_file(path: pathlib.Path) -> List[Tuple[str, str]]:
