@@ -159,7 +159,29 @@ the run by raising:
    card against CPU; (c) ``network.stat_pooling_type=none`` with the test
    pooling ``none``: ``[T, D]`` test embeddings scored by the frame-level
    cosine, the EER in [0, 1];
-21. one JSON line with every kernel's numbers (the attention kernels and
+21. the fbank and its frontend in float32, card against CPU: phase 5's 12
+   utterance lengths (3.2-64 s) in buckets of 16 000 samples, batch 4,
+   ``log_mel_filterbank`` with lengths and ``FbankFrontend`` at 40 and 80
+   mels over the valid frames, each padded row's frames against the row
+   alone, ms per batch, and a full-width x-vector's bucketed embeddings
+   against each utterance alone (``padding_ratio``);
+22. ``run.main`` with ``+experiment=speaker_xvector`` at full width (TDNN
+   512 x 4 + 1500, 40 mels, 512-d, float32, B=66 x 3 s) on phase 13's
+   shards: a sanity validation, 4 steps in one dispatch, a validation, the
+   test; steady ms/step, the busy share and device ms by category of the
+   profiled step 4, peak memory, no kernel launched; then one float32 step
+   at B=3 padded to 2 s, card against CPU: loss, gradients and the updated
+   running statistics;
+23. the same with ``+experiment=speaker_ecapa_tdnn`` (channels 1024 x 4 +
+   3072, 80 mels, AAM, 192-d), then the predict twin on the run's best
+   checkpoint over 6 of phase 12's files in buckets: the scores against
+   ``extract_embeddings`` + cosine, the bucketed embeddings against each
+   file alone (``padding_ratio``);
+24. ``+experiment=speaker_wav2spk`` with the multi-step schedule's
+   milestones at steps 2 and 3 (each step's learning rate against
+   ``multi_step_decay``) and its float32 step card against CPU, then
+   ``+experiment=speaker_dummy`` with its ``trainer=debug_trainer``;
+25. one JSON line with every kernel's numbers (the attention kernels and
    the conv at the LARGE training shapes, launches of the LARGE training
    run), the card line, then the result line.
 
@@ -183,6 +205,8 @@ import torch
 import torch.nn.functional as F
 
 from w2v2_speaker_tpu_torch import predict
+from w2v2_speaker_tpu_torch.data.collate import collate_pad_right
+from w2v2_speaker_tpu_torch.data.features import FbankConfig, log_mel_filterbank, num_frames
 from w2v2_speaker_tpu_torch.data.io import load_raw_audio, write_wav
 from w2v2_speaker_tpu_torch.data.normalize import normalize_waveform
 from w2v2_speaker_tpu_torch.data.samples import PairedSample, SpeakerSample, collate_paired_batch
@@ -195,11 +219,13 @@ from w2v2_speaker_tpu_torch.entry import (
     BATCH, NUM_SPEAKERS, SAMPLES, build_model, build_train_state, entry, large_train_entry, synthetic_batch,
     train_entry,
 )
+from w2v2_speaker_tpu_torch.models.frontend import FbankFrontend
 from w2v2_speaker_tpu_torch.models.wav2vec2 import (
     BASE_CONFIG, LARGE_CONFIG, Wav2Vec2Config, feat_extract_output_lengths, init_parameters,
 )
 from w2v2_speaker_tpu_torch.models.wav2vec2_speaker import Wav2Vec2SpeakerConfig, Wav2Vec2SpeakerModel
 from w2v2_speaker_tpu_torch.models.wav2vec2_speech import Wav2Vec2SpeechConfig, Wav2Vec2SpeechModel
+from w2v2_speaker_tpu_torch.objectives.schedules import multi_step_decay
 from w2v2_speaker_tpu_torch.ops import _build
 from w2v2_speaker_tpu_torch.ops import conv_encoder as ce
 from w2v2_speaker_tpu_torch.ops import flash_attention as fa
@@ -318,6 +344,28 @@ LITE_STEPS, ENSEMBLES, FRAMES_STEPS = 4, 12, 2
 TOP_OPS = 6  # ops listed from a profile with memory, by device time and by memory
 ENSEMBLE_SAME_ATOL = 1e-6  # the ensemble score vs the mean of the 12 per-layer cosine scores
 ENSEMBLE_F32_S = (1.2, 2.0, 3.0)  # the float32 card-vs-CPU ensemble utterances
+# the networks off the wav2vec2 backbone, float32 (phases 21-24). Log-mel and
+# normalised features card vs CPU over the valid frames: 1e-3 abs
+# (tests/test_torch_features.py, JAX vs port: 2.3e-5 as built, a periodic
+# window 0.036, reflection at the batch edge 2.2)
+FBANK_ATOL = 1e-3
+FBANK_BATCH, FBANK_PAD = 4, 16000
+FAMILY_STEPS = 4  # one dispatch of the recipes' steps_per_dispatch
+FAMILY_F32_LENGTHS = (32000, 21000, 9000)  # the float32 card-vs-CPU step's rows, padded to 2 s
+# gradients that are 0 in exact arithmetic (a bias before a normalisation or
+# a softmax over time) read their rounding: their errors count against this
+# share of the largest gradient (tests/test_torch_speaker_families.py's floor)
+FAMILY_GRAD_FLOOR = 1e-3
+# the float32 gradients of these networks at B=3 lie up to ~2e-3 from the
+# float64 step's (norm of the error over the norm), on the CPU too: the
+# BatchNorm and instance-norm backwards subtract near-equal terms. The
+# card's may lie this many times as far: as built it reads 2.1x (x-vector),
+# 1.04x (ECAPA) and 0.8x (wav2spk) the CPU's, with TF32 allowed 123x, 56x
+# and 45 000x (tools/torch_fault_probe.py --families, H100 80GB HBM3 at 700 W)
+FAMILY_F64_FACTOR = 4.0
+FAMILY_F32_SEEDS = {"speaker_xvector": 22, "speaker_ecapa_tdnn": 23, "speaker_wav2spk": 24}
+FAMILY_PREDICT_FILES = 6  # of phase 12's files, served from the ECAPA run's best checkpoint
+WAV2SPK_MILESTONES = (2, 3)  # the learning rate falls twice within the 4 steps
 
 
 def cuda_ms(fn, reps: int, warmup: int = 3) -> float:
@@ -2349,6 +2397,243 @@ def ensemble_f32_error() -> float:
     return max(float((a - b).abs().max() / b.abs().max()) for a, b in zip(on_card, on_cpu))
 
 
+def fbank_phase(card: str) -> None:
+    """Phase 21: the fbank and the frontend, card against CPU, float32."""
+    samples = sorted(serving_samples(np.random.default_rng(21)), key=lambda s: len(s.wav))
+    worst = {"fbank": 0.0, "frontend 40": 0.0, "frontend 80": 0.0, "row alone": 0.0}
+    fronts = {m: FbankFrontend(torch.nn.Identity(), FbankConfig(n_mels=m)) for m in (40, 80)}
+    cfg = FbankConfig()
+    for i in range(0, len(samples), FBANK_BATCH):
+        batch = collate_pad_right([s.wav for s in samples[i:i + FBANK_BATCH]], pad_to_multiple=FBANK_PAD,
+                                  dtype=np.float32)
+        wav, lengths = torch.from_numpy(batch.values), torch.from_numpy(batch.mask).sum(-1)
+        valid = [num_frames(int(n), cfg) for n in lengths]
+
+        def valid_err(a, b):
+            return max(float((a[j, :n] - b[j, :n]).abs().max()) for j, n in enumerate(valid))
+
+        on_card = log_mel_filterbank(wav.cuda(), cfg, lengths.cuda()).cpu()
+        worst["fbank"] = max(worst["fbank"], valid_err(on_card, log_mel_filterbank(wav, cfg, lengths)))
+        for j, n in enumerate(lengths.tolist()):
+            alone = log_mel_filterbank(wav[j:j + 1, :n].cuda(), cfg).cpu()
+            worst["row alone"] = max(worst["row alone"], float((on_card[j, :valid[j]] - alone[0]).abs().max()))
+        mask = torch.from_numpy(batch.mask)
+        for m, front in fronts.items():
+            got, fmask = front.features(wav.cuda(), mask.cuda())
+            want, want_mask = front.features(wav, mask)
+            assert torch.equal(fmask.cpu(), want_mask) and not got[~fmask].any(), f"frontend {m}: padding frames"
+            worst[f"frontend {m}"] = max(worst[f"frontend {m}"], valid_err(got.cpu(), want))
+    assert all(err <= FBANK_ATOL for err in worst.values()), f"fbank card vs cpu: {worst}"
+    wav_card, mask_card = wav.cuda(), mask.cuda()
+    fbank_ms = cuda_ms(lambda: log_mel_filterbank(wav_card, cfg, lengths.cuda()), 10)
+    front_ms = {m: cuda_ms(lambda f=front: f.features(wav_card, mask_card), 10) for m, front in fronts.items()}
+    frames = on_card.shape[1]
+    bound = 4 * frames * (cfg.n_fft * (cfg.n_fft // 2 + 1) * 2 * 2 + (cfg.n_fft // 2 + 1) * cfg.n_mels * 2) \
+        / PEAK_OPS[torch.float32] * 1e3
+
+    # the x-vector recipe's network at full width (random weights): bucketed vs alone
+    _, task = family_task("speaker_xvector", 21)
+    model = task.model.eval().requires_grad_(False)
+    reset_launches()
+    served = {e.sample_id: e.embedding for e in extract_embeddings(model, samples, FBANK_PAD, FBANK_BATCH)}
+    alone = unpadded_embeddings(embed, model, samples)
+    ratio = padding_ratio(served, alone)
+    assert ratio <= MAX_PAD_RATIO and sum(launches().values()) == 0, f"x-vector serving: ratio {ratio}"
+    print(f"fbank f32 card vs cpu over the valid frames of {len(samples)} utterances "
+          f"({min(UTTERANCE_S)}-{max(UTTERANCE_S)} s, buckets of {FBANK_PAD}, batch {FBANK_BATCH}): max abs err "
+          + ", ".join(f"{k} {v:.3e}" for k, v in worst.items()) + f" (limit {FBANK_ATOL}); the longest batch "
+          f"[{FBANK_BATCH}, {wav.shape[1]}] -> {frames} frames: fbank {fbank_ms:.3f} ms/batch (bound of its "
+          f"float32 products {bound:.3f} ms), frontend 40 mels {front_ms[40]:.3f}, 80 mels {front_ms[80]:.3f} "
+          f"ms/batch; x-vector (full width, f32) bucketed vs unpadded batch-1: distance ratio {ratio:.3e} (limit "
+          f"{MAX_PAD_RATIO}); launches {launches()} [{card}]", flush=True)
+
+
+def family_task(recipe: str, seed: int, overrides=()):
+    """(config, task) of ``recipe``: the model on the card, its weights
+    drawn from ``seed``."""
+    cfg = load_recipe(recipe, list(overrides))
+    dev = torch.device("cuda")
+    with torch.device("meta"):
+        task, _ = build_model_and_task(cfg, NUM_SPEAKERS)
+    task.model.to_empty(device=dev)
+    init_parameters(task.model, torch.Generator(device=dev).manual_seed(seed))
+    return cfg, task
+
+
+def rel_error(got: torch.Tensor, want: torch.Tensor, floor: float = 0.0) -> float:
+    """max |got - want| / max(max |want|, ``floor``) in float64 (0 for two
+    zero tensors)."""
+    err, scale = (got.double() - want.double()).abs().max(), max(float(want.double().abs().max()), floor)
+    return float(err / scale) if scale > 0 else (0.0 if err == 0 else float("inf"))
+
+
+def family_f32_readings(recipe: str) -> dict:
+    """The forward and backward of one float32 training step of
+    ``recipe``'s network at full width on 3 rows padded to 2 s, on the card
+    and on the CPU from the same weights, and the same in float64 on the
+    CPU: the loss and the worst updated running statistic card against
+    CPU (relative), the gradients' distance from the float64 ones on the
+    card and on the CPU (the norm of the error over the norm of all
+    gradients), the worst per-parameter gradient error card against CPU
+    (max abs over max abs, as phases 7 and 11 read it) and against float64
+    on either device (floored at ``FAMILY_GRAD_FLOOR`` of the largest
+    gradient), and a report of them. Weights and data come from the
+    recipe's ``FAMILY_F32_SEEDS``."""
+    seed = FAMILY_F32_SEEDS[recipe]
+    cfg, task = family_task(recipe, seed)
+    models = {"card": task.model, "cpu": copy.deepcopy(task.model).cpu(),
+              "f64": copy.deepcopy(task.model).cpu().double()}
+    rng = np.random.default_rng(seed)
+    lengths = np.array(FAMILY_F32_LENGTHS)
+    mask = np.arange(lengths.max())[None, :] < lengths[:, None]
+    batch = {"features": torch.from_numpy(rng.normal(0, 0.1, mask.shape) * mask),
+             "mask": torch.from_numpy(mask), "labels": torch.from_numpy(rng.integers(0, NUM_SPEAKERS, 3))}
+    loss = {}
+    for name, model in models.items():
+        dtype, dev = (torch.float64, "cpu") if name == "f64" else (torch.float32, "cuda" if name == "card" else "cpu")
+        rows = {k: (v.to(dtype) if k == "features" else v).to(dev) for k, v in batch.items()}
+        out, _ = SpeakerTask(model, task.mode).loss_fn(rows, torch.Generator().manual_seed(seed))
+        out.backward()
+        loss[name] = float(out.detach())
+    cpu_buffers = dict(models["cpu"].named_buffers())
+    grads = {name: grads_of(model) for name, model in models.items()}
+    exact = grads["f64"]
+    floor = FAMILY_GRAD_FLOOR * max(float(g.abs().max()) for g in exact.values())
+    r = {"loss": abs(loss["card"] - loss["cpu"]) / abs(loss["cpu"]),
+         "stats": max([rel_error(b.cpu(), cpu_buffers[n]) for n, b in models["card"].named_buffers()], default=0.0),
+         "direct": worst_grad_error(models["card"], models["cpu"])}
+    for dev in ("card", "cpu"):
+        r[f"norm_{dev}"] = float(torch.stack([(g.double() - exact[n]).norm() for n, g in grads[dev].items()]).norm()
+                                 / torch.stack([g.norm() for g in exact.values()]).norm())
+        r[f"worst_{dev}"] = max(((rel_error(g, exact[n], floor), n) for n, g in grads[dev].items()))
+    r["limit"] = max(F32_REL_TOL, FAMILY_F64_FACTOR * r["norm_cpu"])
+    r["report"] = (
+        f"f32 step card vs cpu (B=3 padded to 2 s): loss rel {r['loss']:.3e}, running statistics {r['stats']:.3e} "
+        f"(limit {F32_REL_TOL}); grads max err / max abs card vs cpu {r['direct'][0]:.3e} ({r['direct'][1]}); "
+        f"against the float64 step: norm of the error over the norm {r['norm_card']:.3e} on the card, "
+        f"{r['norm_cpu']:.3e} on the cpu (limit {r['limit']:.3e}: max({F32_REL_TOL}, {FAMILY_F64_FACTOR}x the cpu's)); "
+        f"per parameter (floor {FAMILY_GRAD_FLOOR} of the largest) the card's worst {r['worst_card'][0]:.3e} "
+        f"({r['worst_card'][1]}), the cpu's {r['worst_cpu'][0]:.3e} ({r['worst_cpu'][1]})")
+    return r
+
+
+def family_f32_step(recipe: str) -> str:
+    """``family_f32_readings`` held to its limits: the loss and the running
+    statistics card against CPU within ``F32_REL_TOL``; the card's
+    gradients as close to the float64 ones as ``F32_REL_TOL``, or as
+    ``FAMILY_F64_FACTOR`` times the CPU float32 step's distance. Returns
+    the report."""
+    r = family_f32_readings(recipe)
+    assert r["loss"] < F32_REL_TOL and r["stats"] < F32_REL_TOL and r["norm_card"] < r["limit"], \
+        f"{recipe}: {r['report']}"
+    return r["report"]
+
+
+def family_run(card: str, tmp: pathlib.Path, recipe: str, wav_dir, trials, shards, steps: int = FAMILY_STEPS,
+               extra=(), trainer=None) -> tuple:
+    """``run.main`` on ``recipe`` with ``extra`` over phase 13's shards,
+    ``steps`` steps (with ``trainer`` None, a validation after the last;
+    else ``trainer``'s overrides), the last step profiled: finite losses,
+    no kernel launched, the test EER in [0, 1]. Prints ms/step (CUDA
+    events, steps 2 to ``steps`` - 1), the busy share and device ms by
+    category of the last step, its top ops and the peak memory; returns
+    (the objective, the checkpoint directory)."""
+    from w2v2_speaker_tpu_torch import run
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    ckpt = tmp / f"{recipe}_ckpt"
+    if trainer is None:
+        trainer = [f"trainer.max_steps={steps}", f"trainer.val_check_interval={steps}"]
+    reset_launches()
+    t0 = time.perf_counter()
+    with RunProbe(profile=(steps - 1, steps - 1), memory=True) as probe:
+        objective = run.main([f"+experiment={recipe}", f"data.shards.samples_per_shard={RUN_SHARD}", "seed=22",
+                              *trainer, *corpus_args(wav_dir, trials, shards, ckpt), *extra])
+    run_s = time.perf_counter() - t0
+    peak_gib = probe.peak_gib(held)
+    assert [s for s, _ in probe.steps] == list(range(1, steps + 1)), f"{recipe}: steps {probe.steps}"
+    assert all(np.isfinite(m["loss"]) for _, m in probe.steps), f"{recipe}: non-finite loss"
+    zero = {k: 0 for k in launches()}
+    assert all(got == zero for _, _, got in probe.per_step()) and launches() == zero, \
+        f"{recipe}: a kernel was launched {launches()}"
+    assert objective is not None and 0 <= objective <= 1, f"{recipe}: objective {objective}"
+    busy, window_ms, kernels, by_cat, (top_name, top_ms) = probe.busy
+    by_time, _ = probe.ops
+    rows, t = probe.shapes[0][:2]
+    evals = [sorted(k for k in m if k.endswith("eer")) for _, m in probe.evals]
+    print(f"{recipe} f32 B={rows} x {t}: losses {[round(m['loss'], 4) for _, m in probe.steps]}; "
+          f"{probe.step_ms(1, steps - 2):.3f} ms/step (CUDA events, steps 2-{steps - 1}; spans "
+          f"{[round(x, 2) for x in probe.spans_ms(0, steps - 1)]}); step {steps} profiled: device busy "
+          f"{100 * busy:.1f} % of {window_ms:.1f} ms, {kernels} kernels; "
+          f"{per_step_categories(by_cat, top_name, top_ms, 1)}; ops by self device ms "
+          f"{[(op, shapes, round(ms, 3)) for op, shapes, ms, _ in by_time]}; evaluations {evals}; test EER "
+          f"{objective:.4f}; whole run {run_s:.2f} s; launches per step {zero} (no kernel on this path); peak "
+          f"{peak_gib:.2f} GiB above the {held / 2**30:.2f} GiB held at the phase's start [{card}]", flush=True)
+    return objective, ckpt
+
+
+def xvector_phase(card: str, tmp: pathlib.Path, wav_dir, trials, shards) -> None:
+    """Phase 22."""
+    family_run(card, tmp, "speaker_xvector", wav_dir, trials, shards)
+    print(f"speaker_xvector {family_f32_step('speaker_xvector')} [{card}]", flush=True)
+
+
+def ecapa_phase(card: str, tmp: pathlib.Path, wav_dir, trials, shards) -> None:
+    """Phase 23: the ECAPA run, its f32 step, then the predict twin on the
+    run's best checkpoint."""
+    _, ckpt = family_run(card, tmp, "speaker_ecapa_tdnn", wav_dir, trials, shards)
+    print(f"speaker_ecapa_tdnn {family_f32_step('speaker_ecapa_tdnn')} [{card}]", flush=True)
+    rng = np.random.default_rng(12)  # phase 12's draws: its first files
+    seconds = np.round(rng.uniform(2.0, 30.0, PREDICT_FILES), 2)[:FAMILY_PREDICT_FILES]
+    folder = tmp / "ecapa_predict"
+    ids = list(write_predict_folder(folder, seconds, PREDICT_SPEAKERS, rng))
+    pair_file = folder / "pairs.txt"
+    pair_file.write_text("".join(f"{a} {b}\n" for i, a in enumerate(ids) for b in ids[i + 1:]))
+    overrides = ["network=ecapa_tdnn", "optim/loss=aam_softmax", "trainer.precision=f32",
+                 f"load_network_from_checkpoint={ckpt / 'best'}", f"data.dataloader.test_pad_to_multiple={PREDICT_PAD}",
+                 f"data.dataloader.test_batch_size={PREDICT_BATCH}", f"predict_folder_path={folder}",
+                 f"pair_prediction_path={pair_file}"]
+    reset_launches()
+    t0 = time.perf_counter()
+    scores, pairs = read_scores(predict.main(overrides))
+    predict_s = time.perf_counter() - t0
+    assert sum(launches().values()) == 0, f"ecapa predict launched {launches()}"
+    assert len(pairs) == len(ids) * (len(ids) - 1) // 2 and np.all((scores >= 0) & (scores <= 1)), \
+        f"ecapa predict: scores {scores}"
+    model = build_predict_model(load_config(predict.CONFIG_DIR, "predict", overrides))
+    samples = [SpeakerSample(rel, normalize_waveform(load_raw_audio(folder / rel))) for rel in ids]
+    served = {e.sample_id: e.embedding for e in extract_embeddings(model, samples, PREDICT_PAD, PREDICT_BATCH)}
+    same = float(np.abs(cosine_scores(served, pairs) - scores).max())
+    ratio = padding_ratio(served, unpadded_embeddings(embed, model, samples))
+    assert same <= PREDICT_SAME_ATOL and ratio <= MAX_PAD_RATIO, f"ecapa predict: {same}, ratio {ratio}"
+    print(f"speaker_ecapa_tdnn predict twin on the best checkpoint: {len(ids)} files of "
+          f"{seconds.min()}-{seconds.max()} s in buckets of {PREDICT_PAD}, batch {PREDICT_BATCH}, {len(pairs)} pairs "
+          f"in {predict_s:.2f} s; written vs extract_embeddings + cosine max diff {same:.3e}; bucketed vs "
+          f"unpadded batch-1 distance ratio {ratio:.3e} (limit {MAX_PAD_RATIO}); launches 0 [{card}]", flush=True)
+
+
+def wav2spk_dummy_phase(card: str, tmp: pathlib.Path, wav_dir, trials, shards) -> None:
+    """Phase 24: wav2spk under the multi-step schedule, then the dummy
+    recipe under its debug trainer."""
+    algo, sched = (load_recipe("speaker_wav2spk")["optim"][k] for k in ("algo", "schedule"))
+    lrs, update = [], AdamTx.update
+    AdamTx.update = lambda tx, named: (update(tx, named), lrs.append(tx.adam.param_groups[0]["lr"]))[0]
+    try:
+        family_run(card, tmp, "speaker_wav2spk", wav_dir, trials, shards,
+                   extra=[f"optim.schedule.milestones=[{','.join(map(str, WAV2SPK_MILESTONES))}]"])
+    finally:
+        AdamTx.update = update
+    want = [multi_step_decay(algo["lr"], WAV2SPK_MILESTONES, sched["gamma"])(i) for i in range(FAMILY_STEPS)]
+    assert lrs == want and want[0] > want[2] > want[3], f"wav2spk learning rates {lrs}, multi_step_decay {want}"
+    print(f"speaker_wav2spk learning rate per step {lrs} (multi_step_decay, milestones {WAV2SPK_MILESTONES}, "
+          f"gamma {sched['gamma']}: {want}); {family_f32_step('speaker_wav2spk')} [{card}]", flush=True)
+    family_run(card, tmp, "speaker_dummy", wav_dir, trials, shards,
+               steps=load_recipe("speaker_dummy")["trainer"]["max_steps"], trainer=[])
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; this run needs a card")
@@ -2379,8 +2664,12 @@ def main() -> None:
         multitask_phase(card, tmp)  # 18
         triplet_phase(card, tmp)  # 19
         options_phase(card, tmp, wav_dir, trials, shards)  # 20
+        fbank_phase(card)  # 21
+        xvector_phase(card, tmp, wav_dir, trials, shards)  # 22
+        ecapa_phase(card, tmp, wav_dir, trials, shards)  # 23
+        wav2spk_dummy_phase(card, tmp, wav_dir, trials, shards)  # 24
 
-    # 21. kernels line, card line, result line
+    # 25. kernels line, card line, result line
     kernels = []
     for name, source, replaces in KERNELS:
         row = main_rows[name]

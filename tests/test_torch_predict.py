@@ -312,7 +312,7 @@ def test_load_params_raises_when_no_backbone_entry_matches(tmp_path, wrap):
 
 @pytest.mark.parametrize("override, row", [
     ("network.int8_matmuls=auto", "item 6"), ("network.int8_matmuls=true", "item 6"),
-    ("network=xvector", "item 7"), ("network=wav2spk", "item 7"),
+    ("network=wav2vec_fc", "item 7"), ("network=wav2vec_xvector", "item 7"),
 ])
 def test_predict_raises_for_what_is_not_ported(tmp_path, override, row):
     """int8 serving (``BucketDispatchEmbed``), other networks and losses

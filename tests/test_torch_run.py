@@ -241,7 +241,7 @@ def test_early_stopping_decisions_match_jax(kwargs, values):
     (["trainer.deterministic=true"], "item 9"), (["profiler=simple"], "item 9"),
     (["optim/algo=sgd"], "item 3"), (["trainer.num_devices=2"], "item 8"),
     (["data.pipeline.augment.enabled=true", "data.pipeline.augment.noise_snr=[5,10]"], "item 2"),
-    (["network=xvector"], "item 7"), (["network=ecapa_tdnn"], "item 7"),
+    (["network=wav2vec_fc"], "item 7"), (["network=wav2vec_xvector"], "item 7"),
 ])
 def test_what_is_not_ported_raises(runs, tmp_path, extra, row):
     corpus, _, _, _, tmp = runs

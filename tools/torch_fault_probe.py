@@ -38,12 +38,20 @@ first reading sits well under it and the second well over it.
 - The overfit check (``chip_smoke.overfit_fall``) on the training step as
   built (two seeds) and with updates of size 0 (learning rate 0), where the
   loss moves only with the dropout draws.
+- The float32 steps of the x-vector, ECAPA-TDNN and wav2spk recipes
+  (``chip_smoke.family_f32_readings``: the card's and the CPU's gradients
+  against a float64 step's) as built and with TF32 allowed in cuDNN and
+  cuBLAS, which ``device.set_float32_precision`` turns off.
 
 Prints one JSON line per reading. Needs ``nvcc`` and one card.
 
     python3 tools/torch_fault_probe.py --attention
 
 reads only the attention kernels, as built and for their mutants.
+
+    python3 tools/torch_fault_probe.py --families
+
+reads only the float32 family steps (no kernel is built; ~1 min).
 
     python3 tools/torch_fault_probe.py --dv-bisect DIR
 
@@ -249,6 +257,20 @@ def overfit_readings() -> None:
             }), flush=True)
 
 
+def family_readings() -> None:
+    for variant in ("as_built", "tf32"):
+        torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = variant == "tf32"
+        for recipe in chip_smoke.FAMILY_F32_SEEDS:
+            r = chip_smoke.family_f32_readings(recipe)
+            print(json.dumps({
+                "limit": "family_f32_step", "variant": variant, "recipe": recipe,
+                "norm_card": r["norm_card"], "norm_cpu": r["norm_cpu"], "multiple": r["norm_card"] / r["norm_cpu"],
+                "norm_limit": r["limit"], "loss": r["loss"], "stats": r["stats"],
+                "worst_card": r["worst_card"], "worst_cpu": r["worst_cpu"],
+            }), flush=True)
+    chip_smoke.set_float32_precision()
+
+
 def one_flip(q, k, do, lse, at, n, kernel_value) -> dict:
     """Whether one P rounded to the other side explains dv's error at
     ``at`` = (b, key, head, d): the plain version's P column of that key
@@ -339,6 +361,9 @@ def main() -> None:
     if sys.argv[1:2] == ["--dv-bisect"]:
         dv_bisect(pathlib.Path(sys.argv[2]))
         return
+    if sys.argv[1:2] == ["--families"]:
+        family_readings()
+        return
     attention_only = sys.argv[1:2] == ["--attention"]
     _build.build_all(chip_smoke.KERNEL_SOURCES)
     kernel_readings("as_built", SEEDS)
@@ -359,6 +384,7 @@ def main() -> None:
     if not attention_only:
         padding_readings()
         overfit_readings()
+        family_readings()
 
 
 if __name__ == "__main__":

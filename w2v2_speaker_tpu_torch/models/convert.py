@@ -3,8 +3,9 @@
 ``params_from_jax(params, cfg, batch_stats)`` takes the flax ``params``
 tree of ``w2v2_speaker_tpu``'s ``Wav2Vec2Model``, ``Wav2Vec2SpeakerModel``
 (with the full backbone or, under ``feature_encoder_only``, the conv stack
-alone), ``Wav2Vec2PairedModel``, ``Wav2Vec2SpeechModel`` or
-``Wav2Vec2MultitaskModel`` as nested dicts of
+alone), ``Wav2Vec2PairedModel``, ``Wav2Vec2SpeechModel``,
+``Wav2Vec2MultitaskModel``, ``FbankFrontend`` over ``XVectorModel`` or
+``EcapaModel``, ``Wav2SpkModel`` or ``DummyModel`` as nested dicts of
 numpy arrays (what ``jax.device_get(variables["params"])`` gives), and
 optionally the ``batch_stats`` collection beside it, and returns the
 ``state_dict`` of the port's module of the same name. It imports neither
@@ -16,24 +17,18 @@ jax nor flax. The rules:
 - conv kernels ``[k, in, out]`` become ``weight`` ``[out, in, k]``;
 - norm ``scale`` becomes ``weight``;
 - ``weight_v`` / ``weight_g`` (already in torch layout), biases,
-  ``masked_spec_embed`` and the AAM head's ``weights`` ``[classes, D]``
-  pass through;
+  ``masked_spec_embed``, the AAM head's ``weights`` ``[classes, D]`` and
+  the temporal gate's ``W`` (applied as ``[out, in]``) pass through;
 - a ``batch_stats`` leaf ``mean`` / ``var`` becomes the ``running_mean`` /
   ``running_var`` buffer of the ``BatchNorm`` at its path.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Iterator, Mapping, Optional, Tuple, Union
+from typing import Dict, Iterator, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
-
-from .wav2vec2 import Wav2Vec2Config
-from .wav2vec2_multitask import Wav2Vec2MultitaskConfig
-from .wav2vec2_paired import Wav2Vec2PairedConfig
-from .wav2vec2_speaker import Wav2Vec2SpeakerConfig
-from .wav2vec2_speech import Wav2Vec2SpeechConfig
 
 __all__ = ["params_from_jax"]
 
@@ -60,15 +55,14 @@ def _torch_leaf(path: Tuple[str, ...], x: np.ndarray) -> Tuple[str, np.ndarray]:
 
 
 def params_from_jax(
-    params: Mapping,
-    cfg: Union[Wav2Vec2Config, Wav2Vec2SpeakerConfig, Wav2Vec2PairedConfig, Wav2Vec2SpeechConfig,
-               Wav2Vec2MultitaskConfig],
-    batch_stats: Optional[Mapping] = None,
+    params: Mapping, cfg=None, batch_stats: Optional[Mapping] = None,
 ) -> Dict[str, torch.Tensor]:
     """The port's ``state_dict`` (float32 CPU tensors) for a flax params
     tree and its ``batch_stats``; load it with
-    ``module.load_state_dict(..., strict=True)``."""
-    num_layers = getattr(cfg, "w2v2", cfg).num_layers
+    ``module.load_state_dict(..., strict=True)``. ``cfg`` is the model's
+    config (a ``Wav2Vec2Config`` or one holding it as ``w2v2``), read for
+    the layer count of a stacked encoder; a tree without one needs none."""
+    num_layers = getattr(getattr(cfg, "w2v2", cfg), "num_layers", None)
     out: Dict[str, torch.Tensor] = {}
     stats = [(path[:-1] + (_RUNNING[path[-1]],), x) for path, x in _leaves(batch_stats or {})]
     for path, x in [*_leaves(params), *stats]:

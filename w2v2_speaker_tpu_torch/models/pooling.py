@@ -33,8 +33,8 @@ __all__ = [
 ]
 
 _EPS = 1e-12
-# The reference's AttentiveStatPool defaults (:142-143, :170): the only
-# values its wav2vec2 networks build.
+# The reference's AttentiveStatPool defaults (:142-143, :170): the values
+# its wav2vec2 networks build.
 _ATTENTION_CHANNELS = 128
 _BN_MOMENTUM, _BN_EPS = 0.9, 1e-5
 _INDEX = ("first", "first+cls", "middle", "last", "random")
@@ -106,16 +106,19 @@ class QuantilePool(nn.Module):
 
 
 class BatchNorm(nn.Module):
-    """flax ``nn.BatchNorm(momentum=0.9, epsilon=1e-5)`` over the last axis,
-    not ``nn.BatchNorm1d``, which differs in three ways: in training the
-    statistics run over every position of every leading axis (padded
-    frames included: the reference passes no mask); the running variance
-    takes the biased variance E[x^2] - E[x]^2 (clipped at 0); and a
-    running value moves as 0.9 old + 0.1 new. Eval normalises with the
-    running buffers, which ride the ``state_dict`` (checkpoints, resume)."""
+    """flax ``nn.BatchNorm(momentum=0.9, epsilon=1e-5)`` over the feature
+    axis ``axis`` (the last by default; 1 for a channels-first
+    ``[B, C, T]`` input), not ``nn.BatchNorm1d``, which differs in three
+    ways: in training the statistics run over every position of every
+    other axis (padded frames included: the reference passes no mask); the
+    running variance takes the biased variance E[x^2] - E[x]^2 (clipped at
+    0); and a running value moves as 0.9 old + 0.1 new. Eval normalises
+    with the running buffers, which ride the ``state_dict`` (checkpoints,
+    resume)."""
 
-    def __init__(self, features: int):
+    def __init__(self, features: int, axis: int = -1):
         super().__init__()
+        self.axis = axis
         self.weight = nn.Parameter(torch.empty(features))
         self.bias = nn.Parameter(torch.empty(features))
         self.register_buffer("running_mean", torch.empty(features))
@@ -131,9 +134,10 @@ class BatchNorm(nn.Module):
         self.running_var.fill_(1.0)
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        axis = self.axis % x.ndim
         if train:
-            axes = tuple(range(x.ndim - 1))
-            x32 = x.float()
+            axes = tuple(d for d in range(x.ndim) if d != axis)
+            x32 = x.to(torch.promote_types(x.dtype, torch.float32))
             mean = x32.mean(dim=axes)
             var = ((x32 * x32).mean(dim=axes) - mean * mean).clamp_min(0.0)
             with torch.no_grad():
@@ -141,28 +145,35 @@ class BatchNorm(nn.Module):
                 self.running_var.mul_(_BN_MOMENTUM).add_((1 - _BN_MOMENTUM) * var)
         else:
             mean, var = self.running_mean, self.running_var
-        return (x - mean) * (torch.rsqrt(var + _BN_EPS) * self.weight) + self.bias
+        shape = [-1 if d == axis else 1 for d in range(x.ndim)]
+        scale = (torch.rsqrt(var + _BN_EPS) * self.weight).view(shape)
+        return (x - mean.view(shape)) * scale + self.bias.view(shape)
 
 
 class AttentiveStatPool(nn.Module):
-    """Attentive statistics pooling (speechbrain's structure) with global
-    context: the input is (x, masked mean, masked std) per frame; a dense
-    layer to ``_ATTENTION_CHANNELS``, ReLU, ``BatchNorm``, tanh, a dense
-    layer back to F, softmax over the valid frames, then the weighted mean
-    and std -> [B, 2 F]."""
+    """Attentive statistics pooling (speechbrain's structure): the input is
+    (x, masked mean, masked std) per frame with ``global_context``, else x
+    alone; a dense layer to ``attention_channels``, ReLU, ``BatchNorm``,
+    tanh, a dense layer back to F, softmax over the valid frames, then the
+    weighted mean and std -> [B, 2 F]. The wav2vec2 networks take the
+    defaults; ECAPA-TDNN passes its config's values."""
 
-    def __init__(self, features: int):
+    def __init__(self, features: int, attention_channels: int = _ATTENTION_CHANNELS,
+                 global_context: bool = True):
         super().__init__()
-        self.attn_tdnn = nn.Linear(3 * features, _ATTENTION_CHANNELS)
-        self.attn_bn = BatchNorm(_ATTENTION_CHANNELS)
-        self.attn_proj = nn.Linear(_ATTENTION_CHANNELS, features)
+        self.global_context = global_context
+        self.attn_tdnn = nn.Linear((3 if global_context else 1) * features, attention_channels)
+        self.attn_bn = BatchNorm(attention_channels)
+        self.attn_proj = nn.Linear(attention_channels, features)
 
     def forward(self, x, mask=None, train=False, generator=None):
         m3 = _full_mask(x, mask)[:, :, None]
-        n = m3.sum(dim=1, keepdim=True).clamp_min(1.0)
-        mean = (x * m3).sum(dim=1, keepdim=True) / n
-        std = (((x - mean) ** 2 * m3).sum(dim=1, keepdim=True) / n).clamp_min(_EPS).sqrt()
-        x_in = torch.cat([x, mean.expand_as(x), std.expand_as(x)], dim=-1)
+        x_in = x
+        if self.global_context:
+            n = m3.sum(dim=1, keepdim=True).clamp_min(1.0)
+            mean = (x * m3).sum(dim=1, keepdim=True) / n
+            std = (((x - mean) ** 2 * m3).sum(dim=1, keepdim=True) / n).clamp_min(_EPS).sqrt()
+            x_in = torch.cat([x, mean.expand_as(x), std.expand_as(x)], dim=-1)
         h = torch.tanh(self.attn_bn(F.relu(self.attn_tdnn(x_in)), train))
         e = self.attn_proj(h)
         e = torch.where(m3 > 0, e, torch.finfo(e.dtype).min)

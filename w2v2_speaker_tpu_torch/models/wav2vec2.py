@@ -61,6 +61,7 @@ from ..ops import conv_encoder
 from ..ops.flash_attention import attention_dropout_keep, draw_seed, flash_attention
 from .heads import AAMSoftmaxHead
 from .masking import draw_uniform, sample_span_mask
+from .temporal_gate import TemporalGate
 
 __all__ = [
     "HashDropout",
@@ -622,10 +623,11 @@ def init_parameters(module: nn.Module, generator: torch.Generator) -> None:
     initialisers: dense and conv kernels lecun-normal (truncated at two
     standard deviations), biases 0, norm scales 1, the pos-conv ``weight_v``
     uniform in +-1/sqrt(fan_in) with ``weight_g`` its per-tap norm,
-    ``masked_spec_embed`` uniform in [0, 1), and the AAM head's ``weights``
-    xavier-normal (truncated, as flax's); any other module with a
-    ``reset_parameters`` sets its own fixed values, and a module with an
-    ``after_init_parameters`` then overrides the values of its children
+    ``masked_spec_embed`` uniform in [0, 1), the AAM head's ``weights`` and
+    the temporal gate's ``W`` xavier-normal (truncated, as flax's), the
+    gate's ``b`` normal with std sqrt(2 / (F + 1)); any other module with a
+    ``reset_parameters`` sets its own fixed values (``BatchNorm``), and a
+    module with an ``after_init_parameters`` then overrides the values of its children
     it fixes (the speaker-CTC head's blank bias). Values are drawn in
     float32 and rounded to each parameter's dtype. The generator must be on the
     parameters' device."""
@@ -656,13 +658,17 @@ def init_parameters(module: nn.Module, generator: torch.Generator) -> None:
         elif isinstance(m, Wav2Vec2Model) and m.masked_spec_embed is not None:
             draw(m.masked_spec_embed, lambda x: nn.init.uniform_(
                 x, 0.0, 1.0, generator=generator))
-        elif isinstance(m, AAMSoftmaxHead):
-            std = (2.0 / sum(m.weights.shape)) ** 0.5 / 0.87962566103423978  # fan_avg
-            draw(m.weights, lambda x: nn.init.trunc_normal_(
+        elif isinstance(m, (AAMSoftmaxHead, TemporalGate)):
+            w = m.weights if isinstance(m, AAMSoftmaxHead) else m.W
+            std = (2.0 / sum(w.shape)) ** 0.5 / 0.87962566103423978  # fan_avg
+            draw(w, lambda x: nn.init.trunc_normal_(
                 x, std=std, a=-2 * std, b=2 * std, generator=generator))
+            if isinstance(m, TemporalGate):
+                std = (2.0 / (m.b.shape[0] + 1)) ** 0.5
+                draw(m.b, lambda x: nn.init.normal_(x, std=std, generator=generator))
         elif hasattr(m, "reset_parameters"):
-            # A module of fixed initial values (the attentive pooling's
-            # BatchNorm); every drawn parameter is one of the cases above.
+            # A module of fixed initial values (BatchNorm); every drawn
+            # parameter is one of the cases above.
             m.reset_parameters()
     for m in module.modules():  # after the children's values above
         if hasattr(m, "after_init_parameters"):

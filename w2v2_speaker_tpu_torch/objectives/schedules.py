@@ -9,16 +9,17 @@ each phase one step earlier and would give other rates. ``tri_stage``
 (:61) is the reference's three-stage schedule: linear warm-up from
 initial_lr to base_lr over ``floor(ratio * max_steps)`` steps, constant,
 then exponential decay to final_lr, index for index with its linspace and
-logspace tables. The other schedules are not ported yet (ROADMAP Queue 1
-item 3).
+logspace tables. ``multi_step_decay`` (:115) multiplies the rate by
+``gamma`` at each milestone the step count has reached. The other
+schedules are not ported yet (ROADMAP Queue 1 item 3).
 """
 
 from __future__ import annotations
 
 import math
-from typing import Callable
+from typing import Callable, Sequence
 
-__all__ = ["one_cycle", "tri_stage"]
+__all__ = ["multi_step_decay", "one_cycle", "tri_stage"]
 
 Schedule = Callable[[int], float]
 
@@ -70,5 +71,15 @@ def tri_stage(
             j = step - (w + c)
             return math.exp(math.log(base_lr) + (math.log(final_lr) - math.log(base_lr)) * j / max(d + 1, 1))
         return final_lr
+
+    return schedule
+
+
+def multi_step_decay(lr: float, milestones: Sequence[int], gamma: float = 0.1) -> Schedule:
+    """lr x gamma^k, k the number of milestones <= step."""
+    ms = sorted(milestones)
+
+    def schedule(step: int) -> float:
+        return lr * gamma ** sum(step >= m for m in ms)
 
     return schedule

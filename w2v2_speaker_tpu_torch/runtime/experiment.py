@@ -6,10 +6,13 @@ Counterpart of ``w2v2_speaker_tpu/runtime/experiment.py``: ``_w2v2_config``
 ``wav2vec2_fc`` network in the ``ce``, ``aam``, ``ce_no_pool``, ``triplet``,
 ``triplet_ce`` and ``speaker_ctc`` modes (:434-459), the ``wav2vec2_paired``
 network (:513-522), the ``wav2vec2_multitask`` network (:524-574) and the
-``wav2vec2_fc_letter`` speech network (:576-593), and
-``build_optimizer`` (:616) for Adam under the one-cycle or tri-stage
-schedule (``_normalize_schedule_cfg`` :596 folds the reference's nested
-schedule keys), global-norm clipping and the backbone freeze schedules,
+``wav2vec2_fc_letter`` speech network (:576-593), the ``xvector``,
+``ecapa_tdnn``, ``wav2spk`` and ``dummy`` networks (:393-476; the first
+two behind the fbank frontend, all four computing in float32 whatever
+``trainer.precision`` says, as the JAX package builds them without a
+dtype), and ``build_optimizer`` (:616) for Adam under the one-cycle,
+tri-stage or multi-step schedule (``_normalize_schedule_cfg`` :596 folds
+the reference's nested schedule keys), global-norm clipping and the backbone freeze schedules,
 and ``build_evaluator`` (:289) for the five evaluators of
 ``config/evaluator/``, read from the same keys of the merged Hydra config
 (``optim.algo``, ``optim.schedule``, ``optim.loss``, ``trainer``,
@@ -64,6 +67,7 @@ import torch
 
 from ..data.batching import PairedBatchProcessor, TripletBatchProcessor
 from ..data.collate import pad_batch_rows
+from ..data.features import FbankConfig
 from ..data.datamodule import VoxCelebConfig, VoxCelebDataModule
 from ..data.librispeech import LibriSpeechConfig, LibriSpeechDataModule
 from ..data.samples import collate_paired_batch, collate_speaker_batch
@@ -73,12 +77,17 @@ from ..eval.backends import LDAEvaluator, PLDAEvaluator
 from ..eval.evaluator import (
     ASNormCosineEvaluator, CosineDistanceEvaluator, EmbeddingSample, SpeakerRecognitionEvaluator,
 )
+from ..models.dummy import DummyModel
+from ..models.ecapa import EcapaConfig, EcapaModel
+from ..models.frontend import FbankFrontend
 from ..models.hf_convert import load_hf_checkpoint
+from ..models.wav2spk import Wav2SpkConfig, Wav2SpkModel
 from ..models.wav2vec2 import BASE_CONFIG, LARGE_CONFIG, Wav2Vec2Config, init_parameters
 from ..models.wav2vec2_multitask import Wav2Vec2MultitaskConfig, Wav2Vec2MultitaskModel
 from ..models.wav2vec2_paired import Wav2Vec2PairedConfig, Wav2Vec2PairedModel
 from ..models.wav2vec2_speaker import Wav2Vec2SpeakerConfig, Wav2Vec2SpeakerModel
 from ..models.wav2vec2_speech import Wav2Vec2SpeechConfig, Wav2Vec2SpeechModel
+from ..models.xvector import XVectorConfig, XVectorModel
 from ..objectives import schedules
 from ..train.checkpoint import CheckpointManager, graft_into, load_params
 from ..train.multitask_task import MultitaskTask
@@ -92,13 +101,13 @@ from .logging import MetricsLogger
 
 __all__ = [
     "CONFIG_DIR", "TINY_W2V2", "EarlyStopping", "build_augmenter", "build_data_module", "build_evaluator",
-    "build_model_and_task", "build_optimizer", "load_recipe", "multitask_model_config", "paired_model_config",
-    "run_train_eval", "speaker_model_config", "speech_model_config", "w2v2_config",
+    "build_model_and_task", "build_optimizer", "graft_pretrained", "load_recipe", "multitask_model_config",
+    "paired_model_config", "run_train_eval", "speaker_model_config", "speech_model_config", "w2v2_config",
 ]
 
 _OPTIM_ROW = "ROADMAP.md Queue 1 item 3 (optimizers and schedules)"
 _RUNTIME_ROW = "ROADMAP.md Queue 1 item 3 (speaker-recipe runtime, the rest)"
-_FAMILIES_ROW = "ROADMAP.md Queue 1 item 7 (remaining model families)"
+_FAMILIES_ROW = "ROADMAP.md Queue 1 item 7d (wav2vec v1)"
 CONFIG_DIR = pathlib.Path(__file__).resolve().parents[2] / "config"
 
 TINY_W2V2 = Wav2Vec2Config(  # network.wav2vec2_size=tiny (:82), for debug runs
@@ -192,7 +201,7 @@ def speaker_model_config(cfg: Dict) -> Tuple[Wav2Vec2SpeakerConfig, str]:
     return model_cfg, mode
 
 
-def _speaker_task(cfg: Dict, model: Wav2Vec2SpeakerModel, mode: str) -> SpeakerTask:
+def _speaker_task(cfg: Dict, model, mode: str) -> SpeakerTask:
     """The speaker task of ``mode``; the triplet modes read the loss
     config's ``margin``, ``c_ce`` and ``c_triplet`` (the JAX package keeps
     the task's defaults, 1.0, whatever they say: ROADMAP Queue 3)."""
@@ -201,6 +210,41 @@ def _speaker_task(cfg: Dict, model: Wav2Vec2SpeakerModel, mode: str) -> SpeakerT
         return SpeakerTask(model, mode)
     return SpeakerTask(model, mode, triplet_margin=float(loss.get("margin", 1.0)),
                        c_ce=float(loss.get("c_ce", 1.0)), c_triplet=float(loss.get("c_triplet", 1.0)))
+
+
+_OWN_FAMILIES = ("xvector", "ecapa_tdnn", "wav2spk", "dummy")  # off the wav2vec2 backbone
+
+
+def _family_model(cfg: Dict, n_out: int):
+    """The ``xvector``, ``ecapa_tdnn``, ``wav2spk`` or ``dummy`` model of
+    ``cfg`` over ``n_out`` classes, key for key as the JAX branches
+    (:393-476) build it, with their ``ValueError`` for AAM under x-vector
+    and wav2spk. The first TDNN reads ``network.n_mels`` features (flax
+    infers its input width; ``in_channels`` is no layer's size there)."""
+    net, loss = cfg["network"], cfg["optim"]["loss"]
+    name, aam = net["name"], loss["name"] == "aam_softmax"
+    if aam and name in ("xvector", "wav2spk"):
+        raise ValueError(f"{name} does not support aam softmax")
+    if name == "xvector":
+        inner = XVectorModel(XVectorConfig(
+            in_channels=net["n_mels"], tdnn_channels=tuple(net["tdnn_channels"]),
+            tdnn_kernel_sizes=tuple(net["tdnn_kernel_sizes"]), tdnn_dilations=tuple(net["tdnn_dilations"]),
+            lin_neurons=net["lin_neurons"]), num_speakers=n_out)
+        return FbankFrontend(inner, FbankConfig(n_mels=net["n_mels"]))
+    if name == "ecapa_tdnn":
+        inner = EcapaModel(EcapaConfig(
+            in_channels=net["n_mels"], channels=tuple(net["channels"]), kernel_sizes=tuple(net["kernel_sizes"]),
+            dilations=tuple(net["dilations"]), attention_channels=net["attention_channels"],
+            res2net_scale=net["res2net_scale"], se_channels=net["se_channels"],
+            global_context=net["global_context"], lin_neurons=net["lin_neurons"]),
+            num_speakers=n_out, use_aam=aam, aam_margin=loss.get("margin", 0.2), aam_scale=loss.get("scale", 30.0))
+        return FbankFrontend(inner, FbankConfig(n_mels=net["n_mels"]))
+    if name == "wav2spk":
+        return Wav2SpkModel(Wav2SpkConfig(
+            apply_temporal_gating=net["apply_temporal_gating"],
+            hidden_fc_layers_out=tuple(net["hidden_fc_layers_out"]), embedding_layer_idx=net["embedding_layer_idx"],
+            stat_pooling_type=net["stat_pooling_type"]), num_speakers=n_out)
+    return DummyModel(num_speakers=n_out)
 
 
 def paired_model_config(cfg: Dict) -> Wav2Vec2PairedConfig:
@@ -260,11 +304,15 @@ def build_model_and_task(
     ``wav2vec2_fc_letter`` network, or ``(task, "multitask")`` with a new
     ``Wav2Vec2MultitaskModel`` over the speakers and ``tokenizer``'s
     vocabulary (or ``network.explicit_vocab_size`` tokens without one, for
-    serving) for the ``wav2vec2_multitask`` network; parameters allocated,
-    not initialised (see ``models.wav2vec2.init_parameters``)."""
+    serving) for the ``wav2vec2_multitask`` network, or ``(task,
+    "speaker")`` with the x-vector, ECAPA-TDNN, wav2spk or dummy model of
+    those networks; parameters allocated, not initialised (see
+    ``models.wav2vec2.init_parameters``)."""
     net = cfg["network"]
     name = net.get("name")
     n_out = net.get("explicit_num_speakers") or num_speakers
+    if name in _OWN_FAMILIES:
+        return _speaker_task(cfg, _family_model(cfg, n_out), _MODES[cfg["optim"]["loss"]["name"]]), "speaker"
     if name == "wav2vec2_paired":
         return PairedSpeakerTask(Wav2Vec2PairedModel(paired_model_config(cfg))), "paired"
     if name == "wav2vec2_fc_letter":
@@ -303,9 +351,9 @@ def _normalize_schedule_cfg(sched_cfg: Dict) -> Dict:
 
 
 def build_optimizer(cfg: Dict):
-    """The update transform of a merged config: Adam under one-cycle or
-    tri-stage, optional global-norm clipping, then the freeze schedules,
-    composed in the order of the JAX ``build_optimizer``."""
+    """The update transform of a merged config: Adam under one-cycle,
+    tri-stage or multi-step, optional global-norm clipping, then the freeze
+    schedules, composed in the order of the JAX ``build_optimizer``."""
     algo = cfg["optim"]["algo"]
     sched_cfg = _normalize_schedule_cfg(cfg["optim"]["schedule"])
     if algo["name"] != "adam":
@@ -328,6 +376,8 @@ def build_optimizer(cfg: Dict):
             max_steps, sched_cfg["warmup_stage_ratio"], sched_cfg["constant_stage_ratio"],
             sched_cfg["decay_stage_ratio"], sched_cfg["initial_lr"], algo["lr"], sched_cfg["final_lr"],
         )
+    elif sched_cfg["name"] == "multi_step":
+        sched = schedules.multi_step_decay(algo["lr"], sched_cfg["milestones"], sched_cfg["gamma"])
     else:
         raise NotImplementedError(f"schedule {sched_cfg['name']!r} is not ported yet: {_OPTIM_ROW}")
     tx = AdamTx(sched, b1=algo["b1"], b2=algo["b2"])
@@ -583,22 +633,32 @@ def run_train_eval(cfg: Dict, device: DeviceLike = None) -> Optional[float]:
     return run(cfg, dm, task, logger, dev)
 
 
+def graft_pretrained(model, net: Dict) -> None:
+    """The converted HF backbone of ``network.pretrained_checkpoint``
+    grafted into ``model.wav2vec2`` (:983-1004). A model without that
+    submodule (the paired model, and the networks off the wav2vec2
+    backbone) keeps its initialisation, as in the JAX package (:996); a
+    line says so. The file is read where the model has a backbone config
+    to convert it with, as the JAX package reads it."""
+    path = net.get("pretrained_checkpoint")
+    if not path:
+        return
+    w2v2 = getattr(getattr(model, "cfg", None), "w2v2", None)
+    ported = None if w2v2 is None else load_hf_checkpoint(path, w2v2)
+    if hasattr(model, "wav2vec2"):
+        graft_into(model.wav2vec2, ported, path)
+    else:
+        print(f"network.pretrained_checkpoint: {type(model).__name__} has no wav2vec2 submodule; "
+              f"the checkpoint is not loaded, as in the JAX package")
+
+
 def _init_state(cfg: Dict, task) -> TrainState:
-    """The train state over ``task.model`` (:983): the converted HF backbone
-    of ``network.pretrained_checkpoint`` grafted into ``wav2vec2``, then
-    ``load_network_from_checkpoint`` grafted into the whole model, the
+    """The train state over ``task.model`` (:983): ``graft_pretrained``,
+    then ``load_network_from_checkpoint`` grafted into the whole model, the
     optimizer of ``build_optimizer``, and the step generator seeded with
-    ``seed + 1``. The paired model has no ``wav2vec2`` submodule, so, as in
-    the JAX package (:996), it keeps its initialisation under
-    ``pretrained_checkpoint``; a line says so."""
-    model, net = task.model, cfg["network"]
-    if net.get("pretrained_checkpoint"):
-        ported = load_hf_checkpoint(net["pretrained_checkpoint"], model.cfg.w2v2)
-        if hasattr(model, "wav2vec2"):
-            graft_into(model.wav2vec2, ported, net["pretrained_checkpoint"])
-        else:
-            print(f"network.pretrained_checkpoint: {type(model).__name__} has no wav2vec2 submodule; "
-                  f"the checkpoint is not loaded, as in the JAX package")
+    ``seed + 1``."""
+    model = task.model
+    graft_pretrained(model, cfg["network"])
     if cfg.get("load_network_from_checkpoint"):
         load_params(cfg["load_network_from_checkpoint"], model)
     return TrainState.create(model, build_optimizer(cfg), seed=int(cfg["seed"]) + 1)

@@ -14,7 +14,8 @@ Counterparts:
 - ``run_predictions`` <- ``w2v2_speaker_tpu/runtime/predict.py::
   run_predictions`` (:85): the pair file's sorted unique ids, the
   configured evaluator, the ``wav2vec2_fc`` or ``wav2vec2_multitask``
-  model (whose speaker branch embeds) with its weights
+  model (whose speaker branch embeds), or the x-vector, ECAPA-TDNN,
+  wav2spk or dummy model, with its weights
   (``network.pretrained_checkpoint``, then ``load_network_from_checkpoint``),
   16 kHz audio read and normalised per utterance, embeddings cached as
   ``<folder>/embeddings/<id>.npy``, AS-Norm fitted on the extraction set,
@@ -42,10 +43,9 @@ from ..data.normalize import normalize_waveform
 from ..data.samples import SpeakerSample
 from ..device import DeviceLike, resolve_device, set_float32_precision
 from ..eval.evaluator import ASNormCosineEvaluator, EmbeddingSample
-from ..models.hf_convert import load_hf_checkpoint
 from ..models.wav2vec2 import init_parameters
-from ..train.checkpoint import graft_into, load_params
-from .experiment import _canon_int8, build_evaluator, build_model_and_task, speaker_model_config
+from ..train.checkpoint import load_params
+from .experiment import _canon_int8, build_evaluator, build_model_and_task, graft_pretrained
 
 __all__ = ["build_predict_model", "extract_embeddings", "read_pair_file", "run_predictions"]
 
@@ -102,27 +102,27 @@ def read_pair_file(path: pathlib.Path) -> List[Tuple[str, str]]:
 def _check_servable(cfg: Dict) -> None:
     """Raise for what predict cannot serve: a network without a speaker
     embedding (the speech and paired networks; the JAX package raises
-    too), an unported network or loss (``speaker_model_config``), and int8
-    matmuls."""
+    too), int8 matmuls, and what ``build_model_and_task`` refuses (an
+    unported network or loss, x-vector or wav2spk under AAM), built on the
+    meta device."""
     name = cfg["network"].get("name")
     if name in ("wav2vec2_fc_letter", "wav2vec2_paired"):
         raise ValueError("predict supports speaker (or multitask) models")
-    if name != "wav2vec2_multitask":
-        speaker_model_config(cfg)
     int8 = cfg["network"].get("int8_matmuls", False)
     if _canon_int8(int8) is not False:
         raise NotImplementedError(
             f"network.int8_matmuls={int8!r} is not ported yet: ROADMAP.md Queue 1 item 6 (int8 serving)"
         )
+    with torch.device("meta"):
+        build_model_and_task(cfg, cfg["network"].get("explicit_num_speakers") or 2)
 
 
 def build_predict_model(cfg: Dict, device: DeviceLike = None):
     """The eval-mode speaker model of ``cfg`` on ``device``: parameters
-    drawn from ``cfg["seed"]`` on the device, then the converted HF
-    backbone of ``network.pretrained_checkpoint`` grafted into
-    ``wav2vec2``, then ``load_network_from_checkpoint`` grafted into the
-    whole model (leaves of another shape keep their values, as the JAX
-    package's ``_init_state`` :983-1004 does). Parameters stay float32."""
+    drawn from ``cfg["seed"]`` on the device, then ``graft_pretrained``,
+    then ``load_network_from_checkpoint`` grafted into the whole model
+    (leaves of another shape keep their values, as the JAX package's
+    ``_init_state`` :983-1004 does). Parameters stay float32."""
     dev = resolve_device(device)
     net = cfg["network"]
     if dev.type == "cuda":
@@ -131,9 +131,7 @@ def build_predict_model(cfg: Dict, device: DeviceLike = None):
         task, _ = build_model_and_task(cfg, net.get("explicit_num_speakers") or 2)
     model = task.model.to_empty(device=dev)
     init_parameters(model, torch.Generator(device=dev).manual_seed(int(cfg["seed"])))
-    if net.get("pretrained_checkpoint"):
-        ported = load_hf_checkpoint(net["pretrained_checkpoint"], model.cfg.w2v2)
-        graft_into(model.wav2vec2, ported, net["pretrained_checkpoint"])
+    graft_pretrained(model, net)
     if cfg.get("load_network_from_checkpoint"):
         load_params(cfg["load_network_from_checkpoint"], model)
     return model.eval().requires_grad_(False)

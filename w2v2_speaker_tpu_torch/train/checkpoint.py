@@ -220,10 +220,9 @@ def unflatten(flat: Mapping[str, np.ndarray]) -> Dict:
 def _npz_state_dict(path: pathlib.Path, model: nn.Module) -> Dict[str, torch.Tensor]:
     with np.load(path) as z:
         flat = {k: z[k] for k in z.files}
-    cfg = model.cfg
-    layers = cfg.w2v2.num_layers if hasattr(cfg, "w2v2") else cfg.num_layers
+    cfg = getattr(model, "cfg", None)
     stacked = [v.shape[0] for k, v in flat.items() if _STACKED in k]
-    if stacked and stacked[0] != layers:
+    if stacked and stacked[0] != getattr(getattr(cfg, "w2v2", cfg), "num_layers", None):
         # the stacked [L, ...] leaves are of another shape: they keep their
         # current values, as the JAX package's graft keeps them
         flat = {k: v for k, v in flat.items() if _STACKED not in k}
