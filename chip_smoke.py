@@ -181,7 +181,29 @@ the run by raising:
    milestones at steps 2 and 3 (each step's learning rate against
    ``multi_step_decay``) and its float32 step card against CPU, then
    ``+experiment=speaker_dummy`` with its ``trainer=debug_trainer``;
-25. one JSON line with every kernel's numbers (the attention kernels and
+25. the native DSP library of the augmentations (``native/dsp.cpp``, built
+   by ``utils/native.py``): ``upfirdn``, ``fir_same``, ``fft_convolve`` and
+   ``speed_perturb_native`` against scipy within ``tests/test_native.py``'s
+   limits, each timed beside scipy on a 5 s clip (host);
+26. the x-vector augmentation study: ``run.main`` with ``+experiment=speaker_xvector``
+   (full width, f32, B=66 x 3 s, 4 steps) on phase 13's shards with
+   ``xvector_all_augment_pipeline``, ``xvector_dropout_augment_pipeline`` and
+   ``xvector_rirs_augment`` (over synthetic ``pointsource_noises`` shards
+   the phase writes): each run as phase 22's, beside the host pipeline's ms
+   per batch over an epoch at 1 and 4 pipeline workers;
+27. the flagship recipe on augmented batches: ``+experiment=speaker_wav2vec2_ce``
+   at full BASE width (bf16, B=66) with ``xvector_dropout_augment_pipeline``,
+   ``trainer.dump_first_batch=true`` and ``verify_model=true``, 4 steps:
+   launches = kept layers in every step, finite losses, layer 0's training
+   q/k/v through the forward and dq + dk/dv against their plain versions,
+   the leakage probe passed on the card, the dump's collated batch and 4
+   samples' stages (original, each effect, chunk, normalised);
+28. wav2vec v1 at its published width (512 x 5 strided convs): ``network=wav2vec_fc``
+   (mean), with mean+std and the 9-layer aggregator, and ``wav2vec_xvector``,
+   f32, B=66 x 3 s under ``run.main`` (4 steps, no kernel launched) and the
+   predict twin on each best checkpoint (as phase 23's), and for the last two
+   the float32 step card vs CPU against a float64 CPU step (as phases 22-24);
+29. one JSON line with every kernel's numbers (the attention kernels and
    the conv at the LARGE training shapes, launches of the LARGE training
    run), the card line, then the result line.
 
@@ -363,7 +385,8 @@ FAMILY_GRAD_FLOOR = 1e-3
 # 1.04x (ECAPA) and 0.8x (wav2spk) the CPU's, with TF32 allowed 123x, 56x
 # and 45 000x (tools/torch_fault_probe.py --families, H100 80GB HBM3 at 700 W)
 FAMILY_F64_FACTOR = 4.0
-FAMILY_F32_SEEDS = {"speaker_xvector": 22, "speaker_ecapa_tdnn": 23, "speaker_wav2spk": 24}
+FAMILY_F32_SEEDS = {"speaker_xvector": 22, "speaker_ecapa_tdnn": 23, "speaker_wav2spk": 24,
+                    "wav2vec_fc_meanstd_agg": 28, "wav2vec_xvector": 29}
 FAMILY_PREDICT_FILES = 6  # of phase 12's files, served from the ECAPA run's best checkpoint
 WAV2SPK_MILESTONES = (2, 3)  # the learning rate falls twice within the 4 steps
 
@@ -1364,7 +1387,7 @@ class RunProbe:
 
     def _hook_attention(self, model) -> None:
         encoder = getattr(getattr(model, "wav2vec2", model), "encoder", None)
-        if encoder is None:  # the conv stack alone: no attention to hook
+        if not hasattr(encoder, "layers"):  # the conv stack alone, wav2vec v1: no attention to hook
             return
         attn = encoder.layers[RUN_ATTN_LAYER].attention
         seen = {}
@@ -2467,7 +2490,7 @@ def rel_error(got: torch.Tensor, want: torch.Tensor, floor: float = 0.0) -> floa
     return float(err / scale) if scale > 0 else (0.0 if err == 0 else float("inf"))
 
 
-def family_f32_readings(recipe: str) -> dict:
+def family_f32_readings(recipe: str, overrides=(), label=None) -> dict:
     """The forward and backward of one float32 training step of
     ``recipe``'s network at full width on 3 rows padded to 2 s, on the card
     and on the CPU from the same weights, and the same in float64 on the
@@ -2478,9 +2501,10 @@ def family_f32_readings(recipe: str) -> dict:
     (max abs over max abs, as phases 7 and 11 read it) and against float64
     on either device (floored at ``FAMILY_GRAD_FLOOR`` of the largest
     gradient), and a report of them. Weights and data come from the
-    recipe's ``FAMILY_F32_SEEDS``."""
-    seed = FAMILY_F32_SEEDS[recipe]
-    cfg, task = family_task(recipe, seed)
+    recipe's (or ``label``'s) ``FAMILY_F32_SEEDS``; ``overrides`` go to
+    the recipe."""
+    seed = FAMILY_F32_SEEDS[label or recipe]
+    cfg, task = family_task(recipe, seed, overrides)
     models = {"card": task.model, "cpu": copy.deepcopy(task.model).cpu(),
               "f64": copy.deepcopy(task.model).cpu().double()}
     rng = np.random.default_rng(seed)
@@ -2517,34 +2541,36 @@ def family_f32_readings(recipe: str) -> dict:
     return r
 
 
-def family_f32_step(recipe: str) -> str:
+def family_f32_step(recipe: str, overrides=(), label=None) -> str:
     """``family_f32_readings`` held to its limits: the loss and the running
     statistics card against CPU within ``F32_REL_TOL``; the card's
     gradients as close to the float64 ones as ``F32_REL_TOL``, or as
     ``FAMILY_F64_FACTOR`` times the CPU float32 step's distance. Returns
     the report."""
-    r = family_f32_readings(recipe)
+    r = family_f32_readings(recipe, overrides, label)
     assert r["loss"] < F32_REL_TOL and r["stats"] < F32_REL_TOL and r["norm_card"] < r["limit"], \
-        f"{recipe}: {r['report']}"
+        f"{label or recipe}: {r['report']}"
     return r["report"]
 
 
 def family_run(card: str, tmp: pathlib.Path, recipe: str, wav_dir, trials, shards, steps: int = FAMILY_STEPS,
-               extra=(), trainer=None) -> tuple:
+               extra=(), trainer=None, label=None, note: str = "") -> tuple:
     """``run.main`` on ``recipe`` with ``extra`` over phase 13's shards,
     ``steps`` steps (with ``trainer`` None, a validation after the last;
     else ``trainer``'s overrides), the last step profiled: finite losses,
-    no kernel launched, the test EER in [0, 1]. Prints ms/step (CUDA
-    events, steps 2 to ``steps`` - 1), the busy share and device ms by
-    category of the last step, its top ops and the peak memory; returns
-    (the objective, the checkpoint directory)."""
+    no kernel launched, the test EER in [0, 1]. Prints ``label`` (the
+    recipe's name without one; it also names the checkpoint directory),
+    ms/step (CUDA events, steps 2 to ``steps`` - 1), the busy share and
+    device ms by category of the last step, its top ops, the peak memory
+    and ``note``; returns (the objective, the checkpoint directory)."""
     from w2v2_speaker_tpu_torch import run
 
     gc.collect()
     torch.cuda.empty_cache()
     held = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
-    ckpt = tmp / f"{recipe}_ckpt"
+    label = label or recipe
+    ckpt = tmp / f"{label}_ckpt"
     if trainer is None:
         trainer = [f"trainer.max_steps={steps}", f"trainer.val_check_interval={steps}"]
     reset_launches()
@@ -2554,24 +2580,24 @@ def family_run(card: str, tmp: pathlib.Path, recipe: str, wav_dir, trials, shard
                               *trainer, *corpus_args(wav_dir, trials, shards, ckpt), *extra])
     run_s = time.perf_counter() - t0
     peak_gib = probe.peak_gib(held)
-    assert [s for s, _ in probe.steps] == list(range(1, steps + 1)), f"{recipe}: steps {probe.steps}"
-    assert all(np.isfinite(m["loss"]) for _, m in probe.steps), f"{recipe}: non-finite loss"
+    assert [s for s, _ in probe.steps] == list(range(1, steps + 1)), f"{label}: steps {probe.steps}"
+    assert all(np.isfinite(m["loss"]) for _, m in probe.steps), f"{label}: non-finite loss"
     zero = {k: 0 for k in launches()}
     assert all(got == zero for _, _, got in probe.per_step()) and launches() == zero, \
-        f"{recipe}: a kernel was launched {launches()}"
-    assert objective is not None and 0 <= objective <= 1, f"{recipe}: objective {objective}"
+        f"{label}: a kernel was launched {launches()}"
+    assert objective is not None and 0 <= objective <= 1, f"{label}: objective {objective}"
     busy, window_ms, kernels, by_cat, (top_name, top_ms) = probe.busy
     by_time, _ = probe.ops
     rows, t = probe.shapes[0][:2]
     evals = [sorted(k for k in m if k.endswith("eer")) for _, m in probe.evals]
-    print(f"{recipe} f32 B={rows} x {t}: losses {[round(m['loss'], 4) for _, m in probe.steps]}; "
+    print(f"{label} f32 B={rows} x {t}: losses {[round(m['loss'], 4) for _, m in probe.steps]}; "
           f"{probe.step_ms(1, steps - 2):.3f} ms/step (CUDA events, steps 2-{steps - 1}; spans "
           f"{[round(x, 2) for x in probe.spans_ms(0, steps - 1)]}); step {steps} profiled: device busy "
           f"{100 * busy:.1f} % of {window_ms:.1f} ms, {kernels} kernels; "
           f"{per_step_categories(by_cat, top_name, top_ms, 1)}; ops by self device ms "
           f"{[(op, shapes, round(ms, 3)) for op, shapes, ms, _ in by_time]}; evaluations {evals}; test EER "
           f"{objective:.4f}; whole run {run_s:.2f} s; launches per step {zero} (no kernel on this path); peak "
-          f"{peak_gib:.2f} GiB above the {held / 2**30:.2f} GiB held at the phase's start [{card}]", flush=True)
+          f"{peak_gib:.2f} GiB above the {held / 2**30:.2f} GiB held at the phase's start{note} [{card}]", flush=True)
     return objective, ckpt
 
 
@@ -2586,13 +2612,22 @@ def ecapa_phase(card: str, tmp: pathlib.Path, wav_dir, trials, shards) -> None:
     run's best checkpoint."""
     _, ckpt = family_run(card, tmp, "speaker_ecapa_tdnn", wav_dir, trials, shards)
     print(f"speaker_ecapa_tdnn {family_f32_step('speaker_ecapa_tdnn')} [{card}]", flush=True)
+    family_predict(card, tmp, "speaker_ecapa_tdnn", ["network=ecapa_tdnn", "optim/loss=aam_softmax"], ckpt)
+
+
+def family_predict(card: str, tmp: pathlib.Path, label: str, network, ckpt) -> None:
+    """The predict twin with ``network``'s overrides (float32) on the
+    checkpoint ``ckpt / "best"`` over 6 of phase 12's files in buckets:
+    one score in [0, 1] per pair, no kernel launched, the scores against
+    ``extract_embeddings`` + cosine on the same model, the bucketed
+    embeddings against each file alone (``padding_ratio``)."""
     rng = np.random.default_rng(12)  # phase 12's draws: its first files
     seconds = np.round(rng.uniform(2.0, 30.0, PREDICT_FILES), 2)[:FAMILY_PREDICT_FILES]
-    folder = tmp / "ecapa_predict"
+    folder = tmp / f"{label}_predict"
     ids = list(write_predict_folder(folder, seconds, PREDICT_SPEAKERS, rng))
     pair_file = folder / "pairs.txt"
     pair_file.write_text("".join(f"{a} {b}\n" for i, a in enumerate(ids) for b in ids[i + 1:]))
-    overrides = ["network=ecapa_tdnn", "optim/loss=aam_softmax", "trainer.precision=f32",
+    overrides = [*network, "trainer.precision=f32",
                  f"load_network_from_checkpoint={ckpt / 'best'}", f"data.dataloader.test_pad_to_multiple={PREDICT_PAD}",
                  f"data.dataloader.test_batch_size={PREDICT_BATCH}", f"predict_folder_path={folder}",
                  f"pair_prediction_path={pair_file}"]
@@ -2600,16 +2635,16 @@ def ecapa_phase(card: str, tmp: pathlib.Path, wav_dir, trials, shards) -> None:
     t0 = time.perf_counter()
     scores, pairs = read_scores(predict.main(overrides))
     predict_s = time.perf_counter() - t0
-    assert sum(launches().values()) == 0, f"ecapa predict launched {launches()}"
+    assert sum(launches().values()) == 0, f"{label} predict launched {launches()}"
     assert len(pairs) == len(ids) * (len(ids) - 1) // 2 and np.all((scores >= 0) & (scores <= 1)), \
-        f"ecapa predict: scores {scores}"
+        f"{label} predict: scores {scores}"
     model = build_predict_model(load_config(predict.CONFIG_DIR, "predict", overrides))
     samples = [SpeakerSample(rel, normalize_waveform(load_raw_audio(folder / rel))) for rel in ids]
     served = {e.sample_id: e.embedding for e in extract_embeddings(model, samples, PREDICT_PAD, PREDICT_BATCH)}
     same = float(np.abs(cosine_scores(served, pairs) - scores).max())
     ratio = padding_ratio(served, unpadded_embeddings(embed, model, samples))
-    assert same <= PREDICT_SAME_ATOL and ratio <= MAX_PAD_RATIO, f"ecapa predict: {same}, ratio {ratio}"
-    print(f"speaker_ecapa_tdnn predict twin on the best checkpoint: {len(ids)} files of "
+    assert same <= PREDICT_SAME_ATOL and ratio <= MAX_PAD_RATIO, f"{label} predict: {same}, ratio {ratio}"
+    print(f"{label} predict twin on the best checkpoint: {len(ids)} files of "
           f"{seconds.min()}-{seconds.max()} s in buckets of {PREDICT_PAD}, batch {PREDICT_BATCH}, {len(pairs)} pairs "
           f"in {predict_s:.2f} s; written vs extract_embeddings + cosine max diff {same:.3e}; bucketed vs "
           f"unpadded batch-1 distance ratio {ratio:.3e} (limit {MAX_PAD_RATIO}); launches 0 [{card}]", flush=True)
@@ -2632,6 +2667,181 @@ def wav2spk_dummy_phase(card: str, tmp: pathlib.Path, wav_dir, trials, shards) -
           f"gamma {sched['gamma']}: {want}); {family_f32_step('speaker_wav2spk')} [{card}]", flush=True)
     family_run(card, tmp, "speaker_dummy", wav_dir, trials, shards,
                steps=load_recipe("speaker_dummy")["trainer"]["max_steps"], trainer=[])
+
+
+# phases 25-28 (the augmented input path, the debug surface, wav2vec v1). The
+# native DSP library against scipy: tests/test_native.py's limits
+DSP_UPFIRDN_TOL, DSP_FIR_TOL, DSP_FFT_TOL, DSP_SPEED_TOL = (1e-4, 1e-6), (1e-4, 1e-6), (2e-4, 2e-4), (1e-3, 1e-5)
+AUGMENT_PIPELINES = ("xvector_all_augment_pipeline", "xvector_dropout_augment_pipeline", "xvector_rirs_augment")
+PIPELINE_WORKERS = (1, 4)
+RIRS_SHARDS, RIRS_PER_SHARD = 2, 8  # synthetic pointsource_noises shards: bursts of 0.5-2 s
+V1_NETWORKS = (  # (label, overrides of speaker_wav2vec2_ce), float32 at the networks' published width
+    ("wav2vec_fc", ["network=wav2vec_fc"]),
+    ("wav2vec_fc_meanstd_agg", ["network=wav2vec_fc", "network.stat_pooling_type=mean+std",
+                                "network.use_aggregation_layers=true"]),
+    ("wav2vec_xvector", ["network=wav2vec_xvector"]),
+)
+V1_F32_CHECKED = ("wav2vec_fc_meanstd_agg", "wav2vec_xvector")  # the f32 step against float64 (the fc's superset)
+
+
+def dsp_phase(card: str) -> None:
+    """Phase 25: ``native/dsp.cpp`` built by ``utils/native.py`` on this
+    machine, each entry point held against scipy (and timed beside it on
+    a 5 s clip, host ms)."""
+    from scipy import signal
+
+    from w2v2_speaker_tpu_torch.data import augment
+    from w2v2_speaker_tpu_torch.utils import native
+
+    t0 = time.perf_counter()
+    native.load()
+    build_s = time.perf_counter() - t0
+    rng = np.random.default_rng(25)
+    x = rng.normal(size=80000).astype(np.float32)
+    taps = signal.firwin(41, 0.3).astype(np.float32)
+    band = signal.firwin(255, [0.1, 0.4], pass_zero=True).astype(np.float32)
+    h = rng.normal(size=12000).astype(np.float32)
+    frac = augment.Fraction(1.0 / 0.95).limit_denominator(100)
+    cases = {  # name: (native call, scipy call, (rtol, atol))
+        "upfirdn 20/21": (lambda: native.upfirdn(x, taps, 20, 21),
+                          lambda: signal.upfirdn(taps.astype(np.float64), x.astype(np.float64), 20, 21), DSP_UPFIRDN_TOL),
+        "fir_same 255": (lambda: native.fir_same(x, band), lambda: signal.fftconvolve(x, band, mode="same"), DSP_FIR_TOL),
+        "fft_convolve 12000": (lambda: native.fft_convolve(x, h), lambda: signal.fftconvolve(x, h), DSP_FFT_TOL),
+        "speed 0.95": (lambda: augment.speed_perturb_native(x, frac.numerator, frac.denominator),
+                       lambda: signal.resample_poly(x, frac.numerator, frac.denominator).astype(np.float32),
+                       DSP_SPEED_TOL),
+    }
+    report = []
+    for name, (ours, theirs, (rtol, atol)) in cases.items():
+        got, want = ours(), theirs()
+        assert got.shape == want.shape, f"dsp {name}: {got.shape} vs {want.shape}"
+        excess = float((np.abs(got - want) - (atol + rtol * np.abs(want))).max())
+        assert excess <= 0, f"dsp {name}: {excess} over rtol {rtol}, atol {atol}"
+        times = []
+        for fn in (ours, theirs):
+            t0 = time.perf_counter()
+            for _ in range(5):
+                fn()
+            times.append(1e3 * (time.perf_counter() - t0) / 5)
+        report.append(f"{name} max err {float(np.abs(got - want).max()):.2e} (rtol {rtol}, atol {atol}), "
+                      f"{times[0]:.2f} ms vs scipy {times[1]:.2f}")
+    print(f"native DSP library {native.library_path().name} built in {build_s:.2f} s; on a 5 s clip (host): "
+          + "; ".join(report) + f" [{card}]", flush=True)
+
+
+def write_noise_shards(root: pathlib.Path, rng) -> pathlib.Path:
+    """``pointsource_noises-NNNNNN.tar`` shards of noise bursts of 0.5-2 s
+    (shorter than the 3.5-5 s utterances, so the RIRS effect tiles them)."""
+    from w2v2_speaker_tpu_torch.data.shards import ShardWriter
+
+    root.mkdir(parents=True, exist_ok=True)
+    for i in range(RIRS_SHARDS):
+        with ShardWriter(root / f"pointsource_noises-{i:06d}.tar") as w:
+            for j in range(RIRS_PER_SHARD):
+                burst = rng.normal(0, 0.1, int(rng.uniform(0.5, 2.0) * 16000)).astype(np.float32)
+                w.write(f"noise/{i}/{j}", burst, {"sampling_rate": 16000})
+    return root
+
+
+def host_pipeline_ms(overrides) -> dict:
+    """{workers: (host ms per batch over one training epoch of the data
+    module of ``overrides``, batches)} at each of ``PIPELINE_WORKERS``:
+    the pipeline's own pace, queue fill included, without a step."""
+    from w2v2_speaker_tpu_torch.runtime.experiment import build_data_module
+
+    out = {}
+    for workers in PIPELINE_WORKERS:
+        dm = build_data_module(load_recipe("speaker_xvector", [*overrides,
+                                                               f"data.dataloader.num_pipeline_workers={workers}"]))
+        t0 = time.perf_counter()
+        n = sum(1 for _ in dm.train_batches())
+        out[workers] = (1e3 * (time.perf_counter() - t0) / n, n)
+    return out
+
+
+def augment_phase(card: str, tmp: pathlib.Path, wav_dir, trials, shards) -> None:
+    """Phase 26: the x-vector augmentation study at full width: ``run.main``
+    on ``speaker_xvector`` (f32, B=66 x 3 s, 4 steps in one dispatch) with
+    each augment pipeline over phase 13's shards, the RIRS one reading
+    synthetic ``pointsource_noises`` shards; beside each run's ms/step, the
+    host pipeline's ms per batch at 1 and 4 workers."""
+    write_noise_shards(tmp / "rirs_shards", np.random.default_rng(26))
+    for pipeline in AUGMENT_PIPELINES:
+        extra = [f"data/pipeline={pipeline}", f"data_folder={tmp}"]
+        host = host_pipeline_ms([*extra, f"data.shards.samples_per_shard={RUN_SHARD}",
+                                 *corpus_args(wav_dir, trials, shards, tmp / "unused_ckpt")])
+        family_run(card, tmp, "speaker_xvector", wav_dir, trials, shards, extra=extra, label=f"xvector_{pipeline}",
+                   note="; host pipeline ms per batch over an epoch (queue fill included) " + ", ".join(
+                       f"{w} worker(s) {ms:.1f} ({n} batches)" for w, (ms, n) in host.items()))
+
+
+def augmented_base_phase(card: str, tmp: pathlib.Path, wav_dir, trials, shards) -> None:
+    """Phases 27 (c) and (d): ``run.main`` on ``speaker_wav2vec2_ce`` at full
+    BASE width (bf16, B=66) with ``xvector_dropout_augment_pipeline``,
+    ``trainer.dump_first_batch=true`` and ``verify_model=true``, 4 steps in
+    one dispatch: launches = kept layers in every step, finite losses, the
+    attention kernels held at a training batch's own q/k/v, the leakage
+    probe passed on the card, the dump's artifact tree."""
+    import contextlib
+    import io
+
+    from w2v2_speaker_tpu_torch import run
+
+    out_dir = tmp / "augmented_base"
+    argv = ["+experiment=speaker_wav2vec2_ce", "data/pipeline=xvector_dropout_augment_pipeline",
+            f"data.shards.samples_per_shard={RUN_SHARD}", "trainer.max_steps=4", "trainer.val_check_interval=4",
+            "trainer.dump_first_batch=true", "verify_model=true", "seed=27",
+            *corpus_args(wav_dir, trials, shards, out_dir / "ckpt")]
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    printed = io.StringIO()
+    t0 = time.perf_counter()
+    with RunProbe() as probe, contextlib.redirect_stdout(printed):
+        objective = run.main(argv)
+    run_s = time.perf_counter() - t0
+    sys.stdout.write(printed.getvalue()[-3000:])
+    peak_gib = (torch.cuda.max_memory_allocated() - held) / 2**30
+    kept = check_steps("augmented BASE run", probe, 4)
+    assert all(v > 0 for k, v in launches().items() if k in ATTENTION), f"augmented BASE run: launches {launches()}"
+    assert objective is not None and 0 <= objective <= 1, f"augmented BASE run: objective {objective}"
+    assert "batch gradient verification: no cross-batch leakage" in printed.getvalue(), "verify_model did not pass"
+    attention, _, _ = check_run_attention(probe.attn)
+    first = out_dir / "first_batch"
+    keys = eval((first / "batch_keys.txt").read_text())
+    feats = np.load(first / "batch_features.npy")
+    samples = sorted(p for p in (first / "per_sample").iterdir() if p.is_dir())
+    stages = [p.stem for p in sorted(samples[0].glob("*.npy"))]
+    assert feats.shape == (66, 48000) and len(keys) == 66 and len(samples) == 4, \
+        f"dump: {feats.shape}, {len(keys)} keys, {len(samples)} samples"
+    assert stages[:4] == ["00_original", "01_augment_time_dropout", "02_augment_frequency_dropout",
+                          "03_augment_choice_speed"] and all(
+        (d / f"{s}.{ext}").exists() for d in samples for s in [p.stem for p in d.glob("*.npy")]
+        for ext in ("txt", "wav")), f"dump stages {stages}"
+    effects = sorted({k.split("/", 3)[3] if k.count("/") == 3 else "" for k in keys})
+    print(f"augmented BASE run (xvector_dropout_augment_pipeline, bf16 B=66 x 48000): losses "
+          f"{[round(m['loss'], 4) for _, m in probe.steps]}; {probe.step_ms(1, 2):.3f} ms/step (steps 2-3); host "
+          f"wait per batch {[round(1e3 * w, 1) for w in probe.waits]} ms; launches per step = layers kept {kept}; "
+          f"kernels vs plain on a training batch: {attention}; verify_model: summary and no cross-batch leakage "
+          f"on the card; first batch {feats.shape} with effects {effects}, {len(samples)} samples' stages "
+          f"{stages}; objective {objective:.4f}; whole run {run_s:.2f} s; peak {peak_gib:.2f} GiB [{card}]",
+          flush=True)
+
+
+def wav2vec1_phase(card: str, tmp: pathlib.Path, wav_dir, trials, shards) -> None:
+    """Phase 28: wav2vec v1 at its published width (512 x 5 strided convs,
+    the 9-layer aggregator where asked), float32, B=66 x 3 s: ``run.main``
+    (4 steps) and the predict twin on each run's best checkpoint, and for
+    ``V1_F32_CHECKED`` the f32 step card vs CPU against a float64 step."""
+    for label, overrides in V1_NETWORKS:
+        _, ckpt = family_run(card, tmp, "speaker_wav2vec2_ce", wav_dir, trials, shards,
+                             extra=[*overrides, "trainer.precision=f32"], label=label)
+        family_predict(card, tmp, label, overrides, ckpt)
+        if label in V1_F32_CHECKED:
+            report = family_f32_step("speaker_wav2vec2_ce", [*overrides, "trainer.precision=f32"], label)
+            print(f"{label} {report} [{card}]", flush=True)
 
 
 def main() -> None:
@@ -2668,8 +2878,12 @@ def main() -> None:
         xvector_phase(card, tmp, wav_dir, trials, shards)  # 22
         ecapa_phase(card, tmp, wav_dir, trials, shards)  # 23
         wav2spk_dummy_phase(card, tmp, wav_dir, trials, shards)  # 24
+        dsp_phase(card)  # 25
+        augment_phase(card, tmp, wav_dir, trials, shards)  # 26
+        augmented_base_phase(card, tmp, wav_dir, trials, shards)  # 27
+        wav2vec1_phase(card, tmp, wav_dir, trials, shards)  # 28
 
-    # 25. kernels line, card line, result line
+    # 29. kernels line, card line, result line
     kernels = []
     for name, source, replaces in KERNELS:
         row = main_rows[name]

@@ -44,16 +44,23 @@ def test_w2v2_config_matches_jax(net, precision, remat, accumulate):
 
 def test_int8_and_unported_networks_raise():
     """``int8_matmuls`` true builds a model that raises (it used to run in
-    bf16 without a word); unported networks and losses raise too."""
+    bf16 without a word). The wav2vec v1 networks, once unported, are built
+    by ``build_model_and_task``; ``speaker_model_config``, the wav2vec2_fc
+    network's config, refuses them and the losses that network does not
+    take."""
     net = NETWORKS["tiny_int8_yaml_one"]
     assert texp.w2v2_config(net, "f32").int8_matmuls is True
     with pytest.raises(NotImplementedError, match="int8_matmuls"):
         texp.build_model_and_task({**CE, "network": {**CE["network"], **net}}, 4)
-    with pytest.raises(NotImplementedError, match="network 'wav2vec_fc'"):
-        texp.speaker_model_config({**CE, "network": {**CE["network"], "name": "wav2vec_fc"}})
-    with pytest.raises(NotImplementedError,
-                       match="network 'wav2vec_xvector' is not ported yet: ROADMAP.md Queue 1 item 7"):
-        texp.speaker_model_config({**CE, "network": {**CE["network"], "name": "wav2vec_xvector"}})
+    for name in ("wav2vec_fc", "wav2vec_xvector"):
+        with pytest.raises(ValueError, match=f"network '{name}' is not wav2vec2_fc"):
+            texp.speaker_model_config({**CE, "network": {**CE["network"], "name": name}})
+        with torch.device("meta"):
+            task, kind = texp.build_model_and_task(texp.load_recipe("speaker_wav2vec2_ce", [f"network={name}"]), 4)
+        assert kind == "speaker" and type(task.model).__name__ == type(jexp.build_model_and_task(
+            texp.load_recipe("speaker_wav2vec2_ce", [f"network={name}"]), 4)[0].model).__name__
+    with pytest.raises(ValueError, match="'ctc_ce' is not a loss of the wav2vec2_fc network"):
+        texp.speaker_model_config({**CE, "optim": {**CE["optim"], "loss": {"name": "ctc_ce"}}})
     for loss in ("triplet", "triplet_ce"):  # ported with the triplet slice
         assert texp.speaker_model_config({**CE, "optim": {**CE["optim"], "loss": {"name": loss}}})[1] == loss
 

@@ -43,7 +43,8 @@ def test_port_imports_no_jax_and_no_jax_package():
     assert len(files) > 10 and ROOT / "w2v2_speaker_tpu_torch" / "predict.py" in files
     for module in ("run.py", "data/datamodule.py", "data/shards.py", "data/batching.py", "data/chunks.py",
                    "data/extract.py", "data/augment.py", "runtime/logging.py", "runtime/tb_writer.py",
-                   "train/checkpoint.py", "models/pooling.py", "models/wav2vec2_paired.py", "train/paired_task.py"):
+                   "train/checkpoint.py", "models/pooling.py", "models/wav2vec2_paired.py", "train/paired_task.py",
+                   "utils/native.py", "runtime/debug.py", "models/wav2vec1.py"):
         assert ROOT / "w2v2_speaker_tpu_torch" / module in files, module
     for path in files:
         for name in _imported_modules(path):

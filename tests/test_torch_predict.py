@@ -312,7 +312,6 @@ def test_load_params_raises_when_no_backbone_entry_matches(tmp_path, wrap):
 
 @pytest.mark.parametrize("override, row", [
     ("network.int8_matmuls=auto", "item 6"), ("network.int8_matmuls=true", "item 6"),
-    ("network=wav2vec_fc", "item 7"), ("network=wav2vec_xvector", "item 7"),
 ])
 def test_predict_raises_for_what_is_not_ported(tmp_path, override, row):
     """int8 serving (``BucketDispatchEmbed``), other networks and losses
@@ -323,3 +322,19 @@ def test_predict_raises_for_what_is_not_ported(tmp_path, override, row):
         torch_predict.main(["network=wav2vec2_fc", override, f"predict_folder_path={tmp_path / 'none'}",
                             f"pair_prediction_path={_write_folder(tmp_path)}"], device="cpu")
     assert not (tmp_path / "none").exists()
+
+
+@pytest.mark.parametrize("network", ["wav2vec_fc", "wav2vec_xvector"])
+def test_predict_serves_the_wav2vec1_networks(tmp_path, network):
+    """The wav2vec v1 networks, which this test once held to raising,
+    serve a pair file at their full width from a seeded initialisation:
+    one score in [0, 1] per pair, and a rerun from the embedding cache
+    gives the same scores."""
+    from w2v2_speaker_tpu_torch import predict as torch_predict
+
+    argv = [f"network={network}", "trainer.precision=f32", f"predict_folder_path={tmp_path}",
+            f"pair_prediction_path={_write_folder(tmp_path)}", "data.dataloader.test_batch_size=2"]
+    scores, pairs = _scores(torch_predict.main(argv, device="cpu"))
+    assert len(pairs) == 10 and np.all((scores >= 0) & (scores <= 1)) and np.ptp(scores) > 0
+    assert len(list((tmp_path / "embeddings").rglob("*.npy"))) == 5
+    np.testing.assert_array_equal(_scores(torch_predict.main(argv, device="cpu"))[0], scores)

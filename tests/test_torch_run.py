@@ -236,12 +236,9 @@ def test_early_stopping_decisions_match_jax(kwargs, values):
 @pytest.mark.parametrize("extra, row", [
     (["-m"], "item 3"), (["--multirun"], "item 3"), (["+search=lr_and_pooling"], "item 3"),
     (["hydra/launcher=slurm"], "item 3"), (["run_lr_range_test=true"], "item 3"), (["tune_model=true"], "item 3"),
-    (["verify_model=true"], "item 3"), (["+trainer.dump_first_batch=true"], "item 3"),
     (["callbacks=speaker_progress_tracker"], "item 3"), (["optim/schedule=reduce_on_plateau"], "item 3"),
     (["trainer.deterministic=true"], "item 9"), (["profiler=simple"], "item 9"),
     (["optim/algo=sgd"], "item 3"), (["trainer.num_devices=2"], "item 8"),
-    (["data.pipeline.augment.enabled=true", "data.pipeline.augment.noise_snr=[5,10]"], "item 2"),
-    (["network=wav2vec_fc"], "item 7"), (["network=wav2vec_xvector"], "item 7"),
 ])
 def test_what_is_not_ported_raises(runs, tmp_path, extra, row):
     corpus, _, _, _, tmp = runs
@@ -250,3 +247,32 @@ def test_what_is_not_ported_raises(runs, tmp_path, extra, row):
         trun.main(argv, device="cpu")
     with pytest.raises(NotImplementedError, match="item 3"):
         trun.main(["-sc", "install=bash"], device="cpu")
+
+
+@pytest.mark.parametrize("extra", [
+    ["verify_model=true"], ["+trainer.dump_first_batch=true"],
+    ["data.pipeline.augment.enabled=true", "data.pipeline.augment.noise_snr=[5,10]"],
+    ["network=wav2vec_fc"], ["network=wav2vec_xvector"],
+], ids=["verify_model", "dump_first_batch", "augment", "wav2vec_fc", "wav2vec_xvector"])
+def test_what_was_not_ported_runs(runs, tmp_path, capsys, extra):
+    """The knobs and networks this test once held to raising now run: one
+    step, a validation and one test batch, on the fixture's shards. The
+    model summary and the leakage probe's verdict are printed; the first
+    batch and 4 samples' stages are dumped; the augmented samples carry the
+    effect in their keys; wav2vec v1 trains at its full width."""
+    corpus, _, _, _, tmp = runs
+    argv = overrides(corpus, tmp_path, f"data.module.shards_dir={tmp / 'torch' / 'shards'}",
+                     "trainer.max_steps=1", "trainer.val_check_interval=1", "trainer.num_sanity_val_steps=0",
+                     "trainer.limit_test_batches=1", *extra)
+    if extra[0].startswith("data.pipeline"):
+        argv.append("+trainer.dump_first_batch=true")  # the keys of the first batch show the effect
+    objective = trun.main(argv, device="cpu")
+    assert objective is None or 0 <= objective <= 1
+    out = capsys.readouterr().out
+    if extra == ["verify_model=true"]:
+        assert "model parameters:" in out and "batch gradient verification: no cross-batch leakage" in out
+    if "dump_first_batch" in " ".join(argv):
+        keys = eval((tmp_path / "first_batch" / "batch_keys.txt").read_text())
+        assert len(keys) == 8 and len(list((tmp_path / "first_batch" / "per_sample").iterdir())) == 4
+        assert all(k.endswith("/uniform_noise") == extra[0].startswith("data.pipeline") for k in keys)
+    assert '"last": {\n    "step": 1' in (tmp_path / "ckpt" / "index.json").read_text()

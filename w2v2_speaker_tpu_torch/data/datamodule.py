@@ -11,13 +11,17 @@ seed:
   speaker by ratio) or ``different`` (held-out speakers), write tar shards
   per split, check that the splits are disjoint, and write balanced
   validation pairs and ``prepared.json``;
-- ``train_batches`` (:557): shards -> random crop -> normalisation ->
-  ``RandomBatchProcessor`` -> a prefetch thread of numpy batches;
-  ``val_batches`` (:572): first-3 s crops in order; ``test_samples``
-  (:589): full normalised utterances.
+- ``train_batches`` (:557): shards -> the ``augmenter``'s samples ->
+  chunks -> normalisation -> ``RandomBatchProcessor`` -> a prefetch thread
+  of numpy batches (the per-sample work in ``ParallelMap`` threads with
+  ``num_pipeline_workers`` > 1); ``val_batches`` (:572): first-3 s crops
+  in order, never augmented; ``test_samples`` (:589): full normalised
+  utterances.
 
-The pipeline's debug capture (``debug_capture``, the JAX package's
-per-sample dumps) is not ported: ROADMAP.md Queue 1 item 3.
+A ``debug_capture`` (``runtime.debug.PipelineDebugCapture``, installed by
+the run for ``trainer.dump_first_batch``) records each sample's stages in
+the JAX order (:497-549): ``original``, the augmenter's effects,
+``chunk<i>``, ``normalize<i>``.
 """
 
 from __future__ import annotations
@@ -27,11 +31,11 @@ import pathlib
 import queue as queue_mod
 import threading
 from dataclasses import dataclass
-from typing import Callable, Dict, Iterable, Iterator, List, Optional
+from typing import Any, Callable, Dict, Iterable, Iterator, List, Optional
 
 import numpy as np
 
-from .augment import LockedGenerator
+from .augment import Augmenter, LockedGenerator
 from .batching import RandomBatchProcessor
 from .chunks import ChunkSelector
 from .io import load_raw_audio
@@ -90,6 +94,7 @@ class VoxCelebConfig:
     chunk_length_sec: Optional[float] = 3.0  # None = full sequences
     chunk_strategy: str = "random"
     normalize_input: bool = True
+    augmenter: Optional[Augmenter] = None  # train split only
     limit_samples: Optional[int] = None  # deterministic small-data runs
     num_pipeline_workers: int = 1  # >1: thread-pool per-sample DSP (order
     # preserved; RNG draws serialize behind locks, so exact streams differ
@@ -97,6 +102,9 @@ class VoxCelebConfig:
     seed: int = 123
     host_id: int = 0
     num_hosts: int = 1
+    # installed by the run, not read from YAML: a
+    # runtime.debug.PipelineDebugCapture told each stage of the first samples
+    debug_capture: Optional[Any] = None
 
 
 class Prefetcher:
@@ -487,11 +495,23 @@ class VoxCelebDataModule:
                 )
             if not np.isfinite(sample.wav).all():
                 raise ValueError(f"NaN/inf in decoded sample {sample.key}")
+            cap = cfg.debug_capture
+            record = ((lambda stage, wav: cap.record(sample.key, stage, wav))
+                      if cap is not None and cap.wants(sample.key) else None)
+            if record is not None:
+                record("original", sample.wav)
+            processed = [sample]
+            if train and cfg.augmenter is not None:
+                processed = cfg.augmenter(sample, capture=record)
             out = []
-            for chunk in selector(sample.wav, rng):
-                wav = normalize_waveform(chunk) if cfg.normalize_input else chunk
-                out.append(SpeakerSample(sample.key, wav.astype(np.float32),
-                                         sample.ground_truth, sample.meta))
+            for s in processed:
+                for ci, chunk in enumerate(selector(s.wav, rng)):
+                    if record is not None:
+                        record(f"chunk{ci}", chunk)
+                    wav = normalize_waveform(chunk) if cfg.normalize_input else chunk
+                    if record is not None and cfg.normalize_input:
+                        record(f"normalize{ci}", wav)
+                    out.append(SpeakerSample(s.key, wav.astype(np.float32), s.ground_truth, s.meta))
             return out
 
         if train and cfg.num_pipeline_workers > 1:

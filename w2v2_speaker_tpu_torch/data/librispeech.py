@@ -16,8 +16,11 @@
   count, in shard order, each behind a prefetch thread.
 
 The layout of the shards is the speaker corpus's (``data/shards.py``), so
-each package reads the other's. The per-sample debug capture
-(``debug_capture``) is not ported: ROADMAP.md Queue 1 item 3. Left out
+each package reads the other's. A ``debug_capture``
+(``runtime.debug.PipelineDebugCapture``) records, for the first samples of
+the first training epoch, the decoded audio (``original``), the
+transcript (``transcription``) and the token ids (``tokens``), as the JAX
+package's (:299-312). Left out
 as options no caller of the port sets: the split of the training shards
 across hosts (``host_id``/``num_hosts``; one card reads them all),
 gzip-compressed shards and ``normalize_input`` (which the reference
@@ -110,9 +113,6 @@ class LibriSpeechDataModule:
     TRAIN = "train"
 
     def __init__(self, cfg: LibriSpeechConfig):
-        if cfg.debug_capture is not None:
-            raise NotImplementedError(
-                "LibriSpeechConfig.debug_capture is not ported yet: ROADMAP.md Queue 1 item 3")
         self.cfg = cfg
         self.cfg.shards_dir = pathlib.Path(cfg.shards_dir)
         self._tokenizer: Optional[CharTokenizer] = None
@@ -182,21 +182,29 @@ class LibriSpeechDataModule:
         tokenizer's vocabulary."""
         tok = self.tokenizer
         for split in self.cfg.split_dirs:
-            for s in self._samples(split):
+            for s in self._samples(split, capture=False):
                 if (tok.encode(s.transcription) == tok.vocab["<unk>"]).any():
                     raise ValueError(
                         f"transcript of {s.key} contains characters outside the tokenizer vocabulary")
 
-    def _samples(self, split: str, epoch: int = 0) -> Iterator[SpeechSample]:
+    def _samples(self, split: str, epoch: int = 0, capture: bool = True) -> Iterator[SpeechSample]:
         cfg = self.cfg
         reader = ShardReader(ShardReader.discover(cfg.shards_dir / split),
                              shuffle_shards=split == self.TRAIN, seed=cfg.seed + epoch * 9973)
         tok = self.tokenizer
         spk_map = self.speaker_id_to_idx if cfg.with_speaker_labels else None
+        # the first training epoch only: eval reads and later epochs would
+        # add stages to keys already recorded
+        cap = cfg.debug_capture if capture and split == self.TRAIN and epoch == 0 else None
         for s in reader:
             text = s.meta["transcription"]
+            tokens = tok.encode(text)
+            if cap is not None and cap.wants(s.key):
+                cap.record(s.key, "original", s.wav)
+                cap.record_text(s.key, "transcription", text)
+                cap.record(s.key, "tokens", tokens, render_wav=False)
             yield SpeechSample(
-                key=s.key, wav=s.wav.astype(np.float32), transcription=text, tokens=tok.encode(text),
+                key=s.key, wav=s.wav.astype(np.float32), transcription=text, tokens=tokens,
                 speaker_idx=None if spk_map is None else spk_map.get(s.key.split("-")[0], -1),
             )
 

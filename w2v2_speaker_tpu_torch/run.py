@@ -12,10 +12,12 @@ runs on the CPU.
     python -m w2v2_speaker_tpu_torch.run +experiment=multitask_wav2vec2 \
         data_folder=<the same> [optim/loss=ctc_aam]
 
-Every ``wav2vec2`` recipe of ``config/experiment/`` runs, with its options
-(``speaker_wav2vec2_triplet`` / ``_triplet_ce``,
-``network.wav2vec_feature_encoder_only=true``,
-``network.use_transformers_as_ensembles=true``). Loads ``KEY=value``
+Every recipe of ``config/experiment/`` runs, with its options
+(``network.wav2vec_feature_encoder_only=true``,
+``network.use_transformers_as_ensembles=true``), every network of
+``config/network/`` (the wav2vec v1 ones too) and every pipeline of
+``config/data/pipeline/`` (the augmented ones too), and
+``trainer.dump_first_batch=true`` and ``verify_model=true``. Loads ``KEY=value``
 lines of a ``.env`` file in the working directory into the environment
 (without overriding), composes the config, runs
 ``runtime.experiment.run_train_eval`` once, prints ``objective: <EER>``

@@ -17,14 +17,20 @@ and ``build_evaluator`` (:289) for the five evaluators of
 ``config/evaluator/``, read from the same keys of the merged Hydra config
 (``optim.algo``, ``optim.schedule``, ``optim.loss``, ``trainer``,
 ``network``, ``evaluator``). ``load_recipe`` composes a recipe from
-``config/`` with the port's ``load_config``.
+``config/`` with the port's ``load_config``. The ``wav2vec_fc`` and
+``wav2vec_xvector`` networks (wav2vec v1, :479-511) compute their encoder
+in bfloat16 under ``trainer.precision=bf16`` and their heads in float32.
+``build_augmenter`` (:97) chains the waveform effects of
+``data.pipeline.augment`` for the VoxCeleb training pipeline.
 
 The entry point is ``run_train_eval`` (:840) on one card: the data module
 (``build_data_module`` :198, VoxCeleb or LibriSpeech), the model and its
 weights (``_init_state`` :983), the training loop (``_train_loop`` :1094:
 steps per dispatch, accumulation, sanity and interval validations, best-k
-and last checkpoints, resume, early stopping, step and epoch limits), then
-the best checkpoint (or the average of the best k) on the test split:
+and last checkpoints, resume, early stopping, step and epoch limits; the
+batches of a failed step dumped under ``debug_batch/train_step`` before the
+error goes on), then the best checkpoint (or the average of the best k) on
+the test split:
 embeddings of full utterances scored by the evaluator (``_run_speaker``
 :1469; the triplet modes train on ``TripletBatchProcessor`` batches, and
 ``use_transformers_as_ensembles`` scores the mean over per-layer
@@ -37,6 +43,19 @@ first test split (``_run_multitask`` :1949, which checkpoints on
 ``val_eer``, as the JAX package's ``_train_loop`` :1129 does for every kind
 but speech). It runs on the card unless called with ``device="cpu"``.
 What is not ported raises ``NotImplementedError`` naming its ROADMAP row.
+The debug surface of ``runtime/debug.py``: ``trainer.dump_first_batch``
+dumps the first collated training batch under ``first_batch`` beside the
+checkpoint directory and installs a ``PipelineDebugCapture`` in the data
+module (``callbacks.input_monitor.out_dir`` and ``max_samples``, 0 for
+none, :903-928); ``verify_model`` prints ``model_summary`` and runs the
+cross-batch leakage probe on the example batch in eval mode (:1007-1019).
+As the JAX package does, the speaker and paired runs draw that example
+batch (the first training batch) before training, where something reads
+it or its draw moves state that training reads: the verification, the
+capture (which records the first samples in that draw) and an augmenter
+(whose generators the draw advances). With more training samples than
+the batch processor's queue holds, the number of samples that draw
+augments depends on how far the prefetch thread ran, in both packages.
 
 Divergences from the JAX package: ``trainer.deterministic=true`` raises
 (ROADMAP.md Queue 1 item 9): the card's cuDNN and cuBLAS calls are not
@@ -65,6 +84,10 @@ from typing import Deque, Dict, List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
+from ..data.augment import (
+    Augmenter, ChoiceRandomNoiseAugment, ChoiceRirsNoiseAugment, ChoiceSpeedAugment, FrequencyDropoutAugment,
+    ReverbAugment, SpecAugmentTimeDomain, TimeDropoutAugment, UniformSpeedAugment,
+)
 from ..data.batching import PairedBatchProcessor, TripletBatchProcessor
 from ..data.collate import pad_batch_rows
 from ..data.features import FbankConfig
@@ -82,6 +105,7 @@ from ..models.ecapa import EcapaConfig, EcapaModel
 from ..models.frontend import FbankFrontend
 from ..models.hf_convert import load_hf_checkpoint
 from ..models.wav2spk import Wav2SpkConfig, Wav2SpkModel
+from ..models.wav2vec1 import Wav2Vec1Config, Wav2Vec1FCModel, Wav2Vec1XVectorModel
 from ..models.wav2vec2 import BASE_CONFIG, LARGE_CONFIG, Wav2Vec2Config, init_parameters
 from ..models.wav2vec2_multitask import Wav2Vec2MultitaskConfig, Wav2Vec2MultitaskModel
 from ..models.wav2vec2_paired import Wav2Vec2PairedConfig, Wav2Vec2PairedModel
@@ -97,6 +121,7 @@ from ..train.speech_task import SpeechTask
 from ..train.state import AdamTx, ClipTx, TrainState, make_freeze_schedule_tx
 from ..train.steps import make_train_step
 from .config import load_config
+from .debug import PipelineDebugCapture, batch_gradient_verification, dump_first_batch, model_summary
 from .logging import MetricsLogger
 
 __all__ = [
@@ -107,7 +132,6 @@ __all__ = [
 
 _OPTIM_ROW = "ROADMAP.md Queue 1 item 3 (optimizers and schedules)"
 _RUNTIME_ROW = "ROADMAP.md Queue 1 item 3 (speaker-recipe runtime, the rest)"
-_FAMILIES_ROW = "ROADMAP.md Queue 1 item 7d (wav2vec v1)"
 CONFIG_DIR = pathlib.Path(__file__).resolve().parents[2] / "config"
 
 TINY_W2V2 = Wav2Vec2Config(  # network.wav2vec2_size=tiny (:82), for debug runs
@@ -172,10 +196,9 @@ def speaker_model_config(cfg: Dict) -> Tuple[Wav2Vec2SpeakerConfig, str]:
     ``ce_no_pool``."""
     net, loss = cfg["network"], cfg["optim"]["loss"]
     if net.get("name", "wav2vec2_fc") != "wav2vec2_fc":
-        raise NotImplementedError(f"network {net['name']!r} is not ported yet: {_FAMILIES_ROW}")
-    if loss["name"] not in _MODES:
-        raise NotImplementedError(f"loss {loss['name']!r} of the wav2vec2_fc network is not ported yet: "
-                                  f"{_FAMILIES_ROW}")
+        raise ValueError(f"network {net['name']!r} is not wav2vec2_fc: build_model_and_task builds it")
+    if loss["name"] not in _MODES:  # the JAX package's mode table raises KeyError
+        raise ValueError(f"loss {loss['name']!r} is not a loss of the wav2vec2_fc network")
     trainer = cfg["trainer"]
     w2v2 = w2v2_config(net, trainer["precision"], trainer.get("remat", False),
                        int(trainer.get("accumulate_grad_batches") or 1))
@@ -212,25 +235,38 @@ def _speaker_task(cfg: Dict, model, mode: str) -> SpeakerTask:
                        c_ce=float(loss.get("c_ce", 1.0)), c_triplet=float(loss.get("c_triplet", 1.0)))
 
 
-_OWN_FAMILIES = ("xvector", "ecapa_tdnn", "wav2spk", "dummy")  # off the wav2vec2 backbone
+_OWN_FAMILIES = ("xvector", "ecapa_tdnn", "wav2spk", "dummy", "wav2vec_fc", "wav2vec_xvector")  # off wav2vec2
+
+
+def _xvector_config(net: Dict, in_channels: int) -> XVectorConfig:
+    return XVectorConfig(in_channels=in_channels, tdnn_channels=tuple(net["tdnn_channels"]),
+                         tdnn_kernel_sizes=tuple(net["tdnn_kernel_sizes"]),
+                         tdnn_dilations=tuple(net["tdnn_dilations"]), lin_neurons=net["lin_neurons"])
 
 
 def _family_model(cfg: Dict, n_out: int):
-    """The ``xvector``, ``ecapa_tdnn``, ``wav2spk`` or ``dummy`` model of
-    ``cfg`` over ``n_out`` classes, key for key as the JAX branches
-    (:393-476) build it, with their ``ValueError`` for AAM under x-vector
-    and wav2spk. The first TDNN reads ``network.n_mels`` features (flax
-    infers its input width; ``in_channels`` is no layer's size there)."""
+    """The ``xvector``, ``ecapa_tdnn``, ``wav2spk``, ``dummy``,
+    ``wav2vec_fc`` or ``wav2vec_xvector`` model of ``cfg`` over ``n_out``
+    classes, key for key as the JAX branches (:393-511) build it, with
+    their ``ValueError`` for AAM under x-vector and wav2spk. The first TDNN
+    of ``xvector`` reads ``network.n_mels`` features (flax infers its input
+    width; ``in_channels`` is no layer's size there); the wav2vec v1
+    encoder computes in bfloat16 under ``trainer.precision=bf16``."""
     net, loss = cfg["network"], cfg["optim"]["loss"]
     name, aam = net["name"], loss["name"] == "aam_softmax"
     if aam and name in ("xvector", "wav2spk"):
         raise ValueError(f"{name} does not support aam softmax")
     if name == "xvector":
-        inner = XVectorModel(XVectorConfig(
-            in_channels=net["n_mels"], tdnn_channels=tuple(net["tdnn_channels"]),
-            tdnn_kernel_sizes=tuple(net["tdnn_kernel_sizes"]), tdnn_dilations=tuple(net["tdnn_dilations"]),
-            lin_neurons=net["lin_neurons"]), num_speakers=n_out)
+        inner = XVectorModel(_xvector_config(net, net["n_mels"]), num_speakers=n_out)
         return FbankFrontend(inner, FbankConfig(n_mels=net["n_mels"]))
+    if name in ("wav2vec_fc", "wav2vec_xvector"):
+        v1 = Wav2Vec1Config(use_aggregator=net.get("use_aggregation_layers", False),
+                            dtype="bfloat16" if cfg["trainer"]["precision"] == "bf16" else "float32")
+        if name == "wav2vec_xvector":
+            return Wav2Vec1XVectorModel(v1, _xvector_config(net, 512), num_speakers=n_out)
+        return Wav2Vec1FCModel(v1, stat_pooling_type=net["stat_pooling_type"],
+                               hidden_fc_layers_out=tuple(net["hidden_fc_layers_out"]),
+                               embedding_layer_idx=net["embedding_layer_idx"], num_speakers=n_out)
     if name == "ecapa_tdnn":
         inner = EcapaModel(EcapaConfig(
             in_channels=net["n_mels"], channels=tuple(net["channels"]), kernel_sizes=tuple(net["kernel_sizes"]),
@@ -305,8 +341,8 @@ def build_model_and_task(
     ``Wav2Vec2MultitaskModel`` over the speakers and ``tokenizer``'s
     vocabulary (or ``network.explicit_vocab_size`` tokens without one, for
     serving) for the ``wav2vec2_multitask`` network, or ``(task,
-    "speaker")`` with the x-vector, ECAPA-TDNN, wav2spk or dummy model of
-    those networks; parameters allocated, not initialised (see
+    "speaker")`` with the x-vector, ECAPA-TDNN, wav2spk, dummy or wav2vec v1
+    model of those networks; parameters allocated, not initialised (see
     ``models.wav2vec2.init_parameters``)."""
     net = cfg["network"]
     name = net.get("name")
@@ -434,21 +470,51 @@ def build_evaluator(cfg: Dict) -> SpeakerRecognitionEvaluator:
 # ------------------------------------------------------------------ data
 
 
-def build_augmenter(pipeline_cfg: Dict) -> None:
-    """None when ``augment.enabled`` is false or names no effect, as the JAX
-    ``build_augmenter`` (:97) returns; raises for any effect (the
-    augmentation suite is not ported)."""
+def build_augmenter(pipeline_cfg: Dict, seed: int) -> Optional[Augmenter]:
+    """The ``Augmenter`` of ``data.pipeline.augment`` (:97), None when it is
+    not enabled or names no effect. The effects chain in the reference
+    study's order, each on its own generator: time dropout (``seed`` + 2),
+    frequency dropout (+5), uniform speed (+1), choice speed (+6),
+    SpecAugment speeds (+7), reverb (+4), then RIRS noise or else uniform
+    noise (+3). A dict-valued effect (``time_dropout``, ``freq_dropout``)
+    is on when present, ``{}`` meaning its defaults; the others when
+    truthy."""
     aug = pipeline_cfg.get("augment") or {}
     if not aug.get("enabled"):
         return None
-    effects = [k for k in ("time_dropout", "freq_dropout") if aug.get(k) is not None] + [
-        k for k in ("speed", "speed_choices", "spec_augment_speeds", "reverb", "rirs_shards", "noise_snr")
-        if aug.get(k)]
-    if not effects:
+    chain = []
+    if aug.get("time_dropout") is not None:
+        td = aug["time_dropout"]
+        chain.append(TimeDropoutAugment(max_dropout_length_seconds=td.get("max_seconds", 0.25),
+                                        min_drop_count=td.get("min_count", 0), max_drop_count=td.get("max_count", 5),
+                                        seed=seed + 2))
+    if aug.get("freq_dropout") is not None:
+        fd = aug["freq_dropout"]
+        chain.append(FrequencyDropoutAugment(min_drop_count=fd.get("min_count", 0),
+                                             max_drop_count=fd.get("max_count", 5),
+                                             band_scaling=fd.get("band_scaling", 1.0), seed=seed + 5))
+    if aug.get("speed"):
+        chain.append(UniformSpeedAugment(min_speed_factor=aug["speed"]["min"], max_speed_factor=aug["speed"]["max"],
+                                         seed=seed + 1))
+    if aug.get("speed_choices"):
+        chain.append(ChoiceSpeedAugment(possible_speed_factors=aug["speed_choices"], seed=seed + 6))
+    if aug.get("spec_augment_speeds"):
+        chain.append(SpecAugmentTimeDomain(speeds=aug["spec_augment_speeds"], seed=seed + 7))
+    if aug.get("reverb"):
+        rv = aug["reverb"] if isinstance(aug["reverb"], dict) else {}
+        chain.append(ReverbAugment(room_scale_min=rv.get("room_scale_min", 0),
+                                   room_scale_max=rv.get("room_scale_max", 100), seed=seed + 4))
+    if aug.get("rirs_shards"):
+        chain.append(ChoiceRirsNoiseAugment(
+            aug["rirs_shards"], snr_choices=aug.get("rirs_snr") or aug.get("noise_snr") or [5, 10, 15, 20],
+            seed=seed + 3))
+    elif aug.get("noise_snr"):
+        chain.append(ChoiceRandomNoiseAugment(snr_choices=aug["noise_snr"], seed=seed + 3))
+    if not chain:
         return None
-    raise NotImplementedError(
-        f"data.pipeline.augment ({', '.join(effects)}) is not ported yet: ROADMAP.md Queue 1 item 2 "
-        "(Augmenter and its effect chain)")
+    return Augmenter(chain, stack_augmentations=aug.get("stack", True),
+                     yield_intermediate_augmentations=aug.get("yield_intermediate", False),
+                     yield_unaugmented=aug.get("yield_unaugmented", False))
 
 
 def _queue_size(cfg: Dict) -> int:
@@ -496,7 +562,6 @@ def build_data_module(cfg: Dict) -> Union[VoxCelebDataModule, LibriSpeechDataMod
     def opt_path(key):
         return pathlib.Path(m[key]) if m.get(key) else None
 
-    build_augmenter(p)
     dm = VoxCelebDataModule(VoxCelebConfig(
         data_dir=opt_path("data_dir"),
         shards_dir=pathlib.Path(m["shards_dir"]),
@@ -527,6 +592,7 @@ def build_data_module(cfg: Dict) -> Union[VoxCelebDataModule, LibriSpeechDataMod
         chunk_length_sec=p["chunk_length_sec"],
         chunk_strategy=p["chunk_strategy"],
         normalize_input=p["normalize_input"],
+        augmenter=build_augmenter(p, cfg["seed"]),
         limit_samples=m.get("limit_samples"),
         num_pipeline_workers=dl.get("num_pipeline_workers", 1),
         seed=cfg["seed"],
@@ -581,10 +647,6 @@ def _check_ported(cfg: Dict) -> None:
         raise NotImplementedError("profiler=jax_trace (a trace window) is not ported yet: ROADMAP.md Queue 1 item 9")
     if cfg.get("run_lr_range_test") or cfg.get("tune_model"):
         raise NotImplementedError(f"run_lr_range_test / tune_model are not ported yet: {_RUNTIME_ROW}")
-    if cfg.get("verify_model"):
-        raise NotImplementedError(f"verify_model is not ported yet: {_RUNTIME_ROW}")
-    if t.get("dump_first_batch"):
-        raise NotImplementedError(f"trainer.dump_first_batch is not ported yet: {_RUNTIME_ROW}")
     if (cfg.get("callbacks") or {}).get("progress_tracker") and net.get("name") == "wav2vec2_fc":
         raise NotImplementedError(f"callbacks.progress_tracker is not ported yet: {_RUNTIME_ROW}")
     nd = t.get("num_devices", "all")
@@ -622,6 +684,12 @@ def run_train_eval(cfg: Dict, device: DeviceLike = None) -> Optional[float]:
     speech = isinstance(dm, LibriSpeechDataModule)
     if not speech:
         print(dm.summary())
+    if cfg["trainer"].get("dump_first_batch"):
+        mon = (cfg.get("callbacks") or {}).get("input_monitor") or {}
+        dm.cfg.debug_capture = PipelineDebugCapture(
+            pathlib.Path(mon.get("out_dir") or pathlib.Path(cfg["trainer"]["checkpoint_dir"]).parent
+                         / "first_batch" / "per_sample"),
+            max_samples=int(4 if mon.get("max_samples") is None else mon["max_samples"]))  # 0: none
     multitask = cfg["network"]["name"] == "wav2vec2_multitask"
     with torch.device("meta"):
         task, kind = build_model_and_task(cfg, dm.num_speakers if multitask or not speech else 0,
@@ -652,15 +720,48 @@ def graft_pretrained(model, net: Dict) -> None:
               f"the checkpoint is not loaded, as in the JAX package")
 
 
-def _init_state(cfg: Dict, task) -> TrainState:
+def verify_model(task, example: Optional[Dict], device: torch.device) -> None:
+    """``verify_model`` (:1007-1019): print ``model_summary``; for a task
+    that embeds speakers (speaker, multitask) and an ``example`` batch of
+    at least 2 rows, the cross-batch leakage probe through the model's
+    ``compute_embedding`` on ``device`` (raises ``AssertionError`` on a
+    leak)."""
+    print(model_summary(task.model))
+    if not isinstance(task, (SpeakerTask, MultitaskTask)) or example is None or example["features"].shape[0] < 2:
+        return
+
+    @torch.inference_mode()
+    def embed(features, mask):
+        return task.model.compute_embedding(
+            torch.from_numpy(features).to(device),
+            None if mask is None else torch.from_numpy(mask).to(device)).float().cpu().numpy()
+
+    batch_gradient_verification(embed, np.asarray(example["features"]), example.get("mask"))
+    print("batch gradient verification: no cross-batch leakage")
+
+
+def _example_batch(cfg: Dict, dm, train_iter=None) -> Optional[Dict]:
+    """The first training batch of ``train_iter()`` (``dm.train_batches()``
+    without one), drawn before training as the JAX package draws it
+    (:1473, :1722), where something reads it or its draw moves state that
+    training reads: ``verify_model``, the debug capture, an augmenter; else
+    None, and no draw."""
+    if not (cfg.get("verify_model") or dm.cfg.debug_capture is not None or dm.cfg.augmenter is not None):
+        return None
+    return next(iter(train_iter() if train_iter is not None else dm.train_batches()))
+
+
+def _init_state(cfg: Dict, task, example: Optional[Dict] = None, device: Optional[torch.device] = None) -> TrainState:
     """The train state over ``task.model`` (:983): ``graft_pretrained``,
-    then ``load_network_from_checkpoint`` grafted into the whole model, the
-    optimizer of ``build_optimizer``, and the step generator seeded with
-    ``seed + 1``."""
+    then ``load_network_from_checkpoint`` grafted into the whole model,
+    ``verify_model`` on ``example`` where asked for, the optimizer of
+    ``build_optimizer``, and the step generator seeded with ``seed + 1``."""
     model = task.model
     graft_pretrained(model, cfg["network"])
     if cfg.get("load_network_from_checkpoint"):
         load_params(cfg["load_network_from_checkpoint"], model)
+    if cfg.get("verify_model"):
+        verify_model(task, example, device)
     return TrainState.create(model, build_optimizer(cfg), seed=int(cfg["seed"]) + 1)
 
 
@@ -785,6 +886,15 @@ def _train_loop(cfg, task, state: TrainState, logger, train_iter_fn, validate_fn
 
     buf: List[Dict] = []
 
+    def dump_failed_step_batches():
+        """Every batch of the failed dispatch, as the data module gave it
+        (keys included), under ``debug_batch/train_step`` (``/chunk<i>``
+        for more than one) beside the checkpoint directory (:1225-1245)."""
+        dump_dir = pathlib.Path(trainer["checkpoint_dir"]).parent / "debug_batch" / "train_step"
+        for i, raw in enumerate(buf):
+            dump_first_batch(raw, dump_dir if len(buf) == 1 else dump_dir / f"chunk{i}")
+        print(f"training step at step={step} raised; offending batch(es) dumped to {dump_dir}")
+
     def run_chunk():
         nonlocal state, step, epoch_batches, buf
         try:
@@ -797,8 +907,7 @@ def _train_loop(cfg, task, state: TrainState, logger, train_iter_fn, validate_fn
                 sm = _to_host(sm)  # one copy per metric for the whole dispatch
                 per_step = [(buf[i], {k: v[i] for k, v in sm.items()}) for i in range(len(buf))]
         except Exception:
-            print(f"training step at step={step} raised; the batch dump on failure is not ported "
-                  f"({_RUNTIME_ROW})")
+            dump_failed_step_batches()
             raise
         buf = []
         for batch, m in per_step:
@@ -838,10 +947,14 @@ def _train_loop(cfg, task, state: TrainState, logger, train_iter_fn, validate_fn
                                "sanity_seconds": time.perf_counter() - t0})
 
     start_step = step
+    first_batch_dumped = False
     while step < max_steps and epoch < max_epochs and stop_reason is None:
         epoch_batches = 0
         buf = []
         for batch in train_iter_fn(epoch):
+            if not first_batch_dumped and trainer.get("dump_first_batch"):
+                dump_first_batch(batch, pathlib.Path(trainer["checkpoint_dir"]).parent / "first_batch")
+                first_batch_dumped = True
             rows = batch["labels"].shape[0]
             if speech:
                 if rows % acc:  # padding rows have empty labels: left out of the CTC mean
@@ -927,7 +1040,7 @@ def _run_speaker(cfg, dm: VoxCelebDataModule, task: SpeakerTask, logger, device)
 
     dl = cfg["data"]["dataloader"]
     evaluator = build_evaluator(cfg)
-    state = _init_state(cfg, task)
+    state = _init_state(cfg, task, _example_batch(cfg, dm), device)
     model = task.model
     val_pairs = dm.val_evaluation_pairs()
     limit_val = cfg["trainer"].get("limit_val_batches")
@@ -1046,15 +1159,12 @@ def _warn_unsupported_progress_tracker(cfg, family: str) -> None:
 def _run_paired(cfg, dm: VoxCelebDataModule, task: PairedSpeakerTask, logger, device) -> Optional[float]:
     """Fit on generated pair batches, validate by scoring the validation
     pairs through the network, restore the best checkpoint and score the
-    test trials on full-utterance pairs (:1704). The reference's throwaway
-    epoch-0 batch (:1722, an example for its init) is not drawn: each epoch
-    builds its processor and pipeline afresh from seeds, so the draw moves
-    nothing that training reads."""
+    test trials on full-utterance pairs (:1704). The example pair batch
+    of :1722 is drawn as ``_example_batch`` says."""
     _warn_unsupported_progress_tracker(cfg, "paired")
     dl = cfg["data"]["dataloader"]
     ratio = cfg.get("pos_neg_training_batch_ratio", 0.5)
     k = cfg["data"]["shards"]["sequential_same_speaker_samples"]
-    state = _init_state(cfg, task)
 
     def train_iter(epoch=0):
         proc = PairedBatchProcessor(
@@ -1063,6 +1173,8 @@ def _run_paired(cfg, dm: VoxCelebDataModule, task: PairedSpeakerTask, logger, de
             pos_neg_training_batch_ratio=ratio, seed=cfg["seed"] + epoch * 9973,
         )
         return dm.train_batches(proc, prefetch_depth=dl.get("prefetch_depth", 4), epoch=epoch)
+
+    state = _init_state(cfg, task, _example_batch(cfg, dm, train_iter), device)
 
     def score_pairs(pairs, split, max_batches=None):
         """EER / minDCF of ``pairs`` from the sigmoid scores of full
@@ -1148,7 +1260,7 @@ def _run_speech(cfg, dm: LibriSpeechDataModule, task: SpeechTask, logger, device
     return the test-clean WER (:1874)."""
     _warn_unsupported_progress_tracker(cfg, "speech")
     raw_example = next(iter(dm.train_batches()))
-    state = _init_state(cfg, task)
+    state = _init_state(cfg, task, raw_example, device)
     limit_val = cfg["trainer"].get("limit_val_batches")
     track_transcription = _make_transcription_tracker(raw_example, task, logger)
     wer = _make_wer_fn(dm, task, int(cfg["data"]["dataloader"].get("eval_batch_size", 8)))
@@ -1201,7 +1313,7 @@ def _run_multitask(cfg, dm: LibriSpeechDataModule, task: MultitaskTask, logger, 
     returns the test EER (:1949)."""
     _warn_unsupported_progress_tracker(cfg, "multitask")
     raw_example = next(iter(dm.train_batches()))
-    state = _init_state(cfg, task)
+    state = _init_state(cfg, task, raw_example, device)
     limit_val = cfg["trainer"].get("limit_val_batches")
     evaluator = build_evaluator(cfg)
     eval_bs = int(cfg["data"]["dataloader"].get("eval_batch_size", 8))

@@ -15,7 +15,8 @@ Counterparts:
   run_predictions`` (:85): the pair file's sorted unique ids, the
   configured evaluator, the ``wav2vec2_fc`` or ``wav2vec2_multitask``
   model (whose speaker branch embeds), or the x-vector, ECAPA-TDNN,
-  wav2spk or dummy model, with its weights
+  wav2spk, dummy or wav2vec v1 (``wav2vec_fc``, ``wav2vec_xvector``) model,
+  with its weights
   (``network.pretrained_checkpoint``, then ``load_network_from_checkpoint``),
   16 kHz audio read and normalised per utterance, embeddings cached as
   ``<folder>/embeddings/<id>.npy``, AS-Norm fitted on the extraction set,
@@ -102,9 +103,9 @@ def read_pair_file(path: pathlib.Path) -> List[Tuple[str, str]]:
 def _check_servable(cfg: Dict) -> None:
     """Raise for what predict cannot serve: a network without a speaker
     embedding (the speech and paired networks; the JAX package raises
-    too), int8 matmuls, and what ``build_model_and_task`` refuses (an
-    unported network or loss, x-vector or wav2spk under AAM), built on the
-    meta device."""
+    too), int8 matmuls, and what ``build_model_and_task`` refuses (a
+    loss the network does not take, x-vector or wav2spk under AAM), built
+    on the meta device."""
     name = cfg["network"].get("name")
     if name in ("wav2vec2_fc_letter", "wav2vec2_paired"):
         raise ValueError("predict supports speaker (or multitask) models")

@@ -15,20 +15,18 @@ fall back on. Decoding returns float32 scaled by 2^(bits - 1) (torchaudio's
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
 import pathlib
-import subprocess
 import threading
 from typing import Tuple
 
 import numpy as np
 
+from .native import build_library, hashed_path
+
 __all__ = ["BUILD_DIR", "SOURCE", "library_path", "load", "probe", "read_flac"]
 
 SOURCE = pathlib.Path(__file__).resolve().parents[2] / "native" / "flac.cpp"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / "build" / "torch_native"
-CXXFLAGS = ("-O3", "-fPIC", "-shared", "-std=c++17", "-Wall")
 
 _lock = threading.Lock()
 _lib = None
@@ -51,20 +49,7 @@ _ERRORS = {
 
 
 def library_path() -> pathlib.Path:
-    digest = hashlib.sha256(SOURCE.read_bytes()).hexdigest()[:16]
-    return BUILD_DIR / f"libflac-{digest}.so"
-
-
-def _build(out: pathlib.Path) -> None:
-    out.parent.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    proc = subprocess.run(
-        [os.environ.get("CXX", "c++"), *CXXFLAGS, "-o", str(tmp), str(SOURCE)],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-    )
-    if proc.returncode != 0:
-        raise RuntimeError(f"building the FLAC decoder from {SOURCE} failed:\n{proc.stdout}")
-    os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
+    return hashed_path(SOURCE, BUILD_DIR, "libflac")
 
 
 def load() -> ctypes.CDLL:
@@ -75,7 +60,7 @@ def load() -> ctypes.CDLL:
         if _lib is None:
             path = library_path()
             if not path.exists():
-                _build(path)
+                build_library(SOURCE, path, "the FLAC decoder")
             lib = ctypes.CDLL(str(path))
             i64, i32 = ctypes.c_int64, ctypes.c_int32
             lib.w2vtpu_flac_probe.argtypes = [
