@@ -203,7 +203,41 @@ the run by raising:
    f32, B=66 x 3 s under ``run.main`` (4 steps, no kernel launched) and the
    predict twin on each best checkpoint (as phase 23's), and for the last two
    the float32 step card vs CPU against a float64 CPU step (as phases 22-24);
-29. one JSON line with every kernel's numbers (the attention kernels and
+29. optimizers and schedules: ``run.main`` on ``speaker_wav2vec2_ce`` at
+   full BASE width (bf16, B=66) on phase 13's shards, 4 steps, under (a)
+   SGD with ``schedule_wav2vec_fan_etal`` (cyclic), (b) AdamW with
+   ``exp_decay`` and (c) ``reduce_on_plateau`` with patience 0 and a
+   validation every step: each update's rate equal to the port's schedule
+   (for (c), the controller replayed on the logged validation EERs, its
+   state in the last checkpoint) and held by the torch optimizer, finite
+   losses, launches = kept layers, ms/step; (d) one step of the LARGE AAM
+   recipe on the fused conv (B=48) with float32 and with bfloat16 first
+   moments: the moment's dtype, the optimizer state's bytes, the step's
+   peak memory and time, 6 conv and kept-layer attention launches, the
+   updated parameters within 4 float32 ulps and the stored bf16 moments
+   bit-equal to a plain float32 recompute of the rule (optax's for the
+   bf16 moment, torch's for float32);
+30. the LR range test: ``run_lr_range_test=true tune_iterations=40`` on the
+   BASE recipe at full width on phase 13's shards: ``data.json`` (``lr``,
+   ``loss``, ``suggestion``), each step's rate the float32 table's entry,
+   the suggestion one of the rates, launches = kept layers, ms/step;
+31. the progress tracker (``callbacks=speaker_progress_tracker``) on the
+   BASE recipe (bf16) and on ``speaker_xvector`` (float32), 4 steps with
+   validations at 2 and 4: one snapshot per validation, its
+   ``embeddings.npy`` of [5 x 2, D] equal to ``compute_embedding`` of the
+   same model on the same probe batch within 1e-6, the separation metrics
+   logged beside ``val_eer`` and finite, the BASE snapshot's attention
+   forward launched once per layer;
+32. the run surface at full BASE width, 2 steps a run: a ``-m
+   network.stat_pooling_type=mean,max`` grid (two objectives, two
+   checkpoint directories), ``-m +search=lr_and_pooling`` with 3 trials
+   (each trial's overrides those of the port's TPE sampler replayed with
+   the logged objectives, the best printed, the memory at each trial's
+   start), ``hydra/launcher=slurm`` on a 2-point grid (the array script
+   written without ``sbatch``, its tasks running ``-m
+   w2v2_speaker_tpu_torch.run`` in ``job<i>`` directories) and ``-sc`` of
+   both twins;
+33. one JSON line with every kernel's numbers (the attention kernels and
    the conv at the LARGE training shapes, launches of the LARGE training
    run), the card line, then the result line.
 
@@ -254,13 +288,13 @@ from w2v2_speaker_tpu_torch.ops import flash_attention as fa
 from w2v2_speaker_tpu_torch.eval.evaluator import CosineDistanceEvaluator, EmbeddingSample
 from w2v2_speaker_tpu_torch.runtime.config import load_config
 from w2v2_speaker_tpu_torch.runtime.experiment import (
-    build_model_and_task, build_optimizer, load_recipe, speech_model_config,
+    CONFIG_DIR, build_model_and_task, build_optimizer, load_recipe, speech_model_config,
 )
 from w2v2_speaker_tpu_torch.runtime.predict import build_predict_model, extract_embeddings
 from w2v2_speaker_tpu_torch.train.paired_task import PairedSpeakerTask
 from w2v2_speaker_tpu_torch.train.speaker_task import SpeakerTask
 from w2v2_speaker_tpu_torch.train.speech_task import SpeechTask
-from w2v2_speaker_tpu_torch.train.state import AdamTx, TrainState
+from w2v2_speaker_tpu_torch.train.state import AdamTx, SgdTx, TrainState
 from w2v2_speaker_tpu_torch.train.steps import make_train_step
 
 # H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores, float32
@@ -389,6 +423,27 @@ FAMILY_F32_SEEDS = {"speaker_xvector": 22, "speaker_ecapa_tdnn": 23, "speaker_wa
                     "wav2vec_fc_meanstd_agg": 28, "wav2vec_xvector": 29}
 FAMILY_PREDICT_FILES = 6  # of phase 12's files, served from the ECAPA run's best checkpoint
 WAV2SPK_MILESTONES = (2, 3)  # the learning rate falls twice within the 4 steps
+OPTIM_STEPS = 4  # phase 29's runs: steps, a validation every 2 (6 steps, a validation each, under reduce_on_plateau)
+OPTIM_RUNS = (  # (label, overrides)
+    ("sgd + schedule_wav2vec_fan_etal", ["optim/algo=sgd", "optim/schedule=schedule_wav2vec_fan_etal"]),
+    ("adamw + exp_decay", ["optim.algo.weight_decay=1e-2", "optim/schedule=exp_decay"]),
+    ("adam + reduce_on_plateau", ["optim/schedule=reduce_on_plateau", "optim.schedule.patience=0",
+                                  "trainer.val_check_interval=1", "trainer.max_steps=6"]),
+)
+# phase 29d: the updated parameters against a plain per-tensor float32
+# recompute of the Adam rule from the same gradients, in float32 ulps of
+# max(|before|, |after|) (an update can cancel the parameter to near 0):
+# the bf16-moment update is the recompute's operations batched (reads 0-1
+# on the CPU); torch's float32 Adam is recomputed in its own grouping
+# (lerp, lr / bc1 in float64, sqrt(v) / sqrt(bc2)), and optax's grouping
+# lies up to 12.5 ulps from it on an H100, which the CPU tests bound
+# (tests/test_torch_optim.py). The stored bf16 first moments must equal
+# the recompute's bit for bit: b1 unrounded (0.16 % off) flips many of
+# them, while it moves a parameter by less than an ulp
+MU_PARAM_ULPS = 4
+LR_ITERATIONS = 40  # phase 30's tune_iterations
+SNAPSHOT_ATOL = 1e-6  # phase 31: a snapshot's embeddings vs the embed path on the same model and probe batch
+SEARCH_TRIALS = 3  # phase 32's +search, 2 of them from the prior
 
 
 def cuda_ms(fn, reps: int, warmup: int = 3) -> float:
@@ -1498,10 +1553,16 @@ class RunProbe:
                 probe.prepare_s = time.perf_counter() - t0
             return run
 
-        def timed_batches(orig):
-            def batches(dm, *a, **kw):
-                probe.epochs.append(kw.get("epoch", 0))
-                it = iter(orig(dm, *a, **kw))
+        class TimedBatches:
+            """The data module's batches, iterable again as its own are
+            (the LR range test starts them over), each wait recorded."""
+
+            def __init__(self, source, epoch):
+                self.source, self.epoch = source, epoch
+
+            def __iter__(self):
+                probe.epochs.append(self.epoch)
+                it = iter(self.source)
                 while True:
                     t0 = time.perf_counter()
                     batch = next(it, None)
@@ -1509,6 +1570,10 @@ class RunProbe:
                         return
                     probe.waits.append(time.perf_counter() - t0)
                     yield batch
+
+        def timed_batches(orig):
+            def batches(dm, *a, **kw):
+                return TimedBatches(orig(dm, *a, **kw), kw.get("epoch", 0))
             return batches
 
         self._wrap(dm_cls, "prepare_data", timed_prepare)
@@ -2844,6 +2909,414 @@ def wav2vec1_phase(card: str, tmp: pathlib.Path, wav_dir, trials, shards) -> Non
             print(f"{label} {report} [{card}]", flush=True)
 
 
+class RateProbe:
+    """For the length of a ``with`` block, records every update of
+    ``AdamTx`` and ``SgdTx``: (the transform's count, its schedule's rate
+    there, the rate its torch optimizer held after the update, None for
+    the bf16-moment update, which has none)."""
+
+    def __enter__(self):
+        self.rates, self._saved = [], []
+        for cls in (AdamTx, SgdTx):
+            orig = cls.update
+
+            def update(tx, named, orig=orig):
+                count, rate = tx.count, tx.schedule(tx.count)
+                orig(tx, named)
+                opt = getattr(tx, "adam", None) or getattr(tx, "sgd", None)
+                self.rates.append((count, rate, None if opt is None else opt.param_groups[0]["lr"]))
+
+            self._saved.append((cls, orig))
+            cls.update = update
+        return self
+
+    def __exit__(self, *exc):
+        for cls, orig in self._saved:
+            cls.update = orig
+
+
+def captured(fn, *args, tail: int = 2500, **kwargs):
+    """(fn's result, what it printed); the last ``tail`` characters are
+    passed on to the log."""
+    import contextlib
+    import io
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        result = fn(*args, **kwargs)
+    sys.stdout.write(out.getvalue()[-tail:])
+    return result, out.getvalue()
+
+
+def fresh_phase() -> int:
+    """Frees what earlier runs left; returns the bytes still allocated."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    return torch.cuda.memory_allocated()
+
+
+def find_state(tree, key):
+    """The first value under ``key`` in a nested checkpoint dict."""
+    if isinstance(tree, dict):
+        if key in tree:
+            return tree[key]
+        for v in tree.values():
+            found = find_state(v, key)
+            if found is not None:
+                return found
+    return None
+
+
+def optim_phase(card: str, tmp: pathlib.Path, wav_dir, trials, shards) -> None:
+    """Phase 29 (a)-(c): ``run.main`` on ``speaker_wav2vec2_ce`` at full BASE
+    width (bf16, B=66) on phase 13's shards under each of ``OPTIM_RUNS``,
+    ``OPTIM_STEPS`` steps (6 under reduce-on-plateau, with a validation
+    after each): every update's rate equal to the port's schedule
+    function (for reduce-on-plateau, the controller replayed on the logged
+    validation EERs, and the last checkpoint holding its state) and held by
+    the torch optimizer, finite losses, launches = kept layers, ms/step."""
+    from w2v2_speaker_tpu_torch import run
+    from w2v2_speaker_tpu_torch.objectives import schedules
+
+    lr = load_recipe("speaker_wav2vec2_ce")["optim"]["algo"]["lr"]
+    for i, (label, overrides) in enumerate(OPTIM_RUNS):
+        ckpt = tmp / f"optim{i}" / "ckpt"
+        cfg = load_recipe("speaker_wav2vec2_ce", [f"trainer.max_steps={OPTIM_STEPS}", *overrides])
+        steps = cfg["trainer"]["max_steps"]
+        held = fresh_phase()
+        t0 = time.perf_counter()
+        with RunProbe() as probe, RateProbe() as rates:
+            objective, _ = captured(run.main, [
+                "+experiment=speaker_wav2vec2_ce", f"data.shards.samples_per_shard={RUN_SHARD}",
+                f"trainer.max_steps={OPTIM_STEPS}", "trainer.val_check_interval=2", "seed=29",
+                *corpus_args(wav_dir, trials, shards, ckpt), *overrides])
+        run_s = time.perf_counter() - t0
+        kept = check_steps(label, probe, steps)
+        sched = cfg["optim"]["schedule"]
+        val = [(s, m["val_eer"]) for s, m in probe.evals if "val_eer" in m]
+        if sched["name"] == "reduce_on_plateau":
+            ctl, factors = schedules.ReduceLROnPlateauController(factor=sched["factor"], patience=sched["patience"]), []
+            for count in range(steps):
+                for s, metric in val:
+                    if s == count:  # the validation after step `count` sets the rate of update `count`
+                        ctl.update(metric)
+                factors.append(ctl.factor_value)
+            for s, metric in val:
+                if s == steps:
+                    ctl.update(metric)
+            want = [float(np.float32(lr * f)) for f in factors]
+            saved = find_state(torch.load(ckpt / "last" / "state.pt", map_location="cpu", weights_only=True)["tx"],
+                               "schedule")
+            assert saved == ctl.state_dict(), f"{label}: checkpointed controller {saved}, replayed {ctl.state_dict()}"
+        elif sched["name"] == "cyclic":
+            fn = schedules.cyclic(sched["base_lr"], sched["max_lr"], sched["step_size_up"], sched.get("step_size_down"))
+            want = [fn(c) for c in range(steps)]
+        else:
+            fn = schedules.exp_decay(steps, lr, sched["final_lr"])
+            want = [fn(c) for c in range(steps)]
+        got = [rate for _, rate, _ in rates.rates]
+        assert [c for c, _, _ in rates.rates] == list(range(steps)) and got == want, \
+            f"{label}: rates {rates.rates}, want {want}"
+        assert all(opt == rate for _, rate, opt in rates.rates), f"{label}: optimizer rates {rates.rates}"
+        assert objective is not None and 0 <= objective <= 1, f"{label}: objective {objective}"
+        spans = probe.spans_ms(1, steps - 1)
+        print(f"optimizers {label} (BASE bf16 B=66 x 48000): rates {got} (= the schedule; for reduce_on_plateau "
+              f"the controller replayed on val EERs {[(s, round(m, 4)) for s, m in val]}); losses "
+              f"{[round(m['loss'], 4) for _, m in probe.steps]}; {np.mean(spans):.3f} ms/step (CUDA events, each "
+              f"of steps 2-{steps}: {[round(x, 2) for x in spans]}); launches per step = layers kept {kept}; "
+              f"test EER {objective:.4f}; whole run {run_s:.2f} s; peak "
+              f"{(torch.cuda.max_memory_allocated() - held) / 2**30:.2f} GiB [{card}]", flush=True)
+
+
+def _inner_adam(tx) -> AdamTx:
+    while not isinstance(tx, AdamTx):
+        tx = tx.inner
+    return tx
+
+
+def _moments(adam: AdamTx, params) -> tuple:
+    """(first moments, second moments) of ``params``, in parameter order."""
+    if adam.adam is None:
+        return adam.mu, adam.nu
+    st = adam.adam.state
+    return [st[p]["exp_avg"] for p in params], [st[p]["exp_avg_sq"] for p in params]
+
+
+def mu_dtype_phase(card: str) -> None:
+    """Phase 29 (d): the LARGE AAM recipe on the fused conv, bf16, B=48:
+    one training step from one state (after one warm-up step that fills
+    the moments) with float32 first moments and with
+    ``optim.algo.mu_dtype=bfloat16``. Prints the first moment's dtype, the
+    optimizer state's bytes, the step's peak memory and time, and holds the
+    updated parameters (within ``MU_PARAM_ULPS``) and the stored bf16
+    moments (bit for bit) against a plain per-tensor float32 recompute of
+    the rule from the same gradients: optax's for the bf16 store (b1
+    rounded to bf16 times the stored moment, rounded, plus (1 - b1) g in
+    float32; that float32 moment into the update with float32 bias
+    corrections; then the cast), torch's Adam in its own grouping for
+    float32 moments; 6 conv and kept-layer attention launches."""
+    dev = torch.device("cuda")
+    batch = {k: v[0] for k, v in synthetic_batch(LARGE_BATCH, SAMPLES, dev, seed=29).items()}
+    for mu_dtype in (None, "bfloat16"):
+        cfg = load_recipe("speaker_wav2vec2_large_aam",
+                          ["network.conv_impl=fused_pallas", *([f"optim.algo.mu_dtype={mu_dtype}"] if mu_dtype else [])])
+        fresh_phase()
+        state, task = build_train_state(dev, "bf16", cfg, seed=0)
+        step = make_train_step(task)
+        state, _ = step(state, batch)  # warm-up: the moments hold one step
+        adam = _inner_adam(state.tx)
+        params = [p for _, p in state.named_params()]
+        mu, nu = _moments(adam, params)
+        before = [(p.detach().clone(), m.clone(), v.clone()) for p, m, v in zip(params, mu, nu)]
+        state_bytes = sum(t.numel() * t.element_size() for t in [*mu, *nu])
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        state, metrics = step(state, batch)
+        stop.record()
+        torch.cuda.synchronize()
+        ms, peak = start.elapsed_time(stop), (torch.cuda.max_memory_allocated() - held) / 2**30
+        kept = int(metrics["layers_run"])
+        assert launches() == {**{k: kept for k in ATTENTION}, "conv_encoder": 6}, \
+            f"29d {mu_dtype}: kept {kept}, launched {launches()}"
+        b1, b2 = adam.betas
+        n = adam.count
+        lr = adam.schedule(n - 1)
+        if mu_dtype:  # optax's bias corrections, in float32
+            bc1 = float(np.float32(1) - np.float32(b1) ** np.float32(n))
+            bc2 = float(np.float32(1) - np.float32(b2) ** np.float32(n))
+        else:  # torch's, in float64
+            bc1, bc2 = 1 - b1 ** n, 1 - b2 ** n
+        mu, nu = _moments(adam, params)
+        worst_ulps, mu_differ = 0.0, 0
+        with torch.no_grad():
+            for p, m_new, (p0, m0, v0) in zip(params, mu, before):
+                g = p.grad.float()
+                if mu_dtype:  # optax's scale_by_adam with the bf16 store
+                    m32 = (1 - b1) * g + (m0 * float(torch.tensor(b1, dtype=m0.dtype))).float()
+                    v32 = (1 - b2) * (g * g) + b2 * v0
+                    want = p0 + (-lr) * ((m32 / bc1) / ((v32 / bc2).sqrt() + adam.eps))
+                else:  # torch.optim.Adam's grouping of the same rule
+                    m32 = m0.lerp(g, 1 - b1)
+                    v32 = (v0 * b2).addcmul(g, g, value=1 - b2)
+                    want = p0.addcdiv(m32, (v32.sqrt() / bc2 ** 0.5).add(adam.eps), value=-lr / bc1)
+                scale = torch.maximum(p0.abs(), want.abs())
+                ulp = torch.nextafter(scale, torch.full_like(scale, float("inf"))) - scale
+                worst_ulps = max(worst_ulps, float(((p - want).abs() / ulp).max()))
+                if mu_dtype:
+                    mu_differ += int((m_new != m32.to(m_new.dtype)).sum())
+        assert worst_ulps <= MU_PARAM_ULPS and mu_differ == 0, \
+            f"29d {mu_dtype}: parameters {worst_ulps} ulps from the recompute, {mu_differ} stored moments differ"
+        assert torch.isfinite(metrics["loss"]), f"29d {mu_dtype}: loss {metrics['loss']}"
+        print(f"LARGE AAM fused conv bf16 B={LARGE_BATCH} x {SAMPLES}, first moment {mu[0].dtype}: optimizer state "
+              f"{state_bytes / 2**30:.3f} GiB (first + second moments of {sum(p.numel() for p in params)} "
+              f"parameters); step {ms:.3f} ms (CUDA events, one step after a warm-up step), peak {peak:.2f} GiB above "
+              f"the {held / 2**30:.2f} GiB held; launches {launches()} (kept {kept}); updated parameters at most "
+              f"{worst_ulps:.0f} float32 ulps from the plain float32 recompute (limit {MU_PARAM_ULPS})"
+              + (f", stored bf16 moments bit-equal to the recompute's ({mu_differ} differ)" if mu_dtype else "")
+              + f"; loss {float(metrics['loss']):.4f} [{card}]", flush=True)
+        del state, task, step, before, params, mu, nu, adam
+
+
+def lr_find_phase(card: str, tmp: pathlib.Path, wav_dir, trials, shards) -> None:
+    """Phase 30: ``run.main`` with ``run_lr_range_test=true`` and
+    ``tune_iterations=LR_ITERATIONS`` on ``speaker_wav2vec2_ce`` at full
+    BASE width (bf16, B=66) on phase 13's shards: ``data.json`` with
+    ``lr``, ``loss`` and ``suggestion``, the rate of every step the float32
+    table's entry (the JSON the float64 rates), the suggestion one of the
+    rates, launches = kept layers in every step, ms/step."""
+    from w2v2_speaker_tpu_torch import run
+
+    out = tmp / "lr_find"
+    kept = []
+    loss_fn = SpeakerTask.loss_fn
+
+    def recorded(task, *a, **kw):
+        loss, aux = loss_fn(task, *a, **kw)
+        kept.append(int(aux["metrics"]["layers_run"]))
+        return loss, aux
+
+    held = fresh_phase()
+    t0 = time.perf_counter()
+    SpeakerTask.loss_fn = recorded
+    try:
+        with RunProbe() as probe, RateProbe() as rates:
+            suggestion, _ = captured(run.main, [
+                "+experiment=speaker_wav2vec2_ce", f"data.shards.samples_per_shard={RUN_SHARD}",
+                "run_lr_range_test=true", f"tune_iterations={LR_ITERATIONS}", "seed=30",
+                *corpus_args(wav_dir, trials, shards, out / "ckpt")])
+    finally:
+        SpeakerTask.loss_fn = loss_fn
+    run_s = time.perf_counter() - t0
+    data = json.loads((out / "auto_lr_find" / "data.json").read_text())
+    table = np.exp(np.linspace(np.log(1e-8), np.log(1.0), LR_ITERATIONS))
+    steps = len(data["loss"])
+    assert sorted(data) == ["loss", "lr", "suggestion"] and data["lr"] == table[:steps].tolist(), f"lr test: {data}"
+    assert [r for _, r, _ in rates.rates] == [float(np.float32(x)) for x in table[:steps]], f"rates {rates.rates}"
+    assert all(opt == r for _, r, opt in rates.rates) and len(kept) == steps == len(probe.ends) >= 4
+    assert suggestion == data["suggestion"] and suggestion in data["lr"], f"suggestion {suggestion}"
+    per_step = [{k: e[1][k] - s[1][k] for k in e[1]} for s, e in zip(probe.starts, probe.ends)]
+    for layers, got in zip(kept, per_step, strict=True):
+        assert got == {**{k: layers for k in ATTENTION}, "conv_encoder": 0}, f"lr test: kept {layers}, {got}"
+    assert all(np.isfinite(x) for x in data["loss"][:-1]), f"lr test losses {data['loss']}"
+    spans = probe.spans_ms(1, steps - 1)
+    print(f"LR range test (BASE bf16 B=66 x 48000): {steps} of {LR_ITERATIONS} steps (the divergence stop ends "
+          f"it where the smoothed loss passes 4x its best), rates = the float32 table, suggestion "
+          f"{suggestion:.3e}; smoothed losses {[round(x, 3) for x in data['loss']]}; {np.mean(spans):.3f} ms/step "
+          f"(CUDA events, each of steps 2-{steps}); launches per step = layers kept {kept}; whole run {run_s:.2f} s; "
+          f"peak {(torch.cuda.max_memory_allocated() - held) / 2**30:.2f} GiB [{card}]", flush=True)
+
+
+def tracker_phase(card: str, tmp: pathlib.Path, wav_dir, trials, shards) -> None:
+    """Phase 31: ``callbacks=speaker_progress_tracker`` under ``run.main``
+    on ``speaker_wav2vec2_ce`` at full BASE width (bf16, B=66) and on
+    ``speaker_xvector`` (float32), 4 steps with validations at 2 and 4, on
+    phase 13's shards: one snapshot per validation, its ``embeddings.npy``
+    of shape [5 speakers x 2, D] equal to the embed path
+    (``compute_embedding``) on the same model and probe batch within
+    ``SNAPSHOT_ATOL``, its separation metrics logged beside ``val_eer`` and
+    finite; the BASE snapshot launches the attention forward once per
+    layer, the training steps launch as phase 13's."""
+    from w2v2_speaker_tpu_torch import run
+    from w2v2_speaker_tpu_torch.runtime.experiment import _embed_batch
+    from w2v2_speaker_tpu_torch.runtime.progress import ProgressTracker
+
+    for recipe, layers in (("speaker_wav2vec2_ce", BASE_CONFIG.num_layers), ("speaker_xvector", 0)):
+        out = tmp / f"tracked_{recipe}"
+        snaps = []
+        snapshot = ProgressTracker.snapshot
+
+        def recorded(tracker, step, embed_fn):
+            before = launches()
+            metrics = snapshot(tracker, step, embed_fn)
+            got = {k: n - before[k] for k, n in launches().items()}
+            saved = np.load(tracker.out_dir / f"step_{int(step):08d}" / "embeddings.npy")
+            direct = _embed_batch(probe.task.model, {"features": tracker.features, "mask": tracker.mask},
+                                  torch.device("cuda"))
+            snaps.append((int(step), saved.shape, float(np.abs(saved - direct).max()), got, metrics))
+            return metrics
+
+        held = fresh_phase()
+        t0 = time.perf_counter()
+        ProgressTracker.snapshot = recorded
+        try:
+            with RunProbe() as probe:
+                objective, _ = captured(run.main, [
+                    f"+experiment={recipe}", f"data.shards.samples_per_shard={RUN_SHARD}", "trainer.max_steps=4",
+                    "trainer.val_check_interval=2", "callbacks=speaker_progress_tracker", "seed=31",
+                    *corpus_args(wav_dir, trials, shards, out / "ckpt")])
+        finally:
+            ProgressTracker.snapshot = snapshot
+        run_s = time.perf_counter() - t0
+        assert [s for s, _, _, _, _ in snaps] == [2, 4], f"{recipe}: snapshots {snaps}"
+        assert sorted(p.name for p in (out / "progress").iterdir()) == ["step_00000002", "step_00000004"]
+        for step, shape, err, got, metrics in snaps:
+            assert shape[0] == 10 and err <= SNAPSHOT_ATOL, f"{recipe} step {step}: {shape}, err {err}"
+            assert got == {**{k: 0 for k in launches()}, "flash_attention_fwd": layers}, f"{recipe}: launched {got}"
+            logged = [m for s, m in probe.evals if s == step and "val_eer" in m][0]
+            assert all(np.isfinite(logged[k]) and logged[k] == v for k, v in metrics.items()) and len(metrics) == 3, \
+                f"{recipe} step {step}: {metrics} vs logged {logged}"
+        if layers:
+            kept = check_steps(recipe, probe, 4)
+        else:
+            assert all(got == {k: 0 for k in launches()} for _, _, got in probe.per_step()), f"{recipe}: launches"
+            kept = None
+        print(f"progress tracker on {recipe} ({'BASE bf16 B=66' if layers else 'float32 B=66'}): snapshots at steps "
+              f"{[s for s, *_ in snaps]} of shape {snaps[0][1]}, max |snapshot - compute_embedding on the same model "
+              f"and probe batch| {[s[2] for s in snaps]} (limit {SNAPSHOT_ATOL}); separation metrics "
+              f"{[{k: round(v, 5) for k, v in s[4].items()} for s in snaps]}; snapshot launches {snaps[0][3]}; "
+              f"training launches per step = layers kept {kept}; test EER {objective:.4f}; whole run {run_s:.2f} s; "
+              f"peak {(torch.cuda.max_memory_allocated() - held) / 2**30:.2f} GiB [{card}]", flush=True)
+
+
+def surface_phase(card: str, tmp: pathlib.Path, wav_dir, trials, shards) -> None:
+    """Phase 32: the run twin's surface at full BASE width (bf16, B=66) on
+    phase 13's shards, 2 steps a run: a ``-m network.stat_pooling_type=mean,max``
+    grid (two objectives, two checkpoint directories, launches = kept
+    layers); ``-m +search=lr_and_pooling`` with ``SEARCH_TRIALS`` trials
+    (every trial's overrides those of the port's sampler replayed with the
+    logged objectives, the best printed, each trial's memory at its
+    start); ``hydra/launcher=slurm`` on a 2-point grid (the array script
+    written, the card machine having no ``sbatch``, its tasks running
+    ``-m w2v2_speaker_tpu_torch.run`` with ``job<i>`` checkpoint
+    directories); ``-sc`` of both twins. The memory held at each trial's
+    start must not grow from the second trial on."""
+    import ast
+    import re
+
+    import yaml
+
+    from w2v2_speaker_tpu_torch import run
+    from w2v2_speaker_tpu_torch.runtime.sweeper import TPESampler, format_override
+
+    common = ["+experiment=speaker_wav2vec2_ce", f"data.shards.samples_per_shard={RUN_SHARD}", "trainer.max_steps=2",
+              "trainer.val_check_interval=2", "trainer.num_sanity_val_steps=0", "seed=32"]
+    held = fresh_phase()
+    t0 = time.perf_counter()
+    with RunProbe() as probe:
+        best, printed = captured(run.main, ["-m", *common, *corpus_args(wav_dir, trials, shards, tmp / "grid"),
+                                            "network.stat_pooling_type=mean,max"])
+    grid_s = time.perf_counter() - t0
+    summary = printed.split("=== multirun summary (sorted by objective)")[1].splitlines()[1:3]
+    objectives = [float(line.split()[0]) for line in summary]
+    assert abs(best - min(objectives)) < 1e-5, f"grid: {summary}"  # the summary prints 5 decimals
+    assert all(0 <= o <= 1 for o in objectives), f"grid: {summary}"
+    for job in ("job0", "job1"):
+        index = json.loads((tmp / "grid" / job / "index.json").read_text())
+        assert index["last"]["step"] == 2, f"grid {job}: {index}"
+    assert [s for s, _ in probe.steps] == [1, 2, 1, 2], f"grid steps {probe.steps}"
+    for _, layers, got in probe.per_step():
+        assert got == {**{k: layers for k in ATTENTION}, "conv_encoder": 0}, f"grid: kept {layers}, {got}"
+
+    t0 = time.perf_counter()
+    with RunProbe() as probe:
+        best, printed = captured(run.main, ["-m", *common, *corpus_args(wav_dir, trials, shards, tmp / "search"),
+                                            "+search=lr_and_pooling", f"search.n_trials={SEARCH_TRIALS}",
+                                            "search.n_startup_trials=2"], tail=4000)
+    search_s = time.perf_counter() - t0
+    space = yaml.safe_load((CONFIG_DIR / "search" / "lr_and_pooling.yaml").read_text())["search"]
+    sampler = TPESampler(space["search_space"], seed=space["seed"], n_startup_trials=2)
+    asked = [ast.literal_eval(m) for m in re.findall(r"=== search trial \d+/\d+ \[lr_and_pooling\]: (\[.*\])", printed)]
+    told = dict((int(i), float(v)) for i, v in re.findall(r"trial (\d+) objective: (\S+)", printed))
+    assert len(asked) == SEARCH_TRIALS and told, f"search: asked {asked}, told {told}"
+    for i, overrides in enumerate(asked):
+        params = sampler.ask()
+        assert [format_override(k, v) for k, v in params.items()] == overrides, f"trial {i}: {overrides} vs {params}"
+        if i in told:
+            sampler.tell(params, told[i])
+    assert best == sampler.best[1] and f"=== search [lr_and_pooling] best objective: {best}" in printed
+    memory = [float(m) for m in re.findall(r"trial \d+: (\S+) MiB allocated on the card at its start", printed)]
+    # from the second trial on, the memory held at a trial's start includes
+    # the first trial's model, which the probe keeps for its hooks; it must
+    # not grow from trial to trial
+    assert len(memory) == SEARCH_TRIALS and max(memory[1:]) - min(memory[1:]) < 64, f"search: memory {memory}"
+    for _, layers, got in probe.per_step():
+        assert got == {**{k: layers for k in ATTENTION}, "conv_encoder": 0}, f"search: kept {layers}, {got}"
+
+    _, printed = captured(run.main, ["-m", "hydra/launcher=slurm", *common,
+                                     *corpus_args(wav_dir, trials, shards, tmp / "slurm"),
+                                     "network.stat_pooling_type=mean,max"])
+    script = (tmp / "slurm" / ".slurm" / "sweep.sbatch").read_text()
+    tasks = [line for line in script.splitlines() if line.startswith("  ")]
+    assert "sbatch not found" in printed and len(tasks) == 2, f"launcher: {printed[-500:]}"
+    assert all("-m w2v2_speaker_tpu_torch.run" in t and f"/job{i}" in t for i, t in enumerate(tasks)), tasks
+    assert not (tmp / "slurm" / "job0").exists()
+    completions = [captured(twin.main, ["-sc", f"query={word}"])[1].split()
+                   for twin, word in ((run, "network.stat"), (predict, "network="))]
+    assert all(completions), f"-sc: {completions}"
+    print(f"run surface (BASE bf16 B=66 x 48000, 2 steps a run): grid objectives {objectives} (mean, max pooling), "
+          f"{grid_s:.2f} s; search of {SEARCH_TRIALS} trials "
+          f"{asked} with objectives {told} = the sampler replayed, best {sampler.best[1]:.4f}, memory at each "
+          f"trial's start {memory} MiB (from the second on, the probe's hold on the first trial's model), "
+          f"{search_s:.2f} s; SLURM array of {len(tasks)} tasks written (no sbatch); "
+          f"-sc candidates {completions[0][:3]} / {completions[1][:3]}; peak "
+          f"{(torch.cuda.max_memory_allocated() - held) / 2**30:.2f} GiB [{card}]", flush=True)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; this run needs a card")
@@ -2882,8 +3355,13 @@ def main() -> None:
         augment_phase(card, tmp, wav_dir, trials, shards)  # 26
         augmented_base_phase(card, tmp, wav_dir, trials, shards)  # 27
         wav2vec1_phase(card, tmp, wav_dir, trials, shards)  # 28
+        optim_phase(card, tmp, wav_dir, trials, shards)  # 29 (a)-(c)
+        mu_dtype_phase(card)  # 29 (d)
+        lr_find_phase(card, tmp, wav_dir, trials, shards)  # 30
+        tracker_phase(card, tmp, wav_dir, trials, shards)  # 31
+        surface_phase(card, tmp, wav_dir, trials, shards)  # 32
 
-    # 29. kernels line, card line, result line
+    # 33. kernels line, card line, result line
     kernels = []
     for name, source, replaces in KERNELS:
         row = main_rows[name]

@@ -18,11 +18,15 @@ the CPU:
   shards;
 - the VoxCeleb train batches of ``xvector_all_augment_pipeline`` (and of
   the RIRS pipeline) equal to the JAX package's at one pipeline worker;
-  at 4 workers the same count and the same multiset of keys.
+  at 4 workers (both packages) the batch count and distinct keys of one
+  worker, the length-preserving effects' keys as often, and each
+  ``choice_speed`` key's chunk count one that a speed factor allows.
 """
 
 import dataclasses
 import pathlib
+from collections import Counter
+from fractions import Fraction
 
 import numpy as np
 import pytest
@@ -35,6 +39,7 @@ from w2v2_speaker_tpu.runtime import experiment as jexp
 from w2v2_speaker_tpu.utils import native as jnative
 from w2v2_speaker_tpu_torch.data import augment as taug
 from w2v2_speaker_tpu_torch.data import datamodule as tdm
+from w2v2_speaker_tpu_torch.data import io as tio
 from w2v2_speaker_tpu_torch.data.samples import SpeakerSample
 from w2v2_speaker_tpu_torch.data.shards import ShardWriter
 from w2v2_speaker_tpu_torch.runtime import experiment as texp
@@ -268,13 +273,43 @@ def test_augmented_train_batches_equal_jax(tmp_path, pipeline):
     assert all(k.count("/") == 2 for b in torch_dm.val_batches() for k in b["keys"])
 
 
+def _speed_chunk_counts(n: int, factors, chunk: int = SR) -> set:
+    """The whole 1 s chunks that ``speed_perturb`` leaves of ``n`` samples
+    at each factor (its output has ceil(n x up / down) samples)."""
+    fracs = [Fraction(1.0 / f).limit_denominator(100) for f in factors]
+    return {-(-n * fr.numerator // fr.denominator) // chunk for fr in fracs}
+
+
 def test_four_workers_give_the_same_count_and_keys(tmp_path):
+    """At 4 pipeline workers the effects of both packages draw from one
+    shared generator each, in the order the threads reach it, so which
+    utterance gets which ``choice_speed`` factor changes from run to run,
+    and with the factor an utterance's count of whole 1 s chunks. What 4
+    workers guarantee, and both packages give: the same distinct keys
+    (utterance x effect) as the port at 1 worker, every ``choice_speed``
+    key's chunk count one that a speed factor gives for its utterance, the
+    keys of the length-preserving effects exactly as often as at 1 worker,
+    and the batch count that every such total gives."""
     jax_dm, torch_dm = _augmented_modules(tmp_path, "xvector_all_augment_pipeline", workers=4)
-    got, want = _epochs(torch_dm, 1)[0], _epochs(jax_dm, 1)[0]
-    assert len(got) == len(want)
-    assert sorted(k for b in got for k in b["keys"]) == sorted(k for b in want for k in b["keys"])
-    one = _augmented_modules(tmp_path / "one", "xvector_all_augment_pipeline")[1]
-    assert sorted(k for b in _epochs(one, 1)[0] for k in b["keys"]) == sorted(k for b in got for k in b["keys"])
+    four = {"jax": _epochs(jax_dm, 1)[0], "torch": _epochs(torch_dm, 1)[0]}
+    one = _epochs(_augmented_modules(tmp_path / "one", "xvector_all_augment_pipeline")[1], 1)[0]
+    factors = texp.load_recipe("speaker_xvector", ["data/pipeline=xvector_all_augment_pipeline"])[
+        "data"]["pipeline"]["augment"]["speed_choices"]
+    want = Counter(k for b in one for k in b["keys"])
+    allowed = {k: _speed_chunk_counts(tio.load_raw_audio(tmp_path / "wav" / f"{k.rsplit('/', 1)[0]}.wav").shape[-1],
+                                      factors)
+               for k in want if k.endswith("/choice_speed")}
+    assert allowed and all(want[k] in counts for k, counts in allowed.items())
+    totals = [sum(want.values()) + sum(pick(c) - want[k] for k, c in allowed.items()) for pick in (min, max)]
+    batch_size = len(one[0]["keys"])
+    assert {-(-t // batch_size) for t in totals} == {len(one)}  # every possible total fills as many batches
+    for name, batches in four.items():
+        got = Counter(k for b in batches for k in b["keys"])
+        assert len(batches) == len(one), name
+        assert set(got) == set(want), name
+        assert all(got[k] in allowed[k] for k in allowed), (name, {k: got[k] for k in allowed})
+        assert {k: n for k, n in got.items() if k not in allowed} == {
+            k: n for k, n in want.items() if k not in allowed}, name
 
 
 def test_config_carries_the_augmenter_into_the_train_split_only():

@@ -44,7 +44,9 @@ def test_port_imports_no_jax_and_no_jax_package():
     for module in ("run.py", "data/datamodule.py", "data/shards.py", "data/batching.py", "data/chunks.py",
                    "data/extract.py", "data/augment.py", "runtime/logging.py", "runtime/tb_writer.py",
                    "train/checkpoint.py", "models/pooling.py", "models/wav2vec2_paired.py", "train/paired_task.py",
-                   "utils/native.py", "runtime/debug.py", "models/wav2vec1.py"):
+                   "utils/native.py", "runtime/debug.py", "models/wav2vec1.py", "runtime/lr_find.py",
+                   "runtime/progress.py", "runtime/sweeper.py", "runtime/slurm.py", "runtime/completion.py",
+                   "objectives/schedules.py", "train/state.py"):
         assert ROOT / "w2v2_speaker_tpu_torch" / module in files, module
     for path in files:
         for name in _imported_modules(path):

@@ -9,11 +9,14 @@ Limits: per-step losses within 1e-5 (float32, the same math in other
 summation orders: the readings are ~1e-6); validation and test EERs equal
 and their thresholds within 1e-5 (the scores differ by ~1e-7, and no
 pair of scores of this corpus lies that close to a threshold). Also ``fit_model`` / ``eval_model``,
-resume, early stopping, and the knobs that raise."""
+resume, early stopping, the knobs that raise, the knobs, optimizers,
+schedules and callbacks that once raised, and the run surface: ``-m``
+grids, ``+search``, the SLURM launcher and ``-sc``."""
 
 import contextlib
 import importlib.util
 import io
+import json
 import pathlib
 import sys
 
@@ -234,32 +237,51 @@ def test_early_stopping_decisions_match_jax(kwargs, values):
 
 
 @pytest.mark.parametrize("extra, row", [
-    (["-m"], "item 3"), (["--multirun"], "item 3"), (["+search=lr_and_pooling"], "item 3"),
-    (["hydra/launcher=slurm"], "item 3"), (["run_lr_range_test=true"], "item 3"), (["tune_model=true"], "item 3"),
-    (["callbacks=speaker_progress_tracker"], "item 3"), (["optim/schedule=reduce_on_plateau"], "item 3"),
-    (["trainer.deterministic=true"], "item 9"), (["profiler=simple"], "item 9"),
-    (["optim/algo=sgd"], "item 3"), (["trainer.num_devices=2"], "item 8"),
+    (["trainer.deterministic=true"], "item 9"), (["profiler=simple"], "item 9"), (["trainer.num_devices=2"], "item 8"),
 ])
 def test_what_is_not_ported_raises(runs, tmp_path, extra, row):
     corpus, _, _, _, tmp = runs
     argv = overrides(corpus, tmp_path, f"data.module.shards_dir={tmp / 'torch' / 'shards'}", *extra)
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md Queue 1 {row}"):
         trun.main(argv, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 3"):
-        trun.main(["-sc", "install=bash"], device="cpu")
+
+
+def _find(tree, key):
+    """The first value under ``key`` anywhere in a nested dict."""
+    if isinstance(tree, dict):
+        if key in tree:
+            return tree[key]
+        for v in tree.values():
+            found = _find(v, key)
+            if found is not None:
+                return found
+    return None
+
+
+def _last_tx_state(ckpt: pathlib.Path) -> dict:
+    import torch
+
+    return torch.load(ckpt / "last" / "state.pt", map_location="cpu", weights_only=True)["tx"]
 
 
 @pytest.mark.parametrize("extra", [
     ["verify_model=true"], ["+trainer.dump_first_batch=true"],
     ["data.pipeline.augment.enabled=true", "data.pipeline.augment.noise_snr=[5,10]"],
     ["network=wav2vec_fc"], ["network=wav2vec_xvector"],
-], ids=["verify_model", "dump_first_batch", "augment", "wav2vec_fc", "wav2vec_xvector"])
+    ["optim/algo=sgd"], ["optim/schedule=reduce_on_plateau"], ["callbacks=speaker_progress_tracker"],
+    ["run_lr_range_test=true", "tune_iterations=3"], ["tune_model=true", "tune_iterations=3"],
+], ids=["verify_model", "dump_first_batch", "augment", "wav2vec_fc", "wav2vec_xvector", "sgd", "reduce_on_plateau",
+        "progress_tracker", "run_lr_range_test", "tune_model"])
 def test_what_was_not_ported_runs(runs, tmp_path, capsys, extra):
     """The knobs and networks this test once held to raising now run: one
     step, a validation and one test batch, on the fixture's shards. The
     model summary and the leakage probe's verdict are printed; the first
     batch and 4 samples' stages are dumped; the augmented samples carry the
-    effect in their keys; wav2vec v1 trains at its full width."""
+    effect in their keys; wav2vec v1 trains at its full width; SGD keeps
+    its momentum buffers and the plateau schedule its controller in the
+    checkpoint; the tracker snapshots its probe set and logs its
+    separation metrics; the LR range test writes ``data.json`` and returns
+    its suggestion instead of training."""
     corpus, _, _, _, tmp = runs
     argv = overrides(corpus, tmp_path, f"data.module.shards_dir={tmp / 'torch' / 'shards'}",
                      "trainer.max_steps=1", "trainer.val_check_interval=1", "trainer.num_sanity_val_steps=0",
@@ -275,4 +297,67 @@ def test_what_was_not_ported_runs(runs, tmp_path, capsys, extra):
         keys = eval((tmp_path / "first_batch" / "batch_keys.txt").read_text())
         assert len(keys) == 8 and len(list((tmp_path / "first_batch" / "per_sample").iterdir())) == 4
         assert all(k.endswith("/uniform_noise") == extra[0].startswith("data.pipeline") for k in keys)
+    if extra[0].startswith(("run_lr_range_test", "tune_model")):
+        data = json.loads((tmp_path / "auto_lr_find" / "data.json").read_text())
+        assert sorted(data) == ["loss", "lr", "suggestion"] and len(data["lr"]) == len(data["loss"]) == 3
+        assert objective == data["suggestion"] and f"lr suggestion: {objective}" in out
+        assert not (tmp_path / "ckpt").exists()
+        return
     assert '"last": {\n    "step": 1' in (tmp_path / "ckpt" / "index.json").read_text()
+    if extra == ["optim/algo=sgd"]:
+        momentum = _find(_last_tx_state(tmp_path / "ckpt"), "sgd")["state"]
+        assert momentum and all("momentum_buffer" in v for v in momentum.values())
+    if extra == ["optim/schedule=reduce_on_plateau"]:
+        assert _find(_last_tx_state(tmp_path / "ckpt"), "schedule") == {
+            "best": pytest.approx(json.loads((tmp_path / "ckpt" / "index.json").read_text())["best"][0]["metric"]),
+            "bad_count": 0, "factor_value": 1.0}
+    if extra == ["callbacks=speaker_progress_tracker"]:
+        emb = np.load(tmp_path / "progress" / "step_00000001" / "embeddings.npy")
+        assert emb.shape == (10, 48) and np.isfinite(emb).all()
+        assert "track_separation=" in out and "val_eer=" in out
+
+
+@pytest.mark.parametrize("extra", [
+    ["-m", "network.stat_pooling_type=mean,max"], ["--multirun", "seed=3,4", "eval_model=false"],
+    ["-m", "+search=lr_and_pooling", "search.n_trials=2", "search.n_startup_trials=1"],
+    ["-m", "hydra/launcher=slurm", "network.stat_pooling_type=mean,max"],
+], ids=["multirun", "multirun_long_flag", "search", "slurm_launcher"])
+def test_run_surface_runs(runs, tmp_path, capsys, extra):
+    """``-m`` grids (one checkpoint directory per run, the summary, the
+    best objective; None for train-only runs), a 2-trial ``+search`` (a directory per trial that was
+    not pruned, the best printed) and the SLURM launcher (the array script
+    of the grid, nothing trained), on the fixture's shards."""
+    corpus, _, _, _, tmp = runs
+    argv = overrides(corpus, tmp_path, f"data.module.shards_dir={tmp / 'torch' / 'shards'}",
+                     "trainer.max_steps=1", "trainer.val_check_interval=1", "trainer.num_sanity_val_steps=0",
+                     "trainer.limit_test_batches=4", *extra)  # 16 test utterances, 8 of the trials
+    objective = trun.main(argv, device="cpu")
+    out = capsys.readouterr().out
+    if "hydra/launcher=slurm" in extra:
+        script = (tmp_path / "ckpt" / ".slurm" / "sweep.sbatch").read_text()
+        assert objective != objective and "#SBATCH --array=0-1%4" in script
+        assert script.count("-m w2v2_speaker_tpu_torch.run") == 2 and "job1" in script
+        assert not (tmp_path / "ckpt" / "job0").exists()
+        return
+    if "+search=lr_and_pooling" in extra:
+        assert out.count("=== search trial") == 2 and "=== search [lr_and_pooling] best objective" in out
+        trials = sorted(p.name for p in (tmp_path / "ckpt").iterdir())
+        assert trials and set(trials) <= {"trial0", "trial1"}
+        assert 0 <= objective <= 1 and f"objective: {objective}" in out
+        return
+    assert sorted(p.name for p in (tmp_path / "ckpt").iterdir()) == ["job0", "job1"]
+    assert all((tmp_path / "ckpt" / job / "index.json").exists() for job in ("job0", "job1"))
+    assert out.count("=== multirun job") == 2 and "=== multirun summary (sorted by objective)" in out
+    assert out.rstrip().endswith(f"objective: {objective}")
+    if "eval_model=false" in extra:  # train-only runs: no objective, listed as None
+        assert objective is None and out.count("None     [") == 2
+    else:
+        assert 0 <= objective <= 1
+
+
+def test_shell_completion_runs(capsys):
+    """``-sc``: the bash script to eval, and candidates for a prefix."""
+    assert trun.main(["-sc", "install=bash"], device="cpu") is None
+    assert "_w2v2_torch_sc" in capsys.readouterr().out
+    assert trun.main(["-sc", "query=+experiment=speaker_x"], device="cpu") is None
+    assert capsys.readouterr().out.split() == ["+experiment=speaker_xvector"]

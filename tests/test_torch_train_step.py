@@ -271,12 +271,16 @@ def test_unported_modes_and_options_raise():
         ttask.SpeakerTask(model, "hinge")
     base = texp.load_recipe("speaker_wav2vec2_ce")
     texp._check_ported({**base, "network": {**base["network"], "use_transformers_as_ensembles": True}})
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 3"):
-        texp._check_ported({**base, "callbacks": {"progress_tracker": {"every_n_steps": 1}}})
-    for section, key, value in (("algo", "name", "sgd"), ("algo", "mu_dtype", "bfloat16"),
-                                ("algo", "weight_decay", 0.01), ("schedule", "name", "exp_decay")):
+    texp._check_ported({**base, "callbacks": {"progress_tracker": {"every_n_steps": 1}}})  # ported since
+    for section, update, kind in (("algo", {"name": "sgd"}, tstate.SgdTx), ("algo", {"mu_dtype": "bfloat16"}, None),
+                                  ("algo", {"weight_decay": 0.01}, None),
+                                  ("schedule", {"name": "exp_decay", "final_lr": 1e-6}, None)):
+        cfg = {**base, "optim": {**base["optim"], section: {**base["optim"][section], **update}}}
+        assert isinstance(texp.build_optimizer(cfg), kind or tstate.AdamTx)  # ported since
+    for section, key, value in (("algo", "name", "lamb"), ("schedule", "name", "cosine"),
+                                ("algo", "mu_dtype", "bf17")):
         cfg = {**base, "optim": {**base["optim"], section: {**base["optim"][section], key: value}}}
-        with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 3"):
+        with pytest.raises(ValueError):
             texp.build_optimizer(cfg)
 
 

@@ -11,9 +11,29 @@ from typing import Optional, Union
 
 import torch
 
-__all__ = ["resolve_device", "set_float32_precision"]
+__all__ = ["DeviceError", "is_device_failure", "resolve_device", "set_float32_precision"]
 
 DeviceLike = Optional[Union[str, torch.device]]
+
+
+class DeviceError(RuntimeError):
+    """A failure of the card, of its toolchain or of a kernel of the port:
+    no card where one was asked for, ``nvcc`` missing or failing, a kernel
+    launch returning an error."""
+
+
+_CUDA_MESSAGES = ("CUDA error", "CUDA driver error", "CUBLAS_STATUS", "cuDNN error", "CUDNN_STATUS")
+
+
+def is_device_failure(exc: BaseException) -> bool:
+    """True for a ``DeviceError``, a CUDA out-of-memory or accelerator
+    error, and a ``RuntimeError`` carrying a CUDA, cuBLAS or cuDNN error
+    message: the failures that a search must not prune as a bad trial."""
+    accelerator = getattr(torch, "AcceleratorError", None)
+    if isinstance(exc, (DeviceError, torch.cuda.OutOfMemoryError)) or (
+            accelerator is not None and isinstance(exc, accelerator)):
+        return True
+    return isinstance(exc, RuntimeError) and any(m in str(exc) for m in _CUDA_MESSAGES)
 
 
 def set_float32_precision() -> None:
@@ -35,7 +55,7 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda":
         if not torch.cuda.is_available():
-            raise RuntimeError(
+            raise DeviceError(
                 "no CUDA device: the port runs on the card by default; pass "
                 "device='cpu' to run on the CPU"
             )

@@ -10,16 +10,32 @@ each phase one step earlier and would give other rates. ``tri_stage``
 initial_lr to base_lr over ``floor(ratio * max_steps)`` steps, constant,
 then exponential decay to final_lr, index for index with its linspace and
 logspace tables. ``multi_step_decay`` (:115) multiplies the rate by
-``gamma`` at each milestone the step count has reached. The other
-schedules are not ported yet (ROADMAP Queue 1 item 3).
+``gamma`` at each milestone the step count has reached, ``step_decay``
+(:107) every ``step_size`` steps. ``constant`` (:103) is StepLR with gamma
+1, ``exp_decay`` (:127) the tri-stage schedule with stage ratios 0/0/1, and
+``cyclic`` (:131) torch's ``CyclicLR`` in its triangular mode, with
+``step_size_down`` defaulting to ``step_size_up``.
+``ReduceLROnPlateauController`` (:148) is the host-side controller of the
+``reduce_on_plateau`` schedule: the train loop feeds it each validation's
+metric and multiplies the base rate by its factor. ``PlateauSchedule`` is
+the rate that reaches the optimizer under that schedule: the base rate
+times the controller's factor, in float32, as the JAX package injects it
+(``runtime/experiment.py::_scale_injected_lr`` :1030); its state is the
+controller's, so a checkpoint carries it. ``get_schedule`` (:197) builds a
+schedule by name.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Callable, Sequence
+from typing import Callable, Dict, Optional, Sequence
 
-__all__ = ["multi_step_decay", "one_cycle", "tri_stage"]
+import numpy as np
+
+__all__ = [
+    "PlateauSchedule", "ReduceLROnPlateauController", "constant", "cyclic", "exp_decay", "get_schedule", "multi_step_decay", "one_cycle",
+    "step_decay", "tri_stage",
+]
 
 Schedule = Callable[[int], float]
 
@@ -83,3 +99,90 @@ def multi_step_decay(lr: float, milestones: Sequence[int], gamma: float = 0.1) -
         return lr * gamma ** sum(step >= m for m in ms)
 
     return schedule
+
+
+def constant(lr: float) -> Schedule:
+    return lambda step: lr
+
+
+def step_decay(lr: float, step_size: int, gamma: float = 0.1) -> Schedule:
+    """lr x gamma^(step // step_size)."""
+    return lambda step: lr * gamma ** (step // step_size)
+
+
+def exp_decay(max_steps: int, base_lr: float, final_lr: float) -> Schedule:
+    return tri_stage(max_steps, 0.0, 0.0, 1.0, base_lr, base_lr, final_lr)
+
+
+def cyclic(base_lr: float, max_lr: float, step_size_up: int, step_size_down: Optional[int] = None) -> Schedule:
+    """Up from base_lr to max_lr over ``step_size_up`` steps, down over
+    ``step_size_down``, and again."""
+    down = step_size_down if step_size_down is not None else step_size_up
+    period = step_size_up + down
+
+    def schedule(step: int) -> float:
+        pos = step % period
+        frac = pos / step_size_up if pos < step_size_up else (period - pos) / down
+        return base_lr + (max_lr - base_lr) * frac
+
+    return schedule
+
+
+class ReduceLROnPlateauController:
+    """torch's ``ReduceLROnPlateau`` on the host: ``update(metric)`` after
+    each validation returns the factor (``factor`` to the power of the
+    plateaus seen, floored at ``min_factor``) that multiplies the base
+    rate. A plateau is more than ``patience`` validations in a row that do
+    not beat the best. ``state_dict`` / ``load_state_dict`` carry the best
+    metric, the count of validations without improvement and the factor."""
+
+    def __init__(self, factor: float = 0.1, patience: int = 10, mode: str = "min", min_factor: float = 1e-8):
+        self.factor, self.patience, self.mode, self.min_factor = factor, patience, mode, min_factor
+        self.best: Optional[float] = None
+        self.bad_count = 0
+        self.factor_value = 1.0
+
+    def update(self, metric: float) -> float:
+        if self.best is None or (metric < self.best if self.mode == "min" else metric > self.best):
+            self.best, self.bad_count = metric, 0
+        else:
+            self.bad_count += 1
+            if self.bad_count > self.patience:
+                self.factor_value = max(self.factor_value * self.factor, self.min_factor)
+                self.bad_count = 0
+        return self.factor_value
+
+    def state_dict(self) -> Dict:
+        return {"best": self.best, "bad_count": self.bad_count, "factor_value": self.factor_value}
+
+    def load_state_dict(self, state: Dict) -> None:
+        self.best, self.bad_count, self.factor_value = state["best"], state["bad_count"], state["factor_value"]
+
+
+class PlateauSchedule:
+    """``base_lr`` x ``controller.factor_value`` at every step, rounded to
+    float32."""
+
+    def __init__(self, base_lr: float, controller: ReduceLROnPlateauController):
+        self.base_lr, self.controller = base_lr, controller
+
+    def __call__(self, step: int) -> float:
+        return float(np.float32(self.base_lr * self.controller.factor_value))
+
+    def state_dict(self) -> Dict:
+        return self.controller.state_dict()
+
+    def load_state_dict(self, state: Dict) -> None:
+        self.controller.load_state_dict(state)
+
+
+_SCHEDULES = {
+    "one_cycle": one_cycle, "tri_stage": tri_stage, "constant": constant, "step": step_decay,
+    "multi_step": multi_step_decay, "exp_decay": exp_decay, "cyclic": cyclic,
+}
+
+
+def get_schedule(name: str, **kwargs) -> Schedule:
+    if name not in _SCHEDULES:
+        raise ValueError(f"unknown schedule '{name}', available: {sorted(_SCHEDULES)}")
+    return _SCHEDULES[name](**kwargs)

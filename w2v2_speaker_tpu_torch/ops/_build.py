@@ -21,6 +21,8 @@ from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Dict, Sequence
 
+from ..device import DeviceError
+
 __all__ = ["BUILD_DIR", "CSRC_DIR", "build", "build_all", "compile_library", "load"]
 
 CSRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
@@ -44,7 +46,7 @@ def _nvcc() -> str:
     found = shutil.which("nvcc")
     if found:
         return found
-    raise RuntimeError(
+    raise DeviceError(
         "nvcc not found (set CUDA_HOME): the port's CUDA kernels are built "
         "from csrc/ at first use"
     )
@@ -67,7 +69,7 @@ def compile_library(src: Path, out: Path) -> str:
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
     )
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {src}:\n{proc.stdout}")
+        raise DeviceError(f"nvcc failed for {src}:\n{proc.stdout}")
     os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
     return proc.stdout
 

@@ -34,6 +34,7 @@ from typing import Optional, Tuple
 import torch
 
 from . import _build
+from ..device import DeviceError
 
 __all__ = [
     "StridedConvFusedFunction",
@@ -186,7 +187,7 @@ def strided_conv_fused(
         )
     if err != 0:
         msg = _build.load("conv_encoder").conv_encoder_error(err).decode()
-        raise RuntimeError(f"conv_encoder launch failed: {msg} ({err})")
+        raise DeviceError(f"conv_encoder launch failed: {msg} ({err})")
     strided_conv_fused.launches += 1
     return out
 

@@ -55,6 +55,7 @@ from typing import Optional, Tuple
 import torch
 
 from . import _build
+from ..device import DeviceError
 
 __all__ = [
     "FlashAttentionFunction",
@@ -493,7 +494,7 @@ def _bwd_kernels():
 def _raise_on(err: int, name: str) -> None:
     if err != 0:
         msg = getattr(_build.load(name), f"{name}_error")(err).decode()
-        raise RuntimeError(f"{name} launch failed: {msg} ({err})")
+        raise DeviceError(f"{name} launch failed: {msg} ({err})")
 
 
 def _on_card(q: torch.Tensor, what: str) -> bool:

@@ -9,8 +9,10 @@ runs on the CPU.
 
 ``load_network_from_checkpoint`` takes a torch ``state_dict`` of the port's
 model or an ``.npz`` exported from a JAX-package checkpoint with
-``tools/export_jax_params.py``. Shell completion (``-sc``) and the
-compilation cache are not ported (ROADMAP.md Queue 1 items 3 and 9).
+``tools/export_jax_params.py``. ``-sc install=bash`` / ``-sc
+query=<word>`` answer shell completion over ``config/predict.yaml``
+(``runtime/completion.py``). There is no compilation cache to enable
+(ROADMAP.md Queue 1 item 9).
 """
 
 from __future__ import annotations
@@ -27,12 +29,16 @@ from .runtime.predict import run_predictions
 __all__ = ["main"]
 
 
-def main(argv: Optional[Sequence[str]] = None, device: DeviceLike = None) -> pathlib.Path:
+def main(argv: Optional[Sequence[str]] = None, device: DeviceLike = None) -> Optional[pathlib.Path]:
     """Compose ``config/predict.yaml`` with ``argv`` (default: the command
-    line) and run ``run_predictions``; returns the score file's path."""
+    line) and run ``run_predictions``; returns the score file's path (None
+    for ``-sc``)."""
     overrides = list(sys.argv[1:] if argv is None else argv)
     if overrides[:1] == ["-sc"]:
-        raise NotImplementedError("shell completion (-sc) is not ported yet: ROADMAP.md Queue 1 item 3")
+        from .runtime.completion import handle_shell_completion
+
+        handle_shell_completion(CONFIG_DIR, overrides[1:], entry="predict", module="w2v2_speaker_tpu_torch.predict")
+        return None
     cfg = load_config(CONFIG_DIR, "predict", overrides)
     return run_predictions(cfg, device)
 

@@ -10,9 +10,11 @@ network (:513-522), the ``wav2vec2_multitask`` network (:524-574) and the
 ``ecapa_tdnn``, ``wav2spk`` and ``dummy`` networks (:393-476; the first
 two behind the fbank frontend, all four computing in float32 whatever
 ``trainer.precision`` says, as the JAX package builds them without a
-dtype), and ``build_optimizer`` (:616) for Adam under the one-cycle,
-tri-stage or multi-step schedule (``_normalize_schedule_cfg`` :596 folds
-the reference's nested schedule keys), global-norm clipping and the backbone freeze schedules,
+dtype), and ``build_optimizer`` (:616) for Adam (AdamW with a weight
+decay, the first moment in ``mu_dtype``) or SGD with momentum under every
+schedule of ``config/optim/schedule/`` (``_normalize_schedule_cfg`` :596
+folds the reference's nested schedule keys), global-norm clipping and the
+backbone freeze schedules,
 and ``build_evaluator`` (:289) for the five evaluators of
 ``config/evaluator/``, read from the same keys of the merged Hydra config
 (``optim.algo``, ``optim.schedule``, ``optim.loss``, ``trainer``,
@@ -43,6 +45,14 @@ first test split (``_run_multitask`` :1949, which checkpoints on
 ``val_eer``, as the JAX package's ``_train_loop`` :1129 does for every kind
 but speech). It runs on the card unless called with ``device="cpu"``.
 What is not ported raises ``NotImplementedError`` naming its ROADMAP row.
+``run_lr_range_test`` / ``tune_model`` run the LR range test of
+``runtime/lr_find.py`` instead of training and return its suggestion
+(:950-970). Under ``reduce_on_plateau`` the loop feeds each validation's
+``val_eer`` (``val_wer`` for speech) to the schedule's controller and
+prints ``plateau: effective lr -> ...`` when the factor moves (:1281-1300);
+the sanity validation never moves it. ``callbacks.progress_tracker``
+snapshots a probe set's embeddings at each validation of every
+speaker-family network (``runtime/progress.py``, :1480-1500).
 The debug surface of ``runtime/debug.py``: ``trainer.dump_first_batch``
 dumps the first collated training batch under ``first_batch`` beside the
 checkpoint directory and installs a ``PipelineDebugCapture`` in the data
@@ -71,7 +81,12 @@ package (``_train_loop`` :1287, whose resumed run retrains the epoch it
 was saved in) is carried over unchanged. The triplet losses read
 ``optim.loss.margin``, ``c_ce`` and ``c_triplet``, which the JAX package's
 ``build_model_and_task`` (:459) leaves at the task's defaults whatever the
-config says (the shipped values are those defaults).
+config says (the shipped values are those defaults). The checkpoints of
+a ``reduce_on_plateau`` run carry the controller's state (best metric,
+validations without improvement, factor), updated before the save, so a
+resumed run goes on at the same rate; the JAX package's controller starts
+afresh on resume and resets the injected rate to the base rate at its
+first validation.
 """
 
 from __future__ import annotations
@@ -118,7 +133,7 @@ from ..train.multitask_task import MultitaskTask
 from ..train.paired_task import PairedSpeakerTask, paired_scores_to_metrics
 from ..train.speaker_task import SpeakerTask
 from ..train.speech_task import SpeechTask
-from ..train.state import AdamTx, ClipTx, TrainState, make_freeze_schedule_tx
+from ..train.state import AdamTx, ClipTx, SgdTx, TrainState, find_schedule, make_freeze_schedule_tx
 from ..train.steps import make_train_step
 from .config import load_config
 from .debug import PipelineDebugCapture, batch_gradient_verification, dump_first_batch, model_summary
@@ -130,8 +145,6 @@ __all__ = [
     "paired_model_config", "run_train_eval", "speaker_model_config", "speech_model_config", "w2v2_config",
 ]
 
-_OPTIM_ROW = "ROADMAP.md Queue 1 item 3 (optimizers and schedules)"
-_RUNTIME_ROW = "ROADMAP.md Queue 1 item 3 (speaker-recipe runtime, the rest)"
 CONFIG_DIR = pathlib.Path(__file__).resolve().parents[2] / "config"
 
 TINY_W2V2 = Wav2Vec2Config(  # network.wav2vec2_size=tiny (:82), for debug runs
@@ -386,37 +399,59 @@ def _normalize_schedule_cfg(sched_cfg: Dict) -> Dict:
     return out
 
 
+def _schedule(sched_cfg: Dict, lr: float, max_steps: int):
+    """The learning-rate schedule of ``optim.schedule`` (:620-668); the
+    ``cyclic`` branch takes an absolute ``base_lr`` / ``max_lr``, or
+    ``max_lr_factor`` x the base, and ``reduce_on_plateau`` holds the base
+    rate times its controller's factor."""
+    name = sched_cfg["name"]
+    if name == "one_cycle":
+        return schedules.one_cycle(max_lr=lr, total_steps=max_steps, pct_start=sched_cfg["pct_start"],
+                                   div_factor=sched_cfg["div_factor"], final_div_factor=sched_cfg["final_div_factor"])
+    if name == "tri_stage":
+        return schedules.tri_stage(max_steps, sched_cfg["warmup_stage_ratio"], sched_cfg["constant_stage_ratio"],
+                                   sched_cfg["decay_stage_ratio"], sched_cfg["initial_lr"], lr, sched_cfg["final_lr"])
+    if name == "constant":
+        return schedules.constant(lr)
+    if name == "exp_decay":
+        return schedules.exp_decay(max_steps, lr, sched_cfg["final_lr"])
+    if name == "cyclic":
+        base = sched_cfg.get("base_lr", lr)
+        max_lr = sched_cfg.get("max_lr") or base * sched_cfg["max_lr_factor"]
+        return schedules.cyclic(base, max_lr, sched_cfg["step_size_up"], sched_cfg.get("step_size_down"))
+    if name == "multi_step":
+        return schedules.multi_step_decay(lr, sched_cfg["milestones"], sched_cfg["gamma"])
+    if name == "reduce_on_plateau":
+        return schedules.PlateauSchedule(lr, schedules.ReduceLROnPlateauController(
+            factor=sched_cfg.get("factor", 0.1), patience=sched_cfg.get("patience", 10)))
+    raise ValueError(f"unknown schedule {name}")
+
+
+def _mu_dtype(name) -> Optional[torch.dtype]:
+    """``optim.algo.mu_dtype``: null, or a dtype name (``bfloat16``)."""
+    if not name:
+        return None
+    dtype = getattr(torch, str(name), None)
+    if not isinstance(dtype, torch.dtype) or not dtype.is_floating_point:
+        raise ValueError(f"optim.algo.mu_dtype must name a floating dtype, got {name!r}")
+    return dtype
+
+
 def build_optimizer(cfg: Dict):
-    """The update transform of a merged config: Adam under one-cycle,
-    tri-stage or multi-step, optional global-norm clipping, then the freeze
+    """The update transform of a merged config (:616): Adam (AdamW with
+    ``weight_decay``, the first moment in ``mu_dtype``) or SGD with
+    momentum (and weight decay added to the gradient) under the schedule
+    of ``optim.schedule``, optional global-norm clipping, then the freeze
     schedules, composed in the order of the JAX ``build_optimizer``."""
     algo = cfg["optim"]["algo"]
-    sched_cfg = _normalize_schedule_cfg(cfg["optim"]["schedule"])
-    if algo["name"] != "adam":
-        raise NotImplementedError(f"optimizer {algo['name']!r} is not ported yet: {_OPTIM_ROW}")
-    if algo.get("weight_decay"):
-        raise NotImplementedError(f"adam weight_decay (adamw) is not ported yet: {_OPTIM_ROW}")
-    if algo.get("mu_dtype"):
-        raise NotImplementedError(f"adam mu_dtype is not ported yet: {_OPTIM_ROW}")
-    max_steps = cfg["trainer"]["max_steps"]
-    if sched_cfg["name"] == "one_cycle":
-        sched = schedules.one_cycle(
-            max_lr=algo["lr"],
-            total_steps=max_steps,
-            pct_start=sched_cfg["pct_start"],
-            div_factor=sched_cfg["div_factor"],
-            final_div_factor=sched_cfg["final_div_factor"],
-        )
-    elif sched_cfg["name"] == "tri_stage":
-        sched = schedules.tri_stage(
-            max_steps, sched_cfg["warmup_stage_ratio"], sched_cfg["constant_stage_ratio"],
-            sched_cfg["decay_stage_ratio"], sched_cfg["initial_lr"], algo["lr"], sched_cfg["final_lr"],
-        )
-    elif sched_cfg["name"] == "multi_step":
-        sched = schedules.multi_step_decay(algo["lr"], sched_cfg["milestones"], sched_cfg["gamma"])
+    sched = _schedule(_normalize_schedule_cfg(cfg["optim"]["schedule"]), algo["lr"], cfg["trainer"]["max_steps"])
+    if algo["name"] == "adam":
+        tx = AdamTx(sched, b1=algo["b1"], b2=algo["b2"], weight_decay=algo.get("weight_decay") or 0.0,
+                    mu_dtype=_mu_dtype(algo.get("mu_dtype")))
+    elif algo["name"] == "sgd":
+        tx = SgdTx(sched, momentum=algo.get("momentum"), weight_decay=algo.get("weight_decay") or 0.0)
     else:
-        raise NotImplementedError(f"schedule {sched_cfg['name']!r} is not ported yet: {_OPTIM_ROW}")
-    tx = AdamTx(sched, b1=algo["b1"], b2=algo["b2"])
+        raise ValueError(f"unknown optimizer {algo['name']}")
     clip_val = float(cfg["trainer"].get("gradient_clip_val") or 0)
     if clip_val > 0:
         tx = ClipTx(tx, clip_val)
@@ -635,7 +670,7 @@ def _apply_fast_dev_run(cfg: Dict) -> None:
 def _check_ported(cfg: Dict) -> None:
     """Raise, before any data is read, for the knobs of ``run.py`` that this
     runtime does not take yet."""
-    t, net = cfg["trainer"], cfg["network"]
+    t = cfg["trainer"]
     det = t.get("deterministic", False)
     if not isinstance(det, bool):
         raise ValueError(f"trainer.deterministic must be a bool, got {det!r}")
@@ -645,10 +680,6 @@ def _check_ported(cfg: Dict) -> None:
             "for each TPU-era knob)")
     if (cfg.get("profiler") or {}).get("name") == "jax_trace":
         raise NotImplementedError("profiler=jax_trace (a trace window) is not ported yet: ROADMAP.md Queue 1 item 9")
-    if cfg.get("run_lr_range_test") or cfg.get("tune_model"):
-        raise NotImplementedError(f"run_lr_range_test / tune_model are not ported yet: {_RUNTIME_ROW}")
-    if (cfg.get("callbacks") or {}).get("progress_tracker") and net.get("name") == "wav2vec2_fc":
-        raise NotImplementedError(f"callbacks.progress_tracker is not ported yet: {_RUNTIME_ROW}")
     nd = t.get("num_devices", "all")
     if nd != "all" and int(nd) != 1:
         raise NotImplementedError(f"trainer.num_devices={nd}: data parallelism is ROADMAP.md Queue 1 item 8")
@@ -696,9 +727,28 @@ def run_train_eval(cfg: Dict, device: DeviceLike = None) -> Optional[float]:
                                           tokenizer=dm.tokenizer if speech else None)
     task.model.to_empty(device=dev)
     init_parameters(task.model, torch.Generator(device=dev).manual_seed(seed))
+    if cfg.get("run_lr_range_test") or cfg.get("tune_model"):
+        return _lr_range_test(cfg, dm, task, logger, dev)
     run = {"paired": _run_paired, "speaker": _run_speaker, "speech": _run_speech,
            "multitask": _run_multitask}[kind]
     return run(cfg, dm, task, logger, dev)
+
+
+def _lr_range_test(cfg: Dict, dm, task, logger, device: torch.device) -> float:
+    """``run_lr_range_test`` / ``tune_model`` (:950-970): the LR range test
+    of ``runtime/lr_find.py`` over ``tune_iterations`` (100 by default)
+    training batches from the initial weights, its ``data.json`` (and
+    plot) in ``<checkpoint_dir>/../auto_lr_find``; returns the suggested
+    rate instead of training. The example batch is drawn first where its
+    draw moves state, as ``_example_batch`` says."""
+    from .lr_find import lr_range_test
+
+    _example_batch(cfg, dm)
+    result = lr_range_test(task, dm.train_batches(), device, num_steps=int(cfg.get("tune_iterations") or 100),
+                           output_dir=pathlib.Path(cfg["trainer"]["checkpoint_dir"]).parent / "auto_lr_find")
+    print(f"lr suggestion: {result['suggestion']}")
+    logger.close()
+    return result["suggestion"]
 
 
 def graft_pretrained(model, net: Dict) -> None:
@@ -846,6 +896,11 @@ def _train_loop(cfg, task, state: TrainState, logger, train_iter_fn, validate_fn
         except FileNotFoundError:
             print("resume requested but no 'last' checkpoint; starting fresh")
 
+    # reduce_on_plateau: the schedule holds base_lr x the controller's
+    # factor, and the controller's state is checkpointed with the optimizer
+    plateau = find_schedule(state.tx)
+    plateau = plateau if isinstance(plateau, schedules.PlateauSchedule) else None
+
     early_stop = None
     es_cfg = (cfg.get("callbacks") or {}).get("early_stopping")
     if es_cfg:
@@ -924,6 +979,11 @@ def _train_loop(cfg, task, state: TrainState, logger, train_iter_fn, validate_fn
         t0 = time.perf_counter()
         val_metrics = validate_fn(state)
         logger.log_eval(step, {**val_metrics, "val_seconds": time.perf_counter() - t0})
+        if plateau is not None:  # before the save, so that "last" resumes with this validation's factor
+            before = plateau.controller.factor_value
+            factor = plateau.controller.update(float(val_metrics.get("val_eer", val_metrics.get("val_wer", 1.0))))
+            if factor != before:
+                print(f"plateau: effective lr -> {plateau.base_lr * factor:.6g} (factor {factor:g})")
         if not fast_dev:
             ckpt.save_step(state, val_metrics, epoch=epoch)
         if early_stop is not None:
@@ -1044,6 +1104,7 @@ def _run_speaker(cfg, dm: VoxCelebDataModule, task: SpeakerTask, logger, device)
     model = task.model
     val_pairs = dm.val_evaluation_pairs()
     limit_val = cfg["trainer"].get("limit_val_batches")
+    tracker = _progress_tracker(cfg, dm)
 
     # a rolling buffer of training embeddings for the evaluator's centering,
     # filled from the train step's own forward
@@ -1070,8 +1131,12 @@ def _run_speaker(cfg, dm: VoxCelebDataModule, task: SpeakerTask, logger, device)
         return embs[:max_samples], labels[:max_samples]
 
     def validate(state, max_batches=None):
+        track = {}  # the probe set's snapshot at real validations, not the sanity one
+        if tracker is not None and max_batches is None:
+            track = tracker.snapshot(int(state.step), lambda f, m: _embed_batch(
+                model, {"features": f, "mask": m}, device))
         if not val_pairs:
-            return {"val_eer": 1.0}
+            return {**track, "val_eer": 1.0}
         lim = max_batches if max_batches is not None else limit_val
         samples: List[EmbeddingSample] = []
         for i, batch in enumerate(dm.val_batches()):
@@ -1082,7 +1147,7 @@ def _run_speaker(cfg, dm: VoxCelebDataModule, task: SpeakerTask, logger, device)
         seen = {s.sample_id for s in samples}
         usable = [p for p in val_pairs if p.sample1_id in seen and p.sample2_id in seen]
         if not usable:
-            return {"val_eer": 1.0}
+            return {**track, "val_eer": 1.0}
         evaluator.reset_parameters()
         if max_tr:
             if emb_buffer:
@@ -1091,7 +1156,7 @@ def _run_speaker(cfg, dm: VoxCelebDataModule, task: SpeakerTask, logger, device)
             else:
                 evaluator.fit_parameters(*collect_train_embeddings(max_tr))
         res = evaluator.evaluate(usable, samples)
-        return {"val_eer": res["eer"], "val_mdc": res["mdc"]}
+        return {**track, "val_eer": res["eer"], "val_mdc": res["mdc"]}
 
     def make_batch_processor(epoch):
         """Triplet modes need two samples of every speaker in a batch, so
@@ -1147,6 +1212,29 @@ def _run_speaker(cfg, dm: VoxCelebDataModule, task: SpeakerTask, logger, device)
                                       "test_seconds": time.perf_counter() - t0}, split="test")
     logger.close()
     return float(res["eer"])
+
+
+def _progress_tracker(cfg: Dict, dm: VoxCelebDataModule):
+    """The ``ProgressTracker`` of ``callbacks.progress_tracker`` (:1480-1500)
+    with its probe set picked from ``dm.train_batches()``, its snapshots
+    under ``<checkpoint_dir>/../progress``; None without the callback, in
+    an eval-only run, or when no tracked speaker's sample turns up."""
+    pt_cfg = (cfg.get("callbacks") or {}).get("progress_tracker")
+    if pt_cfg and not cfg.get("fit_model", True):
+        print("progress tracker: fit_model=false, skipping")
+        return None
+    if not pt_cfg:
+        return None
+    from .progress import ProgressTracker
+
+    tracker = ProgressTracker(
+        out_dir=pathlib.Path(str(cfg["trainer"]["checkpoint_dir"])).parent / "progress",
+        num_speakers=int(pt_cfg.get("num_tracked_speakers", 5)), per_speaker=int(pt_cfg.get("per_speaker", 2)),
+        heatmap=bool(pt_cfg.get("heatmap", True)), max_scan_batches=int(pt_cfg.get("max_scan_batches", 100)))
+    if not tracker.select_samples(dm.train_batches()):
+        print("progress tracker: no tracked-speaker samples; disabled")
+        return None
+    return tracker
 
 
 def _warn_unsupported_progress_tracker(cfg, family: str) -> None:
