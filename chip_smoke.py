@@ -43,9 +43,11 @@ the run by raising:
    padding invariance of bucketed serving;
 10. LARGE training main path: ``large_train_entry()`` (the
    ``speaker_wav2vec2_large_aam`` recipe with the fused conv, B=48 x 48 000,
-   bf16 autocast): warm-up, 12 timed steps, 6 conv launches and kept-layer
-   attention launches per step, the AAM accuracy metric, peak memory and
-   the device profile;
+   bf16 autocast, the recipe's ``trainer.remat``, each kept layer recomputed
+   whole under any ``remat_policy``):
+   warm-up, 12 timed steps, 6 conv launches and kept-layer attention
+   launches per step (the forward twice: the layers are recomputed in the
+   backward), the AAM accuracy metric, peak memory and the device profile;
 11. a float32 LARGE-width step (2 layers, the conv stack whole), card
    against CPU, dropout on: loss and gradients agree;
 12. predict end to end: ``w2v2_speaker_tpu_torch.predict.main`` (the
@@ -237,9 +239,31 @@ the run by raising:
    written without ``sbatch``, its tasks running ``-m
    w2v2_speaker_tpu_torch.run`` in ``job<i>`` directories) and ``-sc`` of
    both twins;
-33. one JSON line with every kernel's numbers (the attention kernels and
+33. the int8 kernels (``csrc/int8_matmul.cu``: the row quantize and the
+   GEMM with its rescale epilogue) against their plain versions, bit for
+   bit, at LARGE's five dense sites with M from phase 12's longest bucket
+   batch, at BASE's at B=48 x 3 s and at a ragged M, N, K, each with
+   kernel, plain, bound and library (``torch._int_mm`` + the rescale) ms;
+34. int8 serving end to end: ``predict.main`` with ``network.int8_matmuls=true``
+   on phase 12's files at full LARGE width on the fused conv (scores within
+   0.02 of phase 12's bf16 ones, 97 GEMMs, 194 quantizes, 24 attention
+   forwards and 6 convs per bucket batch, warm utt/s beside phase 12's);
+   BASE with ``auto`` on buckets on both sides of the threshold (the
+   routing line as ``int8_auto_policy`` says); BASE full precision against
+   int8 at 3, 6 and 12 s (the card's crossover); ``run.main`` eval-only
+   with int8 from phase 13's best checkpoint;
+35. the knobs: ``trainer.deterministic=true`` on the BASE CE recipe, 4
+   steps twice in fresh processes (losses and parameters bit-equal,
+   ms/step beside a run without it and phase 13's), every other recipe one
+   step under it (the CTC ones refused by name); ``profiler=simple`` over
+   12 steps (its window's steps and the attention kernels in the trace, no
+   sanity validation); ``trainer.remat`` on the LARGE AAM step under each
+   policy, all three full recompute (loss, gradients, generator bit-equal
+   to no remat; peak memory and ms/step);
+36. one JSON line with every kernel's numbers (the attention kernels and
    the conv at the LARGE training shapes, launches of the LARGE training
-   run), the card line, then the result line.
+   run; the int8 kernels over LARGE's five sites, launches of phase 34's
+   LARGE int8 predict run), the card line, then the result line.
 
 Exits non-zero, printing no result, without a CUDA device or outside a
 checkout of the repository.
@@ -285,6 +309,7 @@ from w2v2_speaker_tpu_torch.objectives.schedules import multi_step_decay
 from w2v2_speaker_tpu_torch.ops import _build
 from w2v2_speaker_tpu_torch.ops import conv_encoder as ce
 from w2v2_speaker_tpu_torch.ops import flash_attention as fa
+from w2v2_speaker_tpu_torch.ops import quant
 from w2v2_speaker_tpu_torch.eval.evaluator import CosineDistanceEvaluator, EmbeddingSample
 from w2v2_speaker_tpu_torch.runtime.config import load_config
 from w2v2_speaker_tpu_torch.runtime.experiment import (
@@ -303,12 +328,14 @@ PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 PEAK_BYTES = 3.35e12
 H, D = 12, 64  # wav2vec2-BASE attention
 H_LARGE, LARGE_BATCH = 16, 48  # wav2vec2-LARGE attention; the LARGE recipe's batch
-KERNEL_SOURCES = ("flash_attention_fwd", "flash_attention_bwd", "conv_encoder")
+KERNEL_SOURCES = ("flash_attention_fwd", "flash_attention_bwd", "conv_encoder", "int8_matmul")
 KERNELS = (  # (name in the kernels line, source, the TPU kernel it replaces)
     ("flash_attention_fwd", "flash_attention_fwd", "w2v2_speaker_tpu/ops/flash_attention.py:204"),
     ("flash_attention_bwd_dq", "flash_attention_bwd", "w2v2_speaker_tpu/ops/flash_attention.py:381"),
     ("flash_attention_bwd_dkv", "flash_attention_bwd", "w2v2_speaker_tpu/ops/flash_attention.py:465"),
     ("conv_encoder", "conv_encoder", "w2v2_speaker_tpu/ops/conv_encoder.py:120"),
+    ("int8_quantize", "int8_matmul", "w2v2_speaker_tpu/ops/quant.py:83 (XLA, not Pallas)"),
+    ("int8_gemm", "int8_matmul", "w2v2_speaker_tpu/ops/quant.py:83 (XLA, not Pallas)"),
 )
 ATTENTION = KERNELS[0][0], KERNELS[1][0], KERNELS[2][0]
 # the fused conv vs its plain version: ce.kernel_tolerance (f32: the JAX
@@ -327,6 +354,8 @@ ATTN_SHAPES = [  # (name, B, T, lengths)
 RATES = (0.0, 0.1)
 DROPOUT_SEED = -123456789
 LSE_RTOL, LSE_ATOL = 2e-4, 2e-5
+ROOT = pathlib.Path(__file__).resolve().parent
+MEASURED = {}  # numbers a later phase prints beside its own
 UTTERANCE_S = [3.2, 4.0, 4.7, 6.1, 7.8, 8.4, 11.9, 15.3, 19.8, 26.5, 38.0, 64.0]
 # bucketed vs unpadded batch-1 embeddings in bf16 (other batch shapes take
 # other GEMM and conv tilings, so bf16 roundings differ through 12 layers):
@@ -853,6 +882,17 @@ def launches() -> dict:
     }
 
 
+def int8_launches() -> dict:
+    """The int8 kernels' counts (apart from ``launches()``, whose dict the
+    earlier phases compare whole)."""
+    return {"int8_quantize": quant.quantize_rows.launches, "int8_gemm": quant.int8_gemm.launches}
+
+
+def reset_int8_launches() -> None:
+    quant.quantize_rows.launches = 0
+    quant.int8_gemm.launches = 0
+
+
 def build_phase() -> None:
     t0 = time.perf_counter()
     reports = _build.build_all(KERNEL_SOURCES)
@@ -960,9 +1000,12 @@ def train_phase(card: str, make_entry=train_entry, label: str = "train",
                 conv_per_step: int = 0) -> dict:
     """Phases 6 and 10: warm-up, then ``TRAIN_DISPATCHES`` timed dispatches
     of ``make_entry()``'s step; each attention kernel launched once per kept
-    layer and the conv kernel ``conv_per_step`` times in every step.
-    Returns each kernel's launches over the timed steps."""
+    layer (the forward twice where the recipe rematerialises its layers:
+    the LARGE recipe's ``trainer.remat``) and the conv kernel
+    ``conv_per_step`` times in every step. Returns each kernel's launches
+    over the timed steps."""
     step, (state, batch) = make_entry()
+    fwd_per_layer = 2 if state.model.wav2vec2.encoder.remat else 1
     b = batch["labels"].shape[1]
     steps = batch["labels"].shape[0]
     state, metrics = step(state, batch)  # warm-up dispatch
@@ -989,7 +1032,8 @@ def train_phase(card: str, make_entry=train_entry, label: str = "train",
     per_step = [{k: n - (counts[i - 1][k] if i else 0) for k, n in c.items()}
                 for i, c in enumerate(counts)]
     for run, got in zip(kept, per_step, strict=True):
-        want = {**{k: run for k in ATTENTION}, "conv_encoder": conv_per_step}
+        want = {**{k: run for k in ATTENTION}, "flash_attention_fwd": fwd_per_layer * run,
+                "conv_encoder": conv_per_step}
         assert got == want, f"{label}: a step kept {run} layers, launched {got}"
     n_steps = TRAIN_DISPATCHES * steps
     ms = start.elapsed_time(stop) / n_steps
@@ -1006,7 +1050,8 @@ def train_phase(card: str, make_entry=train_entry, label: str = "train",
     step(state, batch)
     torch.cuda.synchronize()
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
-    print(f"{label} main_path B={b} x {SAMPLES} bf16 autocast: {ms:.3f} ms/step, "
+    remat = "on (full recompute)" if fwd_per_layer == 2 else "off"
+    print(f"{label} main_path B={b} x {SAMPLES} bf16 autocast, remat {remat}: {ms:.3f} ms/step, "
           f"{b / ms * 1e3:.1f} utt/s, peak {peak_gib:.2f} GiB, loss {losses[0]:.4f} -> "
           f"{losses[-1]:.4f}, accuracy {accuracy.tolist()}, max param change {moved} [{card}]",
           flush=True)
@@ -1246,86 +1291,88 @@ def check_path_kernels(model, rec) -> str:
     return "; ".join(report)
 
 
-def predict_phase(card: str) -> None:
-    """Phase 12: ``predict.main`` end to end at full LARGE width."""
+def predict_phase(card: str, root: pathlib.Path) -> dict:
+    """Phase 12: ``predict.main`` end to end at full LARGE width, its files
+    under ``root / "predict"``; returns what phase 34 serves again: the
+    overrides, the files, the bf16 scores and the warm utt/s."""
     rng = np.random.default_rng(12)
-    with tempfile.TemporaryDirectory() as tmp:
-        tmp = pathlib.Path(tmp)
-        folder = tmp / "wav"
-        seconds = np.round(rng.uniform(2.0, 30.0, PREDICT_FILES), 2)
-        files = write_predict_folder(folder, seconds, PREDICT_SPEAKERS, rng)
-        by_speaker = {}
-        for rel in files:
-            by_speaker.setdefault(rel.split("/")[0], []).append(rel.removesuffix(".wav"))
-        trials = generate_validation_pairs(by_speaker, PREDICT_TRIALS, seed=12)
-        pair_file = tmp / "trials.txt"
-        save_evaluation_pairs(trials, pair_file)
-        weights = tmp / "large_aam.pt"
-        torch.save(build_model(torch.device("cuda"), torch.float32, seed=12, size="large",
-                               conv_impl="fused_pallas", use_aam=True).state_dict(), weights)
-        overrides = [
-            "network=wav2vec2_fc", "network.wav2vec2_size=large", "network.conv_impl=fused_pallas",
-            "optim/loss=aam_softmax", "trainer.precision=bf16", f"load_network_from_checkpoint={weights}",
-            f"data.dataloader.test_pad_to_multiple={PREDICT_PAD}",
-            f"data.dataloader.test_batch_size={PREDICT_BATCH}",
-            f"predict_folder_path={folder}", f"pair_prediction_path={pair_file}",
-        ]
-        reset_launches()
-        t0 = time.perf_counter()
-        score_file = predict.main(overrides)
+    tmp = root / "predict"
+    tmp.mkdir()
+    folder = tmp / "wav"
+    seconds = np.round(rng.uniform(2.0, 30.0, PREDICT_FILES), 2)
+    files = write_predict_folder(folder, seconds, PREDICT_SPEAKERS, rng)
+    by_speaker = {}
+    for rel in files:
+        by_speaker.setdefault(rel.split("/")[0], []).append(rel.removesuffix(".wav"))
+    trials = generate_validation_pairs(by_speaker, PREDICT_TRIALS, seed=12)
+    pair_file = tmp / "trials.txt"
+    save_evaluation_pairs(trials, pair_file)
+    weights = tmp / "large_aam.pt"
+    torch.save(build_model(torch.device("cuda"), torch.float32, seed=12, size="large",
+                           conv_impl="fused_pallas", use_aam=True).state_dict(), weights)
+    overrides = [
+        "network=wav2vec2_fc", "network.wav2vec2_size=large", "network.conv_impl=fused_pallas",
+        "optim/loss=aam_softmax", "trainer.precision=bf16", f"load_network_from_checkpoint={weights}",
+        f"data.dataloader.test_pad_to_multiple={PREDICT_PAD}",
+        f"data.dataloader.test_batch_size={PREDICT_BATCH}",
+        f"predict_folder_path={folder}", f"pair_prediction_path={pair_file}",
+    ]
+    reset_launches()
+    t0 = time.perf_counter()
+    score_file = predict.main(overrides)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    got = launches()
+    batches = -(-len(files) // PREDICT_BATCH)
+    assert got == {"flash_attention_fwd": 24 * batches, "flash_attention_bwd_dq": 0,
+                   "flash_attention_bwd_dkv": 0, "conv_encoder": 6 * batches}, f"predict launched {got}"
+    scores, pairs = read_scores(score_file)
+    assert len(pairs) == len(trials) and np.all(np.isfinite(scores)), "predict: score lines"
+    assert np.all((scores >= 0) & (scores <= 1)), f"predict: scores outside [0, 1]: {scores}"
+
+    # the same files through extract_embeddings and the cosine evaluator, called directly
+    cfg = load_config(predict.CONFIG_DIR, "predict", overrides)
+    model = build_predict_model(cfg)
+    samples = [SpeakerSample(rel, normalize_waveform(load_raw_audio(folder / rel))) for rel in files]
+    rec, handles = record_path_inputs(model)
+    extract_embeddings(model, samples, PREDICT_PAD, PREDICT_BATCH)  # warm-up
+    for handle in handles:
+        handle.remove()
+    kernels_vs_plain = check_path_kernels(model, rec)
+    del rec
+    warm = []
+    for _ in range(PREDICT_TIMED):  # each call ends in a copy of the embeddings to the host
         torch.cuda.synchronize()
-        first_s = time.perf_counter() - t0
-        got = launches()
-        batches = -(-len(files) // PREDICT_BATCH)
-        assert got == {"flash_attention_fwd": 24 * batches, "flash_attention_bwd_dq": 0,
-                       "flash_attention_bwd_dkv": 0, "conv_encoder": 6 * batches}, f"predict launched {got}"
-        scores, pairs = read_scores(score_file)
-        assert len(pairs) == len(trials) and np.all(np.isfinite(scores)), "predict: score lines"
-        assert np.all((scores >= 0) & (scores <= 1)), f"predict: scores outside [0, 1]: {scores}"
+        t0 = time.perf_counter()
+        direct = {e.sample_id: e.embedding for e in extract_embeddings(model, samples, PREDICT_PAD, PREDICT_BATCH)}
+        warm.append(time.perf_counter() - t0)
+    del model
+    same = float(np.abs(cosine_scores(direct, pairs) - scores).max())
+    assert same <= PREDICT_SAME_ATOL, f"predict: written scores differ from the direct ones by {same}"
 
-        # the same files through extract_embeddings and the cosine evaluator, called directly
-        cfg = load_config(predict.CONFIG_DIR, "predict", overrides)
-        model = build_predict_model(cfg)
-        samples = [SpeakerSample(rel, normalize_waveform(load_raw_audio(folder / rel))) for rel in files]
-        rec, handles = record_path_inputs(model)
-        extract_embeddings(model, samples, PREDICT_PAD, PREDICT_BATCH)  # warm-up
-        for handle in handles:
-            handle.remove()
-        kernels_vs_plain = check_path_kernels(model, rec)
-        del rec
-        warm = []
-        for _ in range(PREDICT_TIMED):  # each call ends in a copy of the embeddings to the host
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            direct = {e.sample_id: e.embedding for e in extract_embeddings(model, samples, PREDICT_PAD, PREDICT_BATCH)}
-            warm.append(time.perf_counter() - t0)
-        del model
-        same = float(np.abs(cosine_scores(direct, pairs) - scores).max())
-        assert same <= PREDICT_SAME_ATOL, f"predict: written scores differ from the direct ones by {same}"
+    # a second run reads the embedding cache and launches nothing
+    reset_launches()
+    again, _ = read_scores(predict.main(overrides))
+    assert sum(launches().values()) == 0 and np.array_equal(again, scores), "predict: cache not reused"
 
-        # a second run reads the embedding cache and launches nothing
-        reset_launches()
-        again, _ = read_scores(predict.main(overrides))
-        assert sum(launches().values()) == 0 and np.array_equal(again, scores), "predict: cache not reused"
+    # the labelled trials' EER and minDCF (random weights: no quality claimed)
+    metrics = CosineDistanceEvaluator().evaluate(
+        load_evaluation_pairs(pair_file),
+        [EmbeddingSample(k.removesuffix(".wav"), v) for k, v in direct.items()])
+    assert all(0 <= metrics[k] <= 1 for k in ("eer", "mdc")), f"predict: metrics {metrics}"
 
-        # the labelled trials' EER and minDCF (random weights: no quality claimed)
-        metrics = CosineDistanceEvaluator().evaluate(
-            load_evaluation_pairs(pair_file),
-            [EmbeddingSample(k.removesuffix(".wav"), v) for k, v in direct.items()])
-        assert all(0 <= metrics[k] <= 1 for k in ("eer", "mdc")), f"predict: metrics {metrics}"
-
-        # float32, card against CPU, 4 files of <= 3 s
-        f32 = {}
-        for dev in ("cuda", "cpu"):
-            small = tmp / f"f32_{dev}"
-            ids = list(write_predict_folder(small, PREDICT_F32_S, 2, np.random.default_rng(13)))
-            small_pairs = small / "pairs.txt"
-            small_pairs.write_text("".join(f"{a} {b}\n" for i, a in enumerate(ids) for b in ids[i + 1:]))
-            f32[dev], _ = read_scores(predict.main(
-                [*overrides[:-2], "trainer.precision=f32", f"predict_folder_path={small}",
-                 f"pair_prediction_path={small_pairs}"], device=None if dev == "cuda" else "cpu"))
-        f32_err = float(np.abs(f32["cuda"] - f32["cpu"]).max())
-        assert f32_err <= PREDICT_F32_ATOL, f"predict f32 card vs cpu: {f32_err}"
+    # float32, card against CPU, 4 files of <= 3 s
+    f32 = {}
+    for dev in ("cuda", "cpu"):
+        small = tmp / f"f32_{dev}"
+        ids = list(write_predict_folder(small, PREDICT_F32_S, 2, np.random.default_rng(13)))
+        small_pairs = small / "pairs.txt"
+        small_pairs.write_text("".join(f"{a} {b}\n" for i, a in enumerate(ids) for b in ids[i + 1:]))
+        f32[dev], _ = read_scores(predict.main(
+            [*overrides[:-2], "trainer.precision=f32", f"predict_folder_path={small}",
+             f"pair_prediction_path={small_pairs}"], device=None if dev == "cuda" else "cpu"))
+    f32_err = float(np.abs(f32["cuda"] - f32["cpu"]).max())
+    assert f32_err <= PREDICT_F32_ATOL, f"predict f32 card vs cpu: {f32_err}"
 
     audio_s = float(sum(files.values()))
     warm_s = float(np.median(warm))
@@ -1339,6 +1386,8 @@ def predict_phase(card: str) -> None:
           f"max diff {same:.3e}; cache rerun launches 0; EER {metrics['eer']:.4f}, minDCF "
           f"{metrics['mdc']:.4f} (random weights); f32 card vs cpu max score diff {f32_err:.3e} "
           f"(limit {PREDICT_F32_ATOL}) [{card}]", flush=True)
+    return {"overrides": overrides, "folder": folder, "files": files, "scores": scores, "pairs": pairs,
+            "batches": batches, "utt_s": len(files) / warm_s, "first_s": first_s}
 
 
 def write_run_corpus(root: pathlib.Path, rng, utterances: int = 6) -> tuple:
@@ -1447,11 +1496,11 @@ class RunProbe:
         attn = encoder.layers[RUN_ATTN_LAYER].attention
         seen = {}
 
-        def pre(module, args):
+        def pre(module, args):  # SelfAttention.forward(x, lengths, seed): seed None = no dropout
             seen.clear()
-            if torch.is_grad_enabled() and args[2] is not None:
-                twin = torch.Generator().set_state(args[2].get_state())
-                seen.update(lengths=args[1], seed=fa.draw_seed(twin), rate=module.dropout,
+            if torch.is_grad_enabled():
+                seed = args[2] if len(args) > 2 else None
+                seen.update(lengths=args[1], seed=seed, rate=0.0 if seed is None else module.dropout,
                             heads=module.num_heads, key="attn")
             elif self.longest:
                 seen.update(lengths=args[1], seed=None, rate=0.0, heads=module.num_heads, key="eval_attn")
@@ -1688,6 +1737,7 @@ def run_phase(card: str, tmp: pathlib.Path) -> tuple:
     steady = first.step_ms(RUN_VAL_EVERY, RUN_STEPS - 1)
     spans = first.spans_ms(RUN_VAL_EVERY, RUN_STEPS - 1)
     busy, window_ms, kernels, by_cat, (top_name, top_ms) = resumed.busy
+    MEASURED["run_ms"] = steady
     print(f"run kernels vs plain on a training batch: {attention}", flush=True)
     print(f"run BASE bf16 B=66 x 48000: {RUN_SPEAKERS} speakers, {audio_s:.1f} s of audio written in "
           f"{write_s:.2f} s; shard preparation {first.prepare_s:.3f} s; steady {steady:.3f} ms/step "
@@ -2948,6 +2998,18 @@ def captured(fn, *args, tail: int = 2500, **kwargs):
     return result, out.getvalue()
 
 
+def free_checkpoints(tmp: pathlib.Path) -> None:
+    """Delete the checkpoint directories that finished phases left under
+    ``tmp``, but phase 13's (phase 34 serves its best). The card machine's
+    disk keeps the largest amount ever written to it at once, and a BASE
+    checkpoint is ~1.1 GiB: freed space is written again, not added."""
+    import shutil
+
+    for path in sorted(tmp.rglob("*ckpt*")):
+        if path.is_dir() and path != tmp / "ckpt" and path.exists():
+            shutil.rmtree(path)
+
+
 def fresh_phase() -> int:
     """Frees what earlier runs left; returns the bytes still allocated."""
     gc.collect()
@@ -3081,7 +3143,8 @@ def mu_dtype_phase(card: str) -> None:
         torch.cuda.synchronize()
         ms, peak = start.elapsed_time(stop), (torch.cuda.max_memory_allocated() - held) / 2**30
         kept = int(metrics["layers_run"])
-        assert launches() == {**{k: kept for k in ATTENTION}, "conv_encoder": 6}, \
+        fwd = kept * (2 if state.model.wav2vec2.encoder.remat else 1)  # the recipe's remat recomputes the forward
+        assert launches() == {**{k: kept for k in ATTENTION}, "flash_attention_fwd": fwd, "conv_encoder": 6}, \
             f"29d {mu_dtype}: kept {kept}, launched {launches()}"
         b1, b2 = adam.betas
         n = adam.count
@@ -3317,6 +3380,419 @@ def surface_phase(card: str, tmp: pathlib.Path, wav_dir, trials, shards) -> None
           f"{(torch.cuda.max_memory_allocated() - held) / 2**30:.2f} GiB [{card}]", flush=True)
 
 
+# phases 33-35 (slice 12): int8 serving and the TPU-era run knobs. The int8
+# kernels against their plain versions bit for bit (the int32 sums are exact,
+# the epilogue's float32 order fixed); the dense sites (N, K) of LARGE
+# (projection, qkv, out, intermediate, output) at M from phase 12's longest
+# bucket batch, of BASE at B=48 x 3 s, and a ragged M, N, K (K not a multiple
+# of 16: padded by the wrapper)
+INT8_LARGE_SITES = ((1024, 512), (3072, 1024), (1024, 1024), (4096, 1024), (1024, 4096))
+INT8_BASE_SITES = ((768, 512), (2304, 768), (768, 768), (3072, 768), (768, 3072))
+INT8_RAGGED = (1001, 777, 200)
+INT8_BASE_BATCH = 48
+PEAK_INT8 = 1979e12  # H100 SXM int8 dense tensor-core rate (NVIDIA data sheet)
+# int8 pair scores against bf16's on the (s + 1) / 2 scale: the JAX package's
+# int8-vs-full-precision bar (tests/test_quant.py:117-118)
+INT8_SCORE_ATOL = 0.02
+INT8_GEMMS = 97  # LARGE: 24 layers x 4 dense sites + the feature projection
+INT8_AUTO_S = (2.2, 2.5, 2.8, 3.0, 8.1, 8.4, 8.7, 9.0)  # BASE auto: bucket batches of 48 000 and 144 000 samples
+INT8_CROSSOVER_S, INT8_CROSSOVER_BATCH = (3, 6, 12), 8  # config/data/dataloader's test_batch_size
+DET_STEPS = 4
+PROFILE_STEPS, PROFILE_WINDOW = 12, (10, 5)  # config/profiler/simple.yaml: start_step 10, num_steps 5
+# a child process that runs the run twin with the arguments after its first
+# (a JSON file it writes: each logged loss as a float's hex, the device ms
+# between consecutive steps' ends (CUDA events where each step's update
+# returns), a SHA-256 of each final parameter's bytes, the
+# CUBLAS_WORKSPACE_CONFIG it ran with)
+RUN_CHILD = """
+import hashlib, json, os, sys
+import torch
+from w2v2_speaker_tpu_torch import run
+from w2v2_speaker_tpu_torch.runtime.logging import MetricsLogger
+from w2v2_speaker_tpu_torch.train.state import TrainState
+out, argv = sys.argv[1], sys.argv[2:]
+losses, ends, states, log_step, apply = [], [], [], MetricsLogger.log_step, TrainState.apply_gradients
+def logged(self, step, m):
+    losses.append(float(m["loss"]).hex())
+    return log_step(self, step, m)
+def applied(self):
+    result = apply(self)
+    ends.append(torch.cuda.Event(enable_timing=True))
+    ends[-1].record()
+    states[:] = [self]
+    return result
+MetricsLogger.log_step, TrainState.apply_gradients = logged, applied
+run.main(argv)
+torch.cuda.synchronize()
+params = {n: hashlib.sha256(p.detach().cpu().contiguous().view(torch.uint8).numpy().tobytes()).hexdigest()
+          for n, p in states[0].model.state_dict().items()}
+json.dump({"losses": losses, "step_ms": [a.elapsed_time(b) for a, b in zip(ends, ends[1:])], "params": params,
+           "cublas": os.environ.get("CUBLAS_WORKSPACE_CONFIG")}, open(out, "w"))
+"""
+# a child process that runs each (label, argv, ctc) of a JSON list under the
+# run twin; a CTC recipe must raise the deterministic refusal, nothing else
+RECIPES_CHILD = """
+import json, sys
+from w2v2_speaker_tpu_torch import run
+out, runs = sys.argv[1], json.load(open(sys.argv[2]))
+done = []
+for label, argv, ctc in runs:
+    try:
+        run.main(argv)
+        done.append([label, "trained"])
+    except ValueError as e:
+        if not ctc or "F.ctc_loss" not in str(e):
+            raise
+        done.append([label, str(e)])
+    json.dump(done, open(out, "w"))
+"""
+
+
+def int8_inputs(m: int, n: int, k: int, gen) -> tuple:
+    """A serving site's operands: bf16 activations [M, K], float32 weights
+    [N, K] at lecun scale, a float32 bias."""
+    x = torch.randn(m, k, device="cuda", generator=gen).to(torch.bfloat16)
+    w = torch.randn(n, k, device="cuda", generator=gen) * k ** -0.5
+    return x, w, torch.randn(n, device="cuda", generator=gen) * 0.1
+
+
+def check_int8(label: str, m: int, n: int, k: int, gen) -> dict:
+    """Both quantizes and the GEMM (bias, bf16 output) of one site against
+    their plain versions, bit for bit; each kernel's, plain version's,
+    bound's and library call's ms (the GEMM's: ``torch._int_mm`` and the
+    same rescale in PyTorch ops; the quantize has none)."""
+    x, w, bias = int8_inputs(m, n, k, gen)
+    xq, xs = quant.quantize_rows(x)
+    wq, ks = quant.quantize_rows(w)
+    qerr = 0.0
+    for (q, sc), t, what in (((xq, xs), x, "x"), ((wq, ks), w, "w")):
+        pq, ps = quant.quantize_rows_reference(t)
+        qerr = max(qerr, (q.int() - pq.int()).abs().max().item(), (sc - ps).abs().max().item())
+        assert torch.equal(q, pq) and torch.equal(sc, ps), f"int8 {label} quantize {what}: differs from plain"
+    out = quant.int8_gemm(xq, wq, xs, ks, bias, torch.bfloat16)
+    want = quant.int8_gemm_reference(xq, wq, xs, ks, bias, torch.bfloat16)
+    torch.cuda.synchronize()
+    gerr = (out.float() - want.float()).abs().max().item()
+    assert torch.equal(out, want), f"int8 {label} gemm: max abs err {gerr}"
+    gemm = {"ms": cuda_ms(lambda: quant.int8_gemm(xq, wq, xs, ks, bias, torch.bfloat16), 20),
+            "plain_ms": cuda_ms(lambda: quant.int8_gemm_reference(xq, wq, xs, ks, bias, torch.bfloat16), 3),
+            "max_abs_err": gerr, "ops_ms": 2e3 * m * n * k / PEAK_INT8,
+            "bytes_ms": 1e3 * (m * k + n * k + 4 * (m + 2 * n) + 2 * m * n) / PEAK_BYTES, "library_ms": None}
+    if m > 16 and k % 8 == 0 and n % 8 == 0:  # torch._int_mm's shapes
+        def library():
+            return ((torch._int_mm(xq, wq.t()).float() * xs[:, None]) * ks[None, :] + bias).to(torch.bfloat16)
+        assert torch.equal(library(), want), f"int8 {label}: the library yardstick differs"
+        gemm["library_ms"] = cuda_ms(library, 20)
+    quantize = {"ms": cuda_ms(lambda: (quant.quantize_rows(x), quant.quantize_rows(w)), 20),
+                "plain_ms": cuda_ms(lambda: (quant.quantize_rows_reference(x), quant.quantize_rows_reference(w)), 5),
+                "max_abs_err": qerr, "ops_ms": 0.0, "bytes_ms": 1e3 * (3 * m * k + 5 * n * k + 4 * (m + n)) / PEAK_BYTES,
+                "library_ms": None}
+    lib = "n/a" if gemm["library_ms"] is None else f"{gemm['library_ms']:.4f}"
+    print(f"int8 {label} M={m} N={n} K={k}: quantize x + w {quantize['ms']:.4f} ms (plain "
+          f"{quantize['plain_ms']:.4f}, bound {quantize['bytes_ms']:.4f} bytes); gemm {gemm['ms']:.4f} ms (plain "
+          f"{gemm['plain_ms']:.4f}, _int_mm + rescale {lib}, bound max({gemm['ops_ms']:.4f} ops, "
+          f"{gemm['bytes_ms']:.4f} bytes), {2 * m * n * k / gemm['ms'] / 1e9:.1f} TOP/s); bit-equal", flush=True)
+    return {"int8_quantize": quantize, "int8_gemm": gemm}
+
+
+def int8_row(sites: list, name: str) -> dict:
+    """The kernels line's row of ``name`` summed over ``sites``."""
+    rows = [s[name] for s in sites]
+    ops, nbytes = sum(r["ops_ms"] for r in rows), sum(r["bytes_ms"] for r in rows)
+    lib = [r["library_ms"] for r in rows]
+    return {"max_abs_err": max(r["max_abs_err"] for r in rows), "ms": sum(r["ms"] for r in rows),
+            "plain_ms": sum(r["plain_ms"] for r in rows),
+            "bound_ms": max(ops, nbytes), "bound_by": "operations" if ops > nbytes else "bytes",
+            "library_ms": None if None in lib else sum(lib)}
+
+
+def int8_kernel_phase(card: str, predicted: dict) -> dict:
+    """Phase 33: the int8 kernels against their plain versions at LARGE's
+    five sites (M of phase 12's longest bucket batch), BASE's at B=48 x 3 s
+    and a ragged shape; returns the kernels line's rows (LARGE's sites
+    summed, as the LARGE predict path runs them per layer)."""
+    gen = torch.Generator(device="cuda").manual_seed(33)
+    longest = max(int(sec * 16000) for sec in predicted["files"].values())
+    m_large = PREDICT_BATCH * int(feat_extract_output_lengths(-(-longest // PREDICT_PAD) * PREDICT_PAD, LARGE_CONFIG))
+    large = [check_int8(f"LARGE site {i}", m_large, n, k, gen) for i, (n, k) in enumerate(INT8_LARGE_SITES)]
+    m_base = INT8_BASE_BATCH * int(feat_extract_output_lengths(SAMPLES))
+    for i, (n, k) in enumerate(INT8_BASE_SITES):
+        check_int8(f"BASE site {i}", m_base, n, k, gen)
+    check_int8("ragged", *INT8_RAGGED, gen)
+    rows = {name: int8_row(large, name) for name in ("int8_quantize", "int8_gemm")}
+    print(f"int8 LARGE five sites summed at M={m_large}: {rows} [{card}]", flush=True)
+    return rows
+
+
+def write_pair_folder(folder: pathlib.Path, seconds, speakers: int, seed: int) -> pathlib.Path:
+    """``write_predict_folder``'s files and a pair file of every pair."""
+    ids = list(write_predict_folder(folder, seconds, speakers, np.random.default_rng(seed)))
+    pairs = folder / "pairs.txt"
+    pairs.write_text("".join(f"{a} {b}\n" for i, a in enumerate(ids) for b in ids[i + 1:]))
+    return pairs
+
+
+def int8_serving_phase(card: str, tmp: pathlib.Path, predicted: dict, run_args: list) -> dict:
+    """Phase 34: int8 serving end to end. (a) ``predict.main`` with
+    ``network.int8_matmuls=true`` at full LARGE width on the fused conv on
+    phase 12's files and trials: the scores within ``INT8_SCORE_ATOL`` of
+    phase 12's bf16 ones, per bucket batch 97 GEMMs, 194 quantizes, 24
+    attention forwards and 6 convs, warm utt/s beside phase 12's; (b) BASE
+    ``auto`` over buckets on both sides of the threshold, its routing line
+    against ``int8_auto_policy``; (c) BASE full precision against int8
+    extraction at 3, 6 and 12 s (the card's crossover; recorded, not
+    applied); (d) ``run.main`` eval-only with int8 from phase 13's best
+    checkpoint. Returns phase (a)'s launches of the int8 kernels."""
+    import shutil
+
+    from w2v2_speaker_tpu_torch.runtime.predict import build_predict_model as build
+
+    # (a) LARGE, int8 everywhere
+    folder, batches = predicted["folder"], predicted["batches"]
+    shutil.rmtree(folder / "embeddings")
+    overrides = [*predicted["overrides"], "network.int8_matmuls=true"]
+    reset_launches()
+    reset_int8_launches()
+    score_file = predict.main(overrides)
+    torch.cuda.synchronize()
+    got, got8 = launches(), int8_launches()
+    assert got == {"flash_attention_fwd": 24 * batches, "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0,
+                   "conv_encoder": 6 * batches}, f"int8 predict launched {got}"
+    assert got8 == {"int8_quantize": 2 * INT8_GEMMS * batches, "int8_gemm": INT8_GEMMS * batches}, \
+        f"int8 predict launched {got8} over {batches} bucket batches"
+    scores, pairs = read_scores(score_file)
+    assert pairs == predicted["pairs"] and np.all(np.isfinite(scores)), "int8 predict: score lines"
+    drift = float(np.abs(scores - predicted["scores"]).max())
+    assert drift <= INT8_SCORE_ATOL, f"int8 predict scores {drift} from bf16's"
+    model = build(load_config(predict.CONFIG_DIR, "predict", overrides))
+    samples = [SpeakerSample(rel, normalize_waveform(load_raw_audio(folder / rel))) for rel in predicted["files"]]
+    extract_embeddings(model, samples, PREDICT_PAD, PREDICT_BATCH)  # warm-up
+    warm = []
+    for _ in range(PREDICT_TIMED):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        extract_embeddings(model, samples, PREDICT_PAD, PREDICT_BATCH)
+        warm.append(time.perf_counter() - t0)
+    del model
+    utt_s = len(samples) / float(np.median(warm))
+    print(f"int8 predict LARGE fused conv (network.int8_matmuls=true): {len(samples)} files, {batches} bucket batches, "
+          f"launches {got} {got8}; scores vs phase 12's bf16: max diff {drift:.3e} (limit {INT8_SCORE_ATOL}); warm "
+          f"extraction median over {len(warm)}: {utt_s:.2f} utt/s ({len(samples) / max(warm):.2f}-"
+          f"{len(samples) / min(warm):.2f}) against bf16's {predicted['utt_s']:.2f} (phase 12) [{card}]", flush=True)
+
+    # (b) BASE auto on buckets of 48 000 and 144 000 samples
+    auto = tmp / "int8_auto"
+    pairs_file = write_pair_folder(auto, INT8_AUTO_S, 2, 34)
+    weights = tmp / "base_34.pt"
+    torch.save(build_model(torch.device("cuda"), torch.float32, seed=34).state_dict(), weights)
+    base = ["network=wav2vec2_fc", "trainer.precision=bf16", f"load_network_from_checkpoint={weights}",
+            f"data.dataloader.test_pad_to_multiple={PREDICT_PAD}", f"data.dataloader.test_batch_size={PREDICT_BATCH}",
+            f"predict_folder_path={auto}", f"pair_prediction_path={pairs_file}"]
+    padded = [-(-int(max(INT8_AUTO_S[i:i + PREDICT_BATCH]) * 16000) // PREDICT_PAD) * PREDICT_PAD
+              for i in range(0, len(INT8_AUTO_S), PREDICT_BATCH)]
+    threshold = quant.INT8_AUTO_MIN_SAMPLES
+    n8 = sum(quant.int8_auto_policy(p, BASE_CONFIG.hidden_size, threshold) for p in padded)
+    assert 0 < n8 < len(padded), f"auto: buckets {padded} do not straddle {threshold}"
+    reset_launches()
+    reset_int8_launches()
+    _, out = captured(predict.main, [*base, "network.int8_matmuls=auto"])
+    routing = [line for line in out.splitlines() if line.startswith("int8 auto dispatch")]
+    want = f"int8 auto dispatch: {n8}/{len(padded)} bucket batches on int8 (threshold {threshold} samples)"
+    assert routing == [want], f"auto routing {routing}, the policy says {want!r}"
+    assert int8_launches()["int8_gemm"] == 49 * n8 and launches()["flash_attention_fwd"] == 12 * len(padded), \
+        f"auto launched {launches()} {int8_launches()}"
+    print(f"int8 auto BASE bf16: padded bucket batches {padded}: {want!r}, int8 GEMMs {int8_launches()['int8_gemm']}",
+          flush=True)
+
+    # (c) the crossover: full precision against int8, the same weights, in turns
+    model = build(load_config(predict.CONFIG_DIR, "predict", [*base, "network.int8_matmuls=true"]))
+    report = []
+    with torch.inference_mode():
+        for sec in INT8_CROSSOVER_S:
+            wav = torch.randn(INT8_CROSSOVER_BATCH, sec * 16000, device="cuda") * 0.1
+            times = {False: [], True: []}
+            for int8 in (False, True, True, False):
+                quant.int8_enabled(model, int8)
+                times[int8].append(cuda_ms(lambda: model.compute_embedding(wav), 10))
+            full, int8 = np.mean(times[False]), np.mean(times[True])
+            report.append(f"{sec} s: full {full:.3f} ms, int8 {int8:.3f} ms ({100 * (full / int8 - 1):+.1f} %)")
+    del model
+    print(f"int8 crossover BASE bf16 B={INT8_CROSSOVER_BATCH} (CUDA events, 10 forwards, full/int8/int8/full): "
+          f"{'; '.join(report)} [{card}]", flush=True)
+
+    # (d) the run twin, eval-only from phase 13's best checkpoint
+    from w2v2_speaker_tpu_torch import run
+
+    reset_launches()
+    reset_int8_launches()
+    objective = run.main([*run_args, "fit_model=false", "network.int8_matmuls=true",
+                          f"load_network_from_checkpoint={tmp / 'ckpt' / 'best'}",
+                          f"trainer.checkpoint_dir={tmp / 'int8_eval_ckpt'}"])
+    fwd, gemms = launches()["flash_attention_fwd"], int8_launches()["int8_gemm"]
+    assert objective is not None and 0 <= objective <= 1, f"int8 eval-only: objective {objective}"
+    assert fwd > 0 and fwd % 12 == 0 and gemms == 49 * fwd // 12, f"int8 eval-only launched {fwd}, {gemms}"
+    assert not (tmp / "int8_eval_ckpt" / "last").exists(), "int8 eval-only saved a checkpoint"
+    print(f"int8 eval-only run (fit_model=false, phase 13's best): test EER {objective:.4f}, {fwd // 12} forwards of "
+          f"12 attention launches and 49 int8 GEMMs each [{card}]", flush=True)
+    return got8
+
+
+def run_child(tmp: pathlib.Path, name: str, argv: list, env: dict) -> dict:
+    """``RUN_CHILD`` in a fresh process on ``argv``; its JSON record."""
+    out = tmp / f"{name}.json"
+    proc = subprocess.run([sys.executable, "-c", RUN_CHILD, str(out), *argv], cwd=ROOT, env=env,
+                          capture_output=True, text=True)
+    sys.stdout.write(proc.stdout[-1500:])
+    assert proc.returncode == 0, f"{name}: exit {proc.returncode}\n{proc.stderr[-4000:]}"
+    return json.loads(out.read_text())
+
+
+def knobs_phase(card: str, tmp: pathlib.Path, wav_dir, trials, shards) -> None:
+    """Phase 35: (a) ``trainer.deterministic=true`` on the BASE CE recipe at
+    full width, 4 steps, twice, each in a fresh process (so that
+    ``CUBLAS_WORKSPACE_CONFIG`` holds from its start): the losses and final
+    parameters bit-equal, ms/step against the same run without the flag and
+    phase 13's; every other recipe one step under the flag, the CTC ones
+    raising their refusal; (b) ``profiler=simple`` over 12 steps: the trace
+    of its window, no sanity validation; (c) ``trainer.remat`` on the LARGE
+    AAM step (B=48, fused conv) under each policy against no remat, from the
+    same weights and generator seed: loss, gradients and the generator bit
+    for bit, peak memory and ms/step."""
+    import os
+
+    from w2v2_speaker_tpu_torch import run
+
+    # trainer.fast_dev_run=N: N steps, no checkpoint written (each would
+    # write a GiB or more to the machine's disk, whose writes are capped)
+    env = {k: v for k, v in os.environ.items() if k != "CUBLAS_WORKSPACE_CONFIG"}
+    base = ["+experiment=speaker_wav2vec2_ce", f"data.shards.samples_per_shard={RUN_SHARD}", "seed=13",
+            f"trainer.fast_dev_run={DET_STEPS}", "eval_model=false"]
+    records = {}
+    for name, det in (("det_a", True), ("det_b", True), ("nondet", False)):
+        records[name] = run_child(tmp, name, [*base, f"trainer.deterministic={str(det).lower()}",
+                                              *corpus_args(wav_dir, trials, shards, tmp / f"{name}_ckpt")], env)
+    a, b = records["det_a"], records["det_b"]
+    assert len(a["losses"]) == DET_STEPS and a["losses"] == b["losses"], f"deterministic losses {a} {b}"
+    assert a["cublas"] == b["cublas"] == ":4096:8" and records["nondet"]["cublas"] is None, records
+    differ = [k for k, v in a["params"].items() if b["params"][k] != v]
+    assert a["params"].keys() == b["params"].keys() and not differ, \
+        f"deterministic runs: {len(differ)} parameters differ, {differ[:4]}"
+
+    def ms(rec):  # the end of step 1 to the end of step 4 (one dispatch of 4), per step
+        return float(np.mean(rec["step_ms"]))
+
+    print(f"deterministic BASE CE bf16 B=66, {DET_STEPS} steps in two fresh processes: losses bit-equal "
+          f"{[float.fromhex(x) for x in a['losses']]}, {len(a['params'])} parameters bit-equal; ms/step (CUDA events, "
+          f"steps 2-{DET_STEPS}) {ms(a):.2f} and {ms(b):.2f} against {ms(records['nondet']):.2f} without the flag "
+          f"(a third process) and phase 13's {MEASURED['run_ms']:.2f} (CUDA events) [{card}]", flush=True)
+
+    one = ["trainer.fast_dev_run=1", "eval_model=false", "trainer.deterministic=true", "trainer.log_dir=null"]
+    triplet = tmp / "triplet"
+    runs = [(r, [f"+experiment={r}", f"data.shards.samples_per_shard={RUN_SHARD}", *extra,
+                 *corpus_args(wav_dir, trials, shards, tmp / "det" / "_".join([r, *extra])), *one], False)
+            for r, extra in (("speaker_wav2vec2_aam", []), ("speaker_wav2vec2_short_seq", []),
+                             ("speaker_wav2vec2_large_aam", ["network.conv_impl=fused_pallas"]),
+                             ("speaker_xvector", []), ("speaker_ecapa_tdnn", []), ("speaker_wav2spk", []),
+                             ("speaker_dummy", []), ("speaker_wav2vec2_ce", ["network=wav2vec_fc"]),
+                             ("speaker_wav2vec2_ce", ["network=wav2vec_xvector"]),
+                             ("speaker_wav2vec2_ctc", []))]
+    runs[-1] = (runs[-1][0], runs[-1][1], True)
+    runs += [("speaker_wav2vec2_pairs", ["+experiment=speaker_wav2vec2_pairs",
+                                         f"data.shards.samples_per_shard={PAIRS_SHARD}", *one,
+                                         *corpus_args(wav_dir, trials, tmp / "pair_shards", tmp / "det" / "pairs")],
+             False)]
+    runs += [(r, [f"+experiment={r}", f"data.shards.samples_per_shard={RUN_SHARD + 2}", *one,
+                  *corpus_args(triplet / "wav", triplet / "trials.txt", tmp / "triplet_shards", tmp / "det" / r)], False)
+             for r in ("speaker_wav2vec2_triplet", "speaker_wav2vec2_triplet_ce")]
+    runs += [(r, [f"+experiment={r}", *one, f"trainer.checkpoint_dir={tmp / 'det' / r}"], True)
+             for r in ("speech_wav2vec2_ctc", "multitask_wav2vec2")]
+    runs = [(f"{label} {' '.join(a for a in argv if a.startswith('network='))}".strip(), argv, ctc)
+            for label, argv, ctc in runs]
+    (tmp / "det_runs.json").write_text(json.dumps(runs))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", RECIPES_CHILD, str(tmp / "det_done.json"), str(tmp / "det_runs.json")],
+                          cwd=ROOT, env=env, capture_output=True, text=True)
+    assert proc.returncode == 0, (f"deterministic recipes: exit {proc.returncode}\n{proc.stdout[-3000:]}\n"
+                                  f"{proc.stderr[-4000:]}")
+    done = dict(json.loads((tmp / "det_done.json").read_text()))
+    assert list(done) == [label for label, _, _ in runs], f"deterministic recipes ran {list(done)}"
+    for label, _, ctc in runs:
+        assert (done[label] == "trained") != ctc, f"deterministic {label}: {done[label]}"
+    print(f"deterministic recipes, one step each in one fresh process ({time.perf_counter() - t0:.1f} s): "
+          f"{ {label: 'trained' if r == 'trained' else 'refused (F.ctc_loss)' for label, r in done.items()} }",
+          flush=True)
+
+    # (b) profiler=simple, 12 steps: its window is steps 11-15, cut by the run's end at 12
+    trace_dir = tmp / "profile"
+    argv = ["+experiment=speaker_wav2vec2_ce", f"data.shards.samples_per_shard={RUN_SHARD}", "seed=13",
+            f"trainer.max_steps={PROFILE_STEPS}", f"trainer.val_check_interval={PROFILE_STEPS}",
+            "trainer.limit_val_batches=1", "trainer.num_sanity_val_steps=2", "eval_model=false", "profiler=simple",
+            f"profiler.trace_dir={trace_dir}", *corpus_args(wav_dir, trials, shards, tmp / "profile_ckpt")]
+    with RunProbe() as probe:
+        _, out = captured(run.main, argv)
+    first = PROFILE_WINDOW[0] + 1
+    trace = (trace_dir / "trace.json").read_text()
+    import re
+
+    steps_in = set()  # the steps of the dispatches the trace names: train_step_<n> or train_steps_<a>-<b>
+    for a, b in re.findall(r'"train_steps?_(\d+)(?:-(\d+))?"', trace):
+        steps_in.update(range(int(a), int(b or a) + 1))
+    assert steps_in == set(range(first, PROFILE_STEPS + 1)), f"profiler: steps in the trace {sorted(steps_in)}"
+    names = ("fwd_bf16_kernel", "dq_bf16_kernel", "dkv_bf16_kernel")
+    assert all(n in trace for n in names), f"profiler: the trace names no attention kernel of {names}"
+    assert "sanity validation" not in out, "profiler: a sanity validation ran in a profiled run"
+    assert f"profiler: steps {first}-{PROFILE_STEPS} traced to {trace_dir / 'trace.json'}" in out
+    spans = probe.spans_ms(0, PROFILE_STEPS - 1)
+    print(f"profiler=simple on BASE CE bf16 B=66, {PROFILE_STEPS} steps: trace of steps {first}-{PROFILE_STEPS} "
+          f"({len(trace) / 2**20:.1f} MiB, the three attention kernels named), no sanity validation; step spans "
+          f"(CUDA events) outside the window {np.mean(spans[4:first - 1]):.2f} ms, inside "
+          f"{np.mean(spans[first - 1:]):.2f} ms [{card}]", flush=True)
+
+    # (c) remat on the LARGE AAM step
+    # cuDNN's deterministic algorithms for the convolutions outside the layers
+    # (conv 0, the pos conv), whose weight gradients some algorithms sum with
+    # atomics; what remat changes runs on the kernels and cuBLAS
+    dev = torch.device("cuda")
+    batch = {k: v[0] for k, v in synthetic_batch(LARGE_BATCH, SAMPLES, dev, seed=35).items()}
+    want, report = None, []
+    was_deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for remat, policy in ((False, "nothing"), (True, "nothing"), (True, "dots"), (True, "dots_no_batch")):
+            cfg = load_recipe("speaker_wav2vec2_large_aam", ["network.conv_impl=fused_pallas", f"trainer.remat={remat}",
+                                                             f"network.remat_policy={policy}"])
+            held = fresh_phase()
+            state, task = build_train_state(dev, "bf16", cfg, seed=0)
+            step = make_train_step(task)
+            state, metrics = step(state, batch)
+            got = (metrics["loss"].float(), {n: p.grad.clone() for n, p in state.named_params() if p.grad is not None},
+                   state.generator.get_state())
+            if want is None:
+                want = got
+            else:
+                differ = [n for n, g in want[1].items() if not torch.equal(got[1][n], g)]
+                assert torch.equal(got[0], want[0]) and not differ and torch.equal(got[2], want[2]), \
+                    f"remat {policy}: loss {got[0].item()} vs {want[0].item()}, {len(differ)} gradients differ " \
+                    f"{differ[:3]}"
+            del got
+            torch.cuda.reset_peak_memory_stats()
+            start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(2):
+                state, metrics = step(state, batch)
+            stop.record()
+            torch.cuda.synchronize()
+            peak = (torch.cuda.max_memory_allocated() - held) / 2**30
+            report.append(f"{'remat ' + policy if remat else 'no remat'}: {start.elapsed_time(stop) / 2:.1f} ms/step, "
+                          f"peak {peak:.2f} GiB")
+            del state, task, step, metrics
+    finally:
+        torch.backends.cudnn.deterministic = was_deterministic
+    print(f"remat LARGE AAM fused conv bf16 B={LARGE_BATCH} x {SAMPLES}: loss, gradients and generator bit-equal "
+          f"to no remat under each policy; {'; '.join(report)} (CUDA events, steps 2-3; peak above the memory "
+          f"held) [{card}]", flush=True)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; this run needs a card")
@@ -3336,40 +3812,52 @@ def main() -> None:
     train_launches = train_phase(card, large_train_entry, "large train", conv_per_step=6)  # 10
     large = load_recipe("speaker_wav2vec2_large_aam", ["network.conv_impl=fused_pallas"])
     f32_train_phase(large, "LARGE", conv_launches=6)  # 11
-    predict_phase(card)  # 12
     with tempfile.TemporaryDirectory() as tmp:
         tmp = pathlib.Path(tmp)
+        predicted = predict_phase(card, tmp)  # 12
         wav_dir, trials, shards = run_phase(card, tmp)  # 13
-        pairs_phase(card, tmp, wav_dir, trials)  # 14
-        pooling_phase(card, tmp, wav_dir, trials, shards)  # 15
-        speech_phase(card, tmp)  # 16
-        speaker_ctc_phase(card, tmp, wav_dir, trials, shards)  # 17
-        multitask_phase(card, tmp)  # 18
-        triplet_phase(card, tmp)  # 19
-        options_phase(card, tmp, wav_dir, trials, shards)  # 20
-        fbank_phase(card)  # 21
-        xvector_phase(card, tmp, wav_dir, trials, shards)  # 22
-        ecapa_phase(card, tmp, wav_dir, trials, shards)  # 23
-        wav2spk_dummy_phase(card, tmp, wav_dir, trials, shards)  # 24
-        dsp_phase(card)  # 25
-        augment_phase(card, tmp, wav_dir, trials, shards)  # 26
-        augmented_base_phase(card, tmp, wav_dir, trials, shards)  # 27
-        wav2vec1_phase(card, tmp, wav_dir, trials, shards)  # 28
-        optim_phase(card, tmp, wav_dir, trials, shards)  # 29 (a)-(c)
-        mu_dtype_phase(card)  # 29 (d)
-        lr_find_phase(card, tmp, wav_dir, trials, shards)  # 30
-        tracker_phase(card, tmp, wav_dir, trials, shards)  # 31
-        surface_phase(card, tmp, wav_dir, trials, shards)  # 32
+        corpus = (card, tmp, wav_dir, trials, shards)
+        for phase, args in (
+            (pairs_phase, corpus[:4]),  # 14
+            (pooling_phase, corpus),  # 15
+            (speech_phase, corpus[:2]),  # 16
+            (speaker_ctc_phase, corpus),  # 17
+            (multitask_phase, corpus[:2]),  # 18
+            (triplet_phase, corpus[:2]),  # 19
+            (options_phase, corpus),  # 20
+            (fbank_phase, corpus[:1]),  # 21
+            (xvector_phase, corpus),  # 22
+            (ecapa_phase, corpus),  # 23
+            (wav2spk_dummy_phase, corpus),  # 24
+            (dsp_phase, corpus[:1]),  # 25
+            (augment_phase, corpus),  # 26
+            (augmented_base_phase, corpus),  # 27
+            (wav2vec1_phase, corpus),  # 28
+            (optim_phase, corpus),  # 29 (a)-(c)
+            (mu_dtype_phase, corpus[:1]),  # 29 (d)
+            (lr_find_phase, corpus),  # 30
+            (tracker_phase, corpus),  # 31
+            (surface_phase, corpus),  # 32
+        ):
+            phase(*args)
+            free_checkpoints(tmp)
+        main_rows.update(int8_kernel_phase(card, predicted))  # 33
+        run_args = ["+experiment=speaker_wav2vec2_ce", f"data.shards.samples_per_shard={RUN_SHARD}", "seed=13",
+                    *corpus_args(wav_dir, trials, shards, tmp / "ckpt")]
+        path_launches = {**train_launches, **int8_serving_phase(card, tmp, predicted, run_args)}  # 34
+        knobs_phase(card, tmp, wav_dir, trials, shards)  # 35
 
-    # 33. kernels line, card line, result line
+    # 36. kernels line, card line, result line: the attention kernels' and
+    # the conv's launches from the LARGE training run (phase 10), the int8
+    # kernels' from the LARGE int8 predict run (phase 34)
     kernels = []
     for name, source, replaces in KERNELS:
         row = main_rows[name]
-        assert train_launches[name] > 0, f"{name} was not launched on the LARGE training main path"
+        assert path_launches[name] > 0, f"{name} was not launched on its main path"
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"w2v2_speaker_tpu_torch/csrc/{source}.cu",
-            "replaces": replaces, "launches": train_launches[name],
+            "replaces": replaces, "launches": path_launches[name],
             **{k: row[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                                    "library_ms")},
         })

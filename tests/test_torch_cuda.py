@@ -2,9 +2,11 @@
 the attention forward (inference path, and with the LSE and dropout), the
 dq and dk/dv backward kernels (in bf16 also at the shapes that stress the
 K/V pipeline: LARGE's 16 heads, a key tile of one valid key, long rows
-whose ring wraps), and the fused strided conv (f32 and bf16,
+whose ring wraps), the fused strided conv (f32 and bf16,
 ragged last tiles, bias + LayerNorm, with and without GELU, and its
-autograd Function).
+autograd Function), and the int8 row quantize and GEMM (bit-equal to their
+plain versions, ragged M, N and K, bf16 and f32 outputs) under
+``QuantLinear``.
 
 These tests need an NVIDIA card and ``nvcc``; without a card they skip.
 The repository's ``tests/conftest.py`` imports JAX, which the card machine
@@ -305,3 +307,54 @@ def test_triplet_mining_stays_on_the_card(cuda):
     assert torch.all(labels[neg] != labels)
     again = mine_triplets(labels, torch.Generator().manual_seed(3))
     assert torch.equal(again[0], pos) and torch.equal(again[1], neg)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m, n, k", [(300, 768, 768), (7, 96, 64), (129, 130, 40), (1, 3072, 4096)])
+def test_int8_kernels_are_bit_equal_to_plain(cuda, dtype, m, n, k):
+    """The row quantize (values and scales, with a zero row and rows that
+    land on k + 0.5) and the GEMM with its rescale and bias: the int32 sums
+    are exact and the epilogue's float32 order is the plain version's, so
+    every output bit agrees."""
+    from w2v2_speaker_tpu_torch.ops import quant
+
+    gen = torch.Generator(device=cuda).manual_seed(m + n + k)
+    x = torch.randn(m, k, generator=gen, device=cuda).to(dtype)
+    x[0] = 0.0
+    if m > 2:
+        x[1] = torch.arange(k, device=cuda, dtype=torch.float32).remainder(5).sub(2).mul(0.5).to(dtype)
+        x[1, 0] = 127.0  # scale 1: x / scale lands on the halves
+    w = (torch.randn(n, k, generator=gen, device=cuda) * 0.05).to(dtype)
+    bias = torch.randn(n, generator=gen, device=cuda)
+    before = (quant.quantize_rows.launches, quant.int8_gemm.launches)
+    xq, xs = quant.quantize_rows(x)
+    wq, ks = quant.quantize_rows(w)
+    torch.cuda.synchronize()
+    for (got_q, got_s), t in (((xq, xs), x), ((wq, ks), w)):
+        want_q, want_s = quant.quantize_rows_reference(t)
+        assert torch.equal(got_q, want_q) and torch.equal(got_s, want_s)
+    assert xs[0] == 1 and torch.all(xq[0] == 0)
+    for b in (bias, None):
+        got = quant.int8_gemm(xq, wq, xs, ks, b, dtype)
+        want = quant.int8_gemm_reference(xq, wq, xs, ks, b, dtype)
+        torch.cuda.synchronize()
+        assert got.dtype == dtype and torch.equal(got, want), (got.float() - want.float()).abs().max()
+    assert (quant.quantize_rows.launches, quant.int8_gemm.launches) == (before[0] + 2, before[1] + 2)
+
+
+def test_quant_linear_on_the_card(cuda):
+    """``QuantLinear`` under bf16 autocast over float32 weights: the bf16
+    output of the kernels equals the plain version's on the same inputs
+    (run on the CPU), and a forward that needs a gradient raises."""
+    from w2v2_speaker_tpu_torch.ops import quant
+
+    layer = quant.QuantLinear(256, 384).to(cuda)
+    x = torch.randn(3, 50, 256, device=cuda)
+    with torch.no_grad(), torch.autocast("cuda", dtype=torch.bfloat16):
+        got = layer(x)
+    with torch.no_grad():
+        want = quant.int8_matmul(x.to(torch.bfloat16).cpu(), layer.weight.cpu(), layer.bias.cpu(), torch.bfloat16)
+    assert got.dtype == torch.bfloat16 and got.shape == (3, 50, 384)
+    assert torch.equal(got.cpu(), want)
+    with pytest.raises(RuntimeError, match="inference only"):
+        layer(x)

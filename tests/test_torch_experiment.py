@@ -43,15 +43,20 @@ def test_w2v2_config_matches_jax(net, precision, remat, accumulate):
 
 
 def test_int8_and_unported_networks_raise():
-    """``int8_matmuls`` true builds a model that raises (it used to run in
-    bf16 without a word). The wav2vec v1 networks, once unported, are built
-    by ``build_model_and_task``; ``speaker_model_config``, the wav2vec2_fc
-    network's config, refuses them and the losses that network does not
-    take."""
+    """``int8_matmuls`` true (YAML's 1 too), which once raised, builds a
+    model whose five dense sites per layer and projection are
+    ``QuantLinear``s (``auto`` builds full precision). The wav2vec v1
+    networks, once unported, are built by ``build_model_and_task``;
+    ``speaker_model_config``, the wav2vec2_fc network's config, refuses
+    them and the losses that network does not take."""
+    from w2v2_speaker_tpu_torch.ops.quant import int8_enabled
+
     net = NETWORKS["tiny_int8_yaml_one"]
     assert texp.w2v2_config(net, "f32").int8_matmuls is True
-    with pytest.raises(NotImplementedError, match="int8_matmuls"):
-        texp.build_model_and_task({**CE, "network": {**CE["network"], **net}}, 4)
+    for net, sites in ((net, 1 + 4 * texp.TINY_W2V2.num_layers), (NETWORKS["int8_auto"], 0)):
+        with torch.device("meta"):
+            task, _ = texp.build_model_and_task({**CE, "network": {**CE["network"], **net}}, 4)
+        assert int8_enabled(task.model, True) == sites
     for name in ("wav2vec_fc", "wav2vec_xvector"):
         with pytest.raises(ValueError, match=f"network '{name}' is not wav2vec2_fc"):
             texp.speaker_model_config({**CE, "network": {**CE["network"], "name": name}})

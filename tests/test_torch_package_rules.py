@@ -46,7 +46,7 @@ def test_port_imports_no_jax_and_no_jax_package():
                    "train/checkpoint.py", "models/pooling.py", "models/wav2vec2_paired.py", "train/paired_task.py",
                    "utils/native.py", "runtime/debug.py", "models/wav2vec1.py", "runtime/lr_find.py",
                    "runtime/progress.py", "runtime/sweeper.py", "runtime/slurm.py", "runtime/completion.py",
-                   "objectives/schedules.py", "train/state.py"):
+                   "objectives/schedules.py", "train/state.py", "ops/quant.py"):
         assert ROOT / "w2v2_speaker_tpu_torch" / module in files, module
     for path in files:
         for name in _imported_modules(path):
@@ -83,7 +83,9 @@ def test_entry_points_need_a_card_unless_asked_for_the_cpu():
 def test_train_and_fused_conv_raise():
     """train=True runs (and raises only without the step's generator);
     the fused conv route builds and trains at a tiny eligible width (on
-    the CPU through the plain version); int8 still raises."""
+    the CPU through the plain version); int8, which once raised, serves on
+    the CPU through the plain versions (no kernel launch) and refuses to
+    train."""
     model = tw.Wav2Vec2Model(TINY)
     tw.init_parameters(model, torch.Generator().manual_seed(0))
     x, _ = model(torch.randn(2, 400), train=True, generator=torch.Generator().manual_seed(0))
@@ -103,8 +105,17 @@ def test_train_and_fused_conv_raise():
     assert conv_encoder.strided_conv_fused.launches == before  # no kernel on the CPU
     grad = fused.feature_encoder.conv_1.weight.grad
     assert grad is not None and grad.abs().sum() > 0 and fused.feature_encoder.layer_norm_1.bias.grad is not None
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 6"):
-        tw.Wav2Vec2Model(tw.Wav2Vec2Config(int8_matmuls=True))
+    from w2v2_speaker_tpu_torch.ops import quant
+
+    int8 = tw.Wav2Vec2Model(dataclasses.replace(TINY, int8_matmuls=True))
+    tw.init_parameters(int8, torch.Generator().manual_seed(0))
+    launched = (quant.quantize_rows.launches, quant.int8_gemm.launches)
+    with torch.no_grad():
+        x, _ = int8(torch.randn(2, 400))
+    assert x.shape == (2, 79, 16) and torch.isfinite(x).all()
+    assert (quant.quantize_rows.launches, quant.int8_gemm.launches) == launched  # no kernel on the CPU
+    with pytest.raises(RuntimeError, match="inference only"):
+        int8(torch.randn(2, 400), train=True, generator=torch.Generator().manual_seed(0))
 
 
 def test_predict_needs_a_card_before_reading_audio(tmp_path):

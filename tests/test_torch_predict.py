@@ -310,18 +310,50 @@ def test_load_params_raises_when_no_backbone_entry_matches(tmp_path, wrap):
     assert all(torch.equal(v, init[k]) for k, v in model.state_dict().items())
 
 
-@pytest.mark.parametrize("override, row", [
-    ("network.int8_matmuls=auto", "item 6"), ("network.int8_matmuls=true", "item 6"),
-])
-def test_predict_raises_for_what_is_not_ported(tmp_path, override, row):
-    """int8 serving (``BucketDispatchEmbed``), other networks and losses
-    raise, naming their ROADMAP row, before any audio is read."""
+@pytest.fixture(scope="module")
+def full_precision_scores(tmp_path_factory):
+    """The tiny network's float32 scores of ``_write_folder``'s pairs at
+    ``test_predict_serves_int8``'s batching, served once for its cases."""
     from w2v2_speaker_tpu_torch import predict as torch_predict
 
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md Queue 1 {row}"):
-        torch_predict.main(["network=wav2vec2_fc", override, f"predict_folder_path={tmp_path / 'none'}",
-                            f"pair_prediction_path={_write_folder(tmp_path)}"], device="cpu")
-    assert not (tmp_path / "none").exists()
+    folder = tmp_path_factory.mktemp("full")
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)  # tiny shapes: one intra-op thread
+    try:
+        return _scores(torch_predict.main(
+            [*PREDICT_OVERRIDES, "data.dataloader.test_batch_size=2", "network.int8_matmuls=false",
+             f"predict_folder_path={folder}", f"pair_prediction_path={_write_folder(folder)}"], device="cpu"))
+    finally:
+        torch.set_num_threads(n)
+
+
+@pytest.mark.parametrize("override", ["network.int8_matmuls=auto", "network.int8_matmuls=true"])
+def test_predict_serves_int8(tmp_path, capsys, full_precision_scores, override):
+    """int8 serving, which this test once held to raising, on the tiny
+    network in float32: one score per pair within 0.02 of the full-precision
+    run's (``tests/test_quant.py:117``'s bar); ``auto`` at a threshold of
+    20 000 samples routes the bucket batch of 16 000 samples in full
+    precision and the two of 24 000 in int8, and prints the JAX package's
+    line; ``true`` serves every batch in int8."""
+    from w2v2_speaker_tpu_torch import predict as torch_predict
+
+    capsys.readouterr()
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)  # tiny shapes: one intra-op thread
+    try:
+        got = _scores(torch_predict.main(
+            [*PREDICT_OVERRIDES, "data.dataloader.test_batch_size=2", "network.int8_auto_min_samples=20000",
+             override, f"predict_folder_path={tmp_path}", f"pair_prediction_path={_write_folder(tmp_path)}"],
+            device="cpu"))
+    finally:
+        torch.set_num_threads(n)
+    runs = {"full": full_precision_scores, "int8": got}
+    routing = [line for line in capsys.readouterr().out.splitlines() if line.startswith("int8 auto dispatch")]
+    assert routing == (["int8 auto dispatch: 2/3 bucket batches on int8 (threshold 20000 samples)"]
+                       if override.endswith("auto") else [])
+    assert runs["int8"][1] == runs["full"][1] and len(runs["full"][0]) == 10
+    drift = np.abs(runs["int8"][0] - runs["full"][0]).max()
+    assert 0 < drift < 0.02, drift
 
 
 @pytest.mark.parametrize("network", ["wav2vec_fc", "wav2vec_xvector"])

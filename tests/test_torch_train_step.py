@@ -264,9 +264,12 @@ def test_unported_modes_and_options_raise():
     assert ttask.SpeakerTask(model, "aam").mode == "aam"  # ported with the AAM head
     for mode in ("triplet", "triplet_ce"):  # ported with the triplet slice
         assert ttask.SpeakerTask(model, mode).mode == mode
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 6"):
-        ts.Wav2Vec2SpeakerModel(ts.Wav2Vec2SpeakerConfig(
-            w2v2=tw.Wav2Vec2Config(**TINY, int8_matmuls=True)))
+    int8 = ts.Wav2Vec2SpeakerModel(ts.Wav2Vec2SpeakerConfig(w2v2=tw.Wav2Vec2Config(**TINY, int8_matmuls=True)),
+                                   num_speakers=N_SPK)
+    state = tstate.TrainState.create(int8, tstate.AdamTx(lambda s: 1e-3), seed=0)
+    with pytest.raises(RuntimeError, match="inference only"):  # int8 serves; a training step is refused
+        tsteps.make_train_step(ttask.SpeakerTask(int8, "ce"))(
+            state, {k: torch.from_numpy(v) for k, v in _batch(4).items()})
     with pytest.raises(ValueError, match="unknown training mode"):
         ttask.SpeakerTask(model, "hinge")
     base = texp.load_recipe("speaker_wav2vec2_ce")

@@ -29,11 +29,34 @@ autocast. Norm statistics and the attention softmax run in float32; under
 autocast every LayerNorm hands its output on in the compute type
 (``LayerNorm``), as flax's ``LayerNorm(dtype=...)`` does.
 
-A per-layer Python loop stands in for ``nn.scan``. Every attention call
-goes through ``ops.flash_attention.flash_attention``: the hand-written CUDA
-kernels on the card (forward, and dq and dk/dv under autograd), their plain
-versions on the CPU. There is no ``_kernel_profitable`` dispatch, and
-``attention_impl`` picks nothing here.
+A per-layer Python loop stands in for ``nn.scan`` (``encoder_unroll``
+unrolls nothing here). Every attention call goes through
+``ops.flash_attention.flash_attention``: the hand-written CUDA kernels on
+the card (forward, and dq and dk/dv under autograd), their plain versions
+on the CPU. There is no ``_kernel_profitable`` dispatch, and
+``attention_impl`` picks nothing here; ``posconv_decomposed`` (a TPU
+formulation of the pos conv) changes nothing either.
+
+``int8_matmuls`` makes the five dense sites of the JAX ``_dense`` (:201)
+``ops.quant.QuantLinear``: the feature projection, ``qkv_proj``,
+``out_proj``, ``intermediate_dense`` and ``output_dense``. They keep
+``nn.Linear``'s parameters, and serve only: a forward that needs a
+gradient raises.
+
+``remat`` (<- ``nn.remat`` per layer, :699-706) runs each kept layer of a
+training forward under ``torch.utils.checkpoint`` (``use_reentrant=False``),
+which recomputes the whole layer in the backward. ``remat_policy`` is
+read and validated but changes nothing beyond ``remat``: every policy
+recomputes the whole layer. The JAX policies ``dots`` / ``dots_no_batch``
+choose which XLA dot outputs to keep; here a selective checkpoint that
+kept the dense products was slower than full recompute on an H100 at
+the same peak memory (PERF.md), and the attention kernels, inside an
+``autograd.Function``, would be recomputed under any policy. A
+checkpoint restores the default CUDA generator, not the step's
+``torch.Generator``: so every random draw of a layer (its dropout seeds,
+or its Bernoulli masks) is drawn before the layer runs (``draw_noise``)
+and handed to it, with remat and without, in the same order as the layer
+used to draw them. Remat changes no number.
 
 Training (``train=True``) takes the train step's ``torch.Generator``; every
 random draw of the forward comes from it, in a fixed order: one int32 seed
@@ -51,14 +74,16 @@ from __future__ import annotations
 
 import contextlib
 from dataclasses import dataclass
-from typing import Optional, Tuple
+from typing import Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..ops import conv_encoder
 from ..ops.flash_attention import attention_dropout_keep, draw_seed, flash_attention
+from ..ops.quant import QuantLinear
 from .heads import AAMSoftmaxHead
 from .masking import draw_uniform, sample_span_mask
 from .temporal_gate import TemporalGate
@@ -79,9 +104,12 @@ __all__ = [
 class Wav2Vec2Config:
     """Same fields, defaults and validation as the JAX package's config.
 
-    Fields that only shape TPU code generation (remat, remat_policy, scan
-    unroll, posconv formulation, attention_impl) are kept so configs carry
-    over; they change nothing here (ROADMAP Queue 1 item 9).
+    ``remat`` checkpoints the encoder layers (every ``remat_policy``
+    recomputes the whole layer) and
+    ``int8_matmuls`` serves the dense sites in int8 (see the module's
+    docstring); the fields that shape only TPU code generation
+    (``encoder_unroll``, ``posconv_decomposed``, ``attention_impl``) are
+    kept so configs carry over, and change nothing here.
     """
 
     # conv feature encoder
@@ -158,6 +186,12 @@ def feat_extract_output_lengths(input_lengths, cfg: Wav2Vec2Config = BASE_CONFIG
     for k, s in zip(cfg.conv_kernel, cfg.conv_stride):
         lengths = (lengths - k) // s + 1
     return lengths
+
+
+def _dense(cfg: Wav2Vec2Config, in_features: int, out_features: int) -> nn.Linear:
+    """``nn.Linear``, or its int8 twin when ``cfg.int8_matmuls`` (the same
+    parameters either way), as the JAX ``_dense`` (:201)."""
+    return (QuantLinear if cfg.int8_matmuls else nn.Linear)(in_features, out_features)
 
 
 def _suffix_mask(lengths: torch.Tensor, t: int) -> torch.Tensor:
@@ -298,6 +332,9 @@ def _div_keep(x: torch.Tensor, rate: float) -> torch.Tensor:
     return x / torch.tensor(1.0 - rate, dtype=x.dtype, device=x.device)
 
 
+Noise = Union[None, int, torch.Tensor]  # a dropout site's draw: none, a hash seed, a keep mask
+
+
 class HashDropout(nn.Module):
     """Dropout at one site of the backbone (<- ``HashDropout`` :373).
 
@@ -305,32 +342,43 @@ class HashDropout(nn.Module):
     returns ``x``. Otherwise the mask is the counter hash of one int32 seed
     drawn from ``generator`` (``use_hash``, the default), or, with
     ``hash_dropout=False``, ``torch.bernoulli`` drawn on ``generator`` and
-    moved to ``x``'s device. Plain PyTorch on the card too: the JAX package
-    runs it as XLA ops, not as a Pallas kernel (a fused Triton version is
-    later work, ROADMAP Queue 1 item 4).
+    moved to ``x``'s device. ``draw(shape, generator)`` makes that draw
+    alone and ``apply(x, noise)`` uses it, for a caller that draws ahead
+    (``EncoderLayer.draw_noise``). Plain PyTorch on the card too: the JAX
+    package runs it as XLA ops, not as a Pallas kernel (a fused Triton
+    version is later work, ROADMAP Queue 1 item 4).
     """
 
     def __init__(self, rate: float, use_hash: bool = True):
         super().__init__()
         self.rate, self.use_hash = rate, use_hash
 
+    def draw(self, shape, generator: Optional[torch.Generator]) -> Noise:
+        if generator is None or self.rate <= 0.0:
+            return None
+        if self.use_hash:
+            return draw_seed(generator)
+        return torch.bernoulli(torch.full(tuple(shape), 1.0 - self.rate), generator=generator)
+
+    def apply(self, x: torch.Tensor, noise: Noise) -> torch.Tensor:
+        if noise is None:
+            return x
+        if isinstance(noise, int):
+            return hash_dropout(x, self.rate, noise)
+        keep = noise.to(device=x.device, dtype=torch.bool)
+        return torch.where(keep, _div_keep(x, self.rate), torch.zeros((), dtype=x.dtype, device=x.device))
+
     def forward(
         self, x: torch.Tensor, generator: Optional[torch.Generator] = None
     ) -> torch.Tensor:
-        if generator is None or self.rate <= 0.0:
-            return x
-        if self.use_hash:
-            return hash_dropout(x, self.rate, draw_seed(generator))
-        keep = torch.bernoulli(torch.full(x.shape, 1.0 - self.rate), generator=generator)
-        keep = keep.to(device=x.device, dtype=torch.bool)
-        return torch.where(keep, _div_keep(x, self.rate), torch.zeros((), dtype=x.dtype, device=x.device))
+        return self.apply(x, self.draw(x.shape, generator))
 
 
 class FeatureProjection(nn.Module):
     def __init__(self, cfg: Wav2Vec2Config):
         super().__init__()
         self.layer_norm = LayerNorm(cfg.conv_dim[-1], eps=cfg.layer_norm_eps)
-        self.projection = nn.Linear(cfg.conv_dim[-1], cfg.hidden_size)
+        self.projection = _dense(cfg, cfg.conv_dim[-1], cfg.hidden_size)
         self.dropout = HashDropout(cfg.feat_proj_dropout, cfg.hash_dropout)
 
     def forward(
@@ -384,30 +432,30 @@ class PosConvEmbedding(nn.Module):
 class SelfAttention(nn.Module):
     """Fused QKV projection -> flash attention over ``[B, T, H, D]`` views
     of the projection (no copy) -> output projection. In training the
-    attention-prob dropout runs inside the kernels, from one seed drawn
-    from the generator."""
+    attention-prob dropout runs inside the kernels, from one seed
+    (``seed``, drawn by ``EncoderLayer.draw_noise``); without one there is
+    no dropout."""
 
     def __init__(self, cfg: Wav2Vec2Config):
         super().__init__()
         h = cfg.hidden_size
         self.num_heads = cfg.num_heads
         self.dropout = cfg.attention_dropout
-        self.qkv_proj = nn.Linear(h, 3 * h)
-        self.out_proj = nn.Linear(h, h)
+        self.qkv_proj = _dense(cfg, h, 3 * h)
+        self.out_proj = _dense(cfg, h, h)
 
     def forward(
         self,
         x: torch.Tensor,
         lengths: Optional[torch.Tensor],
-        generator: Optional[torch.Generator] = None,
+        seed: Optional[int] = None,
     ) -> torch.Tensor:
         b, t, h = x.shape
         q, k, v = (
             part.view(b, t, self.num_heads, h // self.num_heads)
             for part in self.qkv_proj(x).split(h, dim=-1)
         )
-        rate = self.dropout if generator is not None else 0.0
-        seed = draw_seed(generator) if rate > 0.0 else None
+        rate = self.dropout if seed is not None else 0.0
         out = flash_attention(q, k, v, lengths, rate, seed)
         return self.out_proj(out.reshape(b, t, h))
 
@@ -421,26 +469,38 @@ class EncoderLayer(nn.Module):
         self.pre = cfg.do_stable_layer_norm
         self.attention = SelfAttention(cfg)
         self.layer_norm = LayerNorm(cfg.hidden_size, eps=eps)
-        self.intermediate_dense = nn.Linear(cfg.hidden_size, cfg.intermediate_size)
-        self.output_dense = nn.Linear(cfg.intermediate_size, cfg.hidden_size)
+        self.intermediate_dense = _dense(cfg, cfg.hidden_size, cfg.intermediate_size)
+        self.output_dense = _dense(cfg, cfg.intermediate_size, cfg.hidden_size)
         self.final_layer_norm = LayerNorm(cfg.hidden_size, eps=eps)
         self.attn_dropout = HashDropout(cfg.hidden_dropout, cfg.hash_dropout)  # :647
         self.act_dropout = HashDropout(cfg.activation_dropout, cfg.hash_dropout)  # :670
         self.out_dropout = HashDropout(cfg.hidden_dropout, cfg.hash_dropout)  # :675
 
+    def draw_noise(self, shape, generator: Optional[torch.Generator]) -> Tuple[Noise, ...]:
+        """Every random draw of the layer for an input of ``shape`` [B, T,
+        H], in the order the JAX layer makes them: the attention dropout's
+        seed, then the attention output's, the activation's and the
+        output's dropout draws. All None without a generator (eval)."""
+        b, t, _ = shape
+        seed = draw_seed(generator) if generator is not None and self.attention.dropout > 0.0 else None
+        return (seed, self.attn_dropout.draw(shape, generator),
+                self.act_dropout.draw((b, t, self.intermediate_dense.out_features), generator),
+                self.out_dropout.draw(shape, generator))
+
     def forward(
         self,
         x: torch.Tensor,
         lengths: Optional[torch.Tensor],
-        generator: Optional[torch.Generator] = None,
+        noise: Tuple[Noise, ...] = (None, None, None, None),
     ) -> torch.Tensor:
-        attn = self.attention(self.layer_norm(x) if self.pre else x, lengths, generator)
-        x = x + self.attn_dropout(attn, generator)
+        seed, attn_noise, act_noise, out_noise = noise
+        attn = self.attention(self.layer_norm(x) if self.pre else x, lengths, seed)
+        x = x + self.attn_dropout.apply(attn, attn_noise)
         if not self.pre:
             x = self.layer_norm(x)
         h = F.gelu(self.intermediate_dense(self.final_layer_norm(x) if self.pre else x))
-        h = self.output_dense(self.act_dropout(h, generator))
-        x = x + self.out_dropout(h, generator)
+        h = self.output_dense(self.act_dropout.apply(h, act_noise))
+        x = x + self.out_dropout.apply(h, out_noise)
         return x if self.pre else self.final_layer_norm(x)
 
 
@@ -454,6 +514,7 @@ class Encoder(nn.Module):
         self.dropout = HashDropout(cfg.hidden_dropout, cfg.hash_dropout)  # :741
         self.layers = nn.ModuleList(EncoderLayer(cfg) for _ in range(cfg.num_layers))
         self.layers_run = cfg.num_layers  # layers the last forward ran
+        self.remat = cfg.remat
 
     def forward(
         self,
@@ -467,7 +528,9 @@ class Encoder(nn.Module):
         counted here once for all layers. With a ``generator`` (training)
         each layer is kept where a uniform drawn from it is below
         1 - layerdrop (:620-625), and skipped otherwise (its state is its
-        input). With ``output_hidden_states`` returns (output, states):
+        input); a kept layer's draws come next (``draw_noise``), and with
+        ``remat`` in a forward that records gradients the layer runs
+        under ``checkpoint``. With ``output_hidden_states`` returns (output, states):
         the layers' input, then each layer's output, the last one replaced
         by the final LayerNorm's output in the pre-norm layout."""
         lengths = None
@@ -485,7 +548,11 @@ class Encoder(nn.Module):
             if generator is None or self.layerdrop <= 0.0 or (
                 float(torch.rand((), generator=generator)) < 1.0 - self.layerdrop
             ):
-                x = layer(x, lengths, generator)
+                noise = layer.draw_noise(x.shape, generator)
+                if self.remat and torch.is_grad_enabled():
+                    x = checkpoint(layer, x, lengths, noise, use_reentrant=False)
+                else:
+                    x = layer(x, lengths, noise)
                 self.layers_run += 1
             if states is not None:
                 states.append(x)
@@ -517,10 +584,6 @@ class Wav2Vec2Model(nn.Module):
 
     def __init__(self, cfg: Wav2Vec2Config = BASE_CONFIG, insert_cls_token: bool = False):
         super().__init__()
-        if cfg.int8_matmuls:
-            raise NotImplementedError(
-                "int8_matmuls is not ported yet: ROADMAP.md Queue 1 item 6"
-            )
         self.cfg = cfg
         self.insert_cls_token = insert_cls_token
         self.feature_encoder = ConvFeatureEncoder(cfg)

@@ -52,8 +52,6 @@ def _valid_frames(mask: Optional[torch.Tensor], t: int, cfg: Wav2Vec2Config, b: 
 class Wav2Vec2PairedModel(nn.Module):
     def __init__(self, cfg: Wav2Vec2PairedConfig = Wav2Vec2PairedConfig()):
         super().__init__()
-        if cfg.w2v2.int8_matmuls:
-            raise NotImplementedError("int8_matmuls is not ported yet: ROADMAP.md Queue 1 item 6")
         self.cfg = cfg
         self.feature_encoder = ConvFeatureEncoder(cfg.w2v2)
         self.feature_projection = FeatureProjection(cfg.w2v2)

@@ -11,8 +11,14 @@ runs on the CPU.
 model or an ``.npz`` exported from a JAX-package checkpoint with
 ``tools/export_jax_params.py``. ``-sc install=bash`` / ``-sc
 query=<word>`` answer shell completion over ``config/predict.yaml``
-(``runtime/completion.py``). There is no compilation cache to enable
-(ROADMAP.md Queue 1 item 9).
+(``runtime/completion.py``). ``network.int8_matmuls=true`` serves the
+wav2vec2 networks' dense layers in int8, ``auto`` per bucket batch
+(``runtime/predict.py::BucketDispatchEmbed``). On an H100 both serve
+slower than bf16 (PERF.md §5): ``auto`` keeps the TPU's crossover, which
+sends every LARGE bucket and BASE's from 6 s to int8, and the int8 GEMM
+does not beat cuBLAS's bf16 yet. There is no compilation
+cache to enable: the port compiles nothing but its kernels, which
+``ops/_build.py`` keeps by the hash of their sources.
 """
 
 from __future__ import annotations

@@ -47,7 +47,10 @@ CUDA, cuBLAS or cuDNN error, out of memory), which PyTorch raises as a
 trial and grid run builds its model afresh in this process; the previous
 one's model, optimizer and cached CUDA memory are freed before it, and the
 memory held is printed at its start. There is no compilation cache to
-enable (ROADMAP.md Queue 1 item 9).
+enable: the port compiles nothing but its kernels, which ``ops/_build.py``
+keeps by the hash of their sources. ``trainer.deterministic=true`` sets
+``CUBLAS_WORKSPACE_CONFIG`` itself when the run is the process's first
+CUDA work (``runtime/experiment.py::deterministic_mode``).
 """
 
 from __future__ import annotations

@@ -67,11 +67,44 @@ capture (which records the first samples in that draw) and an augmenter
 the batch processor's queue holds, the number of samples that draw
 augments depends on how far the prefetch thread ran, in both packages.
 
-Divergences from the JAX package: ``trainer.deterministic=true`` raises
-(ROADMAP.md Queue 1 item 9): the card's cuDNN and cuBLAS calls are not
-deterministic by default, and the knob's reproducibility is not ported;
-``trainer.prng_impl`` (a TPU PRNG choice) is read by no one. Random
-draws come from torch generators: the initial weights from one seeded with
+The TPU-era run knobs take these meanings here (the JAX package's are at
+:851-870, :1172-1251 and :1327-1331):
+
+- ``trainer.deterministic=true``: ``torch.use_deterministic_algorithms``
+  (never ``warn_only``) with cuDNN's deterministic algorithms and no
+  benchmark, for the run, the previous state restored after it; on the
+  card, ``CUBLAS_WORKSPACE_CONFIG=:4096:8`` set in the environment before
+  the process's first CUDA work (or the run raises: cuBLAS sizes its
+  workspace when its handle is made). The hand-written kernels are
+  deterministic already (one writer per output tile, counter-hash
+  masks). A CTC recipe (``optim/loss`` ``ctc``, ``ctc_ce``, ``ctc_aam``)
+  that trains on the card raises before reading data: ``F.ctc_loss``'s
+  CUDA backward has no deterministic implementation. (The JAX package
+  makes the knob a no-op: XLA is deterministic.)
+- ``profiler=simple|advanced|jax_trace`` (``name: jax_trace``): a
+  ``torch.profiler`` window (CPU, and CUDA on the card) over the steps
+  ``[start_step, start_step + num_steps)``, each dispatch a
+  ``train_step_<n>`` (or ``train_steps_<a>-<b>``) range, written as a Chrome trace to
+  ``<trace_dir>/trace.json``; dispatches never straddle the window, and
+  the window zeroes ``num_sanity_val_steps``.
+- ``trainer.remat``: each kept encoder layer of a training forward under
+  ``torch.utils.checkpoint``, recomputed whole in the backward
+  (``models/wav2vec2.py``). ``network.remat_policy`` is validated and
+  changes nothing beyond that: every policy recomputes the whole layer.
+- No-ops, read and documented: ``network.encoder_unroll`` (a Python loop
+  of layers stands in for ``nn.scan``), ``network.attention_impl`` (every
+  attention call takes the hand-written kernel), ``network.posconv_decomposed``,
+  ``trainer.prng_impl`` (a TPU PRNG choice) and the compile cache
+  (``W2V2_COMPILE_CACHE``): the port compiles nothing but its kernels,
+  which ``ops/_build.py`` caches by the hash of their sources.
+
+``network.int8_matmuls``: true serves the wav2vec2 dense sites in int8 and
+is refused in a run that trains (``_validate_int8_config``), so it runs
+with ``fit_model=false``; auto trains and tests in full precision (only
+predict dispatches per bucket).
+
+Divergences from the JAX package: the deterministic CTC refusal above.
+Random draws come from torch generators: the initial weights from one seeded with
 ``seed`` on the device, the train step's draws from a CPU one seeded with
 ``seed + 1`` (the JAX package keys its init with ``PRNGKey(seed)`` and its
 steps with ``PRNGKey(seed + 1)``), so the two packages agree on a run only
@@ -91,6 +124,8 @@ first validation.
 
 from __future__ import annotations
 
+import contextlib
+import os
 import pathlib
 import time
 from collections import deque
@@ -173,9 +208,10 @@ def w2v2_config(net: Dict, precision: str, remat: bool = False, accumulate: int 
     default as the JAX ``_w2v2_config`` (:320) builds it: BASE, LARGE or
     tiny with the recipe's regularisation, computing in bfloat16 for
     precision "bf16". ``remat``, ``remat_policy``, ``encoder_unroll``,
-    ``posconv_decomposed`` and ``attention_impl`` are carried and validated
-    and change nothing here (ROADMAP Queue 1 item 9); ``int8_matmuls``
-    true makes the model raise."""
+    ``posconv_decomposed`` and ``attention_impl`` are carried and validated;
+    ``remat`` checkpoints the encoder layers (under any ``remat_policy``) and
+    ``int8_matmuls`` true (YAML's 1 too) makes the dense sites int8, and
+    the other three change nothing here (the module's docstring)."""
     base = {"base": BASE_CONFIG, "large": LARGE_CONFIG, "tiny": TINY_W2V2}[
         net.get("wav2vec2_size", "base")]
     keys = ("activation_dropout", "attention_dropout", "feat_proj_dropout", "hidden_dropout",
@@ -667,22 +703,78 @@ def _apply_fast_dev_run(cfg: Dict) -> None:
     print(f"fast_dev_run: {n} train/val/test batch(es), checkpointing disabled")
 
 
-def _check_ported(cfg: Dict) -> None:
-    """Raise, before any data is read, for the knobs of ``run.py`` that this
-    runtime does not take yet."""
-    t = cfg["trainer"]
-    det = t.get("deterministic", False)
+CTC_LOSSES = ("ctc", "ctc_ce", "ctc_aam")
+
+
+def check_deterministic(cfg: Dict, device: Optional[torch.device]) -> None:
+    """Raise for what ``trainer.deterministic=true`` cannot run on
+    ``device``: a recipe that trains through a CTC loss on the card, whose
+    ``F.ctc_loss`` backward has no deterministic CUDA implementation
+    (``torch.use_deterministic_algorithms`` would raise at its first
+    step)."""
+    det = cfg["trainer"].get("deterministic", False)
     if not isinstance(det, bool):
         raise ValueError(f"trainer.deterministic must be a bool, got {det!r}")
-    if det:
-        raise NotImplementedError(
-            "trainer.deterministic=true is not ported yet: ROADMAP.md Queue 1 item 9 (a GPU meaning "
-            "for each TPU-era knob)")
-    if (cfg.get("profiler") or {}).get("name") == "jax_trace":
-        raise NotImplementedError("profiler=jax_trace (a trace window) is not ported yet: ROADMAP.md Queue 1 item 9")
-    nd = t.get("num_devices", "all")
+    trains = cfg.get("fit_model", True) or cfg.get("run_lr_range_test") or cfg.get("tune_model")
+    loss = cfg["optim"]["loss"]["name"]
+    if det and device is not None and device.type == "cuda" and trains and loss in CTC_LOSSES:
+        raise ValueError(
+            f"trainer.deterministic=true cannot train optim/loss={loss} on the card: F.ctc_loss's CUDA "
+            "backward has no deterministic implementation (a deterministic CTC is ROADMAP.md Queue 3); "
+            "train it with trainer.deterministic=false, or on the CPU")
+
+
+def _check_ported(cfg: Dict, device: Optional[torch.device] = None) -> None:
+    """Raise, before any data is read, for what this runtime does not
+    take: ``trainer.num_devices`` above 1, and the deterministic CTC
+    refusal (``check_deterministic``)."""
+    check_deterministic(cfg, device)
+    nd = cfg["trainer"].get("num_devices", "all")
     if nd != "all" and int(nd) != 1:
         raise NotImplementedError(f"trainer.num_devices={nd}: data parallelism is ROADMAP.md Queue 1 item 8")
+
+
+CUBLAS_WORKSPACE = ":4096:8"
+
+
+def _cublas_workspace() -> None:
+    """``CUBLAS_WORKSPACE_CONFIG`` for deterministic cuBLAS, set before the
+    process's first CUDA work. PyTorch reads the variable at each call
+    that checks it, but cuBLAS sizes its workspace when its handle is
+    made, so a value set after that passes the check and buys nothing:
+    with CUDA already in use and the variable unset, raise."""
+    if os.environ.get("CUBLAS_WORKSPACE_CONFIG") in (CUBLAS_WORKSPACE, ":16:8"):
+        return
+    if torch.cuda.is_initialized():
+        raise RuntimeError(
+            f"trainer.deterministic=true needs CUBLAS_WORKSPACE_CONFIG={CUBLAS_WORKSPACE} in the environment "
+            "before the process's first CUDA work, and this process has used the card already: start it with "
+            "the variable set (python -m w2v2_speaker_tpu_torch.run sets it itself when it runs first)")
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = CUBLAS_WORKSPACE
+
+
+@contextlib.contextmanager
+def deterministic_mode(enabled: bool, device: torch.device):
+    """``trainer.deterministic``: deterministic algorithms (never
+    ``warn_only``), cuDNN's deterministic algorithms and no benchmark for
+    the length of the block, the previous state restored after it; on the
+    card, ``CUBLAS_WORKSPACE_CONFIG`` first (``_cublas_workspace``)."""
+    if not enabled:
+        yield
+        return
+    if device.type == "cuda":
+        _cublas_workspace()
+    cudnn = torch.backends.cudnn
+    before = (torch.are_deterministic_algorithms_enabled(), torch.is_deterministic_algorithms_warn_only_enabled(),
+              cudnn.deterministic, cudnn.benchmark)
+    torch.use_deterministic_algorithms(True)
+    cudnn.deterministic, cudnn.benchmark = True, False
+    print("trainer.deterministic=true: deterministic algorithms, cuDNN deterministic, no benchmark")
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(before[0], warn_only=before[1])
+        cudnn.deterministic, cudnn.benchmark = before[2], before[3]
 
 
 def run_train_eval(cfg: Dict, device: DeviceLike = None) -> Optional[float]:
@@ -697,7 +789,12 @@ def run_train_eval(cfg: Dict, device: DeviceLike = None) -> Optional[float]:
     np.random.seed(seed)
     _validate_int8_config(cfg)
     _apply_fast_dev_run(cfg)
-    _check_ported(cfg)
+    _check_ported(cfg, dev)
+    with deterministic_mode(cfg["trainer"].get("deterministic", False), dev):
+        return _train_eval(cfg, dev, seed)
+
+
+def _train_eval(cfg: Dict, dev: torch.device, seed: int) -> Optional[float]:
     if cfg.get("use_cometml"):
         try:
             import comet_ml  # noqa: F401
@@ -933,11 +1030,42 @@ def _train_loop(cfg, task, state: TrainState, logger, train_iter_fn, validate_fn
                                           return_embeddings=on_step is not None, steps_per_dispatch=k)
         return step_fns[k]
 
+    # profiler=jax_trace: a torch.profiler window over steps [prof_start,
+    # prof_start + prof_len) (counted from 0), its own trace file
+    prof = cfg.get("profiler") or {}
+    prof_active = prof.get("name") == "jax_trace"
+    prof_start, prof_len = int(prof.get("start_step", 10)), int(prof.get("num_steps", 5))
+    profiler = None
+
     def chunk_take() -> int:
         take = min(spd, max_steps - step, val_every - step % val_every)
         if limit_train:
             take = min(take, limit_train - epoch_batches)
+        if prof_active:  # a dispatch never straddles the window
+            if step < prof_start:
+                take = min(take, prof_start - step)
+            elif step < prof_start + prof_len:
+                take = min(take, prof_start + prof_len - step)
         return max(take, 1)
+
+    def start_profiler():
+        nonlocal profiler
+        acts = [torch.profiler.ProfilerActivity.CPU]
+        if device.type == "cuda":
+            acts.append(torch.profiler.ProfilerActivity.CUDA)
+        profiler = torch.profiler.profile(activities=acts)
+        profiler.start()
+
+    def stop_profiler():
+        nonlocal profiler, prof_active
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        profiler.stop()
+        out = pathlib.Path(prof["trace_dir"]) / "trace.json"
+        out.parent.mkdir(parents=True, exist_ok=True)
+        profiler.export_chrome_trace(str(out))
+        print(f"profiler: steps {prof_start + 1}-{step} traced to {out}")
+        profiler, prof_active = None, False
 
     buf: List[Dict] = []
 
@@ -953,16 +1081,22 @@ def _train_loop(cfg, task, state: TrainState, logger, train_iter_fn, validate_fn
     def run_chunk():
         nonlocal state, step, epoch_batches, buf
         try:
-            if len(buf) == 1:
-                state, m = get_step_fn(1)(state, _to_device(buf[0], device))
-                per_step = [(buf[0], _to_host(m))]
-            else:
-                stacked = {key: np.stack([b[key] for b in buf]) for key in buf[0] if key != "keys"}
-                state, sm = get_step_fn(len(buf))(state, _to_device(stacked, device))
-                sm = _to_host(sm)  # one copy per metric for the whole dispatch
-                per_step = [(buf[i], {k: v[i] for k, v in sm.items()}) for i in range(len(buf))]
+            if prof_active and step == prof_start:
+                start_profiler()
+            label = f"train_step_{step + 1}" if len(buf) == 1 else f"train_steps_{step + 1}-{step + len(buf)}"
+            with (torch.profiler.record_function(label) if profiler is not None else contextlib.nullcontext()):
+                if len(buf) == 1:
+                    state, m = get_step_fn(1)(state, _to_device(buf[0], device))
+                    per_step = [(buf[0], _to_host(m))]
+                else:
+                    stacked = {key: np.stack([b[key] for b in buf]) for key in buf[0] if key != "keys"}
+                    state, sm = get_step_fn(len(buf))(state, _to_device(stacked, device))
+                    sm = _to_host(sm)  # one copy per metric for the whole dispatch
+                    per_step = [(buf[i], {k: v[i] for k, v in sm.items()}) for i in range(len(buf))]
         except Exception:
             dump_failed_step_batches()
+            if profiler is not None:
+                profiler.stop()  # no session left open behind the error
             raise
         buf = []
         for batch, m in per_step:
@@ -972,6 +1106,8 @@ def _train_loop(cfg, task, state: TrainState, logger, train_iter_fn, validate_fn
                 on_step(batch, emb)
             logger.log_step(step, {k: float(v) for k, v in m.items()})
             epoch_batches += 1
+        if profiler is not None and step in (prof_start + prof_len, max_steps):
+            stop_profiler()  # the window's end, or training's: before any validation
 
     def run_validation():
         nonlocal stop_reason, validated_at
@@ -997,8 +1133,9 @@ def _train_loop(cfg, task, state: TrainState, logger, train_iter_fn, validate_fn
                 print(f"early stopping at step {step}: {stop_reason}")
 
     # trainer.num_sanity_val_steps: validation batches before any training,
-    # logged and never checkpointed or fed to early stopping
-    sanity = 0 if fast_dev else int(trainer.get("num_sanity_val_steps") or 0)
+    # logged and never checkpointed or fed to early stopping; none under
+    # fast_dev_run or a profiler window (:1327-1331)
+    sanity = 0 if fast_dev or prof_active else int(trainer.get("num_sanity_val_steps") or 0)
     if sanity and step < max_steps:
         print(f"sanity validation: {sanity} batch(es)")
         t0 = time.perf_counter()
@@ -1055,6 +1192,8 @@ def _train_loop(cfg, task, state: TrainState, logger, train_iter_fn, validate_fn
     if (epoch >= max_epochs and step < max_steps and stop_reason is None and step > start_step
             and validated_at != step and not fast_dev):
         run_validation()  # the epoch cap ended training between validations
+    if profiler is not None:
+        stop_profiler()  # training ended inside the window
     if dropped_ragged:
         print(f"total ragged train batches dropped: {dropped_ragged}")
     return state, (None if fast_dev else ckpt)

@@ -21,19 +21,30 @@ Counterparts:
   16 kHz audio read and normalised per utterance, embeddings cached as
   ``<folder>/embeddings/<id>.npy``, AS-Norm fitted on the extraction set,
   scores mapped to (s + 1) / 2, clipped to [0, 1] and written as
-  ``<pairs-stem>_scores.txt`` lines ``<score> <a> <b>``.
+  ``<pairs-stem>_scores.txt`` lines ``<score> <a> <b>``;
+- ``BucketDispatchEmbed`` <- ``w2v2_speaker_tpu/runtime/predict.py::
+  BucketDispatchEmbed`` (:42): ``network.int8_matmuls=auto`` routes each
+  bucket batch to int8 or to full precision by ``ops.quant.int8_auto_policy``
+  (threshold ``network.int8_auto_min_samples``) and prints ``int8 auto
+  dispatch: n/m bucket batches on int8 (threshold ... samples)``, as
+  :158-163; ``network.int8_matmuls=true`` serves every bucket in int8.
+  The threshold is the TPU's crossover: on an H100 int8 is slower than
+  bf16 at every shape measured (PERF.md §5), so ``auto`` serves slower.
 
 Differences from the JAX package: no optimizer is built (serving needs
-none), there is no mesh (one card), ``network.int8_matmuls`` other than
-false and raises (``BucketDispatchEmbed`` waits for ROADMAP.md Queue 1 item 6).
-In bf16 the model keeps float32 parameters and computes under autocast, as
-the JAX package's model keeps float32 parameters and computes in bf16.
+none), there is no mesh (one card). Under ``auto`` both arithmetics read
+one model: its dense sites are ``QuantLinear``s, switched per bucket batch
+(``ops.quant.int8_enabled``), where the JAX package builds a second
+program over the same parameters. In bf16 the model keeps float32
+parameters and computes under autocast, as the JAX package's model keeps
+float32 parameters and computes in bf16.
 """
 
 from __future__ import annotations
 
+import copy
 import pathlib
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -45,10 +56,51 @@ from ..data.samples import SpeakerSample
 from ..device import DeviceLike, resolve_device, set_float32_precision
 from ..eval.evaluator import ASNormCosineEvaluator, EmbeddingSample
 from ..models.wav2vec2 import init_parameters
+from ..ops.quant import INT8_AUTO_MIN_SAMPLES, int8_auto_policy, int8_enabled
 from ..train.checkpoint import load_params
 from .experiment import _canon_int8, build_evaluator, build_model_and_task, graft_pretrained
 
-__all__ = ["build_predict_model", "extract_embeddings", "read_pair_file", "run_predictions"]
+__all__ = ["BucketDispatchEmbed", "build_predict_model", "extract_embeddings", "read_pair_file",
+           "run_predictions"]
+
+
+class BucketDispatchEmbed:
+    """Per-bucket full-precision / int8 embedding (``network.int8_matmuls=auto``).
+
+    ``extract_embeddings`` pads each bucket batch to a multiple of
+    ``test_pad_to_multiple`` samples; each call routes its batch by
+    ``int8_auto_policy(padded samples, hidden_size, min_samples)`` to
+    ``embed_int8`` or ``embed_full`` (each ``(wav, mask) -> embeddings``)
+    and records ``(padded samples, used int8)`` in ``calls``. It stands in
+    for the model in ``extract_embeddings`` (``compute_embedding``)."""
+
+    def __init__(self, embed_full: Callable, embed_int8: Callable, hidden_size: int,
+                 min_samples: int = INT8_AUTO_MIN_SAMPLES):
+        self._full, self._int8 = embed_full, embed_int8
+        self.hidden_size, self.min_samples = hidden_size, min_samples
+        self.calls: List[Tuple[int, bool]] = []
+
+    def __call__(self, wav, mask=None):
+        use_int8 = int8_auto_policy(int(wav.shape[-1]), self.hidden_size, self.min_samples)
+        self.calls.append((int(wav.shape[-1]), use_int8))
+        return (self._int8 if use_int8 else self._full)(wav, mask)
+
+    compute_embedding = __call__
+
+
+def dispatch_embed(model, cfg: Dict) -> BucketDispatchEmbed:
+    """The ``BucketDispatchEmbed`` of ``model`` (built with int8 sites):
+    both routes run the same model, its ``QuantLinear``s switched per
+    call."""
+
+    def route(enabled: bool):
+        def embed(wav, mask=None):
+            int8_enabled(model, enabled)
+            return model.compute_embedding(wav, mask)
+        return embed
+
+    return BucketDispatchEmbed(route(False), route(True), hidden_size=model.cfg.w2v2.hidden_size,
+                               min_samples=int(cfg["network"].get("int8_auto_min_samples", INT8_AUTO_MIN_SAMPLES)))
 
 
 @torch.inference_mode()
@@ -103,19 +155,20 @@ def read_pair_file(path: pathlib.Path) -> List[Tuple[str, str]]:
 def _check_servable(cfg: Dict) -> None:
     """Raise for what predict cannot serve: a network without a speaker
     embedding (the speech and paired networks; the JAX package raises
-    too), int8 matmuls, and what ``build_model_and_task`` refuses (a
-    loss the network does not take, x-vector or wav2spk under AAM), built
-    on the meta device."""
+    too), ``network.int8_matmuls=auto`` on a network outside the wav2vec2
+    family (as :104-110), a value of it other than true, false or auto,
+    and what ``build_model_and_task`` refuses (a loss the network does not
+    take, x-vector or wav2spk under AAM), built on the meta device."""
     name = cfg["network"].get("name")
     if name in ("wav2vec2_fc_letter", "wav2vec2_paired"):
         raise ValueError("predict supports speaker (or multitask) models")
-    int8 = cfg["network"].get("int8_matmuls", False)
-    if _canon_int8(int8) is not False:
-        raise NotImplementedError(
-            f"network.int8_matmuls={int8!r} is not ported yet: ROADMAP.md Queue 1 item 6 (int8 serving)"
-        )
+    int8 = _canon_int8(cfg["network"].get("int8_matmuls", False))
+    if int8 not in (True, False, "auto"):
+        raise ValueError(f"network.int8_matmuls must be true/false/auto, got {int8!r}")
     with torch.device("meta"):
-        build_model_and_task(cfg, cfg["network"].get("explicit_num_speakers") or 2)
+        task, _ = build_model_and_task(cfg, cfg["network"].get("explicit_num_speakers") or 2)
+    if int8 == "auto" and not hasattr(getattr(task.model, "cfg", None), "w2v2"):
+        raise ValueError("network.int8_matmuls=auto is only supported for wav2vec2-family networks")
 
 
 def build_predict_model(cfg: Dict, device: DeviceLike = None):
@@ -167,10 +220,15 @@ def run_predictions(cfg: Dict, device: DeviceLike = None) -> pathlib.Path:
 
     if todo:
         print(f"computing {len(todo)} speaker embeddings")
+        auto = _canon_int8(cfg["network"].get("int8_matmuls", False)) == "auto"
+        if auto:  # one model with int8 sites, switched per bucket batch
+            cfg = copy.deepcopy(cfg)
+            cfg["network"]["int8_matmuls"] = True
         model = build_predict_model(cfg, dev)
+        embed = dispatch_embed(model, cfg) if auto else model
         dl = cfg["data"]["dataloader"]
         fresh = extract_embeddings(
-            model, todo,
+            embed, todo,
             pad_to_multiple=dl.get("test_pad_to_multiple", 16000),
             batch_size=dl.get("test_batch_size", 8),
             device=dev,
@@ -180,6 +238,10 @@ def run_predictions(cfg: Dict, device: DeviceLike = None) -> pathlib.Path:
             out.parent.mkdir(exist_ok=True, parents=True)
             np.save(out, s.embedding)
             cached[s.sample_id] = np.asarray(s.embedding)
+        if auto:
+            n8 = sum(1 for _, used in embed.calls if used)
+            print(f"int8 auto dispatch: {n8}/{len(embed.calls)} bucket batches on int8 "
+                  f"(threshold {embed.min_samples} samples)")
 
     embedding_pairs = [(EmbeddingSample(a, cached[a]), EmbeddingSample(b, cached[b])) for a, b in pairs]
     if isinstance(evaluator, ASNormCosineEvaluator):
