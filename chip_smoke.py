@@ -260,7 +260,21 @@ the run by raising:
    sanity validation); ``trainer.remat`` on the LARGE AAM step under each
    policy, all three full recompute (loss, gradients, generator bit-equal
    to no remat; peak memory and ms/step);
-36. one JSON line with every kernel's numbers (the attention kernels and
+36. data parallelism: (a) i the three attention kernels on a block of rows
+   and on a block of heads at their global coordinates, bit-equal to the
+   same rows (heads) of the global launch (bf16 and f32, rate 0.1, LARGE's
+   and a speech shape); ii the BASE CE recipe through ``run.main`` for 4
+   steps on 2 gloo ranks sharing the card against 1 rank (step-1 loss
+   within 1.5e-3 relative, steps 2-4 within 1e-3, replicas bit-identical
+   after every step, attention launches per rank = kept layers, ms/step and
+   the all-reduce's ms); iii a float32 2-layer BASE-width step on 2 ranks
+   against 1 (loss within 1e-5, each gradient within ``DP_F32_GRAD_REL`` of
+   the 1-rank gradient's norm) and on 1 NCCL rank;
+37. tensor parallelism: ``dryrun_multichip(4)`` at BASE width, dp=2 x tp=2
+   over gloo on the card, 6 heads a rank, against one process (the frozen,
+   released and post-restore losses within 1e-5, the released step's
+   gathered gradients within ``TP_GRAD_REL``);
+38. one JSON line with every kernel's numbers (the attention kernels and
    the conv at the LARGE training shapes, launches of the LARGE training
    run; the int8 kernels over LARGE's five sites, launches of phase 34's
    LARGE int8 predict run), the card line, then the result line.
@@ -296,8 +310,8 @@ from w2v2_speaker_tpu_torch.data.trials import (
 )
 from w2v2_speaker_tpu_torch.device import set_float32_precision
 from w2v2_speaker_tpu_torch.entry import (
-    BATCH, NUM_SPEAKERS, SAMPLES, build_model, build_train_state, entry, large_train_entry, synthetic_batch,
-    train_entry,
+    BATCH, NUM_SPEAKERS, SAMPLES, build_model, build_train_state, dryrun_multichip, entry, large_train_entry,
+    synthetic_batch, train_entry,
 )
 from w2v2_speaker_tpu_torch.models.frontend import FbankFrontend
 from w2v2_speaker_tpu_torch.models.wav2vec2 import (
@@ -1694,7 +1708,7 @@ def run_phase(card: str, tmp: pathlib.Path) -> tuple:
         "data.module.train_val_split_mode=different", f"+data.module.num_val_speakers={RUN_VAL}",
         f"data.shards.samples_per_shard={RUN_SHARD}", f"trainer.max_steps={RUN_STEPS}",
         f"trainer.val_check_interval={RUN_VAL_EVERY}", f"trainer.checkpoint_dir={tmp / 'ckpt'}",
-        f"trainer.log_dir={tmp / 'tb'}", "trainer.log_every=1", "seed=13",
+        f"trainer.log_dir={tmp / 'tb'}", "trainer.log_every=1", "seed=13", ONE_RANK,
     ]
     gc.collect()  # what earlier phases left to the collector and the cache
     torch.cuda.empty_cache()
@@ -1753,12 +1767,18 @@ def run_phase(card: str, tmp: pathlib.Path) -> tuple:
     return wav_dir, trials, tmp / "shards"
 
 
+# trainer.num_devices defaults to every visible card: the run phases drive
+# one rank in this process (their probes and launch counts read it)
+ONE_RANK = "trainer.num_devices=1"
+
+
 def corpus_args(wav_dir, trials, shards, ckpt) -> list:
-    """The run twin's data and output overrides for phase 13's corpus."""
+    """The run twin's data and output overrides for phase 13's corpus, on
+    one rank."""
     return [
         f"data.module.data_dir={wav_dir}", f"data.module.shards_dir={shards}", f"data.module.test_trial_path={trials}",
         "data.module.train_val_split_mode=different", f"+data.module.num_val_speakers={RUN_VAL}",
-        f"trainer.checkpoint_dir={ckpt}", "trainer.log_dir=null", "trainer.log_every=1",
+        f"trainer.checkpoint_dir={ckpt}", "trainer.log_dir=null", "trainer.log_every=1", ONE_RANK,
     ]
 
 
@@ -2099,7 +2119,7 @@ def speech_phase(card: str, tmp: pathlib.Path) -> None:
     argv = ["+experiment=speech_wav2vec2_ctc", *(f"data.module.{k}={v}" for k, v in dirs.items()),
             f"data.module.shards_dir={tmp / 'speech_shards'}", f"trainer.max_steps={SPEECH_STEPS}",
             f"trainer.val_check_interval={SPEECH_VAL_EVERY}", "callbacks=default_speech",
-            f"trainer.checkpoint_dir={ckpt}", "trainer.log_dir=null", "trainer.log_every=1", "seed=16"]
+            f"trainer.checkpoint_dir={ckpt}", "trainer.log_dir=null", "trainer.log_every=1", "seed=16", ONE_RANK]
     gc.collect()
     torch.cuda.empty_cache()
     held = torch.cuda.memory_allocated()
@@ -2217,7 +2237,7 @@ def multitask_phase(card: str, tmp: pathlib.Path) -> None:
     argv = ["+experiment=multitask_wav2vec2", *(f"data.module.{k}={v}" for k, v in dirs.items()),
             f"data.module.shards_dir={tmp / 'mt_shards'}", f"data.module.num_val_pairs={MT_VAL_PAIRS}",
             f"trainer.max_steps={MT_STEPS}", f"trainer.val_check_interval={MT_VAL_EVERY}",
-            "trainer.log_dir=null", "trainer.log_every=1", "seed=16"]  # phase 16's seed: its batches
+            "trainer.log_dir=null", "trainer.log_every=1", "seed=16", ONE_RANK]  # phase 16's seed: its batches
     gc.collect()
     torch.cuda.empty_cache()
     held = torch.cuda.memory_allocated()
@@ -3686,7 +3706,7 @@ def knobs_phase(card: str, tmp: pathlib.Path, wav_dir, trials, shards) -> None:
           f"steps 2-{DET_STEPS}) {ms(a):.2f} and {ms(b):.2f} against {ms(records['nondet']):.2f} without the flag "
           f"(a third process) and phase 13's {MEASURED['run_ms']:.2f} (CUDA events) [{card}]", flush=True)
 
-    one = ["trainer.fast_dev_run=1", "eval_model=false", "trainer.deterministic=true", "trainer.log_dir=null"]
+    one = ["trainer.fast_dev_run=1", "eval_model=false", "trainer.deterministic=true", "trainer.log_dir=null", ONE_RANK]
     triplet = tmp / "triplet"
     runs = [(r, [f"+experiment={r}", f"data.shards.samples_per_shard={RUN_SHARD}", *extra,
                  *corpus_args(wav_dir, trials, shards, tmp / "det" / "_".join([r, *extra])), *one], False)
@@ -3793,6 +3813,250 @@ def knobs_phase(card: str, tmp: pathlib.Path, wav_dir, trials, shards) -> None:
           f"held) [{card}]", flush=True)
 
 
+# ------------------------------------------------ 36-37: data and tensor parallelism
+
+DP_ATTN_SHAPES = [  # (name, B, T, lengths, heads): LARGE training and a ragged speech training batch
+    ("large_train_3s", LARGE_BATCH, 149, [149] * LARGE_BATCH, H_LARGE),
+    ("speech_train", 8, 1199, [1199, 1100, 937, 720, 512, 349, 201, 64], H),
+]
+DP_STEPS, DP_WORLD = 4, 2
+DP_LOSS_RTOL = 1.5e-3  # the bf16 loss limit of the card-vs-card runs
+# steps 2-4 of the bf16 runs: four runs on an H100 read at most 1.12e-4
+# relative (the 1-rank run alone moves 9e-5 from run to run)
+DP_LATER_LOSS_RTOL = 1e-3
+DP_F32_LOSS_RTOL = 1e-5
+# float32 gradients against 1 rank: the largest over parameters of
+# |g - g1| / |g1| (L2 norms; a wrong reduce scale reads >= 0.5). On an H100
+# 2 ranks read 9.58e-4 (the first conv's weight) and dp=2 x tp=2 1.70e-6
+DP_F32_GRAD_REL, TP_GRAD_REL = 1e-2, 1e-4
+DP_DEADLINE = 900.0
+
+
+def grad_rel_err(got: dict, want: dict) -> tuple:
+    """(the largest over parameters of |got - want| / |want| in L2 norm,
+    its parameter, the largest |want| entry); a parameter whose gradient is
+    zero in ``want`` counts its absolute difference."""
+    assert got.keys() == want.keys(), sorted(set(got) ^ set(want))
+    worst, at = 0.0, None
+    for name, g in want.items():
+        norm = float(g.double().norm())
+        err = float((got[name].double() - g.double()).norm()) / (norm if norm > 0 else 1.0)
+        if err >= worst:
+            worst, at = err, name
+    return worst, at, max(float(g.abs().max()) for g in want.values())
+
+
+def offset_kernel_phase(card: str) -> dict:
+    """Phase 36 (a) i: the three attention kernels at rate 0.1 on a block of
+    rows (coords (b0, 0, 0)) and on a block of heads (coords (0, h0, H)) of
+    a global input, each output bit-equal to the same rows (heads) of the
+    global launch's; bf16 and f32, the LARGE and a speech shape. Returns
+    the launches it made."""
+    gen = torch.Generator(device="cuda").manual_seed(36)
+    seed, rate, made = DROPOUT_SEED, 0.1, 0
+    for name, b, t, lengths, h in DP_ATTN_SHAPES:
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k, v, lens = attention_inputs(b, t, lengths, dtype, gen, h)
+            do = torch.randn(q.shape, generator=gen, device="cuda").to(dtype)
+            o, lse = fa.flash_attention_fwd(q, k, v, lens, rate, seed, return_lse=True)
+            args = (q, k, v, do, lse, fa.attention_delta(o, do), lens, rate, seed)
+            dq = fa.flash_attention_bwd_dq(*args)
+            dk, dv = fa.flash_attention_bwd_dkv(*args)
+            made += 3
+            b0, nb, h0, nh = b // 2, b - b // 2, h // 2, h - h // 2
+            for label, rows, heads, coords in (("rows", slice(b0, b0 + nb), slice(None), (b0, 0, 0)),
+                                               ("heads", slice(None), slice(h0, h0 + nh), (0, h0, h))):
+                qb, kb, vb, dob = (x[rows, :, heads] for x in (q, k, v, do))
+                lb = lens[rows]
+                ob, lseb = fa.flash_attention_fwd(qb, kb, vb, lb, rate, seed, return_lse=True, coords=coords)
+                bargs = (qb, kb, vb, dob, lseb, fa.attention_delta(ob, dob), lb, rate, seed)
+                dqb = fa.flash_attention_bwd_dq(*bargs, coords=coords)
+                dkb, dvb = fa.flash_attention_bwd_dkv(*bargs, coords=coords)
+                made += 3
+                for out, got, want in (("o", ob, o[rows, :, heads]), ("lse", lseb, lse[rows, heads]),
+                                       ("dq", dqb, dq[rows, :, heads]), ("dk", dkb, dk[rows, :, heads]),
+                                       ("dv", dvb, dv[rows, :, heads])):
+                    assert torch.equal(got, want), (
+                        f"offset kernels {name} {dtype} {label} {out}: max diff {(got.float() - want.float()).abs().max()}")
+            print(f"offset kernels {name} {str(dtype).removeprefix('torch.')} B={b} T={t} H={h} rate {rate}: "
+                  f"rows [{b0}, {b}) and heads [{h0}, {h}) bit-equal to the global launch (o, lse, dq, dk, dv) "
+                  f"[{card}]", flush=True)
+    return made
+
+
+def dp_rank_run(argv: list) -> dict:
+    """One rank of phase 36 (a) ii (also the 1-rank run): ``run.main(argv)``
+    with every train step recorded (the loss, its attention launches and
+    kept layers, its CUDA-synchronised ms, the gradient all-reduce's ms)
+    and, with more than one rank, every rank's parameters and buffers
+    hashed after each step and compared."""
+    import hashlib
+
+    import torch.distributed as dist
+    from w2v2_speaker_tpu_torch import run
+    from w2v2_speaker_tpu_torch.parallel import mesh as pmesh
+    from w2v2_speaker_tpu_torch.runtime import experiment
+    from w2v2_speaker_tpu_torch.train import steps as steps_mod
+
+    rec = {"steps": [], "allreduce_ms": []}
+    make, reduce = experiment.make_train_step, steps_mod.all_reduce_grads
+
+    def timed_reduce(params, mesh):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        reduce(params, mesh)
+        torch.cuda.synchronize()
+        rec["allreduce_ms"].append(1e3 * (time.perf_counter() - t0))
+
+    def recorded(task, *a, **kw):
+        step = make(task, *a, **kw)
+
+        def run_step(state, batch):
+            reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, metrics = step(state, batch)
+            torch.cuda.synchronize()
+            ms = 1e3 * (time.perf_counter() - t0)
+            equal = True
+            if dist.is_initialized() and dist.get_world_size() > 1:
+                h = hashlib.sha256()
+                for name, x in sorted(state.model.state_dict().items()):
+                    h.update(name.encode())
+                    h.update(x.detach().reshape(-1).contiguous().view(torch.uint8).cpu().numpy().tobytes())
+                digests = [None] * dist.get_world_size()
+                dist.all_gather_object(digests, h.hexdigest(), group=pmesh.current_mesh().host_group)
+                equal = len(set(digests)) == 1
+            rec["steps"].append({"loss": float(metrics["loss"]), "layers": round(float(metrics["layers_run"])),
+                                 "launches": [launches()[k] for k in ATTENTION], "ms": ms, "replicas_equal": equal})
+            return state, metrics
+
+        return run_step
+
+    experiment.make_train_step, steps_mod.all_reduce_grads = recorded, timed_reduce
+    try:
+        rec["objective"] = run.main(argv)
+    finally:
+        experiment.make_train_step, steps_mod.all_reduce_grads = make, reduce
+    return rec
+
+
+def dp_run_phase(card: str, tmp: pathlib.Path, wav_dir, trials, shards) -> None:
+    """Phase 36 (a) ii: the BASE CE recipe at full width (bf16, B=66 global)
+    through ``run.main`` for 4 steps on 2 ranks sharing this one card over
+    a gloo group that the caller makes (``spawn(..., backend="gloo")``),
+    against a 1-rank run from the same state in this process: the step-1
+    loss within 1.5e-3 relative, steps 2-4 within 1e-3, the replicas
+    bit-identical after every step, each rank's attention launches per
+    step equal to its kept layers. Under Adam a uniform scale of the
+    gradient barely moves the losses: phase 36 (a) iii holds the gradients
+    themselves. Two ranks on one card are not a scaling measurement, and
+    gloo stages BASE's ~378 MB of float32 gradients through the host."""
+    from w2v2_speaker_tpu_torch.parallel.mesh import spawn
+
+    argv = ["+experiment=speaker_wav2vec2_ce", f"data.shards.samples_per_shard={RUN_SHARD}", "seed=13",
+            *corpus_args(wav_dir, trials, shards, tmp / "dp_ckpt"), f"trainer.max_steps={DP_STEPS}",
+            f"trainer.val_check_interval={DP_STEPS}", "trainer.steps_per_dispatch=1", "trainer.limit_val_batches=1",
+            "trainer.limit_test_batches=0", "trainer.num_sanity_val_steps=0", "trainer.log_every=1"]
+    t0 = time.perf_counter()
+    two = spawn(dp_rank_run, ([*argv, f"trainer.num_devices={DP_WORLD}"],), nprocs=DP_WORLD, device="cuda",
+                backend="gloo", deadline=DP_DEADLINE)
+    two_s = time.perf_counter() - t0
+    one = dp_rank_run([*argv, "trainer.num_devices=1", f"trainer.checkpoint_dir={tmp / 'dp1_ckpt'}"])
+    for label, rec in (("2 ranks", two), ("1 rank", one)):
+        assert len(rec["steps"]) == DP_STEPS, f"data parallel {label}: {len(rec['steps'])} steps"
+        for i, s in enumerate(rec["steps"]):
+            assert s["replicas_equal"], f"data parallel {label} step {i + 1}: replicas differ"
+            assert s["launches"] == [s["layers"]] * 3, f"data parallel {label} step {i + 1}: {s}"
+            assert np.isfinite(s["loss"]), f"data parallel {label} step {i + 1}: loss {s['loss']}"
+    l2, l1 = two["steps"][0]["loss"], one["steps"][0]["loss"]
+    assert abs(l2 - l1) <= DP_LOSS_RTOL * abs(l1), f"data parallel step-1 loss {l2} vs 1 rank {l1}"
+    rels = [abs(a["loss"] - b["loss"]) / abs(b["loss"]) for a, b in zip(two["steps"], one["steps"])]
+    assert max(rels[1:]) <= DP_LATER_LOSS_RTOL, f"data parallel losses 2-{DP_STEPS}: rel {rels}"
+    ms2 = [round(s["ms"], 1) for s in two["steps"]]
+    ms1 = [round(s["ms"], 1) for s in one["steps"]]
+    MEASURED["dp_ms"] = (float(np.mean(ms2[1:])), float(np.mean(ms1[1:])),
+                         float(np.mean(two["allreduce_ms"][1:])))
+    print(f"data parallel BASE bf16 B=66 global: 2 ranks on one card over gloo, step-1 loss {l2:.6f} vs 1 rank "
+          f"{l1:.6f} (rel {abs(l2 - l1) / abs(l1):.2e}, limit {DP_LOSS_RTOL}); losses 2 ranks "
+          f"{[round(s['loss'], 6) for s in two['steps']]}, 1 rank {[round(s['loss'], 6) for s in one['steps']]}, "
+          f"rel {[f'{r:.2e}' for r in rels]} (steps 2-{DP_STEPS} limit {DP_LATER_LOSS_RTOL}); "
+          f"replicas bit-identical after each of {DP_STEPS} steps; launches per rank per step = kept layers "
+          f"{[s['layers'] for s in two['steps']]}; ms/step (host clock, synchronised; two ranks sharing one card, "
+          f"not a scaling number) 2 ranks {ms2}, 1 rank {ms1}; gradient all-reduce (gloo, through the host) ms per "
+          f"step {[round(x, 1) for x in two['allreduce_ms']]}; the 2-rank run {two_s:.1f} s with its spawn "
+          f"[{card}]", flush=True)
+
+
+def dp_f32_phase(card: str) -> None:
+    """Phase 36 (a) iii: a 2-layer full-width (BASE) float32 speaker CE step
+    on 2 gloo ranks on the card against 1 rank (loss within 1e-5 relative,
+    each parameter's gradient within ``DP_F32_GRAD_REL`` of the 1-rank
+    gradient's norm, the replicas bit-identical), then one step in a world
+    of 1 over NCCL (its all-reduce probe included)."""
+    from tools.torch_parallel_cases import rank_cases, step_case
+    from w2v2_speaker_tpu_torch.parallel.mesh import spawn
+
+    cfg = {**BASE_CONFIG.__dict__, "num_layers": 2, "dtype": "float32"}
+    with torch.device("meta"):
+        model = Wav2Vec2SpeakerModel(Wav2Vec2SpeakerConfig(w2v2=Wav2Vec2Config(**cfg), stat_pooling_type="mean"),
+                                     num_speakers=64)
+    model.to_empty(device="cpu")
+    init_parameters(model, torch.Generator().manual_seed(36))
+    rng = np.random.default_rng(36)
+    lengths = rng.integers(24000, 48001, 8)
+    mask = np.arange(48000)[None, :] < lengths[:, None]
+    case = {"kind": "speaker", "w2v2": cfg, "config": {"stat_pooling_type": "mean"}, "speakers": 64, "acc": 2,
+            "seed": 5, "state_dict": model.state_dict(),
+            "batch": {"features": (rng.normal(0, 0.1, (8, 48000)) * mask).astype(np.float32), "mask": mask,
+                      "labels": rng.integers(0, 64, 8).astype(np.int32)}}
+    two = spawn(rank_cases, ([case], "cuda"), nprocs=DP_WORLD, device="cuda", backend="gloo",
+                deadline=DP_DEADLINE)[0]
+    one = step_case({**case, "device": "cuda"})
+    nccl = spawn(rank_cases, ([case], "cuda"), nprocs=1, device="cuda", deadline=DP_DEADLINE)[0]
+    rel = abs(two["loss"] - one["loss"]) / abs(one["loss"])
+    grad, at, top = grad_rel_err(two["grads"], one["grads"])
+    absdiff = max(float((two["grads"][n] - g).abs().max()) for n, g in one["grads"].items())
+    assert two["replicas_equal"] and rel <= DP_F32_LOSS_RTOL and grad <= DP_F32_GRAD_REL, (
+        f"data parallel f32: replicas equal {two['replicas_equal']}, loss rel {rel}, grad rel {grad} at {at}")
+    assert abs(nccl["loss"] - one["loss"]) <= DP_F32_LOSS_RTOL * abs(one["loss"]), f"NCCL world of 1 {nccl['loss']}"
+    print(f"data parallel f32 BASE width 2 layers B=8 x 48000 acc 2: 2 ranks vs 1 loss rel {rel:.2e} (limit "
+          f"{DP_F32_LOSS_RTOL}), gradient |g - g1| / |g1| at most {grad:.2e} ({at}; limit {DP_F32_GRAD_REL}), "
+          f"largest |diff| {absdiff:.2e} against a largest |g1| of {top:.2e}, replicas bit-identical; NCCL world of 1 "
+          f"loss {nccl['loss']:.6f} vs {one['loss']:.6f} [{card}]", flush=True)
+
+
+def tp_phase(card: str) -> None:
+    """Phase 37 (b): ``dryrun_multichip(4)`` at BASE width (768 hidden, 12
+    heads, 2 layers; float32, 1 s clips, 8 rows) on 4 ranks sharing the card
+    over gloo: dp=2 x tp=2, each rank's attention kernels on its 6 heads,
+    the sharded eval and the checkpoint restored onto dp=2, against the
+    same dry run in one process: the three losses within 1e-5 relative, the
+    released step's gradients, gathered from the shards, within
+    ``TP_GRAD_REL`` of the 1-process gradients' norms."""
+    cfg = Wav2Vec2Config(**{**BASE_CONFIG.__dict__, "num_layers": 2, "dtype": "float32"})
+    t0 = time.perf_counter()
+    four = dryrun_multichip(4, "cuda", w2v2=cfg, samples=16000, rows=8, backend="gloo", deadline=DP_DEADLINE)
+    four_s = time.perf_counter() - t0
+    one = dryrun_multichip(1, "cuda", w2v2=cfg, samples=16000, rows=8)
+    assert four["kind"] == "dp=2 x tp=2" and four["local_heads"] == H // 2, f"tp: {four['kind']}, {four['local_heads']}"
+    kept = round(2 * four["layers_run"])  # both microbatches' kept layers
+    assert four["step_launches"] == [kept] * 3 and kept > 0, f"tp: launches {four['step_launches']}, kept {kept}"
+    rels = [abs(four[k] - one[k]) / abs(one[k]) for k in ("loss", "released_loss", "restored_loss")]
+    assert max(rels) <= DP_F32_LOSS_RTOL, f"tp: losses {rels}"
+    grad, at, top = grad_rel_err(four["grads"], one["grads"])
+    assert grad <= TP_GRAD_REL, f"tp: gradient rel {grad} at {at}"
+    print(f"tensor parallel dryrun_multichip(4) BASE width 2 layers f32: {four['kind']} on one card over gloo, "
+          f"{four['local_heads']} heads a rank, attention launches on rank 0 {four['step_launches']} for {kept} kept "
+          f"layer runs; loss {four['loss']:.6f} vs 1 process {one['loss']:.6f} (rel {rels[0]:.2e}); the backbone "
+          f"released: loss {four['released_loss']:.6f} vs {one['released_loss']:.6f} (rel {rels[1]:.2e}), gradient "
+          f"|g - g1| / |g1| at most {grad:.2e} ({at}; limit {TP_GRAD_REL}; largest |g1| {top:.2e}); embeddings "
+          f"{four['embeddings']}, CTC logits {four['logits']}; restored onto dp={four['restored_onto']}, loss "
+          f"{four['restored_loss']:.6f} vs {one['restored_loss']:.6f} (rel {rels[2]:.2e}); {four_s:.1f} s with its "
+          f"spawn [{card}]",
+          flush=True)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; this run needs a card")
@@ -3846,8 +4110,13 @@ def main() -> None:
                     *corpus_args(wav_dir, trials, shards, tmp / "ckpt")]
         path_launches = {**train_launches, **int8_serving_phase(card, tmp, predicted, run_args)}  # 34
         knobs_phase(card, tmp, wav_dir, trials, shards)  # 35
+        free_checkpoints(tmp)
+        offset_kernel_phase(card)  # 36 (a): data parallelism
+        dp_run_phase(card, tmp, wav_dir, trials, shards)
+        dp_f32_phase(card)
+        tp_phase(card)  # 37 (b): tensor parallelism
 
-    # 36. kernels line, card line, result line: the attention kernels' and
+    # 38. kernels line, card line, result line: the attention kernels' and
     # the conv's launches from the LARGE training run (phase 10), the int8
     # kernels' from the LARGE int8 predict run (phase 34)
     kernels = []

@@ -13,7 +13,7 @@ import pytest
 import torch
 
 from w2v2_speaker_tpu_torch import device as tdevice
-from w2v2_speaker_tpu_torch.entry import entry, large_train_entry, train_entry
+from w2v2_speaker_tpu_torch.entry import dryrun_multichip, entry, large_train_entry, train_entry
 from w2v2_speaker_tpu_torch.models import wav2vec2 as tw
 from w2v2_speaker_tpu_torch.ops import conv_encoder
 
@@ -41,12 +41,14 @@ def test_port_imports_no_jax_and_no_jax_package():
         + [ROOT / "chip_smoke.py"]
     )
     assert len(files) > 10 and ROOT / "w2v2_speaker_tpu_torch" / "predict.py" in files
+    assert ROOT / "tools" / "torch_parallel_cases.py" in files
     for module in ("run.py", "data/datamodule.py", "data/shards.py", "data/batching.py", "data/chunks.py",
                    "data/extract.py", "data/augment.py", "runtime/logging.py", "runtime/tb_writer.py",
                    "train/checkpoint.py", "models/pooling.py", "models/wav2vec2_paired.py", "train/paired_task.py",
                    "utils/native.py", "runtime/debug.py", "models/wav2vec1.py", "runtime/lr_find.py",
                    "runtime/progress.py", "runtime/sweeper.py", "runtime/slurm.py", "runtime/completion.py",
-                   "objectives/schedules.py", "train/state.py", "ops/quant.py"):
+                   "objectives/schedules.py", "train/state.py", "ops/quant.py", "parallel/mesh.py",
+                   "parallel/tp.py"):
         assert ROOT / "w2v2_speaker_tpu_torch" / module in files, module
     for path in files:
         for name in _imported_modules(path):
@@ -75,6 +77,10 @@ def test_entry_points_need_a_card_unless_asked_for_the_cpu():
         large_train_entry()
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tdevice.resolve_device()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        dryrun_multichip(1)
+    with pytest.raises(RuntimeError, match="asks for 2 cards"):  # before any rank starts
+        dryrun_multichip(2)
     assert tdevice.resolve_device("cpu") == torch.device("cpu")
     with pytest.raises(ValueError, match="unsupported device"):
         tdevice.resolve_device("meta")

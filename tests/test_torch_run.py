@@ -9,14 +9,18 @@ Limits: per-step losses within 1e-5 (float32, the same math in other
 summation orders: the readings are ~1e-6); validation and test EERs equal
 and their thresholds within 1e-5 (the scores differ by ~1e-7, and no
 pair of scores of this corpus lies that close to a threshold). Also ``fit_model`` / ``eval_model``,
-resume, early stopping, the knobs that raise, the knobs, optimizers,
-schedules and callbacks that once raised, and the run surface: ``-m``
-grids, ``+search``, the SLURM launcher and ``-sc``."""
+resume, early stopping's decisions, the int8 eval-only run, and
+``trainer.num_devices=2``: two spawned gloo ranks (group timeout 60 s)
+against the JAX package's 2-device run and the port's 1-rank run, and more
+ranks than cards raising before any data is read. The fixture's JAX runs
+take ``trainer.num_devices=2``; the port's runs use one intra-op thread.
+The port-only runs on the same corpus (early stopping, the knobs and the
+run surface) are ``tests/test_torch_run_surface.py``, so that two test
+workers share the load."""
 
 import contextlib
 import importlib.util
 import io
-import json
 import pathlib
 import sys
 
@@ -29,7 +33,9 @@ import torch
 from w2v2_speaker_tpu.runtime import logging as jlogging
 from w2v2_speaker_tpu.runtime.experiment import EarlyStopping as JaxEarlyStopping
 from w2v2_speaker_tpu_torch import run as trun
+from w2v2_speaker_tpu_torch.device import DeviceError
 from w2v2_speaker_tpu_torch.data.io import write_wav
+from w2v2_speaker_tpu_torch.parallel import mesh as pmesh
 from w2v2_speaker_tpu_torch.runtime import experiment as texp
 from w2v2_speaker_tpu_torch.runtime import logging as tlogging
 
@@ -114,6 +120,16 @@ RESUMED = [*FIRST, "trainer.resume=true", "trainer.max_epochs=3", "trainer.max_s
            "trainer.average_top_k=1"]
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread: at these shapes eight threads buy nothing alone
+    and contend with the other test workers."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
     """Both packages' ``FIRST`` runs, then their ``RESUMED`` runs: the
@@ -141,7 +157,8 @@ def runs(tmp_path_factory):
     try:
         for resumed, extra in ((False, FIRST), (True, RESUMED)):
             for name, init in (("jax", tmp / "init"), ("torch", tmp / "init.npz")):
-                argv = overrides(corpus, tmp / name, f"load_network_from_checkpoint={init}", *extra)
+                argv = overrides(corpus, tmp / name, f"load_network_from_checkpoint={init}", *extra,
+                                 *(["trainer.num_devices=2"] if name == "jax" else []))
                 out = io.StringIO()
                 with contextlib.redirect_stdout(out):
                     objectives[name, resumed] = (
@@ -226,21 +243,6 @@ def test_int8_eval_only_matches_jax(runs, tmp_path):
     assert got["torch"] == got["jax"] and 0 < got["torch"] < 1
 
 
-def test_early_stopping_ends_the_run_after_min_steps(runs, tmp_path, capsys):
-    """A divergence threshold every EER passes stops the run at the first
-    validation at or past ``min_steps``."""
-    corpus, _, _, _, tmp = runs
-    argv = overrides(corpus, tmp_path, "callbacks=speaker_early_stopping",
-                     "callbacks.early_stopping.divergence_threshold=-1.0", "trainer.min_steps=4",
-                     "trainer.val_check_interval=2", "trainer.max_steps=12", "trainer.limit_test_batches=1",
-                     f"data.module.shards_dir={tmp / 'torch' / 'shards'}")
-    trun.main(argv, device="cpu")
-    out = capsys.readouterr().out
-    assert "early-stop condition at step 2 suppressed: min_steps=4" in out
-    assert "early stopping at step 4: val_eer=" in out
-    assert '"last": {\n    "step": 4' in (tmp_path / "ckpt" / "index.json").read_text()
-
-
 @pytest.mark.parametrize("kwargs, values", [
     (dict(patience=2), [0.3, 0.2, 0.25, 0.22, 0.19, 0.3, 0.3]),
     (dict(patience=1, min_delta=0.05), [0.3, 0.27, 0.2, 0.19]),
@@ -255,138 +257,91 @@ def test_early_stopping_decisions_match_jax(kwargs, values):
     assert texp.EarlyStopping().update({"val_mdc": 0.1}) is None
 
 
-@pytest.mark.parametrize("extra, row", [(["trainer.num_devices=2"], "item 8")])
-def test_what_is_not_ported_raises(runs, tmp_path, extra, row):
-    corpus, _, _, _, tmp = runs
-    argv = overrides(corpus, tmp_path, f"data.module.shards_dir={tmp / 'torch' / 'shards'}", *extra)
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md Queue 1 {row}"):
-        trun.main(argv, device="cpu")
+def _tb_scalars(log_dir: pathlib.Path):
+    """[(step, tag, value)] of the scalar events of the TensorBoard files in
+    ``log_dir``, in file order (the wire format of ``runtime/tb_writer.py``)."""
+    def fields(buf):
+        i, out = 0, []
+        while i < len(buf):
+            key, i = _varint(buf, i)
+            field, wire = key >> 3, key & 7
+            if wire == 0:
+                val, i = _varint(buf, i)
+            elif wire == 1:
+                val, i = buf[i:i + 8], i + 8
+            elif wire == 5:
+                val, i = buf[i:i + 4], i + 4
+            else:
+                n, i = _varint(buf, i)
+                val, i = buf[i:i + n], i + n
+            out.append((field, val))
+        return out
+
+    scalars = []
+    for path in sorted(log_dir.glob("events.out.tfevents.*")):
+        data, i = path.read_bytes(), 0
+        while i < len(data):
+            n = int.from_bytes(data[i:i + 8], "little")
+            event = dict(fields(data[i + 12:i + 12 + n]))
+            i += 16 + n
+            if 5 not in event:
+                continue
+            value = dict(fields(dict(fields(event[5]))[1]))
+            if 2 in value:
+                scalars.append((event[2], value[1].decode(), float(np.frombuffer(value[2], "<f4")[0])))
+    return scalars
 
 
-def _find(tree, key):
-    """The first value under ``key`` anywhere in a nested dict."""
-    if isinstance(tree, dict):
-        if key in tree:
-            return tree[key]
-        for v in tree.values():
-            found = _find(v, key)
-            if found is not None:
-                return found
-    return None
+def _varint(buf, i):
+    shift = out = 0
+    while True:
+        b = buf[i]
+        out |= (b & 0x7F) << shift
+        i, shift = i + 1, shift + 7
+        if not b & 0x80:
+            return out, i
 
 
-def _last_tx_state(ckpt: pathlib.Path) -> dict:
-    return torch.load(ckpt / "last" / "state.pt", map_location="cpu", weights_only=True)["tx"]
-
-
-@pytest.mark.parametrize("extra", [
-    ["verify_model=true"], ["+trainer.dump_first_batch=true"],
-    ["data.pipeline.augment.enabled=true", "data.pipeline.augment.noise_snr=[5,10]"],
-    ["network=wav2vec_fc"], ["network=wav2vec_xvector"],
-    ["optim/algo=sgd"], ["optim/schedule=reduce_on_plateau"], ["callbacks=speaker_progress_tracker"],
-    ["run_lr_range_test=true", "tune_iterations=3"], ["tune_model=true", "tune_iterations=3"],
-    ["trainer.deterministic=true", "trainer.remat=true", "network.remat_policy=dots"],
-    ["profiler=simple", "profiler.start_step=0", "profiler.num_steps=1", "trainer.num_sanity_val_steps=1"],
-], ids=["verify_model", "dump_first_batch", "augment", "wav2vec_fc", "wav2vec_xvector", "sgd", "reduce_on_plateau",
-        "progress_tracker", "run_lr_range_test", "tune_model", "deterministic_remat", "profiler"])
-def test_what_was_not_ported_runs(runs, tmp_path, capsys, extra):
-    """The knobs and networks this test once held to raising now run: one
-    step, a validation and one test batch, on the fixture's shards. The
-    model summary and the leakage probe's verdict are printed; the first
-    batch and 4 samples' stages are dumped; the augmented samples carry the
-    effect in their keys; wav2vec v1 trains at its full width; SGD keeps
-    its momentum buffers and the plateau schedule its controller in the
-    checkpoint; the tracker snapshots its probe set and logs its
-    separation metrics; the LR range test writes ``data.json`` and returns
-    its suggestion instead of training; ``trainer.deterministic`` (with
-    ``trainer.remat``) sets its flags for the run and restores them after;
-    ``profiler=simple`` traces its window's step and runs no sanity
-    validation."""
-    corpus, _, _, _, tmp = runs
-    argv = overrides(corpus, tmp_path, f"data.module.shards_dir={tmp / 'torch' / 'shards'}",
-                     "trainer.max_steps=1", "trainer.val_check_interval=1", "trainer.num_sanity_val_steps=0",
-                     "trainer.limit_test_batches=1", *extra)
-    if extra[0].startswith("data.pipeline"):
-        argv.append("+trainer.dump_first_batch=true")  # the keys of the first batch show the effect
-    if extra[0] == "profiler=simple":
-        argv.append(f"profiler.trace_dir={tmp_path / 'profile'}")
+def test_data_parallel_run_matches_jax_and_one_rank(runs, tmp_path, capfd, monkeypatch):
+    """``trainer.num_devices=2`` on the CPU: the fixture's first run (steps
+    1-4, the sanity, interval and test evaluations, checkpoint averaging)
+    on two gloo ranks that the run spawns. Its per-step losses (read back
+    from rank 0's TensorBoard file, float32) equal the JAX package's
+    2-device run's and the port's 1-rank run's within 1e-5; its EERs and
+    minDCFs equal theirs exactly (as float32), their thresholds within
+    1e-5; the objective equals both."""
+    corpus, rec, objectives, _, tmp = runs
+    monkeypatch.setattr(pmesh, "GROUP_TIMEOUT_S", 60.0)  # the spawned ranks' groups
+    argv = overrides(corpus, tmp_path, f"load_network_from_checkpoint={tmp / 'init.npz'}", *FIRST,
+                     f"data.module.shards_dir={tmp / 'torch' / 'shards'}", "trainer.num_devices=2",
+                     f"trainer.log_dir={tmp_path / 'tb'}")
     objective = trun.main(argv, device="cpu")
-    assert objective is None or 0 <= objective <= 1
-    out = capsys.readouterr().out
-    if extra == ["verify_model=true"]:
-        assert "model parameters:" in out and "batch gradient verification: no cross-batch leakage" in out
-    if "dump_first_batch" in " ".join(argv):
-        keys = eval((tmp_path / "first_batch" / "batch_keys.txt").read_text())
-        assert len(keys) == 8 and len(list((tmp_path / "first_batch" / "per_sample").iterdir())) == 4
-        assert all(k.endswith("/uniform_noise") == extra[0].startswith("data.pipeline") for k in keys)
-    if extra[0].startswith(("run_lr_range_test", "tune_model")):
-        data = json.loads((tmp_path / "auto_lr_find" / "data.json").read_text())
-        assert sorted(data) == ["loss", "lr", "suggestion"] and len(data["lr"]) == len(data["loss"]) == 3
-        assert objective == data["suggestion"] and f"lr suggestion: {objective}" in out
-        assert not (tmp_path / "ckpt").exists()
-        return
-    assert '"last": {\n    "step": 1' in (tmp_path / "ckpt" / "index.json").read_text()
-    if extra == ["optim/algo=sgd"]:
-        momentum = _find(_last_tx_state(tmp_path / "ckpt"), "sgd")["state"]
-        assert momentum and all("momentum_buffer" in v for v in momentum.values())
-    if extra == ["optim/schedule=reduce_on_plateau"]:
-        assert _find(_last_tx_state(tmp_path / "ckpt"), "schedule") == {
-            "best": pytest.approx(json.loads((tmp_path / "ckpt" / "index.json").read_text())["best"][0]["metric"]),
-            "bad_count": 0, "factor_value": 1.0}
-    if extra[0] == "trainer.deterministic=true":
-        assert "trainer.deterministic=true: deterministic algorithms" in out
-        assert not torch.are_deterministic_algorithms_enabled()
-    if extra[0] == "profiler=simple":
-        trace = (tmp_path / "profile" / "trace.json").read_text()
-        assert f"profiler: steps 1-1 traced to {tmp_path / 'profile' / 'trace.json'}" in out
-        assert '"train_step_1"' in trace and "sanity validation" not in out
-    if extra == ["callbacks=speaker_progress_tracker"]:
-        emb = np.load(tmp_path / "progress" / "step_00000001" / "embeddings.npy")
-        assert emb.shape == (10, 48) and np.isfinite(emb).all()
-        assert "track_separation=" in out and "val_eer=" in out
+    assert "data parallel: rank 0 of 2 on cpu (gloo)" in capfd.readouterr().out
+    scalars = _tb_scalars(tmp_path / "tb")
+    losses = [(s, v) for s, tag, v in scalars if tag == "train/loss"]
+    assert [s for s, _ in losses] == [1, 2, 3, 4]
+    for name in ("jax", "torch"):
+        np.testing.assert_allclose([v for _, v in losses], [v for _, v in rec.steps[name][:4]], rtol=0, atol=LOSS_ATOL)
+    evals = {}
+    for s, tag, v in scalars:
+        split, _, key = tag.partition("/")
+        if split != "train" and not key.endswith("seconds"):
+            evals.setdefault((s, split, key.startswith("sanity")), {})[key] = v
+    got = list(evals.values())
+    for name in ("jax", "torch"):
+        want = [m for _, m in rec.evals[name][:5]]
+        assert [sorted(m) for m in got] == [sorted(m) for m in want]
+        for g, w in zip(got, want):
+            for k, v in w.items():
+                assert g[k] == pytest.approx(float(np.float32(v)), rel=0, abs=1e-5 if k.endswith("threshold") else 0), k
+    assert objective == objectives["jax", False] == objectives["torch", False]
 
 
-@pytest.mark.parametrize("extra", [
-    ["-m", "network.stat_pooling_type=mean,max"], ["--multirun", "seed=3,4", "eval_model=false"],
-    ["-m", "+search=lr_and_pooling", "search.n_trials=2", "search.n_startup_trials=1"],
-    ["-m", "hydra/launcher=slurm", "network.stat_pooling_type=mean,max"],
-], ids=["multirun", "multirun_long_flag", "search", "slurm_launcher"])
-def test_run_surface_runs(runs, tmp_path, capsys, extra):
-    """``-m`` grids (one checkpoint directory per run, the summary, the
-    best objective; None for train-only runs), a 2-trial ``+search`` (a directory per trial that was
-    not pruned, the best printed) and the SLURM launcher (the array script
-    of the grid, nothing trained), on the fixture's shards."""
-    corpus, _, _, _, tmp = runs
-    argv = overrides(corpus, tmp_path, f"data.module.shards_dir={tmp / 'torch' / 'shards'}",
-                     "trainer.max_steps=1", "trainer.val_check_interval=1", "trainer.num_sanity_val_steps=0",
-                     "trainer.limit_test_batches=4", *extra)  # 16 test utterances, 8 of the trials
-    objective = trun.main(argv, device="cpu")
-    out = capsys.readouterr().out
-    if "hydra/launcher=slurm" in extra:
-        script = (tmp_path / "ckpt" / ".slurm" / "sweep.sbatch").read_text()
-        assert objective != objective and "#SBATCH --array=0-1%4" in script
-        assert script.count("-m w2v2_speaker_tpu_torch.run") == 2 and "job1" in script
-        assert not (tmp_path / "ckpt" / "job0").exists()
-        return
-    if "+search=lr_and_pooling" in extra:
-        assert out.count("=== search trial") == 2 and "=== search [lr_and_pooling] best objective" in out
-        trials = sorted(p.name for p in (tmp_path / "ckpt").iterdir())
-        assert trials and set(trials) <= {"trial0", "trial1"}
-        assert 0 <= objective <= 1 and f"objective: {objective}" in out
-        return
-    assert sorted(p.name for p in (tmp_path / "ckpt").iterdir()) == ["job0", "job1"]
-    assert all((tmp_path / "ckpt" / job / "index.json").exists() for job in ("job0", "job1"))
-    assert out.count("=== multirun job") == 2 and "=== multirun summary (sorted by objective)" in out
-    assert out.rstrip().endswith(f"objective: {objective}")
-    if "eval_model=false" in extra:  # train-only runs: no objective, listed as None
-        assert objective is None and out.count("None     [") == 2
-    else:
-        assert 0 <= objective <= 1
-
-
-def test_shell_completion_runs(capsys):
-    """``-sc``: the bash script to eval, and candidates for a prefix."""
-    assert trun.main(["-sc", "install=bash"], device="cpu") is None
-    assert "_w2v2_torch_sc" in capsys.readouterr().out
-    assert trun.main(["-sc", "query=+experiment=speaker_x"], device="cpu") is None
-    assert capsys.readouterr().out.split() == ["+experiment=speaker_xvector"]
+def test_num_devices_above_the_cards_raises_before_reading(runs, tmp_path):
+    """Two ranks asked of the card on a host without one: the run raises
+    before it reads or writes anything (the JAX package would narrow to
+    the devices it has)."""
+    corpus, _, _, _, _ = runs
+    with pytest.raises(DeviceError, match="trainer.num_devices=2 asks for 2 cards"):
+        trun.main(overrides(corpus, tmp_path, "trainer.num_devices=2"))
+    assert not (tmp_path / "shards").exists() and not (tmp_path / "ckpt").exists()

@@ -249,3 +249,16 @@ def test_ctc_recipes_need_a_card_unless_asked_for_the_cpu(runs, tmp_path):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         trun.main(speaker_overrides(write_voxceleb(tmp_path / "vox"), tmp_path))
     assert not (tmp_path / "shards").exists()
+
+
+def test_speech_lr_range_test_runs(runs, tmp_path):
+    """``run_lr_range_test`` on the speech recipe: the LibriSpeech data
+    module has no augmenter, so drawing the example batch must not ask it
+    for one; the suggestion comes back and ``data.json`` holds the rates."""
+    _, _, _, _, _, tmp = runs
+    dirs = {key: tmp / "raw" / split for split, key, _ in SPLITS}
+    argv = speech_overrides(dirs, tmp_path, f"data.module.shards_dir={tmp / 'torch' / 'shards'}",
+                            "run_lr_range_test=true", "tune_iterations=3")
+    suggestion = trun.main(argv, device="cpu")
+    data = json.loads((tmp_path / "auto_lr_find" / "data.json").read_text())
+    assert suggestion == data["suggestion"] and 1 <= len(data["lr"]) == len(data["loss"]) <= 3

@@ -110,7 +110,7 @@ MUTANTS = {
         ("      for (int r = 0; r < 2; ++r) l_run[r] = l_run[r] * alpha[r] + rs[r];\n",
          "      for (int i = 0; i < kFwdBlockN / 2; ++i) rs[acc_half(i)] += s[i];\n#pragma unroll\n"
          "      for (int r = 0; r < 2; ++r) l_run[r] = l_run[r] * alpha[r] + rs[r];\n"),
-        ("        rs += s[jj];\n", "        rs += kDrop ? p.drop.apply(s[jj], bh, row, k0 + j0 + jj) : s[jj];\n"),
+        ("        rs += s[jj];\n", "        rs += kDrop ? p.drop.apply(s[jj], dbh, row, k0 + j0 + jj) : s[jj];\n"),
     ]),
     "dkv_no_keep_mask_on_dp": ("flash_attention_bwd", [
         ("          dpv = kp ? dpv * p.drop.inv_keep : 0.f;\n", ""),

@@ -124,6 +124,7 @@ __global__ void __launch_bounds__(128) dq_bf16_kernel(BwdParams p) {
   const int bh = blockIdx.x / p.n_t;
   const int q0 = (blockIdx.x % p.n_t) * kBlockQ;
   const int b = bh / p.H, h = bh % p.H;
+  const int dbh = p.drop.row(b, h);  // the hash's global row
   const int len = clamp_length(p.lengths, b, p.T);
   const long long o_st = static_cast<long long>(p.H) * kD;
   __nv_bfloat16* dq = static_cast<__nv_bfloat16*>(p.dq) +
@@ -208,7 +209,7 @@ __global__ void __launch_bounds__(128) dq_bf16_kernel(BwdParams p) {
       const bool valid = live && rv[r] && (!boundary || key < len);
       float dz = 0.f;
       if (valid) {
-        const float dpv = kDrop ? p.drop.apply(dp[i], bh, q_abs[r], key) : dp[i];
+        const float dpv = kDrop ? p.drop.apply(dp[i], dbh, q_abs[r], key) : dp[i];
         dz = exp2_approx(s[i] - lse[r]) * (dpv - dlt[r]);
       }
       s[i] = dz;
@@ -258,6 +259,7 @@ __global__ void __launch_bounds__(128) dkv_bf16_kernel(BwdParams p) {
   const int bh = blockIdx.x / p.n_t;
   const int k0 = (blockIdx.x % p.n_t) * kBlockK;
   const int b = bh / p.H, h = bh % p.H;
+  const int dbh = p.drop.row(b, h);  // the hash's global row
   const int len = clamp_length(p.lengths, b, p.T);
   const long long o_st = static_cast<long long>(p.H) * kD;
   const long long off = (static_cast<long long>(b) * p.T + k0) * o_st +
@@ -350,7 +352,7 @@ __global__ void __launch_bounds__(128) dkv_bf16_kernel(BwdParams p) {
         const float pv = valid ? exp2f(st[4 * n + e] - lse_t[qc]) : 0.f;
         float ptv = pv, dpv = dpt[4 * n + e];
         if (kDrop) {
-          const bool kp = p.drop.keep(bh, q0 + qc, key[r]);
+          const bool kp = p.drop.keep(dbh, q0 + qc, key[r]);
           ptv = kp ? pv * p.drop.inv_keep : 0.f;
           dpv = kp ? dpv * p.drop.inv_keep : 0.f;
         }
@@ -453,6 +455,7 @@ __global__ void __launch_bounds__(128) dq_f32_kernel(BwdParams p) {
   const int bh = blockIdx.x / p.n_t;
   const int q0 = (blockIdx.x % p.n_t) * kBlockQ;
   const int b = bh / p.H, h = bh % p.H;
+  const int dbh = p.drop.row(b, h);  // the hash's global row
   const int len = clamp_length(p.lengths, b, p.T);
   const int row = q0 + (tid >> 1);
   const bool rv = row < len;
@@ -488,7 +491,7 @@ __global__ void __launch_bounds__(128) dq_f32_kernel(BwdParams p) {
       const float* kr = k_s + j * kD + half;
       const float s = half_dot(qr, kr);
       float dp = half_dot(dr, v_s + j * kD + half);
-      if (kDrop) dp = p.drop.apply(dp, bh, row, k0 + j);
+      if (kDrop) dp = p.drop.apply(dp, dbh, row, k0 + j);
       const float dz = rv ? exp2f(s - lse) * (dp - dlt) : 0.f;
 #pragma unroll
       for (int d = 0; d < kHalf; ++d) acc[d] = fmaf(dz, kr[d], acc[d]);
@@ -508,6 +511,7 @@ __global__ void __launch_bounds__(128) dkv_f32_kernel(BwdParams p) {
   const int bh = blockIdx.x / p.n_t;
   const int k0 = (blockIdx.x % p.n_t) * kBlockK;
   const int b = bh / p.H, h = bh % p.H;
+  const int dbh = p.drop.row(b, h);  // the hash's global row
   const int len = clamp_length(p.lengths, b, p.T);
   const int key = k0 + (tid >> 1);
   const bool kv = key < len;
@@ -552,7 +556,7 @@ __global__ void __launch_bounds__(128) dkv_f32_kernel(BwdParams p) {
       const float pv = kv ? exp2f(s - lse_s[i]) : 0.f;
       float ptv = pv;
       if (kDrop) {
-        const bool kp = p.drop.keep(bh, q0 + i, key);
+        const bool kp = p.drop.keep(dbh, q0 + i, key);
         ptv = kp ? pv * p.drop.inv_keep : 0.f;
         dp = kp ? dp * p.drop.inv_keep : 0.f;
       }
@@ -576,13 +580,14 @@ BwdParams make_params(const void* q, const void* k, const void* v,
                       const void* dout, const float* lse, const float* delta,
                       void* dq, void* dk, void* dv, const int* lengths,
                       const long long* st, int B, int T, int H, float scale,
-                      unsigned seed, unsigned thresh, float inv_keep) {
+                      unsigned seed, unsigned thresh, float inv_keep,
+                      int drop_b0, int drop_h0, int drop_heads) {
   return BwdParams{q,     k,     v,     dout,  lse,   delta,
                    dq,    dk,    dv,    lengths,
                    st[0], st[1], st[2], st[3], st[4], st[5],
                    st[6], st[7], st[8], st[9], st[10], st[11],
                    B,     T,     H,     (T + kBlockQ - 1) / kBlockQ,
-                   scale, Dropout{seed, thresh, inv_keep}};
+                   scale, Dropout{seed, thresh, inv_keep, drop_b0, drop_h0, drop_heads}};
 }
 
 }  // namespace
@@ -591,7 +596,8 @@ BwdParams make_params(const void* q, const void* k, const void* v,
 // head) are in elements. lse and delta are device f32 [B*H, T]. lengths is
 // a device int32 [B] (clamped to [0, T] in the kernel) or null (all T).
 // dropout != 0 regenerates the forward's mask: keep(seed, bh, q, k) >=
-// thresh, kept entries scaled by inv_keep. Each returns cudaGetLastError()
+// thresh, kept entries scaled by inv_keep, bh = (drop_b0 + b) * drop_heads +
+// drop_h0 + h as in the forward. Each returns cudaGetLastError()
 // after the launch (0 = launched).
 #define BWD_ARGS                                                              \
   const void *q, const void *k, const void *v, const void *dout,             \
@@ -602,14 +608,14 @@ BwdParams make_params(const void* q, const void* k, const void* v,
       long long v_st, long long v_sh, long long do_sb, long long do_st,      \
       long long do_sh, int B, int T, int H, float scale, int dtype,          \
       unsigned seed, unsigned thresh, float inv_keep, int dropout,           \
-      void *stream
+      int drop_b0, int drop_h0, int drop_heads, void *stream
 
 extern "C" int flash_attention_bwd_dq(BWD_ARGS, void* dq, BWD_TAIL) {
   const long long st[12] = {q_sb, q_st, q_sh, k_sb, k_st, k_sh,
                             v_sb, v_st, v_sh, do_sb, do_st, do_sh};
   const BwdParams p = make_params(q, k, v, dout, lse, delta, dq, nullptr,
                                   nullptr, lengths, st, B, T, H, scale, seed,
-                                  thresh, inv_keep);
+                                  thresh, inv_keep, drop_b0, drop_h0, drop_heads);
   const unsigned grid = static_cast<unsigned>(B) * H * p.n_t;
   if (grid == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -631,7 +637,7 @@ extern "C" int flash_attention_bwd_dkv(BWD_ARGS, void* dk, void* dv, BWD_TAIL) {
                             v_sb, v_st, v_sh, do_sb, do_st, do_sh};
   const BwdParams p = make_params(q, k, v, dout, lse, delta, nullptr, dk, dv,
                                   lengths, st, B, T, H, scale, seed, thresh,
-                                  inv_keep);
+                                  inv_keep, drop_b0, drop_h0, drop_heads);
   const unsigned grid = static_cast<unsigned>(B) * H * p.n_t;
   if (grid == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);

@@ -107,11 +107,19 @@ __device__ __forceinline__ void pack_a_operands(uint32_t (&a)[kN / 16][4],
 // Attention-prob dropout: keep where the murmur3 finalizer of
 // seed + bh * 0x9E3779B1 + q * 0x85EBCA77 + k * 0xC2B2AE3D (uint32, wrapping)
 // is >= thresh = min(rate * 2^32, 2^32 - 1); kept values are scaled by
-// inv_keep = 1 / (1 - rate) in f32.
+// inv_keep = 1 / (1 - rate) in f32. bh is the global (batch, head) row of
+// the hash, row(b, h) = (b0 + b) * heads + h0 + h: a launch over a block of
+// rows (data parallelism, b0 its first global row) or of heads (tensor
+// parallelism, h0 its first head of heads) draws the global mask's entries.
 struct Dropout {
   uint32_t seed;
   uint32_t thresh;
   float inv_keep;
+  int b0;
+  int h0;
+  int heads;
+
+  __device__ __forceinline__ int row(int b, int h) const { return (b0 + b) * heads + h0 + h; }
 
   __device__ __forceinline__ bool keep(int bh, int q, int k) const {
     uint32_t x = seed + static_cast<uint32_t>(bh) * 0x9E3779B1u +

@@ -19,7 +19,8 @@
 // - dropout on the post-softmax P: P[i, j] is kept, and scaled by
 //   1 / (1 - rate), where keep(seed, b*H + h, i, j) -- the murmur3 finalizer
 //   over the absolute coordinates, bit-identical to _dropout_keep (:83) --
-//   is >= thresh; the normalizer l sums the undropped P (:249-257). The
+//   is >= thresh; b and h are global coordinates (Dropout::row), so a
+//   launch over a rank's rows or heads draws the global mask's entries; the normalizer l sums the undropped P (:249-257). The
 //   inference path (no dropout) is a separate instantiation with no hash.
 //
 // Bound (H100 SXM: 989 TFLOP/s bf16 dense, 3.35 TB/s HBM). FLOPs = 4 * H *
@@ -122,6 +123,7 @@ __global__ void __launch_bounds__(kFwdThreads) fwd_bf16_kernel(Params p) {
   const int g = lane >> 2, t4 = lane & 3;
   const int bh = blockIdx.x / p.n_qt;
   const int b = bh / p.H, h = bh % p.H;
+  const int dbh = p.drop.row(b, h);  // the hash's global row
   const int len = row_length(p, b);
   const int block_q0 = (blockIdx.x % p.n_qt) * kFwdRows;
   const int q0 = block_q0 + wg * 64;  // this warpgroup's first row
@@ -217,7 +219,7 @@ __global__ void __launch_bounds__(kFwdThreads) fwd_bf16_kernel(Params p) {
           if (k0 + 8 * n < len) {
 #pragma unroll
             for (int i = 4 * n; i < 4 * n + 4; ++i)
-              s[i] = p.drop.apply(s[i], bh, q_row + 8 * acc_half(i), k0 + acc_col(i, t4));
+              s[i] = p.drop.apply(s[i], dbh, q_row + 8 * acc_half(i), k0 + acc_col(i, t4));
           }
       }
 #pragma unroll
@@ -280,6 +282,7 @@ __global__ void __launch_bounds__(64) fwd_f32_kernel(Params p) {
   const int bh = blockIdx.x / p.n_qt;
   const int q0 = (blockIdx.x % p.n_qt) * kBlockQ;
   const int b = bh / p.H, h = bh % p.H;
+  const int dbh = p.drop.row(b, h);  // the hash's global row
   const int len = row_length(p, b);
   const int row = q0 + tid;
   const long long o_st = static_cast<long long>(p.H) * kD;
@@ -366,7 +369,7 @@ __global__ void __launch_bounds__(64) fwd_f32_kernel(Params p) {
       for (int jj = 0; jj < kChunk; ++jj) {
         const float4* vr = reinterpret_cast<const float4*>(v_s + (j0 + jj) * kD);
         const float pv =
-            kDrop ? p.drop.apply(s[jj], bh, row, k0 + j0 + jj) : s[jj];
+            kDrop ? p.drop.apply(s[jj], dbh, row, k0 + j0 + jj) : s[jj];
 #pragma unroll
         for (int d = 0; d < kD / 4; ++d) {
           const float4 vx = vr[d];
@@ -397,8 +400,9 @@ __global__ void __launch_bounds__(64) fwd_f32_kernel(Params p) {
 // f32 [B*H, T] or null (not written). lengths is a device int32 [B] (each
 // clamped to [0, T] in the kernel) or null (all rows have T keys). dropout
 // != 0 drops P with keep(seed, bh, q, k) >= thresh and scales the kept
-// entries by inv_keep = 1 / (1 - rate). Returns cudaGetLastError() after the
-// launch (0 = launched).
+// entries by inv_keep = 1 / (1 - rate), bh = (drop_b0 + b) * drop_heads +
+// drop_h0 + h (0, 0 and H for a launch over the whole batch and all heads).
+// Returns cudaGetLastError() after the launch (0 = launched).
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
                                    void* o, float* lse, const int* lengths,
                                    long long q_sb, long long q_st,
@@ -408,12 +412,13 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
                                    long long v_sh, int B, int T, int H,
                                    float scale, int dtype, unsigned seed,
                                    unsigned thresh, float inv_keep,
-                                   int dropout, void* stream) {
+                                   int dropout, int drop_b0, int drop_h0,
+                                   int drop_heads, void* stream) {
   const int rows = dtype == 0 ? kFwdRows : kBlockQ;  // q rows a block
   Params p{q,    k,    v,    o,    lse,  lengths, q_sb, q_st,
            q_sh, k_sb, k_st, k_sh, v_sb, v_st,    v_sh, B,
            T,    H,    (T + rows - 1) / rows, scale,
-           Dropout{seed, thresh, inv_keep}};
+           Dropout{seed, thresh, inv_keep, drop_b0, drop_h0, drop_heads}};
   const unsigned grid = static_cast<unsigned>(B) * H * p.n_qt;
   if (grid == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);

@@ -22,6 +22,14 @@
   launches the fused conv kernel for conv layers 1-6 and each kept layer
   the three attention kernels. ``build_model(..., size="large",
   conv_impl="fused_pallas", use_aam=True)`` is its serving model.
+- ``dryrun_multichip(n)``, counterpart of ``__graft_entry__.dryrun_multichip``
+  (:103-273) over ``torch.distributed``: n ranks (spawned here unless a
+  process group exists), dp x tp with tp = 2 when n >= 4 and n is even;
+  training steps of a small speaker CE model with ``accumulate_steps=2``,
+  the backbone frozen for the first and released for a second (whose
+  gradients it returns gathered), the sharded embedding extraction and
+  CTC logits, and a checkpoint saved from the dp x tp state and restored
+  onto dp = n / 2 (no TP) for one more step.
 
 Random weights come from a seeded ``torch.Generator``, synthetic batches
 and labels from numpy's seeded generator.
@@ -44,7 +52,7 @@ from .train.steps import make_train_step
 
 __all__ = [
     "entry", "train_entry", "large_train_entry", "build_model", "build_train_state",
-    "synthetic_batch", "NUM_SPEAKERS", "BATCH", "SAMPLES",
+    "synthetic_batch", "dryrun_multichip", "DRYRUN_TINY", "NUM_SPEAKERS", "BATCH", "SAMPLES",
 ]
 
 NUM_SPEAKERS = 5994
@@ -172,3 +180,169 @@ def large_train_entry(
     ``train_entry``'s, ``accuracy`` from the AAM head's predictions."""
     cfg = load_recipe("speaker_wav2vec2_large_aam", [f"network.conv_impl={conv_impl}"])
     return _recipe_entry(cfg, device, batch, samples)
+
+
+# __graft_entry__.py's tiny backbone (:130-140): 4 heads of 8
+DRYRUN_TINY = Wav2Vec2Config(
+    conv_dim=(16, 16), conv_kernel=(10, 3), conv_stride=(5, 2), hidden_size=32, num_layers=2, num_heads=4,
+    intermediate_size=64, num_conv_pos_embeddings=16, num_conv_pos_embedding_groups=4,
+)
+
+
+def dryrun_multichip(
+    n: int, device: DeviceLike = None, w2v2: Optional[Wav2Vec2Config] = None, samples: int = 800,
+    rows: Optional[int] = None, state_dict: Optional[Dict[str, torch.Tensor]] = None,
+    backend: Optional[str] = None, deadline: Optional[float] = None,
+) -> Dict:
+    """The multi-rank path end to end on ``n`` ranks; returns rank 0's
+    report: ``kind`` ("dp=D x tp=T"), the first step's ``loss`` (the
+    backbone frozen), ``layers_run`` (the mean of both microbatches' kept
+    layers), the attention kernels' ``step_launches`` on rank 0 and its
+    ``local_heads``, the second step's ``released_loss`` (the backbone
+    released) and ``grads`` (every gradient gathered whole), the shapes of
+    the sharded ``embeddings`` and CTC ``logits``, ``restored_onto`` (the
+    data ranks of the restore) and ``restored_loss``, each loss finite
+    (else it raises), and ``gathered``: the model's ``state_dict``
+    gathered back from its TP shards before the first step.
+
+    ``w2v2`` is the backbone (``DRYRUN_TINY`` by default; on the card the
+    kernels take heads of 64 only, so give it one such), ``samples`` the
+    clip length, ``rows`` the global batch (2 n by default, as the JAX
+    twin's), ``state_dict`` weights to load before sharding (else drawn
+    from seed 0). Without a process group the ``n`` ranks are spawned
+    here (``parallel.mesh.spawn`` with ``backend`` and ``deadline``: gloo
+    on the CPU; on the card NCCL with a card a rank, or gloo, which lets
+    ranks share one card)."""
+    from .models.wav2vec2_speech import Wav2Vec2SpeechConfig, Wav2Vec2SpeechModel
+    from .data.tokenizer import CharTokenizer
+    from .parallel import tp
+    from .parallel.mesh import broadcast_object, create_mesh, needs_spawn, select_rows, shard_map_rows, spawn, sub_mesh
+    from .train.checkpoint import CheckpointManager
+    from .train.speech_task import SpeechTask
+    from .train.state import AdamTx, make_freeze_schedule_tx
+
+    requested = torch.device("cuda" if device is None else device)
+    if needs_spawn(n):
+        return spawn(dryrun_multichip, (n, device, w2v2, samples, rows, state_dict), nprocs=n,
+                     device=requested.type, backend=backend, deadline=deadline,
+                     threads=max(torch.get_num_threads() // n, 1))
+    dev = resolve_device(device)
+    use_tp = n >= 4 and n % 2 == 0
+    mesh = create_mesh(n, model=2 if use_tp else 1, device=dev)
+    dev = mesh.device
+    w2v2 = DRYRUN_TINY if w2v2 is None else w2v2
+    cfg = Wav2Vec2SpeakerConfig(w2v2=w2v2, stat_pooling_type="mean")
+    if dev.type == "cuda":
+        set_float32_precision()
+    with torch.device("meta"):
+        model = Wav2Vec2SpeakerModel(cfg, num_speakers=16)
+    model.to_empty(device=dev)
+    if state_dict is None:
+        init_parameters(model, torch.Generator(device=dev).manual_seed(0))
+    else:
+        model.load_state_dict(state_dict)
+    task = SpeakerTask(model, "ce")
+
+    b = 2 * n if rows is None else rows
+    rng = np.random.default_rng(0)
+    batch = {"features": rng.normal(size=(b, samples)).astype(np.float32), "mask": np.ones((b, samples), bool),
+             "labels": rng.integers(0, 16, size=b)}
+
+    def on_device(x):
+        return {k: torch.from_numpy(v).to(dev) for k, v in x.items()}
+
+    tp.shard_model(model, mesh)
+    gathered = tp.gather_state_dict(model, mesh)
+
+    def frozen_adam():  # the real trainer path: a backbone released by step count
+        return make_freeze_schedule_tx(AdamTx(lambda count: 1e-3), lambda p: p.startswith("wav2vec2"), 1)
+
+    from .ops import flash_attention as fa
+
+    state = TrainState.create(model, frozen_adam(), seed=1)
+    step = make_train_step(task, accumulate_steps=2, mesh=mesh)
+    before = fa.flash_attention.launches, fa.flash_attention_bwd_dq.launches, fa.flash_attention_bwd_dkv.launches
+    state, metrics = step(state, on_device(select_rows(batch, mesh, acc=2)))
+    launched = [a - b for a, b in zip((fa.flash_attention.launches, fa.flash_attention_bwd_dq.launches,
+                                       fa.flash_attention_bwd_dkv.launches), before)]
+    loss = float(metrics["loss"])
+    # a second step with the backbone released: the TP collectives'
+    # backward and the data-group reduce of the sharded gradients feed
+    # every gradient, returned gathered whole
+    state, released = step(state, on_device(select_rows(batch, mesh, acc=2)))
+    released_loss, grads = float(released["loss"]), tp.gather_grads(model, mesh)
+    if not np.isfinite([loss, released_loss]).all():
+        raise FloatingPointError(f"non-finite loss {loss}, {released_loss}")
+
+    # the sharded eval paths, on the whole model over every rank as data
+    dp = create_mesh(n, model=1, device=dev) if use_tp else mesh
+    with torch.device("meta"):
+        full = Wav2Vec2SpeakerModel(cfg, num_speakers=16)
+    full.to_empty(device=dev).load_state_dict(tp.gather_state_dict(model, mesh))
+    full.eval()
+    with torch.inference_mode():
+        emb = shard_map_rows(lambda x: full.compute_embedding(*on_device(x).values()), {
+            "features": batch["features"], "mask": batch["mask"]}, dp).cpu().numpy()
+    if emb.shape[0] != b or not np.isfinite(emb).all():
+        raise FloatingPointError(f"sharded embeddings {emb.shape}, finite {np.isfinite(emb).all()}")
+    tok = CharTokenizer.build(["abc d"])
+    with torch.device("meta"):
+        smodel = Wav2Vec2SpeechModel(Wav2Vec2SpeechConfig(w2v2=w2v2, vocab_size=tok.vocab_size))
+    smodel.to_empty(device=dev)
+    init_parameters(smodel, torch.Generator(device=dev).manual_seed(2))
+    stask = SpeechTask(smodel.eval(), tok)
+    with torch.inference_mode():
+        logits, lengths = shard_map_rows(lambda x: stask.logits_fn(*on_device(x).values()), {
+            "features": batch["features"], "mask": batch["mask"]}, dp, mask_fill=True)
+    if not torch.isfinite(logits).all() or tuple(lengths.shape) != (b,):
+        raise FloatingPointError(f"sharded CTC logits {tuple(logits.shape)}, lengths {tuple(lengths.shape)}")
+
+    # the dp x tp state saved whole, restored onto dp = n / 2 without TP,
+    # one more step there
+    import tempfile
+
+    import torch.distributed as dist
+
+    half = sub_mesh(mesh, max(n // 2, 1))
+    tree = tp.gather_tree(state.state_dict(), model, mesh)
+    with tempfile.TemporaryDirectory() as td:
+        td = broadcast_object(td, mesh)  # rank 0's directory
+        CheckpointManager(td, mesh=mesh).save_step(_Saved(tree), {"val_eer": 0.5})
+        restored_loss = None
+        if half is not None:
+            with torch.device("meta"):
+                again = Wav2Vec2SpeakerModel(cfg, num_speakers=16)
+            again.to_empty(device=dev)
+            template = TrainState.create(again, frozen_adam(), seed=1)
+            restored = CheckpointManager(td, mesh=half).restore(template, name="last")
+            if restored.step != state.step:
+                raise RuntimeError(f"restored step {restored.step} != {state.step}")
+            step_half = make_train_step(SpeakerTask(again, "ce"), accumulate_steps=2, mesh=half)
+            restored, rmetrics = step_half(restored, on_device(select_rows(batch, half, acc=2)))
+            restored_loss = float(rmetrics["loss"])
+            if not np.isfinite(restored_loss):
+                raise FloatingPointError(f"non-finite post-restore loss {restored_loss}")
+        if mesh.distributed:
+            dist.barrier(group=mesh.host_group)  # no rank removes the directory under another
+    kind = f"dp={mesh.data} x tp={mesh.model}"
+    if mesh.is_main:
+        print(f"dryrun_multichip({n}): ok ({kind}), loss={loss:.4f}, released={released_loss:.4f}, sharded eval "
+              f"ok (embed {emb.shape}, ctc logits {tuple(logits.shape)}), ckpt round-trip ok (restored onto "
+              f"dp={max(n // 2, 1)}, "
+              f"post-restore loss={restored_loss:.4f})", flush=True)
+    return {"kind": kind, "loss": loss, "released_loss": released_loss, "grads": grads,
+            "embeddings": emb.shape, "logits": tuple(logits.shape),
+            "restored_onto": max(n // 2, 1), "restored_loss": restored_loss, "gathered": gathered,
+            "layers_run": float(metrics["layers_run"]), "step_launches": launched,
+            "local_heads": model.wav2vec2.encoder.layers[0].attention.num_heads}
+
+
+class _Saved:
+    """A ``TrainState`` stand-in that hands the checkpoint manager a
+    gathered ``state_dict``."""
+
+    def __init__(self, tree: Dict):
+        self.tree, self.step = tree, tree["step"]
+
+    def state_dict(self) -> Dict:
+        return self.tree

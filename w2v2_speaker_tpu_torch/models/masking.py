@@ -15,7 +15,9 @@ from typing import Optional, Sequence
 import torch
 import torch.nn.functional as F
 
-__all__ = ["draw_uniform", "embedding_mask", "expand_mask_width", "sample_span_mask"]
+from ..parallel.mesh import active_rows
+
+__all__ = ["draw_row_uniform", "draw_uniform", "embedding_mask", "expand_mask_width", "sample_span_mask"]
 
 
 def draw_uniform(
@@ -24,6 +26,19 @@ def draw_uniform(
     """Uniforms in [0, 1) drawn on ``generator``'s device (the step's CPU
     generator), then moved to ``device``."""
     return torch.rand(tuple(shape), generator=generator).to(device)
+
+
+def draw_row_uniform(
+    generator: torch.Generator, shape: Sequence[int], device: torch.device
+) -> torch.Tensor:
+    """``draw_uniform`` of a ``shape`` whose axis 0 is the batch rows: in a
+    data-parallel microbatch (``parallel.mesh.active_rows``) drawn at the
+    global microbatch's rows, which every rank's generator draws alike,
+    and cut to this rank's rows."""
+    s = active_rows()
+    if s is None:
+        return draw_uniform(generator, shape, device)
+    return s.take(draw_uniform(generator, (s.total, *tuple(shape)[1:]), device))
 
 
 def sample_span_mask(

@@ -25,7 +25,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .masking import draw_uniform
+from ..parallel.mesh import global_sum
+from .masking import draw_row_uniform
 
 __all__ = [
     "AttentiveStatPool", "BatchNorm", "IndexPool", "MaxPool", "MeanPool", "MeanStdPool", "NoPool",
@@ -112,7 +113,10 @@ class BatchNorm(nn.Module):
     ways: in training the statistics run over every position of every
     other axis (padded frames included: the reference passes no mask); the
     running variance takes the biased variance E[x^2] - E[x]^2 (clipped at
-    0); and a running value moves as 0.9 old + 0.1 new. Eval normalises
+    0); and a running value moves as 0.9 old + 0.1 new. In a data-parallel
+    microbatch the statistics run over the global microbatch (sums and
+    count all-reduced, differentiably), so every rank keeps the same
+    running values, as under the JAX package's GSPMD. Eval normalises
     with the running buffers, which ride the ``state_dict`` (checkpoints,
     resume)."""
 
@@ -138,8 +142,10 @@ class BatchNorm(nn.Module):
         if train:
             axes = tuple(d for d in range(x.ndim) if d != axis)
             x32 = x.to(torch.promote_types(x.dtype, torch.float32))
-            mean = x32.mean(dim=axes)
-            var = ((x32 * x32).mean(dim=axes) - mean * mean).clamp_min(0.0)
+            count = torch.full_like(x32.sum(dim=axes), float(x32.numel() // x32.shape[axis]))
+            sums = global_sum(torch.stack([x32.sum(dim=axes), (x32 * x32).sum(dim=axes), count]))
+            mean = sums[0] / sums[2]
+            var = (sums[1] / sums[2] - mean * mean).clamp_min(0.0)
             with torch.no_grad():
                 self.running_mean.mul_(_BN_MOMENTUM).add_((1 - _BN_MOMENTUM) * mean)
                 self.running_var.mul_(_BN_MOMENTUM).add_((1 - _BN_MOMENTUM) * var)
@@ -207,7 +213,7 @@ class IndexPool(nn.Module):
         else:
             if generator is None:
                 raise ValueError("random pooling in training needs the train step's torch.Generator")
-            u = draw_uniform(generator, (b,), x.device)
+            u = draw_row_uniform(generator, (b,), x.device)
             idx = torch.minimum((u * lengths.float()).floor().long().clamp_min(0), lengths - 1)
         idx = torch.remainder(idx, t)
         return x.gather(1, idx[:, None, None].expand(b, 1, f))[:, 0, :]

@@ -85,7 +85,8 @@ from ..ops import conv_encoder
 from ..ops.flash_attention import attention_dropout_keep, draw_seed, flash_attention
 from ..ops.quant import QuantLinear
 from .heads import AAMSoftmaxHead
-from .masking import draw_uniform, sample_span_mask
+from ..parallel.mesh import active_rows
+from .masking import draw_row_uniform, sample_span_mask
 from .temporal_gate import TemporalGate
 
 __all__ = [
@@ -317,12 +318,17 @@ class ConvFeatureEncoder(nn.Module):
         return x if channels_last else x.transpose(1, 2)
 
 
-def hash_dropout(x: torch.Tensor, rate: float, seed: int) -> torch.Tensor:
+def hash_dropout(x: torch.Tensor, rate: float, seed: int, row0: int = 0,
+                 cols: Tuple[int, int] = (0, 0)) -> torch.Tensor:
     """``x`` [B, T, C] with the counter-hash keep mask
     ``attention_dropout_keep(seed, B, 1, T, C)`` (bh = batch, q = time,
-    k = channel): kept entries divided by 1 - rate, the rest 0."""
+    k = channel): kept entries divided by 1 - rate, the rest 0. ``row0``:
+    the global row of ``x``'s first row; ``cols`` = (first column, width)
+    of ``x``'s channels in a wider global input (width 0: ``x``'s own).
+    The mask is the global mask's block there."""
     b, t, c = x.shape
-    keep = attention_dropout_keep(seed, b, 1, t, c, rate, x.device)[:, 0]
+    col0, width = cols
+    keep = attention_dropout_keep(seed, b, 1, t, width or c, rate, x.device, (row0, 0, 1))[:, 0, :, col0:col0 + c]
     return torch.where(keep, _div_keep(x, rate), torch.zeros((), dtype=x.dtype, device=x.device))
 
 
@@ -344,7 +350,12 @@ class HashDropout(nn.Module):
     ``hash_dropout=False``, ``torch.bernoulli`` drawn on ``generator`` and
     moved to ``x``'s device. ``draw(shape, generator)`` makes that draw
     alone and ``apply(x, noise)`` uses it, for a caller that draws ahead
-    (``EncoderLayer.draw_noise``). Plain PyTorch on the card too: the JAX
+    (``EncoderLayer.draw_noise``). In a data-parallel microbatch
+    (``parallel.mesh.active_rows``) the hash runs at the rank's global rows
+    and the Bernoulli mask is drawn at the global microbatch's shape and
+    cut to the rank's rows (and, under tensor parallelism, the activation
+    dropout of a rank's intermediate shard takes its columns, ``cols``), so
+    every rank applies its block of the global masks. Plain PyTorch on the card too: the JAX
     package runs it as XLA ops, not as a Pallas kernel (a fused Triton
     version is later work, ROADMAP Queue 1 item 4).
     """
@@ -352,20 +363,30 @@ class HashDropout(nn.Module):
     def __init__(self, rate: float, use_hash: bool = True):
         super().__init__()
         self.rate, self.use_hash = rate, use_hash
+        self.cols = (0, 0)  # (first column, width) of a tensor-parallel shard's input; width 0: all of it
 
     def draw(self, shape, generator: Optional[torch.Generator]) -> Noise:
         if generator is None or self.rate <= 0.0:
             return None
         if self.use_hash:
             return draw_seed(generator)
+        s, shape = active_rows(), list(shape)
+        if s is not None:
+            shape[0] = s.total
+        if self.cols[1]:
+            shape[-1] = self.cols[1]
         return torch.bernoulli(torch.full(tuple(shape), 1.0 - self.rate), generator=generator)
 
     def apply(self, x: torch.Tensor, noise: Noise) -> torch.Tensor:
         if noise is None:
             return x
+        s = active_rows()
         if isinstance(noise, int):
-            return hash_dropout(x, self.rate, noise)
-        keep = noise.to(device=x.device, dtype=torch.bool)
+            return hash_dropout(x, self.rate, noise, 0 if s is None else s.offset, self.cols)
+        keep = noise if s is None else s.take(noise)
+        if self.cols[1]:
+            keep = keep[..., self.cols[0]:self.cols[0] + x.shape[-1]]
+        keep = keep.to(device=x.device, dtype=torch.bool)
         return torch.where(keep, _div_keep(x, self.rate), torch.zeros((), dtype=x.dtype, device=x.device))
 
     def forward(
@@ -433,13 +454,17 @@ class SelfAttention(nn.Module):
     """Fused QKV projection -> flash attention over ``[B, T, H, D]`` views
     of the projection (no copy) -> output projection. In training the
     attention-prob dropout runs inside the kernels, from one seed
-    (``seed``, drawn by ``EncoderLayer.draw_noise``); without one there is
-    no dropout."""
+    (``seed``, drawn by ``EncoderLayer.draw_noise``) at the global (row,
+    head) coordinates of the rank's rows (``parallel.mesh.active_rows``)
+    and heads (``head0`` of ``total_heads``, set by ``parallel.tp``; 0 of 0
+    is all of them); without a seed there is no dropout."""
 
     def __init__(self, cfg: Wav2Vec2Config):
         super().__init__()
         h = cfg.hidden_size
-        self.num_heads = cfg.num_heads
+        self.num_heads = cfg.num_heads  # this rank's heads
+        self.head_dim = h // cfg.num_heads
+        self.head0, self.total_heads = 0, 0
         self.dropout = cfg.attention_dropout
         self.qkv_proj = _dense(cfg, h, 3 * h)
         self.out_proj = _dense(cfg, h, h)
@@ -450,14 +475,17 @@ class SelfAttention(nn.Module):
         lengths: Optional[torch.Tensor],
         seed: Optional[int] = None,
     ) -> torch.Tensor:
-        b, t, h = x.shape
+        b, t, _ = x.shape
+        width = self.num_heads * self.head_dim
         q, k, v = (
-            part.view(b, t, self.num_heads, h // self.num_heads)
-            for part in self.qkv_proj(x).split(h, dim=-1)
+            part.view(b, t, self.num_heads, self.head_dim)
+            for part in self.qkv_proj(x).split(width, dim=-1)
         )
         rate = self.dropout if seed is not None else 0.0
-        out = flash_attention(q, k, v, lengths, rate, seed)
-        return self.out_proj(out.reshape(b, t, h))
+        s = active_rows()
+        coords = (0 if s is None else s.offset, self.head0, self.total_heads)
+        out = flash_attention(q, k, v, lengths, rate, seed, coords)
+        return self.out_proj(out.reshape(b, t, width))
 
 
 class EncoderLayer(nn.Module):
@@ -640,7 +668,7 @@ class Wav2Vec2Model(nn.Module):
         b, t, h = x.shape
         if cfg.mask_time_prob > 0:
             time_mask = sample_span_mask(
-                draw_uniform(generator, (b, t), x.device),
+                draw_row_uniform(generator, (b, t), x.device),
                 cfg.mask_time_prob,
                 cfg.mask_time_length,
                 frame_mask.sum(-1) if frame_mask is not None else None,
@@ -648,7 +676,7 @@ class Wav2Vec2Model(nn.Module):
             x = torch.where(time_mask[:, :, None], self.masked_spec_embed.to(x.dtype), x)
         if cfg.mask_feature_prob > 0:
             feat_mask = sample_span_mask(
-                draw_uniform(generator, (b, h), x.device),
+                draw_row_uniform(generator, (b, h), x.device),
                 cfg.mask_feature_prob,
                 cfg.mask_feature_length,
             )

@@ -21,6 +21,12 @@ computes CTC with optax, whose finite ``log_epsilon`` (-1e5) scores such a
 row ~1e5 instead, so its ``isfinite`` test (:199) never fires and the row
 adds ~1e5 / L to the mean: the one deliberate divergence of the two, pinned
 by ``tests/test_torch_speech.py``. Feasible rows agree.
+
+In a data-parallel microbatch (``parallel.mesh.active_rows``) every mean
+runs over the global microbatch (``global_mean``: the padding-weighted ones
+divide by the global weight sum), and the triplet losses mine and score
+the all-gathered embeddings with the shared generator, so each rank
+computes the global loss, as the JAX package does under GSPMD.
 """
 
 from __future__ import annotations
@@ -30,6 +36,8 @@ from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+
+from ..parallel.mesh import gather_rows, global_mean
 
 __all__ = [
     "aam_margin_logits", "binary_cross_entropy", "cross_entropy", "ctc_loss", "frame_lengths", "mine_triplets",
@@ -47,12 +55,7 @@ def cross_entropy(
     Optional per-row ``weights`` (0 for padding rows, 1 otherwise) turn the
     mean into a weighted mean over max(sum of weights, 1)."""
     ce = F.cross_entropy(logits.float(), labels.long(), reduction="none")
-    if weights is None:
-        loss = ce.mean()
-    else:
-        w = weights.to(ce.dtype)
-        loss = (ce * w).sum() / w.sum().clamp_min(1.0)
-    return loss, torch.softmax(logits.detach().float(), dim=-1)
+    return global_mean(ce, weights), torch.softmax(logits.detach().float(), dim=-1)
 
 
 def binary_cross_entropy(
@@ -62,8 +65,8 @@ def binary_cross_entropy(
     """(mean BCE-with-logits in float32, sigmoid predictions without
     gradient)."""
     logits = logits.reshape(-1).float()
-    loss = F.binary_cross_entropy_with_logits(logits, labels.reshape(-1).float())
-    return loss, torch.sigmoid(logits.detach())
+    bce = F.binary_cross_entropy_with_logits(logits, labels.reshape(-1).float(), reduction="none")
+    return global_mean(bce), torch.sigmoid(logits.detach())
 
 
 def aam_margin_logits(
@@ -125,9 +128,9 @@ def triplet_loss(
     """mean(max(d(a, p) - d(a, n) + margin, 0)) over the anchors that have
     a positive and a negative, d(a, b) = sqrt(sum((a - b + 1e-6)^2)) (torch
     ``triplet_margin_loss``'s, p=2, eps=1e-6), over ``mine_triplets``'
-    picks."""
+    picks; over the global microbatch's rows in data parallelism."""
+    emb, labels = gather_rows(embeddings.float()), gather_rows(labels)
     pos_idx, neg_idx = mine_triplets(labels, generator)
-    emb = embeddings.float()
 
     def dist(a, b):
         return ((a - b + 1e-6) ** 2).sum(-1).sqrt()
@@ -173,5 +176,4 @@ def ctc_loss(
     per_seq = F.ctc_loss(log_probs, labels.long(), logit_lengths.long(), label_lengths.long(),
                          blank=blank_id, reduction="none", zero_infinity=True)
     valid = (label_lengths > 0).to(per_seq.dtype)
-    per_seq = per_seq / label_lengths.clamp_min(1).to(per_seq.dtype) * valid
-    return per_seq.sum() / valid.sum().clamp_min(1.0)
+    return global_mean(per_seq / label_lengths.clamp_min(1).to(per_seq.dtype), valid)

@@ -107,19 +107,30 @@ def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
     return (x * (c & 0xFFFF) + (((x * (c >> 16)) & 0xFFFF) << 16)) & _M32
 
 
+Coords = Tuple[int, int, int]  # (row0, head0, heads) of the dropout hash; heads 0: the call's own H
+
+
 def attention_dropout_keep(
     seed: int, b: int, h: int, tq: int, tk: int, rate: float,
-    device: Optional[torch.device] = None,
+    device: Optional[torch.device] = None, coords: Coords = (0, 0, 0),
 ) -> torch.Tensor:
     """[B, H, Tq, Tk] bool keep mask, bit-identical to the JAX package's for
     the same int32 ``seed``: the murmur3 finalizer over the absolute
-    (b * H + h, q, k) coordinates, in int64 masked to 32 bits."""
+    (b * H + h, q, k) coordinates, in int64 masked to 32 bits. ``coords``
+    = (row0, head0, heads) places the block in a global batch: its rows are
+    global rows row0.., its heads heads head0.. of ``heads`` (0: ``h``),
+    so the mask is the global mask's [row0:row0 + b, head0:head0 + h]."""
+    row0, head0, heads = coords
+    rows = torch.arange(row0, row0 + b, dtype=torch.int64, device=device)
+    hs = torch.arange(head0, head0 + h, dtype=torch.int64, device=device)
+    bh = (rows[:, None] * (heads or h) + hs[None, :]).reshape(-1)
+
     def coord(n: int, c: int) -> torch.Tensor:
         return _mul32(torch.arange(n, dtype=torch.int64, device=device), c)
 
     x = (
         (seed & _M32)
-        + coord(b * h, _C_BH)[:, None, None]
+        + _mul32(bh, _C_BH)[:, None, None]
         + coord(tq, _C_Q)[None, :, None]
         + coord(tk, _C_K)[None, None, :]
     ) & _M32
@@ -222,6 +233,7 @@ def flash_attention_plain(
     dropout_rate: float = 0.0,
     seed: Optional[int] = None,
     return_lse: bool = False,
+    coords: Coords = (0, 0, 0),
 ):
     """The forward kernel's function in plain PyTorch (one dense pass).
 
@@ -229,7 +241,8 @@ def flash_attention_plain(
     (dropped, rescaled) P to the input type before P V; products accumulate
     in f32 and the row sum comes from the f32 undropped P. With
     ``return_lse`` also returns the [B, H, T] f32 log2-domain LSE
-    ``m + log2(l)``, 0 on rows past the length.
+    ``m + log2(l)``, 0 on rows past the length. ``coords``: the dropout
+    hash's global coordinates (``attention_dropout_keep``).
     """
     _check_dropout(dropout_rate, seed)
     b, t, h, d = q.shape
@@ -242,7 +255,7 @@ def flash_attention_plain(
     p = torch.exp2(s - m)
     l = p.sum(dim=-1, keepdim=True)  # [B, H, T, 1]
     if dropout_rate > 0.0:
-        keep = attention_dropout_keep(seed, b, h, t, t, dropout_rate, q.device)
+        keep = attention_dropout_keep(seed, b, h, t, t, dropout_rate, q.device, coords)
         p = torch.where(keep, p * _keep_scale(dropout_rate), 0.0)
     o = torch.einsum("bhqk,bkhd->bqhd", p.to(v.dtype).float(), v.float())
     o = o / l.transpose(1, 2)
@@ -264,6 +277,7 @@ def flash_attention_bwd_plain(
     lengths: Optional[torch.Tensor] = None,
     dropout_rate: float = 0.0,
     seed: Optional[int] = None,
+    coords: Coords = (0, 0, 0),
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Both backward kernels' function in plain PyTorch: one dense pass
     over the formulas of ``_bwd_dq_kernel`` and ``_bwd_dkv_kernel``.
@@ -286,7 +300,7 @@ def flash_attention_bwd_plain(
     dp = torch.einsum("bqhd,bkhd->bhqk", do.float(), v.float())
     pv = p
     if dropout_rate > 0.0:
-        keep = attention_dropout_keep(seed, b, h, t, t, dropout_rate, q.device)
+        keep = attention_dropout_keep(seed, b, h, t, t, dropout_rate, q.device, coords)
         inv = _keep_scale(dropout_rate)
         pv = torch.where(keep, p * inv, 0.0)
         dp = torch.where(keep, dp * inv, 0.0)
@@ -347,7 +361,7 @@ def _max_product(a: torch.Tensor, b: torch.Tensor, budget: int = 2**27) -> torch
 def backward_rounding_slack(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Tensor, lse: torch.Tensor,
     delta: torch.Tensor, lengths: Optional[torch.Tensor] = None, dropout_rate: float = 0.0,
-    seed: Optional[int] = None,
+    seed: Optional[int] = None, coords: Coords = (0, 0, 0),
 ) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor]]:
     """Per-element additions to the bf16 limits of dk and dv, [B, T, H, D]
     float32 each (None, None for float32 inputs).
@@ -377,7 +391,7 @@ def backward_rounding_slack(
     dp = torch.einsum("bqhd,bkhd->bhqk", do.float(), v.float())
     pv = p
     if dropout_rate > 0.0:
-        keep = attention_dropout_keep(seed, b, h, t, t, dropout_rate, q.device)
+        keep = attention_dropout_keep(seed, b, h, t, t, dropout_rate, q.device, coords)
         inv = _keep_scale(dropout_rate)
         pv = torch.where(keep, p * inv, 0.0)
         dp = torch.where(keep, dp * inv, 0.0)
@@ -431,14 +445,16 @@ def _check_row_stats(b: int, h: int, t: int, device, **stats: torch.Tensor) -> N
             )
 
 
-def _dropout_args(dropout_rate: float, seed: Optional[int]):
-    """(seed as uint32, keep threshold, 1 / (1 - rate), dropout flag)."""
+def _dropout_args(dropout_rate: float, seed: Optional[int], coords: Coords, h: int):
+    """(seed as uint32, keep threshold, 1 / (1 - rate), dropout flag, the
+    hash's first global row, first head and heads a row)."""
+    row0, head0, heads = coords
     if dropout_rate == 0.0:
-        return 0, 0, 1.0, 0
-    return seed & _M32, keep_threshold(dropout_rate), _keep_scale(dropout_rate), 1
+        return 0, 0, 1.0, 0, 0, 0, h
+    return seed & _M32, keep_threshold(dropout_rate), _keep_scale(dropout_rate), 1, row0, head0, heads or h
 
 
-_DROPOUT_ARGTYPES = [ctypes.c_uint, ctypes.c_uint, ctypes.c_float, ctypes.c_int]
+_DROPOUT_ARGTYPES = [ctypes.c_uint, ctypes.c_uint, ctypes.c_float] + [ctypes.c_int] * 4
 
 
 def bind(lib: ctypes.CDLL):
@@ -506,12 +522,14 @@ def _on_card(q: torch.Tensor, what: str) -> bool:
     return True
 
 
-def flash_attention_fwd(q, k, v, lengths=None, dropout_rate=0.0, seed=None, return_lse=False):
+def flash_attention_fwd(q, k, v, lengths=None, dropout_rate=0.0, seed=None, return_lse=False,
+                        coords: Coords = (0, 0, 0)):
     """(o, lse or None): the forward kernel on a CUDA tensor (counted in
-    ``flash_attention.launches``), the plain version on a CPU tensor."""
+    ``flash_attention.launches``), the plain version on a CPU tensor.
+    ``coords``: the dropout hash's global coordinates."""
     _check_dropout(dropout_rate, seed)
     if not _on_card(q, "flash_attention"):
-        out = flash_attention_plain(q, k, v, lengths, dropout_rate, seed, return_lse)
+        out = flash_attention_plain(q, k, v, lengths, dropout_rate, seed, return_lse, coords)
         return out if return_lse else (out, None)
     _check_kernel_inputs(q=q, k=k, v=v)
     b, t, h, d = q.shape
@@ -529,7 +547,7 @@ def flash_attention_fwd(q, k, v, lengths=None, dropout_rate=0.0, seed=None, retu
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
             b, t, h,
             float(_scale(d, q.dtype)), _DTYPE_CODES[q.dtype],
-            *_dropout_args(dropout_rate, seed),
+            *_dropout_args(dropout_rate, seed, coords, h),
             torch.cuda.current_stream(q.device).cuda_stream,
         )
     _raise_on(err, "flash_attention_fwd")
@@ -537,7 +555,7 @@ def flash_attention_fwd(q, k, v, lengths=None, dropout_rate=0.0, seed=None, retu
     return o, lse
 
 
-def _bwd_launch(which: int, q, k, v, do, lse, delta, lengths, dropout_rate, seed):
+def _bwd_launch(which: int, q, k, v, do, lse, delta, lengths, dropout_rate, seed, coords):
     """Launch the dq (``which`` 0) or dk/dv (1) kernel; returns its outputs."""
     _check_dropout(dropout_rate, seed)
     _check_kernel_inputs(q=q, k=k, v=v, do=do)
@@ -557,7 +575,7 @@ def _bwd_launch(which: int, q, k, v, do, lse, delta, lengths, dropout_rate, seed
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *do.stride()[:3],
             b, t, h,
             float(_scale(d, q.dtype)), _DTYPE_CODES[q.dtype],
-            *_dropout_args(dropout_rate, seed),
+            *_dropout_args(dropout_rate, seed, coords, h),
             torch.cuda.current_stream(q.device).cuda_stream,
         )
     _raise_on(err, "flash_attention_bwd")
@@ -565,26 +583,26 @@ def _bwd_launch(which: int, q, k, v, do, lse, delta, lengths, dropout_rate, seed
 
 
 def flash_attention_bwd_dq(
-    q, k, v, do, lse, delta, lengths=None, dropout_rate=0.0, seed=None
+    q, k, v, do, lse, delta, lengths=None, dropout_rate=0.0, seed=None, coords: Coords = (0, 0, 0)
 ) -> torch.Tensor:
     """dq of suffix-masked attention (``[B, T, H, D]``, the input type): the
     dq kernel on a CUDA tensor (counted in ``.launches``), the plain version
     on a CPU tensor."""
     if not _on_card(q, "flash_attention_bwd_dq"):
-        return flash_attention_bwd_plain(q, k, v, do, lse, delta, lengths, dropout_rate, seed)[0]
-    (dq,) = _bwd_launch(0, q, k, v, do, lse, delta, lengths, dropout_rate, seed)
+        return flash_attention_bwd_plain(q, k, v, do, lse, delta, lengths, dropout_rate, seed, coords)[0]
+    (dq,) = _bwd_launch(0, q, k, v, do, lse, delta, lengths, dropout_rate, seed, coords)
     flash_attention_bwd_dq.launches += 1
     return dq
 
 
 def flash_attention_bwd_dkv(
-    q, k, v, do, lse, delta, lengths=None, dropout_rate=0.0, seed=None
+    q, k, v, do, lse, delta, lengths=None, dropout_rate=0.0, seed=None, coords: Coords = (0, 0, 0)
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(dk, dv) of suffix-masked attention: the dk/dv kernel on a CUDA
     tensor (counted in ``.launches``), the plain version on a CPU tensor."""
     if not _on_card(q, "flash_attention_bwd_dkv"):
-        return flash_attention_bwd_plain(q, k, v, do, lse, delta, lengths, dropout_rate, seed)[1:]
-    dk, dv = _bwd_launch(1, q, k, v, do, lse, delta, lengths, dropout_rate, seed)
+        return flash_attention_bwd_plain(q, k, v, do, lse, delta, lengths, dropout_rate, seed, coords)[1:]
+    dk, dv = _bwd_launch(1, q, k, v, do, lse, delta, lengths, dropout_rate, seed, coords)
     flash_attention_bwd_dkv.launches += 1
     return dk, dv
 
@@ -599,7 +617,8 @@ def attention_delta(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
     return (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
 
 
-def flash_attention_bwd(q, k, v, o, do, lse, lengths=None, dropout_rate=0.0, seed=None):
+def flash_attention_bwd(q, k, v, o, do, lse, lengths=None, dropout_rate=0.0, seed=None,
+                        coords: Coords = (0, 0, 0)):
     """(dq, dk, dv) from the forward's inputs, output and LSE and the
     output's gradient: both kernels on a CUDA tensor, one plain pass on a
     CPU tensor."""
@@ -608,9 +627,9 @@ def flash_attention_bwd(q, k, v, o, do, lse, lengths=None, dropout_rate=0.0, see
         do = do.contiguous()
     delta = attention_delta(o, do)
     if not _on_card(q, "flash_attention_bwd"):
-        return flash_attention_bwd_plain(q, k, v, do, lse, delta, lengths, dropout_rate, seed)
-    dq = flash_attention_bwd_dq(q, k, v, do, lse, delta, lengths, dropout_rate, seed)
-    dk, dv = flash_attention_bwd_dkv(q, k, v, do, lse, delta, lengths, dropout_rate, seed)
+        return flash_attention_bwd_plain(q, k, v, do, lse, delta, lengths, dropout_rate, seed, coords)
+    dq = flash_attention_bwd_dq(q, k, v, do, lse, delta, lengths, dropout_rate, seed, coords)
+    dk, dv = flash_attention_bwd_dkv(q, k, v, do, lse, delta, lengths, dropout_rate, seed, coords)
     return dq, dk, dv
 
 
@@ -623,10 +642,10 @@ class FlashAttentionFunction(torch.autograd.Function):
     concatenates their three gradients."""
 
     @staticmethod
-    def forward(ctx, q, k, v, lengths, seed, dropout_rate):
-        o, lse = flash_attention_fwd(q, k, v, lengths, dropout_rate, seed, return_lse=True)
+    def forward(ctx, q, k, v, lengths, seed, dropout_rate, coords=(0, 0, 0)):
+        o, lse = flash_attention_fwd(q, k, v, lengths, dropout_rate, seed, return_lse=True, coords=coords)
         ctx.save_for_backward(q, k, v, o, lse, lengths)
-        ctx.seed, ctx.dropout_rate = seed, dropout_rate
+        ctx.seed, ctx.dropout_rate, ctx.coords = seed, dropout_rate, coords
         return o
 
     @staticmethod
@@ -634,9 +653,9 @@ class FlashAttentionFunction(torch.autograd.Function):
     def backward(ctx, do):
         q, k, v, o, lse, lengths = ctx.saved_tensors
         dq, dk, dv = flash_attention_bwd(
-            q, k, v, o, do, lse, lengths, ctx.dropout_rate, ctx.seed
+            q, k, v, o, do, lse, lengths, ctx.dropout_rate, ctx.seed, ctx.coords
         )
-        return dq, dk, dv, None, None, None
+        return dq, dk, dv, None, None, None, None
 
 
 def flash_attention(
@@ -646,9 +665,12 @@ def flash_attention(
     lengths: Optional[torch.Tensor] = None,  # [B] int suffix lengths
     dropout_rate: float = 0.0,
     seed: Optional[int] = None,
+    coords: Coords = (0, 0, 0),
 ) -> torch.Tensor:
     """Suffix-masked attention, ``[B, T, H, D]`` in and out, with dropout
-    on the post-softmax P at ``dropout_rate`` from the int32 ``seed``.
+    on the post-softmax P at ``dropout_rate`` from the int32 ``seed``;
+    ``coords`` = (row0, head0, heads) places the call's rows and heads in
+    the global batch whose mask it draws (``attention_dropout_keep``).
 
     With grad enabled for q, k or v, or a rate above 0, the call goes
     through ``FlashAttentionFunction``; otherwise it is the inference
@@ -659,7 +681,7 @@ def flash_attention(
     _check_dropout(dropout_rate, seed)
     needs_grad = torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v))
     if needs_grad or dropout_rate > 0.0:
-        return FlashAttentionFunction.apply(q, k, v, lengths, seed, float(dropout_rate))
+        return FlashAttentionFunction.apply(q, k, v, lengths, seed, float(dropout_rate), tuple(coords))
     return flash_attention_fwd(q, k, v, lengths, 0.0, None, return_lse=False)[0]
 
 

@@ -37,6 +37,10 @@ into the environment (without overriding) and composes the config.
   submitted where ``sbatch`` exists; returns NaN.
 - ``-sc install=bash`` / ``-sc query=<word>``: shell completion
   (``runtime/completion.py``).
+- ``trainer.num_devices=N``: N data-parallel ranks (``run_train_eval``),
+  spawned by the run on this host, or the ranks of ``torchrun
+  --nproc-per-node N -m w2v2_speaker_tpu_torch.run ...``; each run of a
+  grid or a search spawns its own.
 
 Where the JAX package prunes a search trial that raised
 ``FloatingPointError``, ``ValueError`` or ``RuntimeError``, the port

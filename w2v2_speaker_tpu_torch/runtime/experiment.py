@@ -127,12 +127,15 @@ from __future__ import annotations
 import contextlib
 import os
 import pathlib
+import tempfile
 import time
+from types import SimpleNamespace
 from collections import deque
 from typing import Deque, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..data.augment import (
     Augmenter, ChoiceRandomNoiseAugment, ChoiceRirsNoiseAugment, ChoiceSpeedAugment, FrequencyDropoutAugment,
@@ -163,6 +166,10 @@ from ..models.wav2vec2_speaker import Wav2Vec2SpeakerConfig, Wav2Vec2SpeakerMode
 from ..models.wav2vec2_speech import Wav2Vec2SpeechConfig, Wav2Vec2SpeechModel
 from ..models.xvector import XVectorConfig, XVectorModel
 from ..objectives import schedules
+from ..parallel.mesh import (
+    broadcast_object, check_cards, create_mesh, current_mesh, needs_spawn, resolve_num_devices,
+    select_rows, shard_map_rows, shared_iter, spawn, use_mesh,
+)
 from ..train.checkpoint import CheckpointManager, graft_into, load_params
 from ..train.multitask_task import MultitaskTask
 from ..train.paired_task import PairedSpeakerTask, paired_scores_to_metrics
@@ -726,12 +733,8 @@ def check_deterministic(cfg: Dict, device: Optional[torch.device]) -> None:
 
 def _check_ported(cfg: Dict, device: Optional[torch.device] = None) -> None:
     """Raise, before any data is read, for what this runtime does not
-    take: ``trainer.num_devices`` above 1, and the deterministic CTC
-    refusal (``check_deterministic``)."""
+    take: the deterministic CTC refusal (``check_deterministic``)."""
     check_deterministic(cfg, device)
-    nd = cfg["trainer"].get("num_devices", "all")
-    if nd != "all" and int(nd) != 1:
-        raise NotImplementedError(f"trainer.num_devices={nd}: data parallelism is ROADMAP.md Queue 1 item 8")
 
 
 CUBLAS_WORKSPACE = ":4096:8"
@@ -782,16 +785,81 @@ def run_train_eval(cfg: Dict, device: DeviceLike = None) -> Optional[float]:
     ``cfg`` (:840); returns the test EER (the validation EER without test
     trials), the test-clean WER (the validation WER without it) for speech,
     or None when ``eval_model`` is false or the test phase is skipped. Runs
-    on the card unless ``device="cpu"``, and raises without a card before it
-    reads anything."""
+    on the card unless ``device="cpu"``, and raises without a card, or with
+    more ranks on the card than cards, before it reads anything.
+
+    ``trainer.num_devices`` N > 1 (``all``: every card, 1 on the CPU) runs
+    N data-parallel ranks (``parallel/mesh.py``): in the process group that
+    exists (a caller's or torchrun's), else in N ranks spawned here (NCCL, a
+    card a rank, on the card; gloo on the CPU), whose rank 0's objective
+    this returns; the data are prepared (shards written on first use)
+    before the ranks start. Rank 0 alone reads the data (every batch, the end of each
+    epoch and of the data reach the others by broadcast), logs and writes
+    checkpoints; the validation metrics every decision reads (early
+    stopping, the plateau controller, best-k) are rank 0's; evaluation
+    shards its rows over the ranks and gathers them. The global batch, its
+    rows, microbatches, dropout masks, BatchNorm statistics and loss means
+    are those of the JAX package's mesh at the same N."""
+    requested = torch.device("cuda" if device is None else device)
+    n = resolve_num_devices(cfg["trainer"].get("num_devices", "all"), requested)
+    if not dist.is_initialized():  # a caller's group is taken as given (gloo ranks may share a card)
+        check_cards(n, requested)
+    _validate_int8_config(cfg)
+    _check_ported(cfg, requested)
+    if needs_spawn(n):
+        build_data_module(cfg)  # shards written here, before any rank waits in a timed collective
+        return spawn(run_train_eval, (cfg, device), nprocs=n, device=requested.type,
+                     threads=max(torch.get_num_threads() // n, 1))
     dev = resolve_device(device)
     seed = int(cfg["seed"])
     np.random.seed(seed)
-    _validate_int8_config(cfg)
     _apply_fast_dev_run(cfg)
-    _check_ported(cfg, dev)
-    with deterministic_mode(cfg["trainer"].get("deterministic", False), dev):
-        return _train_eval(cfg, dev, seed)
+    mesh = create_mesh(n, device=dev)
+    with use_mesh(mesh), deterministic_mode(cfg["trainer"].get("deterministic", False), mesh.device):
+        return broadcast_object(_train_eval(cfg, mesh.device, seed), mesh)
+
+
+class RankZeroData:
+    """A data module that rank 0 alone builds and runs, seen alike from
+    every rank: each batch or sample an iterator yields on rank 0, and its
+    end, is broadcast (``shared_iter``); so is each other call's result.
+    The ranks draw in step, as ranks that run the same loop on the same
+    data do. ``cfg`` is rank 0's on rank 0 and, elsewhere, a view of what
+    the loop reads of it (``split_dirs``, whether there is an augmenter,
+    ``debug_capture``)."""
+
+    _ITERATORS = ("train_batches", "val_batches", "test_samples", "eval_batches", "_pipeline")
+    _CALLS = ("summary", "val_evaluation_pairs", "test_evaluation_pairs")
+    _VALUES = ("num_speakers", "tokenizer")
+
+    def __init__(self, dm, mesh):
+        self._dm, self._mesh = dm, mesh
+        view = broadcast_object(None if dm is None else {
+            "split_dirs": getattr(dm.cfg, "split_dirs", None),
+            "augmenter": getattr(dm.cfg, "augmenter", None) is not None}, mesh)
+        self.cfg = dm.cfg if mesh.is_main else SimpleNamespace(
+            split_dirs=view["split_dirs"], augmenter=True if view["augmenter"] else None, debug_capture=None)
+
+    def __getattr__(self, name):
+        main, dm, mesh = self._mesh.is_main, self._dm, self._mesh
+        if name in RankZeroData._ITERATORS:
+            return lambda *a, **k: _SharedIterable(getattr(dm, name)(*a, **k) if main else None, mesh)
+        if name in RankZeroData._CALLS:
+            return lambda *a, **k: broadcast_object(getattr(dm, name)(*a, **k) if main else None, mesh)
+        if name in RankZeroData._VALUES:
+            return broadcast_object(getattr(dm, name) if main else None, mesh)
+        raise AttributeError(name)
+
+
+class _SharedIterable:
+    """Rank 0's iterable seen from every rank, iterable again as the
+    iterable it wraps is (an LR range test starts its epoch over)."""
+
+    def __init__(self, items, mesh):
+        self.items, self.mesh = items, mesh
+
+    def __iter__(self):
+        return shared_iter(self.items, self.mesh)
 
 
 def _train_eval(cfg: Dict, dev: torch.device, seed: int) -> Optional[float]:
@@ -805,11 +873,17 @@ def _train_eval(cfg: Dict, dev: torch.device, seed: int) -> Optional[float]:
     if dev.type == "cuda":
         set_float32_precision()
 
-    logger = MetricsLogger(log_dir=cfg["trainer"].get("log_dir"),
-                           flush_every=cfg["trainer"].get("log_every", 100))
+    mesh = current_mesh()
+    main = mesh is None or mesh.is_main
+    logger = MetricsLogger(log_dir=cfg["trainer"].get("log_dir") if main else None,
+                           flush_every=cfg["trainer"].get("log_every", 100), console=main)
     print(f"experiment: {cfg.get('experiment_name')}")
-    dm = build_data_module(cfg)
-    speech = isinstance(dm, LibriSpeechDataModule)
+    speech = cfg["data"]["module"]["name"] == "librispeech"
+    if mesh is not None and mesh.distributed:
+        print(f"data parallel: rank {mesh.rank} of {mesh.world} on {mesh.device} ({mesh.backend})")
+        dm = RankZeroData(build_data_module(cfg) if main else None, mesh)
+    else:
+        dm = build_data_module(cfg)
     if not speech:
         print(dm.summary())
     if cfg["trainer"].get("dump_first_batch"):
@@ -893,7 +967,8 @@ def _example_batch(cfg: Dict, dm, train_iter=None) -> Optional[Dict]:
     (:1473, :1722), where something reads it or its draw moves state that
     training reads: ``verify_model``, the debug capture, an augmenter; else
     None, and no draw."""
-    if not (cfg.get("verify_model") or dm.cfg.debug_capture is not None or dm.cfg.augmenter is not None):
+    if not (cfg.get("verify_model") or dm.cfg.debug_capture is not None
+            or getattr(dm.cfg, "augmenter", None) is not None):  # LibriSpeech has no augmenter
         return None
     return next(iter(train_iter() if train_iter is not None else dm.train_batches()))
 
@@ -982,8 +1057,11 @@ def _train_loop(cfg, task, state: TrainState, logger, train_iter_fn, validate_fn
     fast_dev = bool(trainer.get("fast_dev_run"))
 
     speech = kind in ("speech", "multitask")  # token-budget batches
+    mesh = current_mesh()
+    main = mesh is None or mesh.is_main
+    rows_multiple = acc * (1 if mesh is None else mesh.data)  # the rows a batch splits into
     ckpt = CheckpointManager(trainer["checkpoint_dir"], monitor="val_wer" if kind == "speech" else "val_eer",
-                             top_k=int(trainer.get("save_top_k", 1)))
+                             top_k=int(trainer.get("save_top_k", 1)), mesh=mesh)
     resumed_epoch = 0
     if trainer.get("resume"):
         try:
@@ -1026,8 +1104,8 @@ def _train_loop(cfg, task, state: TrainState, logger, train_iter_fn, validate_fn
 
     def get_step_fn(k: int):
         if k not in step_fns:
-            step_fns[k] = make_train_step(task, accumulate_steps=acc,
-                                          return_embeddings=on_step is not None, steps_per_dispatch=k)
+            step_fns[k] = make_train_step(task, accumulate_steps=acc, return_embeddings=on_step is not None,
+                                          steps_per_dispatch=k, mesh=mesh)
         return step_fns[k]
 
     # profiler=jax_trace: a torch.profiler window over steps [prof_start,
@@ -1061,7 +1139,7 @@ def _train_loop(cfg, task, state: TrainState, logger, train_iter_fn, validate_fn
         if device.type == "cuda":
             torch.cuda.synchronize(device)
         profiler.stop()
-        out = pathlib.Path(prof["trace_dir"]) / "trace.json"
+        out = pathlib.Path(prof["trace_dir"]) / ("trace.json" if main else f"trace_rank{mesh.rank}.json")
         out.parent.mkdir(parents=True, exist_ok=True)
         profiler.export_chrome_trace(str(out))
         print(f"profiler: steps {prof_start + 1}-{step} traced to {out}")
@@ -1074,7 +1152,7 @@ def _train_loop(cfg, task, state: TrainState, logger, train_iter_fn, validate_fn
         (keys included), under ``debug_batch/train_step`` (``/chunk<i>``
         for more than one) beside the checkpoint directory (:1225-1245)."""
         dump_dir = pathlib.Path(trainer["checkpoint_dir"]).parent / "debug_batch" / "train_step"
-        for i, raw in enumerate(buf):
+        for i, raw in enumerate(buf if main else ()):
             dump_first_batch(raw, dump_dir if len(buf) == 1 else dump_dir / f"chunk{i}")
         print(f"training step at step={step} raised; offending batch(es) dumped to {dump_dir}")
 
@@ -1086,10 +1164,11 @@ def _train_loop(cfg, task, state: TrainState, logger, train_iter_fn, validate_fn
             label = f"train_step_{step + 1}" if len(buf) == 1 else f"train_steps_{step + 1}-{step + len(buf)}"
             with (torch.profiler.record_function(label) if profiler is not None else contextlib.nullcontext()):
                 if len(buf) == 1:
-                    state, m = get_step_fn(1)(state, _to_device(buf[0], device))
+                    state, m = get_step_fn(1)(state, _to_device(select_rows(buf[0], mesh, acc), device))
                     per_step = [(buf[0], _to_host(m))]
                 else:
                     stacked = {key: np.stack([b[key] for b in buf]) for key in buf[0] if key != "keys"}
+                    stacked = select_rows(stacked, mesh, acc, stacked=True)
                     state, sm = get_step_fn(len(buf))(state, _to_device(stacked, device))
                     sm = _to_host(sm)  # one copy per metric for the whole dispatch
                     per_step = [(buf[i], {k: v[i] for k, v in sm.items()}) for i in range(len(buf))]
@@ -1113,7 +1192,7 @@ def _train_loop(cfg, task, state: TrainState, logger, train_iter_fn, validate_fn
         nonlocal stop_reason, validated_at
         validated_at = step
         t0 = time.perf_counter()
-        val_metrics = validate_fn(state)
+        val_metrics = broadcast_object(validate_fn(state), mesh)  # every decision below is rank 0's
         logger.log_eval(step, {**val_metrics, "val_seconds": time.perf_counter() - t0})
         if plateau is not None:  # before the save, so that "last" resumes with this validation's factor
             before = plateau.controller.factor_value
@@ -1150,18 +1229,20 @@ def _train_loop(cfg, task, state: TrainState, logger, train_iter_fn, validate_fn
         buf = []
         for batch in train_iter_fn(epoch):
             if not first_batch_dumped and trainer.get("dump_first_batch"):
-                dump_first_batch(batch, pathlib.Path(trainer["checkpoint_dir"]).parent / "first_batch")
+                if main:
+                    dump_first_batch(batch, pathlib.Path(trainer["checkpoint_dir"]).parent / "first_batch")
                 first_batch_dumped = True
             rows = batch["labels"].shape[0]
             if speech:
-                if rows % acc:  # padding rows have empty labels: left out of the CTC mean
+                if rows % rows_multiple:  # padding rows have empty labels: left out of the CTC mean
                     arrays = {k: v for k, v in batch.items() if isinstance(v, np.ndarray)}
-                    batch = {**batch, **pad_batch_rows(arrays, -(-rows // acc) * acc)}
+                    batch = {**batch, **pad_batch_rows(arrays, -(-rows // rows_multiple) * rows_multiple)}
             else:
                 if expected_rows is None:
                     expected_rows = rows
-                    if rows % acc:
-                        raise ValueError(f"batch size {rows} not divisible by accumulate_grad_batches={acc}")
+                    if rows % rows_multiple:
+                        raise ValueError(f"batch size {rows} not divisible by accumulate_grad_batches={acc}"
+                                         + (f" x {mesh.data} data ranks" if rows_multiple != acc else ""))
                 if rows != expected_rows:
                     dropped_ragged += 1  # never silently: a mis-sized stream would train on a fraction
                     print(f"dropped ragged train batch #{dropped_ragged}: leading dim {rows} != {expected_rows}")
@@ -1222,11 +1303,14 @@ def _restore_best(state: TrainState, ckpt: Optional[CheckpointManager], average_
 @torch.inference_mode()
 def _embed_batch(model, batch: Dict, device: torch.device) -> np.ndarray:
     """[B, D] float32 embeddings of a numpy batch (``features``, optional
-    ``mask``)."""
-    feats = torch.from_numpy(batch["features"]).to(device)
-    mask = batch.get("mask")
-    mask = None if mask is None else torch.from_numpy(mask).to(device)
-    return model.compute_embedding(feats, mask).float().cpu().numpy()
+    ``mask``), its rows sharded over the run's data ranks."""
+    def embed(b):
+        mask = b.get("mask")
+        return model.compute_embedding(torch.from_numpy(b["features"]).to(device),
+                                       None if mask is None else torch.from_numpy(mask).to(device)).float()
+
+    return shard_map_rows(embed, {k: batch[k] for k in ("features", "mask") if batch.get(k) is not None},
+                          current_mesh()).cpu().numpy()
 
 
 def _run_speaker(cfg, dm: VoxCelebDataModule, task: SpeakerTask, logger, device) -> Optional[float]:
@@ -1333,7 +1417,7 @@ def _run_speaker(cfg, dm: VoxCelebDataModule, task: SpeakerTask, logger, device)
         test_samples = test_samples[: ltb * dl.get("test_batch_size", 8)]
     net = cfg["network"]
     samples = extract_embeddings(model, test_samples, pad_to_multiple=dl.get("test_pad_to_multiple", 16000),
-                                 batch_size=dl.get("test_batch_size", 8), device=device,
+                                 batch_size=dl.get("test_batch_size", 8), device=device, mesh=current_mesh(),
                                  num_ensembles=(int(net.get("num_ensembles", 12))
                                                 if net.get("use_transformers_as_ensembles") else None))
     if ltb:  # a prefix of the test split: score the trials whose both sides it holds
@@ -1366,8 +1450,10 @@ def _progress_tracker(cfg: Dict, dm: VoxCelebDataModule):
         return None
     from .progress import ProgressTracker
 
-    tracker = ProgressTracker(
-        out_dir=pathlib.Path(str(cfg["trainer"]["checkpoint_dir"])).parent / "progress",
+    mesh = current_mesh()
+    tracker = ProgressTracker(  # another rank's snapshots (the same as rank 0's) go to a scratch directory
+        out_dir=(pathlib.Path(str(cfg["trainer"]["checkpoint_dir"])).parent / "progress"
+                 if mesh is None or mesh.is_main else tempfile.mkdtemp(prefix="w2v2_progress_")),
         num_speakers=int(pt_cfg.get("num_tracked_speakers", 5)), per_speaker=int(pt_cfg.get("per_speaker", 2)),
         heatmap=bool(pt_cfg.get("heatmap", True)), max_scan_batches=int(pt_cfg.get("max_scan_batches", 100)))
     if not tracker.select_samples(dm.train_batches()):
@@ -1418,7 +1504,8 @@ def _run_paired(cfg, dm: VoxCelebDataModule, task: PairedSpeakerTask, logger, de
         for i, batch in enumerate(proc(samples)):
             if max_batches is not None and i >= max_batches:
                 break
-            scores.extend(task.score_fn(_to_device(batch, device)).cpu().tolist())
+            scores.extend(shard_map_rows(lambda b: task.score_fn(_to_device(b, device)), batch,
+                                         current_mesh()).cpu().tolist())
             gts.extend(batch["labels"].tolist())
         return paired_scores_to_metrics(gts, scores)
 
@@ -1470,13 +1557,18 @@ def _make_wer_fn(dm: LibriSpeechDataModule, task: SpeechTask, eval_bs: int):
     """``wer(split, limit)``: the WER of ``split``'s first ``limit`` eval
     batches of ``eval_bs`` (all without a limit), None for an empty split
     (:1831)."""
+    def logits_fn(features, mask=None):  # rows sharded over the data ranks (padding rows all valid)
+        batch = {"features": np.asarray(features), **({} if mask is None else {"mask": np.asarray(mask)})}
+        return shard_map_rows(lambda b: task.host_logits_fn(b["features"], b.get("mask")), batch, current_mesh(),
+                              mask_fill=True)
+
     def wer(split: str, limit: Optional[int] = None) -> Optional[float]:
         batches = []
         for i, b in enumerate(dm.eval_batches(split, batch_size=eval_bs)):
             if limit and i >= limit:
                 break
             batches.append(b)
-        return task.evaluate_wer(batches)["wer"] if batches else None
+        return task.evaluate_wer(batches, logits_fn)["wer"] if batches else None
 
     return wer
 

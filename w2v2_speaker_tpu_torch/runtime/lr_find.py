@@ -11,7 +11,9 @@ differs from the first one's is skipped without a step, so the table does
 not advance, but it uses up one of the ``num_steps`` iterations. With
 ``output_dir``, ``data.json`` holds ``lr`` (the float64 rates of the steps
 taken), ``loss`` and ``suggestion``, and ``plot.png`` the curve where
-matplotlib imports.
+matplotlib imports. In a data-parallel run (``parallel.mesh.current_mesh``)
+every step runs over the world, as the JAX package's runs over its mesh
+(:21), and rank 0 alone writes the files.
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ from typing import Dict, Iterable, Optional
 import numpy as np
 import torch
 
+from ..parallel.mesh import current_mesh, select_rows
 from ..train.state import AdamTx, TrainState
 from ..train.steps import make_train_step
 
@@ -47,7 +50,8 @@ def lr_range_test(
     lr_table = lrs.astype(np.float32)
     state = TrainState.create(task.model, AdamTx(lambda count: float(lr_table[min(max(count, 0), num_steps - 1)])),
                               seed=0)
-    step = make_train_step(task)
+    mesh = current_mesh()
+    step = make_train_step(task, mesh=mesh)
 
     losses = []
     smoothed = None
@@ -64,7 +68,7 @@ def lr_range_test(
             ref_shape = batch["features"].shape
         if batch["features"].shape != ref_shape:
             continue
-        state, metrics = step(state, {k: torch.from_numpy(v).to(device) for k, v in batch.items()
+        state, metrics = step(state, {k: torch.from_numpy(v).to(device) for k, v in select_rows(batch, mesh).items()
                                       if isinstance(v, np.ndarray)})
         loss = float(metrics["loss"])
         smoothed = loss if smoothed is None else smoothing * loss + (1 - smoothing) * smoothed
@@ -79,7 +83,7 @@ def lr_range_test(
     else:
         suggestion = float(min_lr)
     result = {"lr": lr_used.tolist(), "loss": losses, "suggestion": suggestion}
-    if output_dir is not None:
+    if output_dir is not None and (mesh is None or mesh.is_main):
         output_dir = pathlib.Path(output_dir)
         output_dir.mkdir(parents=True, exist_ok=True)
         (output_dir / "data.json").write_text(json.dumps(result, indent=2))

@@ -56,6 +56,7 @@ from ..data.samples import SpeakerSample
 from ..device import DeviceLike, resolve_device, set_float32_precision
 from ..eval.evaluator import ASNormCosineEvaluator, EmbeddingSample
 from ..models.wav2vec2 import init_parameters
+from ..parallel.mesh import shard_map_rows
 from ..ops.quant import INT8_AUTO_MIN_SAMPLES, int8_auto_policy, int8_enabled
 from ..train.checkpoint import load_params
 from .experiment import _canon_int8, build_evaluator, build_model_and_task, graft_pretrained
@@ -111,6 +112,7 @@ def extract_embeddings(
     batch_size: int = 8,
     device: DeviceLike = None,
     num_ensembles: Optional[int] = None,
+    mesh=None,
 ) -> List[EmbeddingSample]:
     """Batched, bucketed, masked embedding extraction with
     ``model.compute_embedding(wav, mask)``, or, given ``num_ensembles``,
@@ -119,8 +121,14 @@ def extract_embeddings(
     pooled on the device, and only the pooled rows come to the host). A
     frame-level embedding ``[T, D]`` holds every frame of its padded batch,
     as the JAX package's does. ``model`` must already live on ``device``
-    (the card unless ``device="cpu"``)."""
+    (the card unless ``device="cpu"``). With a ``mesh`` (``parallel.mesh``)
+    of more than one data rank, ``batch_size`` is rounded up to a multiple
+    of the data ranks and each batch's rows are sharded over them and
+    gathered (as the JAX package's ``extract_embeddings`` :742-780 with
+    ``num_devices``)."""
     dev = resolve_device(device)
+    n_data = 1 if mesh is None else mesh.data
+    batch_size = -(-batch_size // n_data) * n_data
     out: List[EmbeddingSample] = []
     samples = sorted(samples, key=lambda s: s.wav.shape[-1])
     for i in range(0, len(samples), batch_size):
@@ -129,13 +137,19 @@ def extract_embeddings(
             [s.wav for s in chunk], pad_to_multiple=pad_to_multiple, dtype=np.float32
         )
         padded = pad_batch_rows({"features": batch.values, "mask": batch.mask}, batch_size)
-        wav = torch.from_numpy(padded["features"]).to(dev)
-        mask = torch.from_numpy(padded["mask"]).to(dev)
+
+        def embed(b):
+            wav, mask = torch.from_numpy(b["features"]).to(dev), torch.from_numpy(b["mask"]).to(dev)
+            if num_ensembles is not None:
+                return tuple(e.float() for e in model.compute_ensemble_embeddings(wav, mask, num_ensembles))
+            return model.compute_embedding(wav, mask).float()
+
+        got = shard_map_rows(embed, padded, mesh)
         if num_ensembles is not None:
-            layers = [e.float().cpu().numpy() for e in model.compute_ensemble_embeddings(wav, mask, num_ensembles)]
+            layers = [e.cpu().numpy() for e in got]
             out.extend(EmbeddingSample(s.key, [lay[j] for lay in layers]) for j, s in enumerate(chunk))
         else:
-            embs = model.compute_embedding(wav, mask).float().cpu().numpy()
+            embs = got.cpu().numpy()
             out.extend(EmbeddingSample(s.key, embs[j]) for j, s in enumerate(chunk))
     return out
 

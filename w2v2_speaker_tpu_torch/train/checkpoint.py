@@ -11,7 +11,11 @@ in the same ``index.json`` (best entries in order, ``last`` with its step
 and epoch). Each directory holds ``state.pt``, a torch file of
 ``TrainState.state_dict()`` (the step, the model, the optimizer transform's
 state, the step generator's state) and the epoch, in place of the JAX
-package's orbax tree, so a resumed run continues the dropout stream.
+package's orbax tree, so a resumed run continues the dropout stream. In a
+data-parallel run (a ``mesh``) rank 0 alone writes, and every rank waits at
+a barrier after each save and then reads the index anew; every rank
+restores. The replicas are equal, so a checkpoint holds the one model,
+and a run at one world size resumes from it at another.
 
 ``load_params`` is the counterpart of ``load_params`` (:251): a checkpoint's leaves are grafted into the model's current
 parameters, and a leaf that the checkpoint lacks, or holds in another
@@ -43,6 +47,7 @@ import torch
 from torch import nn
 
 from ..models.convert import params_from_jax
+from ..parallel.mesh import barrier
 from .state import TrainState
 
 __all__ = [
@@ -81,13 +86,15 @@ class CheckpointManager:
     lowest values of ``monitor`` (the validation EER, or WER), and always
     writes ``last``, which resume reads."""
 
-    def __init__(self, directory, monitor: str = "val_eer", top_k: int = 1):
+    def __init__(self, directory, monitor: str = "val_eer", top_k: int = 1, mesh=None):
         if monitor not in MONITORS:
             raise ValueError(f"monitor {monitor!r} is not one of {MONITORS}")
         self.monitor = monitor
         self.dir = pathlib.Path(directory)
         self.dir.mkdir(parents=True, exist_ok=True)
         self.top_k = top_k
+        self.mesh = mesh
+        self._writer = mesh is None or mesh.is_main
         self._index_path = self.dir / "index.json"
         self._index: Dict = (json.loads(self._index_path.read_text()) if self._index_path.exists()
                              else {"best": [], "last": None})
@@ -106,7 +113,16 @@ class CheckpointManager:
                   epoch: Optional[int] = None) -> None:
         """After a validation: write ``last`` and update the best-k set.
         ``epoch`` (the epoch in progress) rides the index, so a resumed run
-        continues its epoch count."""
+        continues its epoch count. Rank 0 writes; every rank leaves after
+        the save, with the index on disk."""
+        if not self._writer:
+            barrier(self.mesh)
+            self._index = json.loads(self._index_path.read_text())
+            return
+        self._save_step(state, metrics, epoch)
+        barrier(self.mesh)
+
+    def _save_step(self, state: TrainState, metrics: Optional[Dict[str, float]], epoch: Optional[int]) -> None:
         step = int(state.step)
         self._save("last", state, epoch)
         self._index["last"] = {"step": step}

@@ -30,6 +30,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from ..objectives import losses
+from ..parallel.mesh import global_mean
 from .speech_task import SpeechTask
 
 __all__ = ["MultitaskTask"]
@@ -74,7 +75,7 @@ class MultitaskTask(SpeechTask):
         correct = (preds.argmax(-1) == speaker_labels).float()
         metrics: Dict[str, Any] = {
             "loss": loss.detach(), "loss_speech": loss_speech.detach(), "loss_speaker": loss_speaker.detach(),
-            "accuracy": (correct * row_valid).sum() / row_valid.sum().clamp_min(1.0),
+            "accuracy": global_mean(correct, row_valid),
         }
         if train:
             metrics["layers_run"] = self.model.wav2vec2.encoder.layers_run

@@ -22,6 +22,7 @@ from torch import nn
 
 from ..eval.metrics import calculate_eer, calculate_mdc
 from ..objectives import losses
+from ..parallel.mesh import global_mean
 
 __all__ = ["PairedSpeakerTask", "paired_scores_to_metrics"]
 
@@ -48,7 +49,7 @@ class PairedSpeakerTask:
         loss, preds = losses.binary_cross_entropy(out["logit"], labels)
         metrics: Dict[str, Any] = {
             "loss": loss.detach(),
-            "accuracy": ((preds > 0.5) == (labels.reshape(-1) > 0.5)).float().mean(),
+            "accuracy": global_mean(((preds > 0.5) == (labels.reshape(-1) > 0.5)).float()),
         }
         if train:
             metrics["layers_run"] = self.model.encoder.layers_run

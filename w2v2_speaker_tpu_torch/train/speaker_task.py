@@ -31,6 +31,7 @@ import torch
 from torch import nn
 
 from ..objectives import losses
+from ..parallel.mesh import global_mean
 
 __all__ = ["SpeakerTask", "TRAINING_MODES"]
 
@@ -65,7 +66,7 @@ class SpeakerTask:
         loss, preds = self._compute_loss(out, batch, generator)
         metrics: Dict[str, Any] = {"loss": loss.detach()}
         if labels is not None and preds is not None and preds.ndim == 2 and preds.shape[0] == labels.shape[0]:
-            metrics["accuracy"] = (preds.argmax(-1) == labels).float().mean()
+            metrics["accuracy"] = global_mean((preds.argmax(-1) == labels).float())
         encoder = getattr(getattr(self.model, "wav2vec2", None), "encoder", None)
         if train and encoder is not None:
             metrics["layers_run"] = encoder.layers_run
