@@ -255,7 +255,7 @@ the run by raising:
 35. the knobs: ``trainer.deterministic=true`` on the BASE CE recipe, 4
    steps twice in fresh processes (losses and parameters bit-equal,
    ms/step beside a run without it and phase 13's), every other recipe one
-   step under it (the CTC ones refused by name); ``profiler=simple`` over
+   step under it, the CTC ones included; ``profiler=simple`` over
    12 steps (its window's steps and the attention kernels in the trace, no
    sanity validation); ``trainer.remat`` on the LARGE AAM step under each
    policy, all three full recompute (loss, gradients, generator bit-equal
@@ -269,15 +269,38 @@ the run by raising:
    after every step, attention launches per rank = kept layers, ms/step and
    the all-reduce's ms); iii a float32 2-layer BASE-width step on 2 ranks
    against 1 (loss within 1e-5, each gradient within ``DP_F32_GRAD_REL`` of
-   the 1-rank gradient's norm) and on 1 NCCL rank;
+   the 1-rank gradient's norm), each rank's share of it in one process
+   (``split_step_case``), both again with cuDNN's TF32 on (the distance
+   the ranks once read without full float32 set), and on 1 NCCL rank;
 37. tensor parallelism: ``dryrun_multichip(4)`` at BASE width, dp=2 x tp=2
    over gloo on the card, 6 heads a rank, against one process (the frozen,
    released and post-restore losses within 1e-5, the released step's
    gathered gradients within ``TP_GRAD_REL``);
-38. one JSON line with every kernel's numbers (the attention kernels and
+38. multi-rank predict: phase 12's LARGE predict (fused conv, bf16, the
+   same 24 files) with ``trainer.num_devices=2`` on 2 gloo ranks sharing
+   the card (a group made here): scores within 2e-3 of phase 12's and in
+   its pair order, rank 0 alone saving the cache and printing, 24
+   attention forwards and 6 convs a rank a bucket batch; the float32
+   sub-case (4 files of <= 3 s) within 1e-5 of 1 rank; warm utt/s of both
+   (printed, not held: two ranks share one card); with 2 or more cards the
+   same over NCCL, a card a rank, at 2 and at every card;
+39. the CTC kernels (``csrc/ctc_loss.cu``): (a) the forward and backward
+   against their plain versions at phase 16's longest training batch, at
+   phase 17's shape and on a ragged batch with repeated letters, an
+   infeasible and an empty-label row (loss 1e-5 relative, logit gradient
+   1e-6 absolute on feasible rows with the main path's upstream weights,
+   exact zeros on infeasible rows and past each row's frames, two launches
+   bit-equal), each with kernel, plain, bound and ``F.ctc_loss`` ms; (b)
+   ``speech_wav2vec2_ctc``, ``speaker_wav2vec2_ctc`` and ``multitask_wav2vec2``
+   4 steps each under ``trainer.deterministic=true`` in two fresh processes
+   (losses and parameters bit-equal), ms/step beside the same runs without
+   it; (c) phase 16's speech step at its longest batch through the kernels
+   and through ``F.ctc_loss`` in one call (the route before this kernel);
+40. one JSON line with every kernel's numbers (the attention kernels and
    the conv at the LARGE training shapes, launches of the LARGE training
    run; the int8 kernels over LARGE's five sites, launches of phase 34's
-   LARGE int8 predict run), the card line, then the result line.
+   LARGE int8 predict run; the CTC kernels at phase 16's longest training
+   batch, launches of phase 16's run), the card line, then the result line.
 
 Exits non-zero, printing no result, without a CUDA device or outside a
 checkout of the repository.
@@ -322,6 +345,7 @@ from w2v2_speaker_tpu_torch.models.wav2vec2_speech import Wav2Vec2SpeechConfig, 
 from w2v2_speaker_tpu_torch.objectives.schedules import multi_step_decay
 from w2v2_speaker_tpu_torch.ops import _build
 from w2v2_speaker_tpu_torch.ops import conv_encoder as ce
+from w2v2_speaker_tpu_torch.ops import ctc
 from w2v2_speaker_tpu_torch.ops import flash_attention as fa
 from w2v2_speaker_tpu_torch.ops import quant
 from w2v2_speaker_tpu_torch.eval.evaluator import CosineDistanceEvaluator, EmbeddingSample
@@ -336,13 +360,14 @@ from w2v2_speaker_tpu_torch.train.speech_task import SpeechTask
 from w2v2_speaker_tpu_torch.train.state import AdamTx, SgdTx, TrainState
 from w2v2_speaker_tpu_torch.train.steps import make_train_step
 
-# H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores, float32
-# outside the tensor cores (the f32 kernels run scalar FMAs), HBM3
-PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+# H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores, float32 and
+# float64 outside the tensor cores (the f32 kernels run scalar FMAs, the CTC
+# recursions float64), HBM3
+PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12, torch.float64: 34e12}
 PEAK_BYTES = 3.35e12
 H, D = 12, 64  # wav2vec2-BASE attention
 H_LARGE, LARGE_BATCH = 16, 48  # wav2vec2-LARGE attention; the LARGE recipe's batch
-KERNEL_SOURCES = ("flash_attention_fwd", "flash_attention_bwd", "conv_encoder", "int8_matmul")
+KERNEL_SOURCES = ("flash_attention_fwd", "flash_attention_bwd", "conv_encoder", "int8_matmul", "ctc_loss")
 KERNELS = (  # (name in the kernels line, source, the TPU kernel it replaces)
     ("flash_attention_fwd", "flash_attention_fwd", "w2v2_speaker_tpu/ops/flash_attention.py:204"),
     ("flash_attention_bwd_dq", "flash_attention_bwd", "w2v2_speaker_tpu/ops/flash_attention.py:381"),
@@ -350,6 +375,8 @@ KERNELS = (  # (name in the kernels line, source, the TPU kernel it replaces)
     ("conv_encoder", "conv_encoder", "w2v2_speaker_tpu/ops/conv_encoder.py:120"),
     ("int8_quantize", "int8_matmul", "w2v2_speaker_tpu/ops/quant.py:83 (XLA, not Pallas)"),
     ("int8_gemm", "int8_matmul", "w2v2_speaker_tpu/ops/quant.py:83 (XLA, not Pallas)"),
+    ("ctc_alpha", "ctc_loss", "w2v2_speaker_tpu/objectives/losses.py:176 (optax, XLA, not Pallas)"),
+    ("ctc_grad", "ctc_loss", "w2v2_speaker_tpu/objectives/losses.py:176 (optax, XLA, not Pallas)"),
 )
 ATTENTION = KERNELS[0][0], KERNELS[1][0], KERNELS[2][0]
 # the fused conv vs its plain version: ce.kernel_tolerance (f32: the JAX
@@ -907,6 +934,17 @@ def reset_int8_launches() -> None:
     quant.int8_gemm.launches = 0
 
 
+def ctc_launches() -> dict:
+    """The CTC kernels' counts (apart from ``launches()``, as the int8
+    ones)."""
+    return {"ctc_alpha": ctc.ctc_alpha.launches, "ctc_grad": ctc.ctc_grad.launches}
+
+
+def reset_ctc_launches() -> None:
+    ctc.ctc_alpha.launches = 0
+    ctc.ctc_grad.launches = 0
+
+
 def build_phase() -> None:
     t0 = time.perf_counter()
     reports = _build.build_all(KERNEL_SOURCES)
@@ -1328,7 +1366,7 @@ def predict_phase(card: str, root: pathlib.Path) -> dict:
         "network=wav2vec2_fc", "network.wav2vec2_size=large", "network.conv_impl=fused_pallas",
         "optim/loss=aam_softmax", "trainer.precision=bf16", f"load_network_from_checkpoint={weights}",
         f"data.dataloader.test_pad_to_multiple={PREDICT_PAD}",
-        f"data.dataloader.test_batch_size={PREDICT_BATCH}",
+        f"data.dataloader.test_batch_size={PREDICT_BATCH}", ONE_RANK,
         f"predict_folder_path={folder}", f"pair_prediction_path={pair_file}",
     ]
     reset_launches()
@@ -1401,7 +1439,7 @@ def predict_phase(card: str, root: pathlib.Path) -> dict:
           f"{metrics['mdc']:.4f} (random weights); f32 card vs cpu max score diff {f32_err:.3e} "
           f"(limit {PREDICT_F32_ATOL}) [{card}]", flush=True)
     return {"overrides": overrides, "folder": folder, "files": files, "scores": scores, "pairs": pairs,
-            "batches": batches, "utt_s": len(files) / warm_s, "first_s": first_s}
+            "batches": batches, "utt_s": len(files) / warm_s, "first_s": first_s, "f32_scores": f32["cuda"]}
 
 
 def write_run_corpus(root: pathlib.Path, rng, utterances: int = 6) -> tuple:
@@ -2048,6 +2086,23 @@ def write_speech_corpus(root: pathlib.Path, rng, eval_speakers: int = 12, train:
     return dirs, seconds
 
 
+def speech_args(tmp: pathlib.Path) -> list:
+    """Phase 16's corpus and shards (``write_speech_corpus`` under
+    ``tmp / "librispeech"``) as run overrides."""
+    splits = ("train", "val_clean", "val_other", "test_clean", "test_other")
+    return [*(f"data.module.{split}_dir={tmp / 'librispeech' / split}" for split in splits),
+            f"data.module.shards_dir={tmp / 'speech_shards'}"]
+
+
+def mt_args(tmp: pathlib.Path) -> list:
+    """Phase 18's corpus and shards: phase 16's training split, its own
+    eval splits of 2 speakers."""
+    splits = ("val_clean", "val_other", "test_clean", "test_other")
+    return [f"data.module.train_dir={tmp / 'librispeech' / 'train'}",
+            *(f"data.module.{split}_dir={tmp / 'mt_librispeech' / split}" for split in splits),
+            f"data.module.shards_dir={tmp / 'mt_shards'}", f"data.module.num_val_pairs={MT_VAL_PAIRS}"]
+
+
 def speech_f32_errors() -> tuple:
     """One float32 CTC step of the speech recipe cut to 2 layers at full
     width, card against CPU from the same weights and step generator seed
@@ -2113,11 +2168,10 @@ def speech_phase(card: str, tmp: pathlib.Path) -> None:
 
     rng = np.random.default_rng(16)
     t0 = time.perf_counter()
-    dirs, seconds = write_speech_corpus(tmp / "librispeech", rng)
+    _, seconds = write_speech_corpus(tmp / "librispeech", rng)
     write_s = time.perf_counter() - t0
     ckpt = tmp / "speech_ckpt"
-    argv = ["+experiment=speech_wav2vec2_ctc", *(f"data.module.{k}={v}" for k, v in dirs.items()),
-            f"data.module.shards_dir={tmp / 'speech_shards'}", f"trainer.max_steps={SPEECH_STEPS}",
+    argv = ["+experiment=speech_wav2vec2_ctc", *speech_args(tmp), f"trainer.max_steps={SPEECH_STEPS}",
             f"trainer.val_check_interval={SPEECH_VAL_EVERY}", "callbacks=default_speech",
             f"trainer.checkpoint_dir={ckpt}", "trainer.log_dir=null", "trainer.log_every=1", "seed=16", ONE_RANK]
     gc.collect()
@@ -2125,11 +2179,15 @@ def speech_phase(card: str, tmp: pathlib.Path) -> None:
     held = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
+    reset_ctc_launches()
     with RunProbe(profile=(SPEECH_PROFILED, SPEECH_PROFILED), task_cls=SpeechTask, longest=True,
                   dm_cls=LibriSpeechDataModule) as probe:
         t0 = time.perf_counter()
         objective = run.main(argv)
         run_s = time.perf_counter() - t0
+    MEASURED["speech_ctc_launches"] = ctc_launches()
+    assert MEASURED["speech_ctc_launches"] == {"ctc_alpha": SPEECH_STEPS, "ctc_grad": SPEECH_STEPS}, \
+        f"speech: CTC launches {MEASURED['speech_ctc_launches']} in {SPEECH_STEPS} steps (validations decode only)"
     peak_gib = (torch.cuda.max_memory_allocated() - held) / 2**30
     kept = check_steps("speech", probe, SPEECH_STEPS)
     assert max(probe.epochs) >= 1, f"speech: {SPEECH_STEPS} steps did not cross an epoch ({probe.epochs})"
@@ -2232,12 +2290,10 @@ def multitask_phase(card: str, tmp: pathlib.Path) -> None:
 
     rng = np.random.default_rng(18)
     dirs, seconds = write_speech_corpus(tmp / "mt_librispeech", rng, eval_speakers=MT_EVAL_SPEAKERS, train=False)
-    dirs["train_dir"] = tmp / "librispeech" / "train"  # phase 16's
     ckpt = tmp / "mt_ckpt"
-    argv = ["+experiment=multitask_wav2vec2", *(f"data.module.{k}={v}" for k, v in dirs.items()),
-            f"data.module.shards_dir={tmp / 'mt_shards'}", f"data.module.num_val_pairs={MT_VAL_PAIRS}",
-            f"trainer.max_steps={MT_STEPS}", f"trainer.val_check_interval={MT_VAL_EVERY}",
-            "trainer.log_dir=null", "trainer.log_every=1", "seed=16", ONE_RANK]  # phase 16's seed: its batches
+    argv = ["+experiment=multitask_wav2vec2", *mt_args(tmp), f"trainer.max_steps={MT_STEPS}",
+            f"trainer.val_check_interval={MT_VAL_EVERY}", "trainer.log_dir=null", "trainer.log_every=1",
+            "seed=16", ONE_RANK]  # phase 16's seed: its batches
     gc.collect()
     torch.cuda.empty_cache()
     held = torch.cuda.memory_allocated()
@@ -3419,51 +3475,50 @@ INT8_AUTO_S = (2.2, 2.5, 2.8, 3.0, 8.1, 8.4, 8.7, 9.0)  # BASE auto: bucket batc
 INT8_CROSSOVER_S, INT8_CROSSOVER_BATCH = (3, 6, 12), 8  # config/data/dataloader's test_batch_size
 DET_STEPS = 4
 PROFILE_STEPS, PROFILE_WINDOW = 12, (10, 5)  # config/profiler/simple.yaml: start_step 10, num_steps 5
-# a child process that runs the run twin with the arguments after its first
-# (a JSON file it writes: each logged loss as a float's hex, the device ms
-# between consecutive steps' ends (CUDA events where each step's update
-# returns), a SHA-256 of each final parameter's bytes, the
-# CUBLAS_WORKSPACE_CONFIG it ran with)
+# a child process that runs the run twin on each (label, argv) of a JSON
+# list, in turn (a JSON file it writes: per label, each logged loss as a
+# float's hex, the device ms between consecutive steps' ends (CUDA events
+# where each step's update returns), a SHA-256 of each final parameter's
+# bytes; the CUBLAS_WORKSPACE_CONFIG it ran with)
 RUN_CHILD = """
 import hashlib, json, os, sys
 import torch
 from w2v2_speaker_tpu_torch import run
 from w2v2_speaker_tpu_torch.runtime.logging import MetricsLogger
 from w2v2_speaker_tpu_torch.train.state import TrainState
-out, argv = sys.argv[1], sys.argv[2:]
-losses, ends, states, log_step, apply = [], [], [], MetricsLogger.log_step, TrainState.apply_gradients
-def logged(self, step, m):
-    losses.append(float(m["loss"]).hex())
-    return log_step(self, step, m)
-def applied(self):
-    result = apply(self)
-    ends.append(torch.cuda.Event(enable_timing=True))
-    ends[-1].record()
-    states[:] = [self]
-    return result
-MetricsLogger.log_step, TrainState.apply_gradients = logged, applied
-run.main(argv)
-torch.cuda.synchronize()
-params = {n: hashlib.sha256(p.detach().cpu().contiguous().view(torch.uint8).numpy().tobytes()).hexdigest()
-          for n, p in states[0].model.state_dict().items()}
-json.dump({"losses": losses, "step_ms": [a.elapsed_time(b) for a, b in zip(ends, ends[1:])], "params": params,
-           "cublas": os.environ.get("CUBLAS_WORKSPACE_CONFIG")}, open(out, "w"))
+out, runs = sys.argv[1], json.load(open(sys.argv[2]))
+log_step, apply = MetricsLogger.log_step, TrainState.apply_gradients
+records = {}
+for label, argv in runs:
+    losses, ends, states = [], [], []
+    def logged(self, step, m):
+        losses.append(float(m["loss"]).hex())
+        return log_step(self, step, m)
+    def applied(self):
+        result = apply(self)
+        ends.append(torch.cuda.Event(enable_timing=True))
+        ends[-1].record()
+        states[:] = [self]
+        return result
+    MetricsLogger.log_step, TrainState.apply_gradients = logged, applied
+    run.main(argv)
+    torch.cuda.synchronize()
+    params = {n: hashlib.sha256(p.detach().cpu().contiguous().view(torch.uint8).numpy().tobytes()).hexdigest()
+              for n, p in states[0].model.state_dict().items()}
+    records[label] = {"losses": losses, "step_ms": [a.elapsed_time(b) for a, b in zip(ends, ends[1:])],
+                      "params": params}
+json.dump({"runs": records, "cublas": os.environ.get("CUBLAS_WORKSPACE_CONFIG")}, open(out, "w"))
 """
-# a child process that runs each (label, argv, ctc) of a JSON list under the
-# run twin; a CTC recipe must raise the deterministic refusal, nothing else
+# a child process that runs each (label, argv) of a JSON list under the run
+# twin, in turn, and names the ones that trained
 RECIPES_CHILD = """
 import json, sys
 from w2v2_speaker_tpu_torch import run
 out, runs = sys.argv[1], json.load(open(sys.argv[2]))
 done = []
-for label, argv, ctc in runs:
-    try:
-        run.main(argv)
-        done.append([label, "trained"])
-    except ValueError as e:
-        if not ctc or "F.ctc_loss" not in str(e):
-            raise
-        done.append([label, str(e)])
+for label, argv in runs:
+    run.main(argv)
+    done.append([label, "trained"])
     json.dump(done, open(out, "w"))
 """
 
@@ -3657,14 +3712,38 @@ def int8_serving_phase(card: str, tmp: pathlib.Path, predicted: dict, run_args: 
     return got8
 
 
-def run_child(tmp: pathlib.Path, name: str, argv: list, env: dict) -> dict:
-    """``RUN_CHILD`` in a fresh process on ``argv``; its JSON record."""
-    out = tmp / f"{name}.json"
-    proc = subprocess.run([sys.executable, "-c", RUN_CHILD, str(out), *argv], cwd=ROOT, env=env,
+def run_child(tmp: pathlib.Path, name: str, runs: list, env: dict) -> dict:
+    """``RUN_CHILD`` in a fresh process on ``runs`` ([(label, argv)]); its
+    JSON record."""
+    out, spec = tmp / f"{name}.json", tmp / f"{name}_runs.json"
+    spec.write_text(json.dumps(runs))
+    proc = subprocess.run([sys.executable, "-c", RUN_CHILD, str(out), str(spec)], cwd=ROOT, env=env,
                           capture_output=True, text=True)
     sys.stdout.write(proc.stdout[-1500:])
     assert proc.returncode == 0, f"{name}: exit {proc.returncode}\n{proc.stderr[-4000:]}"
     return json.loads(out.read_text())
+
+
+def deterministic_pair(tmp: pathlib.Path, name: str, runs: list, env: dict) -> tuple:
+    """``runs`` under ``trainer.deterministic=true`` in two fresh processes
+    (``RUN_CHILD``): each run's losses and final parameters bit-equal
+    between the two, ``CUBLAS_WORKSPACE_CONFIG`` set in both. Returns the
+    two records."""
+    a, b = (run_child(tmp, f"{name}_{i}", runs, env) for i in "ab")
+    assert a["cublas"] == b["cublas"] == ":4096:8", (a["cublas"], b["cublas"])
+    for label, _ in runs:
+        ra, rb = a["runs"][label], b["runs"][label]
+        assert ra["losses"] and ra["losses"] == rb["losses"], f"deterministic {label}: losses {ra} {rb}"
+        differ = [k for k, v in ra["params"].items() if rb["params"][k] != v]
+        assert ra["params"].keys() == rb["params"].keys() and not differ, \
+            f"deterministic {label}: {len(differ)} parameters differ, {differ[:4]}"
+    return a, b
+
+
+def step_ms(rec: dict) -> float:
+    """Mean device ms between consecutive steps' ends of a ``RUN_CHILD``
+    record."""
+    return float(np.mean(rec["step_ms"]))
 
 
 def knobs_phase(card: str, tmp: pathlib.Path, wav_dir, trials, shards) -> None:
@@ -3673,7 +3752,7 @@ def knobs_phase(card: str, tmp: pathlib.Path, wav_dir, trials, shards) -> None:
     ``CUBLAS_WORKSPACE_CONFIG`` holds from its start): the losses and final
     parameters bit-equal, ms/step against the same run without the flag and
     phase 13's; every other recipe one step under the flag, the CTC ones
-    raising their refusal; (b) ``profiler=simple`` over 12 steps: the trace
+    included; (b) ``profiler=simple`` over 12 steps: the trace
     of its window, no sanity validation; (c) ``trainer.remat`` on the LARGE
     AAM step (B=48, fused conv) under each policy against no remat, from the
     same weights and generator seed: loss, gradients and the generator bit
@@ -3687,47 +3766,41 @@ def knobs_phase(card: str, tmp: pathlib.Path, wav_dir, trials, shards) -> None:
     env = {k: v for k, v in os.environ.items() if k != "CUBLAS_WORKSPACE_CONFIG"}
     base = ["+experiment=speaker_wav2vec2_ce", f"data.shards.samples_per_shard={RUN_SHARD}", "seed=13",
             f"trainer.fast_dev_run={DET_STEPS}", "eval_model=false"]
-    records = {}
-    for name, det in (("det_a", True), ("det_b", True), ("nondet", False)):
-        records[name] = run_child(tmp, name, [*base, f"trainer.deterministic={str(det).lower()}",
-                                              *corpus_args(wav_dir, trials, shards, tmp / f"{name}_ckpt")], env)
-    a, b = records["det_a"], records["det_b"]
-    assert len(a["losses"]) == DET_STEPS and a["losses"] == b["losses"], f"deterministic losses {a} {b}"
-    assert a["cublas"] == b["cublas"] == ":4096:8" and records["nondet"]["cublas"] is None, records
-    differ = [k for k, v in a["params"].items() if b["params"][k] != v]
-    assert a["params"].keys() == b["params"].keys() and not differ, \
-        f"deterministic runs: {len(differ)} parameters differ, {differ[:4]}"
-
-    def ms(rec):  # the end of step 1 to the end of step 4 (one dispatch of 4), per step
-        return float(np.mean(rec["step_ms"]))
-
+    a, b = (r["runs"]["ce"] for r in deterministic_pair(
+        tmp, "det", [("ce", [*base, "trainer.deterministic=true",
+                             *corpus_args(wav_dir, trials, shards, tmp / "det_ckpt")])], env))
+    nondet = run_child(tmp, "nondet", [("ce", [*base, "trainer.deterministic=false",
+                                               *corpus_args(wav_dir, trials, shards, tmp / "nondet_ckpt")])], env)
+    assert len(a["losses"]) == DET_STEPS and nondet["cublas"] is None, (a, nondet["cublas"])
+    # ms/step: the end of step 1 to the end of step 4 (one dispatch of 4), per step
     print(f"deterministic BASE CE bf16 B=66, {DET_STEPS} steps in two fresh processes: losses bit-equal "
           f"{[float.fromhex(x) for x in a['losses']]}, {len(a['params'])} parameters bit-equal; ms/step (CUDA events, "
-          f"steps 2-{DET_STEPS}) {ms(a):.2f} and {ms(b):.2f} against {ms(records['nondet']):.2f} without the flag "
-          f"(a third process) and phase 13's {MEASURED['run_ms']:.2f} (CUDA events) [{card}]", flush=True)
+          f"steps 2-{DET_STEPS}) {step_ms(a):.2f} and {step_ms(b):.2f} against {step_ms(nondet['runs']['ce']):.2f} "
+          f"without the flag (a third process) and phase 13's {MEASURED['run_ms']:.2f} (CUDA events) [{card}]",
+          flush=True)
 
     one = ["trainer.fast_dev_run=1", "eval_model=false", "trainer.deterministic=true", "trainer.log_dir=null", ONE_RANK]
     triplet = tmp / "triplet"
     runs = [(r, [f"+experiment={r}", f"data.shards.samples_per_shard={RUN_SHARD}", *extra,
-                 *corpus_args(wav_dir, trials, shards, tmp / "det" / "_".join([r, *extra])), *one], False)
+                 *corpus_args(wav_dir, trials, shards, tmp / "det" / "_".join([r, *extra])), *one])
             for r, extra in (("speaker_wav2vec2_aam", []), ("speaker_wav2vec2_short_seq", []),
                              ("speaker_wav2vec2_large_aam", ["network.conv_impl=fused_pallas"]),
                              ("speaker_xvector", []), ("speaker_ecapa_tdnn", []), ("speaker_wav2spk", []),
                              ("speaker_dummy", []), ("speaker_wav2vec2_ce", ["network=wav2vec_fc"]),
                              ("speaker_wav2vec2_ce", ["network=wav2vec_xvector"]),
                              ("speaker_wav2vec2_ctc", []))]
-    runs[-1] = (runs[-1][0], runs[-1][1], True)
     runs += [("speaker_wav2vec2_pairs", ["+experiment=speaker_wav2vec2_pairs",
                                          f"data.shards.samples_per_shard={PAIRS_SHARD}", *one,
-                                         *corpus_args(wav_dir, trials, tmp / "pair_shards", tmp / "det" / "pairs")],
-             False)]
+                                         *corpus_args(wav_dir, trials, tmp / "pair_shards", tmp / "det" / "pairs")])]
     runs += [(r, [f"+experiment={r}", f"data.shards.samples_per_shard={RUN_SHARD + 2}", *one,
-                  *corpus_args(triplet / "wav", triplet / "trials.txt", tmp / "triplet_shards", tmp / "det" / r)], False)
+                  *corpus_args(triplet / "wav", triplet / "trials.txt", tmp / "triplet_shards", tmp / "det" / r)])
              for r in ("speaker_wav2vec2_triplet", "speaker_wav2vec2_triplet_ce")]
-    runs += [(r, [f"+experiment={r}", *one, f"trainer.checkpoint_dir={tmp / 'det' / r}"], True)
-             for r in ("speech_wav2vec2_ctc", "multitask_wav2vec2")]
-    runs = [(f"{label} {' '.join(a for a in argv if a.startswith('network='))}".strip(), argv, ctc)
-            for label, argv, ctc in runs]
+    runs += [("speech_wav2vec2_ctc", ["+experiment=speech_wav2vec2_ctc", *speech_args(tmp), "seed=16", *one,
+                                      f"trainer.checkpoint_dir={tmp / 'det' / 'speech'}"]),
+             ("multitask_wav2vec2", ["+experiment=multitask_wav2vec2", *mt_args(tmp), "seed=16", *one,
+                                     f"trainer.checkpoint_dir={tmp / 'det' / 'multitask'}"])]
+    runs = [(f"{label} {' '.join(a for a in argv if a.startswith('network='))}".strip(), argv)
+            for label, argv in runs]
     (tmp / "det_runs.json").write_text(json.dumps(runs))
     t0 = time.perf_counter()
     proc = subprocess.run([sys.executable, "-c", RECIPES_CHILD, str(tmp / "det_done.json"), str(tmp / "det_runs.json")],
@@ -3735,12 +3808,10 @@ def knobs_phase(card: str, tmp: pathlib.Path, wav_dir, trials, shards) -> None:
     assert proc.returncode == 0, (f"deterministic recipes: exit {proc.returncode}\n{proc.stdout[-3000:]}\n"
                                   f"{proc.stderr[-4000:]}")
     done = dict(json.loads((tmp / "det_done.json").read_text()))
-    assert list(done) == [label for label, _, _ in runs], f"deterministic recipes ran {list(done)}"
-    for label, _, ctc in runs:
-        assert (done[label] == "trained") != ctc, f"deterministic {label}: {done[label]}"
-    print(f"deterministic recipes, one step each in one fresh process ({time.perf_counter() - t0:.1f} s): "
-          f"{ {label: 'trained' if r == 'trained' else 'refused (F.ctc_loss)' for label, r in done.items()} }",
-          flush=True)
+    assert list(done) == [label for label, _ in runs] and set(done.values()) == {"trained"}, \
+        f"deterministic recipes: {done}"
+    print(f"deterministic recipes, one step each in one fresh process ({time.perf_counter() - t0:.1f} s): every "
+          f"recipe trained, the CTC ones included: {list(done)}", flush=True)
 
     # (b) profiler=simple, 12 steps: its window is steps 11-15, cut by the run's end at 12
     trace_dir = tmp / "profile"
@@ -3827,8 +3898,11 @@ DP_LATER_LOSS_RTOL = 1e-3
 DP_F32_LOSS_RTOL = 1e-5
 # float32 gradients against 1 rank: the largest over parameters of
 # |g - g1| / |g1| (L2 norms; a wrong reduce scale reads >= 0.5). On an H100
-# 2 ranks read 9.58e-4 (the first conv's weight) and dp=2 x tp=2 1.70e-6
-DP_F32_GRAD_REL, TP_GRAD_REL = 1e-2, 1e-4
+# 2 ranks in full float32 read 1.90e-6 (10x that is the limit) and dp=2 x
+# tp=2 1.70e-6 (60x); with cuDNN's TF32 on in the ranks, as they once ran,
+# 2 ranks read 9.54e-4 and 1 rank against itself in full float32 9.60e-4,
+# at the first conv's weight both
+DP_F32_GRAD_REL, TP_GRAD_REL = 2e-5, 1e-4
 DP_DEADLINE = 900.0
 
 
@@ -3992,9 +4066,13 @@ def dp_f32_phase(card: str) -> None:
     """Phase 36 (a) iii: a 2-layer full-width (BASE) float32 speaker CE step
     on 2 gloo ranks on the card against 1 rank (loss within 1e-5 relative,
     each parameter's gradient within ``DP_F32_GRAD_REL`` of the 1-rank
-    gradient's norm, the replicas bit-identical), then one step in a world
-    of 1 over NCCL (its all-reduce probe included)."""
-    from tools.torch_parallel_cases import rank_cases, step_case
+    gradient's norm, the replicas bit-identical); each rank's share of it
+    run in this process in turn (``split_step_case``, which sums what the
+    ranks all-reduce); the same 2-rank and 1-rank steps with cuDNN's TF32
+    on (PyTorch's default, under which a spawned rank once ran while this
+    process ran full float32); then one step in a world of 1 over NCCL
+    (its all-reduce probe included)."""
+    from tools.torch_parallel_cases import rank_cases, split_step_case, step_case
     from w2v2_speaker_tpu_torch.parallel.mesh import spawn
 
     cfg = {**BASE_CONFIG.__dict__, "num_layers": 2, "dtype": "float32"}
@@ -4010,20 +4088,35 @@ def dp_f32_phase(card: str) -> None:
             "seed": 5, "state_dict": model.state_dict(),
             "batch": {"features": (rng.normal(0, 0.1, (8, 48000)) * mask).astype(np.float32), "mask": mask,
                       "labels": rng.integers(0, 64, 8).astype(np.int32)}}
-    two = spawn(rank_cases, ([case], "cuda"), nprocs=DP_WORLD, device="cuda", backend="gloo",
-                deadline=DP_DEADLINE)[0]
+    tf32 = {**case, "tf32": True}
+    two, two_tf32 = spawn(rank_cases, ([case, tf32], "cuda"), nprocs=DP_WORLD, device="cuda", backend="gloo",
+                          deadline=DP_DEADLINE)
     one = step_case({**case, "device": "cuda"})
+    one_tf32 = step_case({**tf32, "device": "cuda"})
+    split = split_step_case({**case, "device": "cuda"})
+    set_float32_precision()  # this process's own setting again
     nccl = spawn(rank_cases, ([case], "cuda"), nprocs=1, device="cuda", deadline=DP_DEADLINE)[0]
+    assert two["tf32"] == one["tf32"] == (False, False) and two_tf32["tf32"] == one_tf32["tf32"] == (False, True)
     rel = abs(two["loss"] - one["loss"]) / abs(one["loss"])
     grad, at, top = grad_rel_err(two["grads"], one["grads"])
     absdiff = max(float((two["grads"][n] - g).abs().max()) for n, g in one["grads"].items())
     assert two["replicas_equal"] and rel <= DP_F32_LOSS_RTOL and grad <= DP_F32_GRAD_REL, (
         f"data parallel f32: replicas equal {two['replicas_equal']}, loss rel {rel}, grad rel {grad} at {at}")
     assert abs(nccl["loss"] - one["loss"]) <= DP_F32_LOSS_RTOL * abs(one["loss"]), f"NCCL world of 1 {nccl['loss']}"
-    print(f"data parallel f32 BASE width 2 layers B=8 x 48000 acc 2: 2 ranks vs 1 loss rel {rel:.2e} (limit "
-          f"{DP_F32_LOSS_RTOL}), gradient |g - g1| / |g1| at most {grad:.2e} ({at}; limit {DP_F32_GRAD_REL}), "
-          f"largest |diff| {absdiff:.2e} against a largest |g1| of {top:.2e}, replicas bit-identical; NCCL world of 1 "
-          f"loss {nccl['loss']:.6f} vs {one['loss']:.6f} [{card}]", flush=True)
+    split_two = grad_rel_err(split["grads"], two["grads"])
+    split_one = grad_rel_err(split["grads"], one["grads"])
+    tf32_one = grad_rel_err(one_tf32["grads"], one["grads"])
+    tf32_two = grad_rel_err(two_tf32["grads"], one["grads"])
+    tf32_both = grad_rel_err(two_tf32["grads"], one_tf32["grads"])
+    bit_equal = all(torch.equal(split["grads"][n], g) for n, g in two["grads"].items())
+    print(f"data parallel f32 BASE width 2 layers B=8 x 48000 acc 2, full float32 in every rank: 2 ranks vs 1 loss rel "
+          f"{rel:.2e} (limit {DP_F32_LOSS_RTOL}), gradient |g - g1| / |g1| at most {grad:.2e} ({at}; limit "
+          f"{DP_F32_GRAD_REL}), largest |diff| {absdiff:.2e} against a largest |g1| of {top:.2e}, replicas "
+          f"bit-identical; the ranks' shares summed in this process: {split_two[0]:.2e} from the 2 ranks "
+          f"({split_two[1]}; bit-equal {bit_equal}), {split_one[0]:.2e} from 1 rank ({split_one[1]}); with cuDNN's "
+          f"TF32 on: 1 rank {tf32_one[0]:.2e} from 1 rank in full float32 ({tf32_one[1]}), 2 ranks {tf32_two[0]:.2e} "
+          f"from it ({tf32_two[1]}), 2 ranks vs 1 rank both in TF32 {tf32_both[0]:.2e} ({tf32_both[1]}); NCCL world "
+          f"of 1 loss {nccl['loss']:.6f} vs {one['loss']:.6f} [{card}]", flush=True)
 
 
 def tp_phase(card: str) -> None:
@@ -4055,6 +4148,371 @@ def tp_phase(card: str) -> None:
           f"{four['restored_loss']:.6f} vs {one['restored_loss']:.6f} (rel {rels[2]:.2e}); {four_s:.1f} s with its "
           f"spawn [{card}]",
           flush=True)
+
+
+# ------------------------------------------------------------ 38: multi-rank predict
+
+# 2 ranks against phase 12's 1 rank, on the (s + 1) / 2 scale: cuBLAS's bf16
+# GEMMs at another M (2 rows a rank instead of 4) may round otherwise, while
+# the attention and conv kernels compute each row alone
+MP_SCORE_ATOL = 2e-3
+MP_F32_ATOL = 1e-5  # the float32 sub-case: the same model in full float32, other row counts
+MP_TIMED = 5  # warm extractions timed a run
+
+
+def multi_predict_rank(argv: list, f32_argv: list, files: list, reps: int) -> list:
+    """One rank of phase 38, on the world it is spawned in: the predict
+    twin on ``argv``, then on ``f32_argv`` (each through
+    ``tools/torch_parallel_cases.py::predict_rank``: every rank's score
+    file, saved files and launches), then ``reps`` warm extractions of
+    ``files`` (under ``argv``'s folder) over the same mesh, synchronised
+    across the ranks before and after each. Returns the two runs' records
+    and every rank's device and warm seconds."""
+    import torch.distributed as dist
+    from tools.torch_parallel_cases import predict_rank
+    from w2v2_speaker_tpu_torch.parallel.mesh import create_mesh
+
+    runs = [predict_rank(a, None) for a in (argv, f32_argv)]
+    cfg = load_config(predict.CONFIG_DIR, "predict", argv)
+    mesh = create_mesh(dist.get_world_size(), device="cuda")
+    model = build_predict_model(cfg, mesh.device)
+    folder = pathlib.Path(cfg["predict_folder_path"])
+    samples = [SpeakerSample(rel, normalize_waveform(load_raw_audio(folder / rel))) for rel in files]
+    warm = []
+    for i in range(reps + 1):  # the first is the warm-up
+        dist.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        extract_embeddings(model, samples, PREDICT_PAD, PREDICT_BATCH, device=mesh.device, mesh=mesh)
+        torch.cuda.synchronize()
+        dist.barrier()
+        if i:
+            warm.append(time.perf_counter() - t0)
+    timing = [None] * mesh.world
+    dist.all_gather_object(timing, {"device": str(mesh.device), "warm_s": warm})
+    return [runs, timing]
+
+
+def multi_predict_phase(card: str, tmp: pathlib.Path, predicted: dict) -> None:
+    """Phase 38: phase 12's predict (LARGE, fused conv, bf16, its 24 files
+    copied to a fresh folder) with ``trainer.num_devices=2`` on 2 gloo
+    ranks sharing this card, in a group made here (NCCL refuses one card
+    twice), against phase 12's 1-rank scores; the float32 sub-case against
+    1 rank in this process; with 2 or more cards the same over NCCL, a
+    card a rank, at 2 and at every card."""
+    import shutil
+
+    from w2v2_speaker_tpu_torch.parallel.mesh import spawn
+
+    def folders(name: str) -> tuple:
+        """A fresh copy of phase 12's files and trials, and a float32 folder
+        of 4 files of <= 3 s: (bf16 argv, f32 argv, the two folders)."""
+        root = tmp / "multi_predict" / name
+        shutil.copytree(predicted["folder"], root / "wav", ignore=shutil.ignore_patterns("embeddings"))
+        trials = root / "trials.txt"
+        shutil.copy(tmp / "predict" / "trials.txt", trials)
+        small = root / "f32"
+        ids = list(write_predict_folder(small, PREDICT_F32_S, 2, np.random.default_rng(13)))
+        (small / "pairs.txt").write_text("".join(f"{a} {b}\n" for i, a in enumerate(ids) for b in ids[i + 1:]))
+        base = [a for a in predicted["overrides"] if not a.startswith(("predict_folder_path=", "pair_prediction_path=",
+                                                                        "trainer.num_devices="))]
+        return ([*base, f"predict_folder_path={root / 'wav'}", f"pair_prediction_path={trials}"],
+                [*base, "trainer.precision=f32", f"predict_folder_path={small}",
+                 f"pair_prediction_path={small / 'pairs.txt'}"], (root / "wav", small))
+
+    def run_world(n: int, backend) -> tuple:
+        argv, f32_argv, dirs = folders(f"{backend or 'nccl'}_{n}")
+        world = [f"trainer.num_devices={n}"]
+        t0 = time.perf_counter()
+        (bf16, f32), timing = spawn(
+            multi_predict_rank, ([*argv, *world], [*f32_argv, *world], list(predicted["files"]), MP_TIMED),
+            nprocs=n, device="cuda", backend=backend, deadline=DP_DEADLINE)
+        wall = time.perf_counter() - t0
+        scores, pairs = read_scores(pathlib.Path(bf16[0]["path"]))
+        f32_scores, _ = read_scores(pathlib.Path(f32[0]["path"]))
+        batches = predicted["batches"]
+        for records, folder in ((bf16, dirs[0]), (f32, dirs[1])):
+            for r in records:
+                assert (r["rank"] == 0) == bool(r["saved"]) == (r["path"] is not None) and not (
+                    r["rank"] and r["printed"]), f"multi-rank predict rank {r['rank']} wrote {r['saved'][:3]}, " \
+                                                 f"{r['path']}, printed {r['printed'][:200]!r}"
+            cache = sorted(str(p) for p in (folder / "embeddings").rglob("*.npy"))
+            assert sorted(records[0]["saved"]) == cache and cache, \
+                f"multi-rank predict: rank 0 saved {len(records[0]['saved'])}, the cache holds {len(cache)}"
+        assert [r["launches"] for r in bf16] == [[24 * batches, 6 * batches]] * n, \
+            f"multi-rank predict: attention and conv launches a rank {[r['launches'] for r in bf16]}"
+        assert pairs == predicted["pairs"], "multi-rank predict: another pair order"
+        err = float(np.abs(scores - predicted["scores"]).max())
+        f32_err = float(np.abs(f32_scores - predicted["f32_scores"]).max())
+        assert err <= MP_SCORE_ATOL and f32_err <= MP_F32_ATOL, f"multi-rank predict: {err}, f32 {f32_err}"
+        utt_s = len(predicted["files"]) / float(np.median(timing[0]["warm_s"]))
+        return err, f32_err, utt_s, wall, [r["device"] for r in timing]
+
+    err, f32_err, utt_s, wall, devices = run_world(DP_WORLD, "gloo")
+    shared = len(set(devices)) == 1
+    print(f"multi-rank predict LARGE fused conv bf16, {len(predicted['files'])} files, trainer.num_devices="
+          f"{DP_WORLD} on gloo ranks {devices}{' sharing one card' if shared else ''}: scores max diff from 1 rank "
+          f"(phase 12) {err:.3e} (limit {MP_SCORE_ATOL}; bit-equal {err == 0}), the same pair order; float32 sub-case "
+          f"{f32_err:.3e} (limit {MP_F32_ATOL}); 24 attention forwards and 6 convs a rank a bucket batch "
+          f"({predicted['batches']} batches); rank 0 alone saved the cache and the scores and printed; warm utt/s "
+          f"(median of {MP_TIMED}, host clock) {utt_s:.2f} against 1 rank's {predicted['utt_s']:.2f}"
+          f"{' (two ranks share one card: not a scaling number)' if shared else ''}; the spawned run {wall:.1f} s "
+          f"[{card}]", flush=True)
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        print(f"multi-rank predict over NCCL not run: {cards} card on this host (a card a rank needs 2 or more)",
+              flush=True)
+        return
+    for n in sorted({2, cards}):
+        err, f32_err, utt_s, wall, devices = run_world(n, None)
+        print(f"multi-rank predict LARGE fused conv bf16 over NCCL, {n} ranks on {devices}: scores max diff from "
+              f"1 rank {err:.3e}, float32 {f32_err:.3e}; warm utt/s {utt_s:.2f} against 1 rank's "
+              f"{predicted['utt_s']:.2f}; the spawned run {wall:.1f} s [{card}]", flush=True)
+
+
+# ------------------------------------------------------------ 39: the CTC kernels
+
+CTC_SPEECH_B, CTC_SPEECH_T = 8, 1199  # phase 16's longest training batch (B x T)
+CTC_SPEAKER = (66, 149, 5995)  # phase 17's logits
+CTC_OPS_PER_STATE = 10  # a recursion step: three exp, one log, the adds and compares
+CTC_TIMED = 20
+CTC_ROUTE_STEPS = 3  # timed steps a route, after one warm-up, in the order kernel, F.ctc_loss, F.ctc_loss, kernel
+
+
+def ctc_inputs(name: str, gen) -> tuple:
+    """(lp [B, T, V] float32, frames, labels [B, S] int32, label lengths,
+    g [B] the main path's upstream weights: 1 / label length over the
+    non-empty rows) on the card. ``speech_train``: phase 16's longest
+    batch, 8 rows of 1100-1199 frames and ~12 characters a second of the
+    HF letters; ``speaker_ctc``: phase 17's [66, 149, 5995] with one
+    speaker a row and the blank's bias of 100; ``ragged``: 5 rows with
+    repeated letters, an empty label and an infeasible row."""
+    if name == "speech_train":
+        b, t, v = CTC_SPEECH_B, CTC_SPEECH_T, 32
+        frames = torch.randint(1100, t + 1, (b,), generator=gen, device="cuda")
+        frames[0] = t
+        lab = (frames.float() * 0.24).to(torch.int64)  # 12 characters a second at 50 frames a second
+        logits = torch.randn(b, t, v, generator=gen, device="cuda")
+        low = 5  # the HF vocabulary's letters
+    elif name == "speaker_ctc":
+        b, t, v = CTC_SPEAKER
+        frames = torch.full((b,), t, device="cuda")
+        lab = torch.ones(b, dtype=torch.int64, device="cuda")
+        logits = torch.randn(b, t, v, generator=gen, device="cuda")
+        logits[..., 0] += 100.0
+        low = 1
+    else:
+        b, t, v = 5, 300, 32
+        frames = torch.tensor([300, 251, 120, 40, 5], device="cuda")
+        lab = torch.tensor([110, 70, 61, 0, 8], device="cuda")
+        logits = 2 * torch.randn(b, t, v, generator=gen, device="cuda")
+        low = 5
+    s = int(lab.max())
+    labels = torch.randint(low, v, (b, s), generator=gen, device="cuda", dtype=torch.int32)
+    if name == "ragged":
+        labels[0, 1::5] = labels[0, 0:-1:5]  # repeated letters
+    labels *= (torch.arange(s, device="cuda")[None] < lab[:, None]).to(torch.int32)
+    valid = (lab > 0).float()
+    g = valid / lab.clamp_min(1).float() / valid.sum()
+    return (torch.log_softmax(logits, -1), frames.to(torch.int32), labels, lab.to(torch.int32), g)
+
+
+def ctc_bounds(lp, frames, labels, label_lens) -> dict:
+    """Per kernel (bound ms, 'bytes' | 'operations') for this data (H100 SXM:
+    3.35 TB/s, 34 TFLOP/s float64 outside the tensor cores): the forward
+    reads the gathered lp[t, l'_s] (float32) once and writes alpha and logp
+    (float64); the backward reads lp at each row's frames, alpha, logp and
+    g, and writes the gradient [B, T, V] (float32); ``CTC_OPS_PER_STATE``
+    operations a state and frame each way, and in the backward one
+    occupancy add a state and frame and an exp, a subtract and a multiply
+    a (frame, v). Also the longest row's frames: the chain of dependent
+    steps each pass runs."""
+    b, t, v = lp.shape
+    cells = float((frames.double() * (2 * label_lens.double() + 1)).sum())
+    frames_v = float(frames.double().sum()) * v
+    small = 4 * (labels.numel() + 2 * b)
+    fwd = ((4 + 8) * cells + small + 8 * b, CTC_OPS_PER_STATE * cells)
+    bwd = (4 * frames_v + 8 * cells + small + 16 * b + 4 * b * t * v,
+           (CTC_OPS_PER_STATE + 1) * cells + 3 * frames_v)
+    out = {}
+    for name, (nbytes, ops) in (("ctc_alpha", fwd), ("ctc_grad", bwd)):
+        b_ms, o_ms = 1e3 * nbytes / PEAK_BYTES, 1e3 * ops / PEAK_OPS[torch.float64]
+        out[name] = (max(b_ms, o_ms), "bytes" if b_ms >= o_ms else "operations")
+    out["chain"] = int(frames.max())
+    return out
+
+
+def ctc_case(name: str, gen) -> dict:
+    """Phase 39 (a) at one shape: the kernels against their plain versions
+    (``ctc.kernel_tolerance``: loss relative on feasible rows, the logit
+    gradient absolute), exact zeros on infeasible rows and past each row's
+    frames, two launches bit-equal; then kernel, plain, bound and
+    ``F.ctc_loss`` (forward; backward on a kept graph) ms. Returns the
+    kernels line's rows and the report."""
+    lp, frames, labels, label_lens, g = ctc_inputs(name, gen)
+    rtol, gatol = ctc.kernel_tolerance()
+    alpha, logp = ctc.ctc_alpha(lp, frames, labels, label_lens)
+    grad = ctc.ctc_grad(lp, alpha, logp, g, frames, labels, label_lens)
+    alpha2, logp2 = ctc.ctc_alpha(lp, frames, labels, label_lens)
+    grad2 = ctc.ctc_grad(lp, alpha2, logp2, g, frames, labels, label_lens)
+    torch.cuda.synchronize()
+    assert torch.equal(logp, logp2) and torch.equal(grad, grad2), f"ctc {name}: two launches differ"
+    want_alpha, want_logp = ctc.ctc_alpha_reference(lp, frames, labels, label_lens)
+    want = ctc.ctc_grad_reference(lp, want_alpha, want_logp, g, frames, labels, label_lens)
+    feasible = torch.isfinite(want_logp)
+    assert torch.equal(torch.isfinite(logp), feasible), f"ctc {name}: feasible rows {logp} vs {want_logp}"
+    loss_err = float(((logp - want_logp).abs() / want_logp.abs().clamp_min(1e-30))[feasible].max())
+    logp_abs = float((logp - want_logp).abs()[feasible].max())
+    grad_err = float((grad - want).abs().max())
+    frames_ok = torch.arange(lp.shape[1], device="cuda")[None, :] < frames[:, None]
+    zeros = bool(torch.all(grad[~frames_ok] == 0) and torch.all(grad[~feasible] == 0))
+    assert loss_err <= rtol and grad_err <= gatol and zeros, \
+        f"ctc {name}: loss rel {loss_err}, grad abs {grad_err}, exact zeros {zeros}"
+    if name == "ragged":
+        assert feasible.tolist() == [True, True, True, True, False], f"ctc ragged: feasible {feasible.tolist()}"
+    bounds = ctc_bounds(lp, frames, labels, label_lens)
+    args = (frames, labels, label_lens)
+    leaf = lp.detach().requires_grad_()
+    lib = F.ctc_loss(leaf.transpose(0, 1), labels.long(), frames.long(), label_lens.long(), reduction="none",
+                     zero_infinity=True)
+    lib_total = (lib * g).sum()
+    times = {
+        "ctc_alpha": (cuda_ms(lambda: ctc.ctc_alpha(lp, *args), CTC_TIMED),
+                      cuda_ms(lambda: ctc.ctc_alpha_reference(lp, *args), 2, warmup=1),
+                      cuda_ms(lambda: F.ctc_loss(lp.transpose(0, 1), labels.long(), frames.long(), label_lens.long(),
+                                                 reduction="none", zero_infinity=True), CTC_TIMED)),
+        "ctc_grad": (cuda_ms(lambda: ctc.ctc_grad(lp, alpha, logp, g, *args), CTC_TIMED),
+                     cuda_ms(lambda: ctc.ctc_grad_reference(lp, alpha, logp, g, *args), 2, warmup=1),
+                     backward_ms(lib_total, [leaf], torch.ones((), device="cuda"), CTC_TIMED)),
+    }
+    rows = {k: {"max_abs_err": logp_abs if k == "ctc_alpha" else grad_err, "ms": ms, "plain_ms": plain,
+                "bound_ms": bounds[k][0], "bound_by": bounds[k][1], "library_ms": lib_ms}
+            for k, (ms, plain, lib_ms) in times.items()}
+    b, t, v = lp.shape
+    report = (f"ctc {name} B={b} T={t} V={v} S={labels.shape[1]}: feasible rows {int(feasible.sum())}/{b}, loss rel "
+              f"{loss_err:.2e} (limit {rtol}), logit gradient abs {grad_err:.2e} (limit {gatol}), exact zeros past "
+              f"the frames and on infeasible rows, two launches bit-equal; " + "; ".join(
+                  f"{k} {r['ms']:.4f} ms (plain {r['plain_ms']:.3f}, bound {r['bound_ms']:.4f} by {r['bound_by']}, "
+                  f"F.ctc_loss {'backward' if k == 'ctc_grad' else 'forward'} {r['library_ms']:.4f}; "
+                  f"{1e3 * r['ms'] / bounds['chain']:.3f} us a frame of the longest row's {bounds['chain']})"
+                  for k, r in rows.items()))
+    return rows, report
+
+
+def ctc_route_steps(card: str) -> None:
+    """Phase 39 (c): the speech recipe's step (BASE, 12 layers, bf16) at
+    phase 16's longest batch, its CTC through the kernels and through
+    ``F.ctc_loss`` (the route before them), in the order kernel, F.ctc_loss,
+    F.ctc_loss, kernel, ``CTC_ROUTE_STEPS`` timed steps each after one
+    warm-up; the kernel route's launches."""
+    from w2v2_speaker_tpu_torch.objectives import losses
+
+    cfg = load_recipe("speech_wav2vec2_ctc")
+    tok = CharTokenizer.wav2vec2_base_960h()
+    dev = torch.device("cuda")
+    with torch.device("meta"):
+        model = Wav2Vec2SpeechModel(speech_model_config(cfg, tok.vocab_size))
+    model.to_empty(device=dev)
+    init_parameters(model, torch.Generator(device=dev).manual_seed(16))
+    state = TrainState.create(model, build_optimizer(cfg), seed=1)
+    step = make_train_step(SpeechTask(model, tok))
+    rng = np.random.default_rng(39)
+    samples = 384000  # 24 s: 1199 frames
+    lengths = np.sort(rng.integers(352000, samples + 1, CTC_SPEECH_B))[::-1].copy()
+    lengths[0] = samples
+    mask = np.arange(samples)[None, :] < lengths[:, None]
+    lab = np.array([int(feat_extract_output_lengths(int(n)) * 0.24) for n in lengths], np.int32)
+    labels = np.zeros((CTC_SPEECH_B, lab.max()), np.int32)
+    for i, n in enumerate(lab):
+        labels[i, :n] = rng.integers(5, tok.vocab_size, n)
+    batch = {"features": torch.from_numpy((rng.normal(0, 0.1, mask.shape) * mask).astype(np.float32)).to(dev),
+             "mask": torch.from_numpy(mask).to(dev), "labels": torch.from_numpy(labels).to(dev),
+             "label_lengths": torch.from_numpy(lab).to(dev)}
+    kernel_rows = losses.ctc_loss_rows
+
+    def library_rows(logits, frames, labels, label_lengths, blank=0):
+        return F.ctc_loss(F.log_softmax(logits.float(), -1).transpose(0, 1), labels.long(), frames.long(),
+                          label_lengths.long(), blank=blank, reduction="none", zero_infinity=True)
+
+    timed = {"kernel": [], "F.ctc_loss": []}
+    launched = None
+    try:
+        for route in ("kernel", "F.ctc_loss", "F.ctc_loss", "kernel"):
+            losses.ctc_loss_rows = kernel_rows if route == "kernel" else library_rows
+            state, _ = step(state, batch)  # warm-up
+            reset_ctc_launches()
+            torch.cuda.synchronize()
+            start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(CTC_ROUTE_STEPS):
+                state, metrics = step(state, batch)
+            stop.record()
+            torch.cuda.synchronize()
+            timed[route].append(start.elapsed_time(stop) / CTC_ROUTE_STEPS)
+            if route == "kernel":
+                launched = ctc_launches()
+                assert launched == {"ctc_alpha": CTC_ROUTE_STEPS, "ctc_grad": CTC_ROUTE_STEPS}, launched
+            else:
+                assert ctc_launches() == {"ctc_alpha": 0, "ctc_grad": 0}
+            assert torch.isfinite(metrics["loss"]), f"ctc route {route}: loss {metrics['loss']}"
+    finally:
+        losses.ctc_loss_rows = kernel_rows
+    print(f"speech step BASE bf16 at phase 16's longest batch ({CTC_SPEECH_B} x {int(mask.sum(1).max())} samples, "
+          f"labels {lab.tolist()}): ms/step (CUDA events, {CTC_ROUTE_STEPS} steps a turn) through the CTC kernels "
+          f"{[round(x, 2) for x in timed['kernel']]}, through F.ctc_loss {[round(x, 2) for x in timed['F.ctc_loss']]} "
+          f"(turns kernel, F.ctc_loss, F.ctc_loss, kernel); kernel launches a step {launched} / {CTC_ROUTE_STEPS} "
+          f"[{card}]", flush=True)
+
+
+def ctc_kernel_phase(card: str) -> dict:
+    """Phase 39 (a) and (c); returns the kernels line's rows (phase 16's
+    longest training batch)."""
+    gen = torch.Generator(device="cuda").manual_seed(39)
+    main_rows = None
+    for name in ("speech_train", "speaker_ctc", "ragged"):
+        rows, report = ctc_case(name, gen)
+        print(report + f" [{card}]", flush=True)
+        if name == "speech_train":
+            main_rows = rows
+    ctc_route_steps(card)
+    return main_rows
+
+
+def ctc_deterministic_phase(card: str, tmp: pathlib.Path, wav_dir, trials, shards) -> None:
+    """Phase 39 (b): the three CTC recipes, 4 steps each at full BASE width
+    on phases 16-18's data, under ``trainer.deterministic=true`` in two
+    fresh processes (each running the three in turn): losses and final
+    parameters bit-equal; ms/step beside the same runs without the flag in
+    a third."""
+    import os
+
+    env = {k: v for k, v in os.environ.items() if k != "CUBLAS_WORKSPACE_CONFIG"}
+    common = [f"trainer.fast_dev_run={DET_STEPS}", "eval_model=false", "trainer.log_dir=null", ONE_RANK]
+    recipes = [
+        ("speech_wav2vec2_ctc", ["+experiment=speech_wav2vec2_ctc", *speech_args(tmp), "seed=16"]),
+        ("speaker_wav2vec2_ctc", ["+experiment=speaker_wav2vec2_ctc", f"data.shards.samples_per_shard={RUN_SHARD}",
+                                  "seed=17", *corpus_args(wav_dir, trials, shards, tmp / "ctc_det_ckpt")]),
+        ("multitask_wav2vec2", ["+experiment=multitask_wav2vec2", *mt_args(tmp), "seed=16"]),
+    ]
+
+    def runs(flag: str) -> list:
+        return [(label, [*argv, *common, f"trainer.deterministic={flag}",
+                         *([] if "trainer.checkpoint_dir" in " ".join(argv) else
+                           [f"trainer.checkpoint_dir={tmp / 'ctc_det' / label}"])]) for label, argv in recipes]
+
+    t0 = time.perf_counter()
+    a, b = deterministic_pair(tmp, "ctc_det", runs("true"), env)
+    nondet = run_child(tmp, "ctc_nondet", runs("false"), env)
+    report = []
+    for label, _ in recipes:
+        ra = a["runs"][label]
+        assert len(ra["losses"]) == DET_STEPS, f"deterministic {label}: {len(ra['losses'])} steps"
+        report.append(f"{label}: losses {[round(float.fromhex(x), 4) for x in ra['losses']]} and "
+                      f"{len(ra['params'])} parameters bit-equal, ms/step {step_ms(ra):.2f} and "
+                      f"{step_ms(b['runs'][label]):.2f} against {step_ms(nondet['runs'][label]):.2f} without the flag")
+    print(f"deterministic CTC recipes, {DET_STEPS} steps each in two fresh processes (CUDA events, the steps after "
+          f"the first; {time.perf_counter() - t0:.1f} s with a third process without the flag): "
+          + "; ".join(report) + f" [{card}]", flush=True)
 
 
 def main() -> None:
@@ -4115,10 +4573,15 @@ def main() -> None:
         dp_run_phase(card, tmp, wav_dir, trials, shards)
         dp_f32_phase(card)
         tp_phase(card)  # 37 (b): tensor parallelism
+        multi_predict_phase(card, tmp, predicted)  # 38
+        main_rows.update(ctc_kernel_phase(card))  # 39 (a), (c)
+        ctc_deterministic_phase(card, tmp, wav_dir, trials, shards)  # 39 (b)
+        path_launches.update(MEASURED["speech_ctc_launches"])
 
-    # 38. kernels line, card line, result line: the attention kernels' and
+    # 40. kernels line, card line, result line: the attention kernels' and
     # the conv's launches from the LARGE training run (phase 10), the int8
-    # kernels' from the LARGE int8 predict run (phase 34)
+    # kernels' from the LARGE int8 predict run (phase 34), the CTC kernels'
+    # from the speech run (phase 16)
     kernels = []
     for name, source, replaces in KERNELS:
         row = main_rows[name]

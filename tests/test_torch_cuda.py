@@ -4,9 +4,12 @@ dq and dk/dv backward kernels (in bf16 also at the shapes that stress the
 K/V pipeline: LARGE's 16 heads, a key tile of one valid key, long rows
 whose ring wraps), the fused strided conv (f32 and bf16,
 ragged last tiles, bias + LayerNorm, with and without GELU, and its
-autograd Function), and the int8 row quantize and GEMM (bit-equal to their
+autograd Function), the int8 row quantize and GEMM (bit-equal to their
 plain versions, ragged M, N and K, bf16 and f32 outputs) under
-``QuantLinear``.
+``QuantLinear``, and the CTC forward-backward (ragged frames and labels, a
+repeated letter, an infeasible and an empty-label row, labels wider than a
+block, the speaker CTC's V = 5995) within ``ops.ctc.kernel_tolerance``,
+bit-equal across launches.
 
 These tests need an NVIDIA card and ``nvcc``; without a card they skip.
 The repository's ``tests/conftest.py`` imports JAX, which the card machine
@@ -19,6 +22,7 @@ import pytest
 import torch
 
 from w2v2_speaker_tpu_torch.ops import conv_encoder
+from w2v2_speaker_tpu_torch.ops import ctc
 from w2v2_speaker_tpu_torch.ops import flash_attention as fa
 
 pytestmark = pytest.mark.cuda
@@ -358,3 +362,48 @@ def test_quant_linear_on_the_card(cuda):
     assert torch.equal(got.cpu(), want)
     with pytest.raises(RuntimeError, match="inference only"):
         layer(x)
+
+
+CTC_CASES = {  # (logit lengths, label lengths, T, V, S)
+    "ragged": ((300, 251, 120, 40, 5), (110, 70, 61, 0, 8), 300, 32, 120),  # row 3 empty, row 4 infeasible
+    "wide_labels": ((700, 640), (300, 280), 700, 32, 300),  # 601 states: wider than a block of 256
+    "speaker": ((149,) * 4, (1,) * 4, 149, 5995, 1),
+}
+
+
+@pytest.mark.parametrize("case", sorted(CTC_CASES))
+def test_ctc_kernels_match_plain(cuda, case):
+    """``ctc_alpha`` and ``ctc_grad`` against their plain versions on the
+    same inputs, with the main path's upstream weights (1 / label length
+    over the non-empty rows): loss, logp and logit gradient within
+    ``kernel_tolerance`` on feasible rows, exact zeros on the infeasible
+    row and past each row's frames, two launches bit-equal."""
+    tl, ll, t, v, s = CTC_CASES[case]
+    gen = torch.Generator(device=cuda).manual_seed(len(tl))
+    b = len(tl)
+    lp = torch.log_softmax(torch.randn(b, t, v, generator=gen, device=cuda) * 2, -1)
+    labels = torch.randint(1, v, (b, s), generator=gen, device=cuda, dtype=torch.int32)
+    labels[0, 1::7] = labels[0, 0:-1:7]  # repeated letters: a blank between
+    lens = torch.tensor(tl, device=cuda, dtype=torch.int32)
+    label_lens = torch.tensor(ll, device=cuda, dtype=torch.int32)
+    labels *= (torch.arange(s, device=cuda)[None] < label_lens[:, None]).to(torch.int32)
+    valid = (label_lens > 0).float()
+    g = valid / label_lens.clamp_min(1).float() / valid.sum()
+    rtol, gatol = ctc.kernel_tolerance()
+    before = ctc.ctc_alpha.launches, ctc.ctc_grad.launches
+    alpha, logp = ctc.ctc_alpha(lp, lens, labels, label_lens)
+    grad = ctc.ctc_grad(lp, alpha, logp, g, lens, labels, label_lens)
+    again = ctc.ctc_grad(lp, *ctc.ctc_alpha(lp, lens, labels, label_lens), g, lens, labels, label_lens)
+    torch.cuda.synchronize()
+    assert (ctc.ctc_alpha.launches, ctc.ctc_grad.launches) == (before[0] + 2, before[1] + 2)
+    assert torch.equal(grad, again)
+    want_alpha, want_logp = ctc.ctc_alpha_reference(lp, lens, labels, label_lens)
+    want = ctc.ctc_grad_reference(lp, want_alpha, want_logp, g, lens, labels, label_lens)
+    feasible = torch.isfinite(want_logp)
+    assert torch.equal(torch.isfinite(logp), feasible)
+    torch.testing.assert_close(logp[feasible], want_logp[feasible], rtol=rtol, atol=0)
+    torch.testing.assert_close(grad, want, rtol=0, atol=gatol)
+    frames = torch.arange(t, device=cuda)[None, :] < lens[:, None]
+    assert torch.all(grad[~frames] == 0) and torch.all(grad[~feasible] == 0)
+    if case == "ragged":
+        assert not feasible[4] and feasible[:4].all()

@@ -175,6 +175,18 @@ def test_two_ranks_match_one_process(results, name):
         assert abs(got["loss"] - results["ce"][0]["loss"]) > 1e-4
 
 
+def test_ranks_step_in_full_float32(results):
+    """A spawned rank is a fresh process, whose PyTorch defaults run cuDNN's
+    float32 convolutions in TF32; each rank's step sets full float32 first,
+    as the port's entry points do for the card (a float32 2-rank step on
+    the card once read 9.55e-4 from one rank at the first conv's weight
+    gradient: TF32 in the ranks only). Rank 0's step reports both TF32
+    flags off, as this process's does."""
+    for name in CASES:
+        got, want = results[name]
+        assert got["tf32"] == want["tf32"] == (False, False), name
+
+
 @pytest.mark.parametrize("name", ["ce", "xvector", "speech"])
 def test_two_ranks_match_jax_two_devices(results, name):
     """The JAX package's ``make_train_step`` on a 2-device mesh: its loss

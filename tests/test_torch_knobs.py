@@ -133,19 +133,26 @@ def test_cublas_workspace_is_set_before_cuda_work_or_refused(monkeypatch):
 @pytest.mark.parametrize("recipe", ["speech_wav2vec2_ctc", "speaker_wav2vec2_ctc", "multitask_wav2vec2",
                                     "speaker_wav2vec2_ce"])
 def test_deterministic_ctc_training_is_refused_on_the_card(recipe):
-    """``F.ctc_loss``'s CUDA backward has no deterministic implementation:
-    a CTC recipe that trains under ``trainer.deterministic=true`` on the
-    card raises, naming it, before any data is read; on the CPU, without
-    training, or without the flag it does not."""
+    """Once refused (``F.ctc_loss``'s CUDA backward sums with atomics), CTC
+    training under ``trainer.deterministic=true`` is now accepted: the CTC
+    loss runs ``ops/ctc.py``'s kernels, which use none. Every recipe, CTC or
+    not, passes ``check_deterministic`` with and without the flag and
+    without training, and a flag that is not a bool still raises; a CTC
+    recipe's loss routes through ``ops.ctc`` (its plain version here)."""
+    from w2v2_speaker_tpu_torch.objectives import losses as tlosses
+    from w2v2_speaker_tpu_torch.ops import ctc
+
     cfg = texp.load_recipe(recipe, ["trainer.deterministic=true"])
-    ctc = recipe != "speaker_wav2vec2_ce"
-    if ctc:
-        with pytest.raises(ValueError, match="F.ctc_loss's CUDA backward has no deterministic implementation"):
-            texp.check_deterministic(cfg, torch.device("cuda"))
-    else:
-        texp.check_deterministic(cfg, torch.device("cuda"))
-    texp.check_deterministic(cfg, torch.device("cpu"))
-    texp.check_deterministic({**cfg, "fit_model": False}, torch.device("cuda"))
-    texp.check_deterministic(texp.load_recipe(recipe), torch.device("cuda"))
+    texp.check_deterministic(cfg)
+    texp.check_deterministic({**cfg, "fit_model": False})
+    texp.check_deterministic(texp.load_recipe(recipe))
+    texp._check_ported(cfg)
     with pytest.raises(ValueError, match="must be a bool"):
-        texp.check_deterministic(texp.load_recipe(recipe, ["trainer.deterministic=1"]), torch.device("cpu"))
+        texp.check_deterministic(texp.load_recipe(recipe, ["trainer.deterministic=1"]))
+    if cfg["optim"]["loss"]["name"].startswith("ctc"):
+        before = ctc.ctc_alpha.launches, ctc.ctc_grad.launches
+        logits = torch.randn(2, 6, 5, requires_grad=True)
+        loss = tlosses.ctc_loss(logits, torch.tensor([6, 4]), torch.tensor([[1, 2], [3, 0]]), torch.tensor([2, 1]))
+        loss.backward()
+        assert torch.isfinite(loss) and logits.grad.abs().sum() > 0
+        assert (ctc.ctc_alpha.launches, ctc.ctc_grad.launches) == before  # the CPU runs the plain versions

@@ -1,7 +1,10 @@
 """Serving path of the port against the JAX package: bucketed extraction,
 pair scores, the pair-file reader, the collate copies, and the ``predict.py``
 twin end to end (config, weights exported from a JAX checkpoint, audio,
-cache, evaluator, score file) against the JAX package's ``predict.main``."""
+cache, evaluator, score file) against the JAX package's ``predict.main``,
+in one process and on two gloo ranks (``trainer.num_devices=2``: the world
+spawned once, a 60 s group timeout and a 240 s deadline); more ranks than
+cards raise before anything is read."""
 
 import functools
 import importlib.util
@@ -157,6 +160,10 @@ PREDICT_OVERRIDES = ["network=wav2vec2_fc", "network.wav2vec2_size=tiny", "train
                      "data.dataloader.test_pad_to_multiple=8000", "data.dataloader.test_batch_size=4"]
 PREDICT_SECONDS = (0.6, 1.1, 0.9, 1.4, 0.7)
 SCORE_ATOL = 1e-5
+# two ranks against one process: the same model and batches, each rank's
+# rows through float32 products of another row count
+RANKS_ATOL = 1e-6
+WORLD, DEADLINE, GROUP_TIMEOUT = 2, 240.0, 60.0
 
 
 def _write_folder(folder):
@@ -213,26 +220,42 @@ def _scores(path):
     return np.array([float(x[0]) for x in lines]), [tuple(x[1:]) for x in lines]
 
 
+_JAX_SCORES = {}
+
+
+def _jax_scores(tmp_path_factory, ckpt, evaluator):
+    """The JAX package's ``predict.main`` on a folder of ``_write_folder``
+    with ``evaluator``: (scores, pairs), one run an evaluator for the
+    module."""
+    import predict as jax_predict
+
+    if evaluator not in _JAX_SCORES:
+        folder = tmp_path_factory.mktemp("jax")
+        trials = _write_folder(folder)
+        _JAX_SCORES[evaluator] = _scores(jax_predict.main(
+            [*PREDICT_OVERRIDES, f"evaluator={evaluator}", f"predict_folder_path={folder}",
+             f"pair_prediction_path={trials}", f"load_network_from_checkpoint={ckpt}"]))
+    return _JAX_SCORES[evaluator]
+
+
 @pytest.mark.parametrize("evaluator", ["cosine_distance", "cosine_distance_asnorm"])
 def test_predict_cli_matches_jax_predict(tmp_path_factory, jax_checkpoint, evaluator):
     """The port's ``predict.main`` against the JAX package's ``predict.main``
     on the same folder and the same weights (the JAX package's checkpoint,
     exported to ``.npz``): score files within 1e-5, the same pair order;
     a second port run is served from its embedding cache."""
-    import predict as jax_predict
     from w2v2_speaker_tpu_torch import predict as torch_predict
 
     ckpt, npz = jax_checkpoint
     runs = {}
     for name in ("jax", "torch"):
-        folder = tmp_path_factory.mktemp(name)
-        trials = _write_folder(folder)
-        argv = [*PREDICT_OVERRIDES, f"evaluator={evaluator}", f"predict_folder_path={folder}",
-                f"pair_prediction_path={trials}",
-                f"load_network_from_checkpoint={ckpt if name == 'jax' else npz}"]
         if name == "jax":
-            runs[name] = _scores(jax_predict.main(argv))
+            runs[name] = _jax_scores(tmp_path_factory, ckpt, evaluator)
         else:
+            folder = tmp_path_factory.mktemp(name)
+            trials = _write_folder(folder)
+            argv = [*PREDICT_OVERRIDES, f"evaluator={evaluator}", f"predict_folder_path={folder}",
+                    f"pair_prediction_path={trials}", f"load_network_from_checkpoint={npz}"]
             runs[name] = _scores(torch_predict.main(argv, device="cpu"))
             cached = sorted(p.relative_to(folder / "embeddings") for p in (folder / "embeddings").rglob("*.npy"))
             assert len(cached) == len(PREDICT_SECONDS)
@@ -244,6 +267,66 @@ def test_predict_cli_matches_jax_predict(tmp_path_factory, jax_checkpoint, evalu
     assert got_pairs == want_pairs and len(got) == 10
     np.testing.assert_allclose(got, want, rtol=0, atol=SCORE_ATOL)
     assert np.all((got >= 0) & (got <= 1))
+
+
+def test_predict_on_two_ranks_matches_one_process_and_jax(tmp_path_factory, jax_checkpoint):
+    """``trainer.num_devices=2`` on two spawned gloo ranks (a caller's
+    group, taken as given) against one process on the same folder and
+    weights: the scores within 1e-6 and the same pair order, and against
+    the JAX package's ``predict.main`` (8 CPU devices: its batches are
+    sharded too) within 1e-5. Rank 0 alone saves the cache (one file an
+    utterance) and returns the score file, and alone prints."""
+    from tools import torch_parallel_cases as cases_mod  # the ranks import it too
+    from w2v2_speaker_tpu_torch import predict as torch_predict
+    from w2v2_speaker_tpu_torch.parallel.mesh import spawn
+
+    ckpt, npz = jax_checkpoint
+    runs, folders = {}, {}
+    for name in ("one", "two"):
+        folder = folders[name] = tmp_path_factory.mktemp(name)
+        trials = _write_folder(folder)
+        argv = [*PREDICT_OVERRIDES, "evaluator=cosine_distance", f"predict_folder_path={folder}",
+                f"pair_prediction_path={trials}", f"load_network_from_checkpoint={npz}"]
+        if name == "one":
+            runs[name] = _scores(torch_predict.main([*argv, "trainer.num_devices=1"], device="cpu"))
+        else:
+            records = spawn(cases_mod.predict_rank, ([*argv, f"trainer.num_devices={WORLD}"],), nprocs=WORLD,
+                            deadline=DEADLINE, timeout=GROUP_TIMEOUT, threads=1)
+            runs[name] = _scores(records[0]["path"])
+    (one, one_pairs), (two, two_pairs) = runs["one"], runs["two"]
+    assert two_pairs == one_pairs and len(two) == 10
+    np.testing.assert_allclose(two, one, rtol=0, atol=RANKS_ATOL)
+    want, want_pairs = _jax_scores(tmp_path_factory, ckpt, "cosine_distance")
+    assert two_pairs == want_pairs
+    np.testing.assert_allclose(two, want, rtol=0, atol=SCORE_ATOL)
+    cache = folders["two"] / "embeddings"
+    assert sorted(str(p) for p in cache.rglob("*.npy")) == sorted(records[0]["saved"])
+    assert len(records[0]["saved"]) == len(PREDICT_SECONDS)
+    assert [r["rank"] for r in records] == [0, 1] and records[1]["saved"] == [] and records[1]["path"] is None
+    assert "wrote " in records[0]["printed"] and records[1]["printed"] == ""
+
+
+def test_predict_ranks_spawn_or_raise_before_reading(tmp_path, monkeypatch):
+    """More ranks than the host's cards (none here) raise before anything
+    is read; on the CPU a world of 2 with no process group is spawned here
+    (``parallel.mesh.spawn``: 2 ranks, gloo, the ranks' intra-op threads
+    split), each rank calling ``run_predictions`` again."""
+    from w2v2_speaker_tpu_torch.device import DeviceError
+    from w2v2_speaker_tpu_torch.runtime.config import load_config
+
+    trials = tmp_path / "trials.txt"
+    trials.write_text("1 a.wav b.wav\n")
+    cfg = load_config(ROOT / "config", "predict", [*PREDICT_OVERRIDES, f"predict_folder_path={tmp_path}",
+                                                    f"pair_prediction_path={trials}", "trainer.num_devices=2"])
+    with pytest.raises(DeviceError, match="trainer.num_devices=2 asks for 2 cards"):
+        tpredict.run_predictions(cfg)
+    assert not (tmp_path / "embeddings").exists()
+    calls = []
+    monkeypatch.setattr(tpredict, "spawn", lambda fn, args, **kw: calls.append((fn, args, kw)) or "rank 0's path")
+    monkeypatch.setattr(torch, "get_num_threads", lambda: 4)
+    assert tpredict.run_predictions(cfg, "cpu") == "rank 0's path"
+    assert calls == [(tpredict.run_predictions, (cfg, "cpu"), {"nprocs": 2, "device": "cpu", "threads": 2})]
+    assert not (tmp_path / "embeddings").exists()
 
 
 def test_load_params_grafts_matching_leaves(tmp_path):

@@ -14,9 +14,11 @@ training). The JAX package draws with ``jax.random.gumbel``, so the picks
 are not equal draw for draw across the packages; the losses are, given the
 same indices.
 
-``ctc_loss`` keeps the ``zero_infinity`` semantics that the JAX function's
-docstring and the original PyTorch reference promise: a row whose frames
-are too few for its label scores 0 and gives no gradient. The JAX package
+``ctc_loss`` takes each row's loss from ``ops/ctc.py`` (a hand-written
+forward-backward on the card, in place of ``F.ctc_loss``, whose CUDA
+backward sums with atomics) and keeps the ``zero_infinity`` semantics that
+the JAX function's docstring and the original PyTorch reference promise: a
+row whose frames are too few for its label scores 0 and gives no gradient. The JAX package
 computes CTC with optax, whose finite ``log_epsilon`` (-1e5) scores such a
 row ~1e5 instead, so its ``isfinite`` test (:199) never fires and the row
 adds ~1e5 / L to the mean: the one deliberate divergence of the two, pinned
@@ -37,6 +39,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..ops.ctc import ctc_loss_rows
 from ..parallel.mesh import gather_rows, global_mean
 
 __all__ = [
@@ -171,9 +174,9 @@ def ctc_loss(
 ) -> torch.Tensor:
     """Mean over rows with a non-empty label of each row's CTC loss (float32
     log-softmax, infeasible rows 0) divided by its label length; rows with
-    an empty label (padding rows) are left out of the mean."""
-    log_probs = F.log_softmax(logits.float(), dim=-1).transpose(0, 1)  # [T, B, V]
-    per_seq = F.ctc_loss(log_probs, labels.long(), logit_lengths.long(), label_lengths.long(),
-                         blank=blank_id, reduction="none", zero_infinity=True)
+    an empty label (padding rows) are left out of the mean. Each row's loss
+    is ``ops.ctc``'s: the hand-written kernels on the card (no atomics, so
+    deterministic), their plain versions on the CPU."""
+    per_seq = ctc_loss_rows(logits, logit_lengths, labels, label_lengths, blank_id)
     valid = (label_lengths > 0).to(per_seq.dtype)
     return global_mean(per_seq / label_lengths.clamp_min(1).to(per_seq.dtype), valid)

@@ -224,6 +224,20 @@ def _autocast_off(fn):
     return run
 
 
+def _plain_inputs(q, k, lengths, dtype):
+    """(valid [B, T], qs = q * scale rounded to ``dtype`` then float32, the
+    [B, H, T, T] float32 scores qs K^T with the float32 minimum added on
+    the keys past each row's length)."""
+    b, t, h, d = q.shape
+    lens = _lengths(lengths, b, t, q.device)
+    qs = (q * _scale(d, dtype).to(q.device)).float()
+    valid = torch.arange(t, device=q.device)[None, :] < lens[:, None]  # [B, T]
+    s = torch.einsum("bqhd,bkhd->bhqk", qs, k.float())
+    # a score plus the float32 minimum rounds to it: the masked_fill of the
+    # kernels' key mask, in place
+    return valid, qs, s.add_(torch.where(valid, 0.0, _NEG)[:, None, None, :])
+
+
 @_autocast_off
 def flash_attention_plain(
     q: torch.Tensor,  # [B, T, H, D]
@@ -235,7 +249,8 @@ def flash_attention_plain(
     return_lse: bool = False,
     coords: Coords = (0, 0, 0),
 ):
-    """The forward kernel's function in plain PyTorch (one dense pass).
+    """The forward kernel's function in plain PyTorch (one dense pass, its
+    [B, H, T, T] scores updated in place).
 
     Rounds where the kernel rounds: qs = q * scale in the input type, the
     (dropped, rescaled) P to the input type before P V; products accumulate
@@ -246,17 +261,13 @@ def flash_attention_plain(
     """
     _check_dropout(dropout_rate, seed)
     b, t, h, d = q.shape
-    lens = _lengths(lengths, b, t, q.device)
-    qs = q * _scale(d, q.dtype).to(q.device)
-    valid = torch.arange(t, device=q.device)[None, :] < lens[:, None]  # [B, T]
-    s = torch.einsum("bqhd,bkhd->bhqk", qs.float(), k.float())
-    s = s.masked_fill(~valid[:, None, None, :], _NEG)
-    m = s.amax(dim=-1, keepdim=True)
-    p = torch.exp2(s - m)
+    valid, _, p = _plain_inputs(q, k, lengths, q.dtype)
+    m = p.amax(dim=-1, keepdim=True)
+    p.sub_(m).exp2_()
     l = p.sum(dim=-1, keepdim=True)  # [B, H, T, 1]
     if dropout_rate > 0.0:
         keep = attention_dropout_keep(seed, b, h, t, t, dropout_rate, q.device, coords)
-        p = torch.where(keep, p * _keep_scale(dropout_rate), 0.0)
+        p.mul_(_keep_scale(dropout_rate)).masked_fill_(~keep, 0.0)
     o = torch.einsum("bhqk,bkhd->bqhd", p.to(v.dtype).float(), v.float())
     o = o / l.transpose(1, 2)
     o = torch.where(valid[:, :, None, None], o, 0.0).to(q.dtype)
@@ -280,7 +291,8 @@ def flash_attention_bwd_plain(
     coords: Coords = (0, 0, 0),
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Both backward kernels' function in plain PyTorch: one dense pass
-    over the formulas of ``_bwd_dq_kernel`` and ``_bwd_dkv_kernel``.
+    over the formulas of ``_bwd_dq_kernel`` and ``_bwd_dkv_kernel``, its
+    [B, H, T, T] terms updated in place.
 
     P = exp2(qs K^T - lse) on valid (q, k) pairs, 0 elsewhere; dP = dO V^T,
     kept and rescaled; dZ = P (dP - D). dq = (dZ K) * d^-0.5, dk = dZ^T qs /
@@ -291,24 +303,21 @@ def flash_attention_bwd_plain(
     _check_dropout(dropout_rate, seed)
     b, t, h, d = q.shape
     dtype = q.dtype
-    lens = _lengths(lengths, b, t, q.device)
-    qs = q * _scale(d, dtype).to(q.device)
-    valid = torch.arange(t, device=q.device)[None, :] < lens[:, None]  # [B, T]
-    pairs = valid[:, None, :, None] & valid[:, None, None, :]  # [B, 1, Tq, Tk]
-    s = torch.einsum("bqhd,bkhd->bhqk", qs.float(), k.float())
-    p = torch.where(pairs, torch.exp2(s - lse[..., None]), 0.0)
+    valid, qs, p = _plain_inputs(q, k, lengths, dtype)
+    # the masked keys' scores give exp2(min - lse) = 0; the rows past the length 0
+    p.sub_(lse[..., None]).exp2_().masked_fill_(~valid[:, None, :, None], 0.0)
     dp = torch.einsum("bqhd,bkhd->bhqk", do.float(), v.float())
     pv = p
     if dropout_rate > 0.0:
         keep = attention_dropout_keep(seed, b, h, t, t, dropout_rate, q.device, coords)
         inv = _keep_scale(dropout_rate)
         pv = torch.where(keep, p * inv, 0.0)
-        dp = torch.where(keep, dp * inv, 0.0)
-    dz = (p * (dp - delta[..., None])).to(dtype).float()
+        dp.mul_(inv).masked_fill_(~keep, 0.0)
+    dz = dp.sub_(delta[..., None]).mul_(p).to(dtype).float()
     rows = valid[:, :, None, None]
     dqs = torch.einsum("bhqk,bkhd->bqhd", dz, k.float()).to(dtype)
     dq = torch.where(rows, dqs * torch.tensor(d**-0.5, dtype=dtype), 0.0)
-    dk = torch.einsum("bhqk,bqhd->bkhd", dz, qs.float()) / LOG2E
+    dk = torch.einsum("bhqk,bqhd->bkhd", dz, qs) / LOG2E
     dv = torch.einsum("bhqk,bqhd->bkhd", pv.to(dtype).float(), do.float())
     dk = torch.where(rows, dk, 0.0)
     dv = torch.where(rows, dv, 0.0)

@@ -19,6 +19,15 @@ sends every LARGE bucket and BASE's from 6 s to int8, and the int8 GEMM
 does not beat cuBLAS's bf16 yet. There is no compilation
 cache to enable: the port compiles nothing but its kernels, which
 ``ops/_build.py`` keeps by the hash of their sources.
+
+``trainer.num_devices`` (``config/predict.yaml`` composes ``trainer``;
+``all`` is every visible card, 1 on the CPU) shards the extraction over N
+ranks (``runtime/predict.py``): in the process group that exists
+(``torchrun --nproc-per-node N -m w2v2_speaker_tpu_torch.predict ...
+trainer.num_devices=N``), else in N ranks this process spawns, NCCL with a
+card a rank; rank 0 alone reads the audio and writes the cache and the
+scores. A single-process run on a multi-card host says
+``trainer.num_devices=1``. ``-sc`` spawns no rank.
 """
 
 from __future__ import annotations
@@ -38,7 +47,7 @@ __all__ = ["main"]
 def main(argv: Optional[Sequence[str]] = None, device: DeviceLike = None) -> Optional[pathlib.Path]:
     """Compose ``config/predict.yaml`` with ``argv`` (default: the command
     line) and run ``run_predictions``; returns the score file's path (None
-    for ``-sc``)."""
+    for ``-sc``, and on the ranks other than 0 of a caller's group)."""
     overrides = list(sys.argv[1:] if argv is None else argv)
     if overrides[:1] == ["-sc"]:
         from .runtime.completion import handle_shell_completion

@@ -77,10 +77,9 @@ The TPU-era run knobs take these meanings here (the JAX package's are at
   the process's first CUDA work (or the run raises: cuBLAS sizes its
   workspace when its handle is made). The hand-written kernels are
   deterministic already (one writer per output tile, counter-hash
-  masks). A CTC recipe (``optim/loss`` ``ctc``, ``ctc_ce``, ``ctc_aam``)
-  that trains on the card raises before reading data: ``F.ctc_loss``'s
-  CUDA backward has no deterministic implementation. (The JAX package
-  makes the knob a no-op: XLA is deterministic.)
+  masks, the CTC forward-backward of ``ops/ctc.py`` without atomics), so
+  every recipe trains under it, the CTC ones too. (The JAX package makes
+  the knob a no-op: XLA is deterministic.)
 - ``profiler=simple|advanced|jax_trace`` (``name: jax_trace``): a
   ``torch.profiler`` window (CPU, and CUDA on the card) over the steps
   ``[start_step, start_step + num_steps)``, each dispatch a
@@ -103,7 +102,6 @@ is refused in a run that trains (``_validate_int8_config``), so it runs
 with ``fit_model=false``; auto trains and tests in full precision (only
 predict dispatches per bucket).
 
-Divergences from the JAX package: the deterministic CTC refusal above.
 Random draws come from torch generators: the initial weights from one seeded with
 ``seed`` on the device, the train step's draws from a CPU one seeded with
 ``seed + 1`` (the JAX package keys its init with ``PRNGKey(seed)`` and its
@@ -710,31 +708,20 @@ def _apply_fast_dev_run(cfg: Dict) -> None:
     print(f"fast_dev_run: {n} train/val/test batch(es), checkpointing disabled")
 
 
-CTC_LOSSES = ("ctc", "ctc_ce", "ctc_aam")
-
-
-def check_deterministic(cfg: Dict, device: Optional[torch.device]) -> None:
-    """Raise for what ``trainer.deterministic=true`` cannot run on
-    ``device``: a recipe that trains through a CTC loss on the card, whose
-    ``F.ctc_loss`` backward has no deterministic CUDA implementation
-    (``torch.use_deterministic_algorithms`` would raise at its first
-    step)."""
+def check_deterministic(cfg: Dict) -> None:
+    """Raise for a ``trainer.deterministic`` that is not a bool. Every
+    recipe trains under it on the card too: the CTC recipes' loss runs the
+    port's own kernels (``ops/ctc.py``), which use no atomics."""
     det = cfg["trainer"].get("deterministic", False)
     if not isinstance(det, bool):
         raise ValueError(f"trainer.deterministic must be a bool, got {det!r}")
-    trains = cfg.get("fit_model", True) or cfg.get("run_lr_range_test") or cfg.get("tune_model")
-    loss = cfg["optim"]["loss"]["name"]
-    if det and device is not None and device.type == "cuda" and trains and loss in CTC_LOSSES:
-        raise ValueError(
-            f"trainer.deterministic=true cannot train optim/loss={loss} on the card: F.ctc_loss's CUDA "
-            "backward has no deterministic implementation (a deterministic CTC is ROADMAP.md Queue 3); "
-            "train it with trainer.deterministic=false, or on the CPU")
 
 
-def _check_ported(cfg: Dict, device: Optional[torch.device] = None) -> None:
+def _check_ported(cfg: Dict) -> None:
     """Raise, before any data is read, for what this runtime does not
-    take: the deterministic CTC refusal (``check_deterministic``)."""
-    check_deterministic(cfg, device)
+    take: a ``trainer.deterministic`` that is not a bool
+    (``check_deterministic``)."""
+    check_deterministic(cfg)
 
 
 CUBLAS_WORKSPACE = ":4096:8"
@@ -805,7 +792,7 @@ def run_train_eval(cfg: Dict, device: DeviceLike = None) -> Optional[float]:
     if not dist.is_initialized():  # a caller's group is taken as given (gloo ranks may share a card)
         check_cards(n, requested)
     _validate_int8_config(cfg)
-    _check_ported(cfg, requested)
+    _check_ported(cfg)
     if needs_spawn(n):
         build_data_module(cfg)  # shards written here, before any rank waits in a timed collective
         return spawn(run_train_eval, (cfg, device), nprocs=n, device=requested.type,

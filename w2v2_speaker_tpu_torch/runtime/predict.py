@@ -31,8 +31,22 @@ Counterparts:
   The threshold is the TPU's crossover: on an H100 int8 is slower than
   bf16 at every shape measured (PERF.md §5), so ``auto`` serves slower.
 
+``run_predictions`` reads ``trainer.num_devices`` with the run twin's
+world rules (``parallel/mesh.py``): N > 1 ranks (``all``: every card, 1 on
+the CPU) in the process group that exists (a caller's or torchrun's), else
+in N ranks spawned here (NCCL with a card a rank on the card, gloo on the
+CPU); more ranks than cards raise before anything is read. Each rank builds
+the same model from the same seed and checkpoint on its own card; rank 0
+alone reads and normalises the audio, each sample reaching the other ranks
+by broadcast (``shared_iter``), as the JAX package's mesh (``create_mesh()``
+over every local device, :102) reads it once on its one host; each bucket
+batch, its rows padded to a multiple of the data ranks (:755), is sharded
+over them and gathered (``extract_embeddings``). Every rank sees the same
+padded width, so ``BucketDispatchEmbed`` routes every rank's shard of a
+batch alike. Rank 0 alone writes the cache and the scores and prints.
+
 Differences from the JAX package: no optimizer is built (serving needs
-none), there is no mesh (one card). Under ``auto`` both arithmetics read
+none). Under ``auto`` both arithmetics read
 one model: its dense sites are ``QuantLinear``s, switched per bucket batch
 (``ops.quant.int8_enabled``), where the JAX package builds a second
 program over the same parameters. In bf16 the model keeps float32
@@ -42,12 +56,15 @@ float32 parameters and computes in bf16.
 
 from __future__ import annotations
 
+import contextlib
 import copy
+import io
 import pathlib
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..data.collate import collate_pad_right, pad_batch_rows
 from ..data.io import load_raw_audio
@@ -56,7 +73,8 @@ from ..data.samples import SpeakerSample
 from ..device import DeviceLike, resolve_device, set_float32_precision
 from ..eval.evaluator import ASNormCosineEvaluator, EmbeddingSample
 from ..models.wav2vec2 import init_parameters
-from ..parallel.mesh import shard_map_rows
+from ..parallel.mesh import (Mesh, check_cards, create_mesh, needs_spawn, resolve_num_devices, shard_map_rows,
+                             shared_iter, spawn)
 from ..ops.quant import INT8_AUTO_MIN_SAMPLES, int8_auto_policy, int8_enabled
 from ..train.checkpoint import load_params
 from .experiment import _canon_int8, build_evaluator, build_model_and_task, graft_pretrained
@@ -205,33 +223,50 @@ def build_predict_model(cfg: Dict, device: DeviceLike = None):
     return model.eval().requires_grad_(False)
 
 
-def run_predictions(cfg: Dict, device: DeviceLike = None) -> pathlib.Path:
+def run_predictions(cfg: Dict, device: DeviceLike = None) -> Optional[pathlib.Path]:
     """Score ``cfg["pair_prediction_path"]`` over the audio under
-    ``cfg["predict_folder_path"]``; returns the score file's path. Runs on
-    the card unless ``device="cpu"``; raises without a card before it
-    reads anything."""
-    dev = resolve_device(device)
+    ``cfg["predict_folder_path"]``; returns the score file's path (None on
+    the ranks other than 0 of a caller's group). Runs on the card unless
+    ``device="cpu"``; raises without a card, or with more ranks on the card
+    than cards, before it reads anything. ``trainer.num_devices`` N > 1
+    shards the extraction over N ranks (module docstring): in the process
+    group that exists, else in N ranks spawned here, whose rank 0's path
+    this returns."""
+    requested = torch.device("cuda" if device is None else device)
+    n = resolve_num_devices(cfg["trainer"].get("num_devices", "all"), requested)
+    if not dist.is_initialized():  # a caller's group is taken as given (gloo ranks may share a card)
+        check_cards(n, requested)
+    if needs_spawn(n):
+        return spawn(run_predictions, (cfg, device), nprocs=n, device=requested.type,
+                     threads=max(torch.get_num_threads() // n, 1))
+    mesh = create_mesh(n, device=resolve_device(device))
+    with contextlib.nullcontext() if mesh.is_main else contextlib.redirect_stdout(io.StringIO()):
+        return _predict(cfg, mesh)
+
+
+def _predict(cfg: Dict, mesh: Mesh) -> Optional[pathlib.Path]:
+    dev, main = mesh.device, mesh.is_main
     folder = pathlib.Path(cfg["predict_folder_path"])
     pair_file = pathlib.Path(cfg["pair_prediction_path"])
-    pairs = read_pair_file(pair_file)
-    id_list = sorted({p for pair in pairs for p in pair})
-    print(f"{len(pairs)} pairs over {len(id_list)} files")
-
+    emb_dir = folder / "embeddings"
+    pairs: List[Tuple[str, str]] = []
+    cached: Dict[str, np.ndarray] = {}
     evaluator = build_evaluator(cfg)
     _check_servable(cfg)
 
-    emb_dir = folder / "embeddings"
-    emb_dir.mkdir(exist_ok=True, parents=True)
-    todo: List[SpeakerSample] = []
-    cached: Dict[str, np.ndarray] = {}
-    for name in id_list:
-        cache = emb_dir / (name + ".npy")
-        if cache.exists():
-            cached[name] = np.load(cache)
-            continue
-        wav = normalize_waveform(load_raw_audio(folder / name))
-        todo.append(SpeakerSample(key=name, wav=wav, ground_truth=-1))
+    def audio():  # rank 0: the pairs, the cached embeddings, then each uncached file's samples
+        pairs.extend(read_pair_file(pair_file))
+        id_list = sorted({p for pair in pairs for p in pair})
+        print(f"{len(pairs)} pairs over {len(id_list)} files")
+        emb_dir.mkdir(exist_ok=True, parents=True)
+        for name in id_list:
+            cache = emb_dir / (name + ".npy")
+            if cache.exists():
+                cached[name] = np.load(cache)
+                continue
+            yield SpeakerSample(key=name, wav=normalize_waveform(load_raw_audio(folder / name)), ground_truth=-1)
 
+    todo = list(shared_iter(audio() if main else None, mesh))
     if todo:
         print(f"computing {len(todo)} speaker embeddings")
         auto = _canon_int8(cfg["network"].get("int8_matmuls", False)) == "auto"
@@ -246,16 +281,21 @@ def run_predictions(cfg: Dict, device: DeviceLike = None) -> pathlib.Path:
             pad_to_multiple=dl.get("test_pad_to_multiple", 16000),
             batch_size=dl.get("test_batch_size", 8),
             device=dev,
+            mesh=mesh,
         )
+        if auto:
+            n8 = sum(1 for _, used in embed.calls if used)
+            print(f"int8 auto dispatch: {n8}/{len(embed.calls)} bucket batches on int8 "
+                  f"(threshold {embed.min_samples} samples)")
+        if not main:
+            return None
         for s in fresh:
             out = emb_dir / (s.sample_id + ".npy")
             out.parent.mkdir(exist_ok=True, parents=True)
             np.save(out, s.embedding)
             cached[s.sample_id] = np.asarray(s.embedding)
-        if auto:
-            n8 = sum(1 for _, used in embed.calls if used)
-            print(f"int8 auto dispatch: {n8}/{len(embed.calls)} bucket batches on int8 "
-                  f"(threshold {embed.min_samples} samples)")
+    if not main:
+        return None
 
     embedding_pairs = [(EmbeddingSample(a, cached[a]), EmbeddingSample(b, cached[b])) for a, b in pairs]
     if isinstance(evaluator, ASNormCosineEvaluator):
