@@ -15,6 +15,7 @@ import optax
 import pytest
 import torch
 
+from test_torch_run import one_thread  # noqa: F401 (one_thread: autouse, one intra-op thread)
 from w2v2_speaker_tpu.models import wav2vec2 as jw
 from w2v2_speaker_tpu.models import wav2vec2_speaker as js
 from w2v2_speaker_tpu.train import speaker_task as jtask

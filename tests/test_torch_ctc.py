@@ -1,6 +1,9 @@
 """The port's CTC forward-backward (``ops/ctc.py``), whose plain versions run
 on the CPU, against the JAX package's ``ctc_loss`` (optax) and against
-``F.ctc_loss``, float32, on numpy-seeded inputs.
+``F.ctc_loss``, float32, on numpy-seeded inputs. The plain versions run
+in log space in float64, in the kernels' split: ``ctc_alpha_reference`` +
+``ctc_beta_reference`` (the forward), ``ctc_grad_reference`` (the
+backward, from alpha and beta).
 
 Limits: the mean loss of ``objectives.losses.ctc_loss`` and its logit
 gradient rtol 1e-5 / atol 1e-6 on feasible rows, the limits of
@@ -9,15 +12,17 @@ implementations, each ~1e-6 of a float64 one here). Per row (no division by
 the label length) the loss is held at rtol 1e-5 and the gradient at atol
 1e-5: one row's gradient entries lie in [-1, 1], and a row's log-likelihood
 of ~100 nats carries ~1e-5 of float32 rounding into exp(alpha + beta -
-logp) in any implementation. The hand-written backward (the beta pass)
-runs in float64 too and is held at 1e-10 of ``F.ctc_loss``'s float64
-autograd. Cases: label repeats (a blank between), an empty-label padding
-row, ragged frames and labels, the minimal feasible T and one frame less,
-V = 5995 with L = 1 (the speaker CTC), another blank id. The one deliberate divergence: a row that cannot
-fit its label scores 0 with a gradient of exactly 0 (``zero_infinity``),
-where optax scores ~1e5 / L. On the CPU the wrappers run the plain
-versions and launch nothing (their counters stay); the card's kernels are
-held against these plain versions by ``tests/test_torch_cuda.py`` and
+logp) in any implementation. The plain recursions run in float64 from
+float64 log-probabilities too and are held at 1e-10 of ``F.ctc_loss``'s
+float64 autograd. Cases: label repeats (a blank between), an empty-label
+padding row, ragged frames and labels, the minimal feasible T and one frame
+less, V = 5995 with L = 1 (the speaker CTC), another blank id. The one
+deliberate divergence: a row that cannot fit its label scores 0 with a
+gradient of exactly 0 (``zero_infinity``), where optax scores ~1e5 / L.
+A call with a gradient (training) and one without (eval, under
+``torch.no_grad``) give each row's loss bit for bit. On the CPU the wrappers run the plain versions, launch nothing (their
+counters stay) and never call ``F.ctc_loss``; the card's kernels are held
+against these plain versions by ``tests/test_torch_cuda.py`` and
 ``chip_smoke.py`` phase 39.
 """
 
@@ -28,6 +33,7 @@ import pytest
 import torch
 import torch.nn.functional as F
 
+from test_torch_run import one_thread  # noqa: F401 (one_thread: autouse, one intra-op thread)
 from w2v2_speaker_tpu.objectives import losses as jlosses
 from w2v2_speaker_tpu_torch.objectives import losses as tlosses
 from w2v2_speaker_tpu_torch.ops import ctc
@@ -71,8 +77,9 @@ def _plain_rows64(args, weights):
     logits, lens, labels, label_lens = _torch(args)
     lp = torch.log_softmax(logits.double(), -1)
     alpha, logp = ctc.ctc_alpha_reference(lp, lens, labels, label_lens)
-    grad = ctc.ctc_grad_reference(lp, alpha, logp, torch.as_tensor(weights, dtype=torch.float64), lens, labels,
-                                  label_lens)
+    beta = ctc.ctc_beta_reference(lp, lens, labels, label_lens)
+    grad = ctc.ctc_grad_reference(lp, alpha, beta, logp, torch.as_tensor(weights, dtype=torch.float64), lens,
+                                  labels, label_lens)
     return torch.where(torch.isfinite(logp), -logp, 0.0).numpy(), grad.numpy()
 
 
@@ -216,19 +223,70 @@ def test_infeasible_row_diverges_from_jax_as_documented():
 def test_cpu_route_runs_the_plain_versions_deterministically():
     """On CPU tensors the wrappers are the plain versions (the counters do
     not move), also under ``trainer.deterministic``'s
-    ``torch.use_deterministic_algorithms``; alpha is -inf outside each
-    row's states, the backward's gradient 0 past each row's frames."""
+    ``torch.use_deterministic_algorithms``; log alpha is -inf outside each
+    row's states, log beta also past each row's frames, the backward's
+    gradient 0 past each row's frames; ``log_space`` reads the kernels'
+    (m, k) pairs as log alpha."""
     args = _torch(_inputs(5, (10, 7, 0), (3, 2, 0), t=10, v=5, s=4))
     lp = torch.log_softmax(args[0], -1)
-    before = ctc.ctc_alpha.launches, ctc.ctc_grad.launches
+    before = ctc.ctc_alpha_beta.launches, ctc.ctc_grad.launches
     with texp.deterministic_mode(True, torch.device("cpu")):
-        alpha, logp = ctc.ctc_alpha(lp, *args[1:])
-        grad = ctc.ctc_grad(lp, alpha, logp, torch.ones(3), *args[1:])
-    assert (ctc.ctc_alpha.launches, ctc.ctc_grad.launches) == before
+        alpha, beta, logp = ctc.ctc_alpha_beta(lp, *args[1:])
+        grad = ctc.ctc_grad(lp, alpha, beta, logp, torch.ones(3), *args[1:])
+    assert (ctc.ctc_alpha_beta.launches, ctc.ctc_grad.launches) == before
     want_alpha, want_logp = ctc.ctc_alpha_reference(lp, *args[1:])
     assert torch.equal(alpha, want_alpha) and torch.equal(logp, want_logp)
-    assert torch.equal(grad, ctc.ctc_grad_reference(lp, alpha, logp, torch.ones(3), *args[1:]))
+    assert torch.equal(beta, ctc.ctc_beta_reference(lp, *args[1:]))
+    assert torch.equal(grad, ctc.ctc_grad_reference(lp, alpha, beta, logp, torch.ones(3), *args[1:]))
     assert torch.isinf(alpha[0, :, 7:]).all() and torch.isinf(alpha[1, :, 5:]).all()
+    assert torch.isinf(beta[1, 7:]).all() and torch.isinf(beta[0, :, 7:]).all()
     assert logp[2] == 0.0 and torch.all(grad[1, 7:] == 0) and torch.all(grad[2] == 0)
+    pairs = torch.tensor([[0.75, -3.0], [0.5, -(1 << 29)], [0.5, 1.0]], dtype=torch.float64)
+    want = torch.log(torch.tensor([0.09375, 0.0, 1.0], dtype=torch.float64))
+    torch.testing.assert_close(ctc.log_space(pairs), want, rtol=1e-15, atol=1e-15)
     with pytest.raises(ValueError, match="float32 log-probabilities"):
-        ctc.ctc_alpha(lp.double(), *args[1:])
+        ctc.ctc_alpha_beta(lp.double(), *args[1:])
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_training_and_eval_routes_give_the_same_loss(case):
+    """A call whose logits need a gradient (training) and one under
+    ``torch.no_grad`` (eval) give each row's loss bit for bit, through
+    ``ctc_loss_rows`` and through ``objectives.losses.ctc_loss``: both
+    run the one forward, ``ctc_alpha_beta``, whose logp is the loss."""
+    tl, ll, t, v, s, rep = CASES[case]
+    logits, lens, labels, label_lens = _torch(_inputs(11, tl, ll, t, v, s, rep))
+    train = ctc.ctc_loss_rows(logits.clone().requires_grad_(), lens, labels, label_lens)
+    with torch.no_grad():
+        evaluated = ctc.ctc_loss_rows(logits, lens, labels, label_lens)
+    assert train.requires_grad and not evaluated.requires_grad
+    assert torch.equal(train.detach(), evaluated)
+    mean_train = tlosses.ctc_loss(logits.clone().requires_grad_(), lens, labels, label_lens)
+    assert torch.equal(mean_train.detach(), tlosses.ctc_loss(logits, lens, labels, label_lens))
+    logp = ctc.ctc_alpha_beta(torch.log_softmax(logits, -1), lens, labels, label_lens)[2]
+    assert torch.equal(evaluated, torch.where(torch.isfinite(logp), -logp, 0.0).float())
+
+
+def test_cpu_route_never_calls_the_library_ctc(monkeypatch):
+    """On the CPU the loss, its gradient and a forward without a gradient
+    run the plain versions only: ``F.ctc_loss`` and ``torch.ctc_loss``,
+    replaced by functions that raise, are never reached, and the result is
+    the one the library gives when it is restored."""
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("the library CTC was called")
+
+    args = _inputs(9, (40, 33, 20, 12), (9, 5, 7, 0))
+    weights = np.array([0.5, 1.0, 0.25, 0.75])
+    with monkeypatch.context() as patched:
+        patched.setattr(F, "ctc_loss", refuse)
+        patched.setattr(torch, "ctc_loss", refuse)
+        with pytest.raises(AssertionError, match="library CTC"):
+            F.ctc_loss(None, None, None, None)
+        rows, grad = _port_rows(args, weights)
+        with torch.no_grad():
+            evaluated = ctc.ctc_loss_rows(*_torch(args))
+    lib_rows, lib_grad = _torch_rows(args, weights)
+    np.testing.assert_allclose(rows, lib_rows, rtol=ROW_RTOL)
+    np.testing.assert_allclose(grad, lib_grad, rtol=0, atol=ROW_GRAD_ATOL)
+    assert np.array_equal(evaluated.double().numpy(), rows)

@@ -366,18 +366,22 @@ def test_quant_linear_on_the_card(cuda):
 
 CTC_CASES = {  # (logit lengths, label lengths, T, V, S)
     "ragged": ((300, 251, 120, 40, 5), (110, 70, 61, 0, 8), 300, 32, 120),  # row 3 empty, row 4 infeasible
-    "wide_labels": ((700, 640), (300, 280), 700, 32, 300),  # 601 states: wider than a block of 256
+    "wide_labels": ((700, 640), (300, 280), 700, 32, 300),  # 601 states: 301 pairs, 10 warps a row
+    "long_labels": ((2300, 2250), (1100, 1050), 2300, 32, 1100),  # 2201 states: 2 pairs a thread
     "speaker": ((149,) * 4, (1,) * 4, 149, 5995, 1),
 }
 
 
 @pytest.mark.parametrize("case", sorted(CTC_CASES))
 def test_ctc_kernels_match_plain(cuda, case):
-    """``ctc_alpha`` and ``ctc_grad`` against their plain versions on the
-    same inputs, with the main path's upstream weights (1 / label length
-    over the non-empty rows): loss, logp and logit gradient within
-    ``kernel_tolerance`` on feasible rows, exact zeros on the infeasible
-    row and past each row's frames, two launches bit-equal."""
+    """The forward ``ctc_alpha_beta`` (one launch: alpha and beta) and
+    ``ctc_grad`` against their plain versions on the same inputs, with the
+    main path's upstream weights (1 / label length over the non-empty
+    rows): logp within ``kernel_tolerance``'s loss limit and the logit
+    gradient within its gradient limit on feasible rows, alpha and beta at
+    the rows' frames and states (``log_space`` of the kernel's pairs)
+    within 1e-9 of the plain log-space recursions, exact zeros on the
+    infeasible row and past each row's frames, two launches bit-equal."""
     tl, ll, t, v, s = CTC_CASES[case]
     gen = torch.Generator(device=cuda).manual_seed(len(tl))
     b = len(tl)
@@ -390,20 +394,27 @@ def test_ctc_kernels_match_plain(cuda, case):
     valid = (label_lens > 0).float()
     g = valid / label_lens.clamp_min(1).float() / valid.sum()
     rtol, gatol = ctc.kernel_tolerance()
-    before = ctc.ctc_alpha.launches, ctc.ctc_grad.launches
-    alpha, logp = ctc.ctc_alpha(lp, lens, labels, label_lens)
-    grad = ctc.ctc_grad(lp, alpha, logp, g, lens, labels, label_lens)
-    again = ctc.ctc_grad(lp, *ctc.ctc_alpha(lp, lens, labels, label_lens), g, lens, labels, label_lens)
+    before = ctc.ctc_alpha_beta.launches, ctc.ctc_grad.launches
+    alpha, beta, logp = ctc.ctc_alpha_beta(lp, lens, labels, label_lens)
+    grad = ctc.ctc_grad(lp, alpha, beta, logp, g, lens, labels, label_lens)
+    again = ctc.ctc_grad(lp, *ctc.ctc_alpha_beta(lp, lens, labels, label_lens), g, lens, labels, label_lens)
     torch.cuda.synchronize()
-    assert (ctc.ctc_alpha.launches, ctc.ctc_grad.launches) == (before[0] + 2, before[1] + 2)
+    assert (ctc.ctc_alpha_beta.launches, ctc.ctc_grad.launches) == (before[0] + 2, before[1] + 2)
     assert torch.equal(grad, again)
     want_alpha, want_logp = ctc.ctc_alpha_reference(lp, lens, labels, label_lens)
-    want = ctc.ctc_grad_reference(lp, want_alpha, want_logp, g, lens, labels, label_lens)
+    want_beta = ctc.ctc_beta_reference(lp, lens, labels, label_lens)
+    want = ctc.ctc_grad_reference(lp, want_alpha, want_beta, want_logp, g, lens, labels, label_lens)
     feasible = torch.isfinite(want_logp)
     assert torch.equal(torch.isfinite(logp), feasible)
     torch.testing.assert_close(logp[feasible], want_logp[feasible], rtol=rtol, atol=0)
     torch.testing.assert_close(grad, want, rtol=0, atol=gatol)
     frames = torch.arange(t, device=cuda)[None, :] < lens[:, None]
     assert torch.all(grad[~frames] == 0) and torch.all(grad[~feasible] == 0)
+    cells = frames[:, :, None] & (torch.arange(2 * s + 1, device=cuda)[None, None] < 2 * label_lens[:, None, None] + 1)
+    for got, ref in ((alpha, want_alpha), (beta, want_beta)):
+        got = ctc.log_space(got)
+        assert torch.equal(torch.isinf(got[cells]), torch.isinf(ref[cells]))
+        finite = cells & torch.isfinite(ref)
+        torch.testing.assert_close(got[finite], ref[finite], rtol=1e-9, atol=1e-9)
     if case == "ragged":
         assert not feasible[4] and feasible[:4].all()

@@ -32,7 +32,7 @@ from test_torch_datamodule import CONFIG as DM_CONFIG
 from test_torch_datamodule import write_corpus as write_dm_corpus
 from test_torch_librispeech import CONFIG as LS_CONFIG
 from test_torch_librispeech import write_tree
-from test_torch_run import Recorder, write_corpus
+from test_torch_run import Recorder, write_corpus, one_thread  # noqa: F401 (one_thread: autouse, one intra-op thread)
 from test_torch_run_families import LOSS_ATOL, _export, run_overrides
 from w2v2_speaker_tpu.data import datamodule as jdm
 from w2v2_speaker_tpu.data import librispeech as jls

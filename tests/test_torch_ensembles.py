@@ -26,6 +26,7 @@ import pytest
 import torch
 from test_torch_predict import SCORE_ATOL, _scores, _write_folder
 
+from test_torch_run import one_thread  # noqa: F401 (one_thread: autouse, one intra-op thread)
 from w2v2_speaker_tpu.data import samples as jsamples
 from w2v2_speaker_tpu.data.trials import EvaluationPair as JaxPair
 from w2v2_speaker_tpu.eval import evaluator as jeval

@@ -9,6 +9,7 @@ import numpy as np
 import pytest
 import torch
 
+from test_torch_run import one_thread  # noqa: F401 (one_thread: autouse, one intra-op thread)
 from w2v2_speaker_tpu.ops.flash_attention import flash_attention_kernel
 from w2v2_speaker_tpu_torch.ops import flash_attention as port
 

@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+from test_torch_run import one_thread  # noqa: F401 (one_thread: autouse, one intra-op thread)
 from w2v2_speaker_tpu.models import wav2vec2 as jw
 from w2v2_speaker_tpu.models.wav2vec2_convert import hf_state_dict_to_flax
 from w2v2_speaker_tpu_torch.models import hf_convert

@@ -150,9 +150,10 @@ def test_deterministic_ctc_training_is_refused_on_the_card(recipe):
     with pytest.raises(ValueError, match="must be a bool"):
         texp.check_deterministic(texp.load_recipe(recipe, ["trainer.deterministic=1"]))
     if cfg["optim"]["loss"]["name"].startswith("ctc"):
-        before = ctc.ctc_alpha.launches, ctc.ctc_grad.launches
+        counters = (ctc.ctc_alpha_beta, ctc.ctc_grad)
+        before = [c.launches for c in counters]
         logits = torch.randn(2, 6, 5, requires_grad=True)
         loss = tlosses.ctc_loss(logits, torch.tensor([6, 4]), torch.tensor([[1, 2], [3, 0]]), torch.tensor([2, 1]))
         loss.backward()
         assert torch.isfinite(loss) and logits.grad.abs().sum() > 0
-        assert (ctc.ctc_alpha.launches, ctc.ctc_grad.launches) == before  # the CPU runs the plain versions
+        assert [c.launches for c in counters] == before  # the CPU runs the plain versions

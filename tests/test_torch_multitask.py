@@ -26,6 +26,7 @@ import numpy as np
 import pytest
 import torch
 
+from test_torch_run import one_thread  # noqa: F401 (one_thread: autouse, one intra-op thread)
 from w2v2_speaker_tpu.data.tokenizer import CharTokenizer as JaxTokenizer
 from w2v2_speaker_tpu.models import heads as jheads
 from w2v2_speaker_tpu.models import wav2vec2 as jw

@@ -19,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 
+from test_torch_run import one_thread  # noqa: F401 (one_thread: autouse, one intra-op thread)
 from w2v2_speaker_tpu.data import batching as jbatching
 from w2v2_speaker_tpu.data import samples as jsamples
 from w2v2_speaker_tpu.data.trials import EvaluationPair as JaxPair

@@ -22,6 +22,7 @@ import numpy as np
 import pytest
 import torch
 
+from test_torch_run import one_thread  # noqa: F401 (one_thread: autouse, one intra-op thread)
 from w2v2_speaker_tpu.models import pooling as jp
 from w2v2_speaker_tpu.models import wav2vec2 as jw
 from w2v2_speaker_tpu.models import wav2vec2_speaker as js

@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+from test_torch_run import one_thread  # noqa: F401 (one_thread: autouse, one intra-op thread)
 from w2v2_speaker_tpu.data import collate as jcollate
 from w2v2_speaker_tpu.data.samples import SpeakerSample as JaxSample
 from w2v2_speaker_tpu.eval.evaluator import CosineDistanceEvaluator, EmbeddingSample as JaxEmbedding
@@ -400,14 +401,9 @@ def full_precision_scores(tmp_path_factory):
     from w2v2_speaker_tpu_torch import predict as torch_predict
 
     folder = tmp_path_factory.mktemp("full")
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)  # tiny shapes: one intra-op thread
-    try:
-        return _scores(torch_predict.main(
-            [*PREDICT_OVERRIDES, "data.dataloader.test_batch_size=2", "network.int8_matmuls=false",
-             f"predict_folder_path={folder}", f"pair_prediction_path={_write_folder(folder)}"], device="cpu"))
-    finally:
-        torch.set_num_threads(n)
+    return _scores(torch_predict.main(
+        [*PREDICT_OVERRIDES, "data.dataloader.test_batch_size=2", "network.int8_matmuls=false",
+         f"predict_folder_path={folder}", f"pair_prediction_path={_write_folder(folder)}"], device="cpu"))
 
 
 @pytest.mark.parametrize("override", ["network.int8_matmuls=auto", "network.int8_matmuls=true"])
@@ -421,15 +417,10 @@ def test_predict_serves_int8(tmp_path, capsys, full_precision_scores, override):
     from w2v2_speaker_tpu_torch import predict as torch_predict
 
     capsys.readouterr()
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)  # tiny shapes: one intra-op thread
-    try:
-        got = _scores(torch_predict.main(
-            [*PREDICT_OVERRIDES, "data.dataloader.test_batch_size=2", "network.int8_auto_min_samples=20000",
-             override, f"predict_folder_path={tmp_path}", f"pair_prediction_path={_write_folder(tmp_path)}"],
-            device="cpu"))
-    finally:
-        torch.set_num_threads(n)
+    got = _scores(torch_predict.main(
+        [*PREDICT_OVERRIDES, "data.dataloader.test_batch_size=2", "network.int8_auto_min_samples=20000",
+         override, f"predict_folder_path={tmp_path}", f"pair_prediction_path={_write_folder(tmp_path)}"],
+        device="cpu"))
     runs = {"full": full_precision_scores, "int8": got}
     routing = [line for line in capsys.readouterr().out.splitlines() if line.startswith("int8 auto dispatch")]
     assert routing == (["int8 auto dispatch: 2/3 bucket batches on int8 (threshold 20000 samples)"]

@@ -40,7 +40,7 @@ import numpy as np
 import pytest
 import torch
 
-from test_torch_run import Recorder, write_corpus
+from test_torch_run import Recorder, write_corpus, one_thread  # noqa: F401 (one_thread: autouse, one intra-op thread)
 from test_torch_run_families import _export, run_overrides
 from w2v2_speaker_tpu.data.features import FbankConfig as JaxFbankConfig
 from w2v2_speaker_tpu.models import xvector as jxv

@@ -25,7 +25,7 @@ import numpy as np
 import pytest
 
 from test_torch_predict import SCORE_ATOL, _scores, _write_folder
-from test_torch_run import Recorder, write_corpus
+from test_torch_run import Recorder, write_corpus, one_thread  # noqa: F401 (one_thread: autouse, one intra-op thread)
 from w2v2_speaker_tpu_torch import predict as tpredict
 from w2v2_speaker_tpu_torch import run as trun
 

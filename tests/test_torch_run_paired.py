@@ -29,7 +29,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
-from test_torch_run import Recorder
+from test_torch_run import Recorder, one_thread  # noqa: F401 (one_thread: autouse, one intra-op thread)
 
 from w2v2_speaker_tpu.runtime import experiment as jexp
 from w2v2_speaker_tpu_torch import run as trun

@@ -43,7 +43,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from test_torch_run import Recorder
+from test_torch_run import Recorder, one_thread  # noqa: F401 (one_thread: autouse, one intra-op thread)
 from test_torch_run_paired import write_corpus as write_voxceleb
 
 from w2v2_speaker_tpu.runtime import experiment as jexp

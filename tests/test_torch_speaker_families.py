@@ -38,6 +38,7 @@ import numpy as np
 import pytest
 import torch
 
+from test_torch_run import one_thread  # noqa: F401 (one_thread: autouse, one intra-op thread)
 from w2v2_speaker_tpu.data.features import FbankConfig as JaxFbankConfig
 from w2v2_speaker_tpu.models import dummy as jdummy
 from w2v2_speaker_tpu.models import ecapa as jecapa

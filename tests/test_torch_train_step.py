@@ -16,6 +16,7 @@ import pytest
 import torch
 import yaml
 
+from test_torch_run import one_thread  # noqa: F401 (one_thread: autouse, one intra-op thread)
 from w2v2_speaker_tpu.models import wav2vec2 as jw
 from w2v2_speaker_tpu.models import wav2vec2_speaker as js
 from w2v2_speaker_tpu.objectives import schedules as jschedules

@@ -33,7 +33,7 @@ import numpy as np
 import pytest
 import torch
 from scipy.stats import chi2
-from test_torch_run import Recorder
+from test_torch_run import Recorder, one_thread  # noqa: F401 (one_thread: autouse, one intra-op thread)
 from test_torch_run_paired import write_corpus
 
 from w2v2_speaker_tpu.data import batching as jbatching

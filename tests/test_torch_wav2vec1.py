@@ -60,6 +60,25 @@ ENCODERS = [(agg, masked, dtype) for agg in (False, True) for masked in (False, 
 MODELS = ("fc_mean", "fc_mean+std", "xvector")
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread for the module's tiny forwards and steps, as
+    ``tests/test_torch_run.py``; yields the default, which ``all_threads``
+    gives back to the run test (its float32 losses, held at
+    ``LOSS_ATOL``, drift past it on one thread)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield n
+    torch.set_num_threads(n)
+
+
+@pytest.fixture
+def all_threads(one_thread):
+    torch.set_num_threads(one_thread)
+    yield
+    torch.set_num_threads(1)
+
+
 def _batch(seed=0):
     rng = np.random.default_rng(seed)
     n = max(LENGTHS)
@@ -310,7 +329,7 @@ V1_PREDICT = [*V1_RUN, "trainer.precision=f32", "data.dataloader.test_batch_size
 V1_SCORE_ATOL = 1e-5  # test_torch_predict.SCORE_ATOL
 
 
-def test_xvector_run_and_predict_match_jax(tmp_path_factory):
+def test_xvector_run_and_predict_match_jax(tmp_path_factory, all_threads):
     """Both packages' ``run.main`` on ``network=wav2vec_xvector`` (a narrow
     TDNN, test_torch_run_families' corpus and steps on 0.25 s crops) from
     the same weights:

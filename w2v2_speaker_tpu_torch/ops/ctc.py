@@ -15,42 +15,62 @@ frames (``logit_lengths``, clamped to T) and a 0-padded label ``[B, S]`` of
 l' (blanks around and between the tokens, S'_b = 2 L_b + 1 states) and
 ``lp = log_softmax(logits)``:
 
-- ``ctc_alpha``: alpha_0(0) = lp[0, blank], alpha_0(1) = lp[0, l'_1],
-  alpha_t(s) = lp[t, l'_s] + logsumexp(alpha_{t-1}(s), alpha_{t-1}(s-1),
-  alpha_{t-1}(s-2)), the last term only where l'_s is not the blank and
-  differs from l'_{s-2}; the row's log-likelihood ``logp`` =
-  logsumexp(alpha_{T_b-1}(S'_b-1), alpha_{T_b-1}(S'_b-2)) (0 for a row
-  of no frames and no label, -inf where no path fits);
-- ``ctc_grad``: beta_t(s), the log-probability of frames t+1..T_b-1 from
-  state s at t, by the same recursion backwards from beta_{T_b-1} = 0 at
-  S'_b-1 and S'_b-2; then the gradient of ``g_b`` x (the row's negative
-  log-likelihood) with respect to the logits, g_b (softmax(t, v) -
-  sum over s with l'_s = v of exp(alpha_t(s) + beta_t(s) - logp)), the sum
-  in ascending s. Frames past T_b and rows where no path fits
-  (``zero_infinity``) get exactly 0.
+- alpha: alpha_t(s), the probability of frames 0..t ending in state s:
+  alpha_0(0) = p_0(blank), alpha_0(1) = p_0(l'_1), alpha_t(s) =
+  ((alpha_{t-1}(s) + alpha_{t-1}(s-1)) + alpha_{t-1}(s-2)) p_t(l'_s) with
+  p_t(v) = exp(lp[t, v]), the last term only where l'_s is not the blank
+  and differs from l'_{s-2}; the row's log-likelihood ``logp`` =
+  log(alpha_{T_b-1}(S'_b-1) + alpha_{T_b-1}(S'_b-2)) (0 for a row of no
+  frames and no label, -inf where no path fits);
+- beta: beta_t(s), the probability of frames t+1..T_b-1 from state s at
+  t, by the same recursion backwards from beta_{T_b-1} = 1 at S'_b-1 and
+  S'_b-2;
+- the gradient of ``g_b`` x (the row's negative log-likelihood) with
+  respect to the logits, g_b (softmax(t, v) - sum over s with l'_s = v of
+  alpha_t(s) beta_t(s) / P), P the row's likelihood, the sum in ascending
+  s. Frames past T_b and rows where no path fits (``zero_infinity``) get
+  exactly 0.
 
-alpha, beta, logp and the occupancies are float64 (from float32 ``lp``),
-the gradient float32, rounded once: a row's log-probabilities reach -100
-and below (the speaker CTC's blank starts at a bias of 100, a speech
-row's likelihood sums ~1000 frames), where float32 holds them to ~1e-5
-absolute, and the blank's gradient, a difference of two numbers near 1,
-would carry that as ~1e-5 absolute error: as far from the truth as
-float32 optax or ``F.ctc_loss``, in another direction (``csrc/ctc_loss.cu``).
+The kernels hold alpha and beta as float64 with an exponent of their own:
+m 2^k, m a float64 mantissa in [0.5, 1), k an integer, passed from the
+forward to the backward as [..., 2] float64 pairs (``log_space`` reads them
+as log alpha). No value underflows however long the row (a speech row's
+likelihood sums ~1000 frames, the speaker CTC's labels start at e^-100 a
+frame); a sum aligns its terms to the largest exponent, adds the mantissas,
+multiplies by the emission and renormalises, each operation rounding once
+in float64, and no exp or log runs on the frame chain. The plain versions
+run the same recursions in log space (logsumexp in float64, from float64
+log-probabilities), split as the kernels are. Both round to float64 at
+every step, so they agree to ~1e-15 relative, far inside
+``kernel_tolerance``. The gradient is float32, rounded once. (A float32
+log-space recursion holds alpha and beta near -100 to ~1e-5 absolute, and
+the blank's gradient, a difference of two numbers near 1, would carry that
+as ~1e-5 absolute error: as far from the truth as float32 optax or
+``F.ctc_loss``, in another direction; ``csrc/ctc_loss.cu``.)
 
 ``CTCLossFunction`` (``ctc_loss_rows``) gives each row's loss, -logp, or 0
 where no path fits, as ``F.ctc_loss(..., reduction="none",
-zero_infinity=True)`` does. On a CUDA tensor ``ctc_alpha`` and
-``ctc_grad`` launch their kernels (counted in ``ctc_alpha.launches`` and
-``ctc_grad.launches``; ``ctc_grad``'s one call of the library launches the
-beta kernel and the gradient kernel) or raise; on a CPU tensor they run the
-plain versions, ``ctc_alpha_reference`` and ``ctc_grad_reference``, whose
-recursion loops over T vectorised over B and S', with the backward written
-out as its beta pass (not autograd through the loop).
+zero_infinity=True)`` does. Its forward is ``ctc_alpha_beta``, one launch
+of the chain kernel that runs each row's alpha chain and beta chain side
+by side (beta does not depend on alpha); its backward is ``ctc_grad``, one
+launch of the gradient kernel. In the chain kernel a thread owns a pair of
+states (alpha: a blank and the label above it; beta: a label and the blank
+above it) in registers, reads its neighbour pair's value of the last frame
+by a warp shuffle (a shared-memory slot across a warp edge, one barrier a
+frame), and reads its emissions from a table of exp(lp) that the block
+fills for a chunk of frames at a time, off the chain. Each wrapper counts
+its launches (``ctc_alpha_beta.launches``, ``ctc_grad.launches``); on a
+CUDA tensor it launches its kernel or raises, on a CPU tensor it runs the
+plain versions, ``ctc_alpha_reference``, ``ctc_beta_reference`` and
+``ctc_grad_reference``, whose recursions loop over T vectorised over B and
+S', with the backward written out from alpha and beta (not autograd
+through the loop); ``F.ctc_loss`` runs on neither route.
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
 from typing import Tuple
 
 import torch
@@ -61,15 +81,19 @@ from ..device import DeviceError
 
 __all__ = [
     "CTCLossFunction",
-    "ctc_alpha",
+    "ctc_alpha_beta",
     "ctc_alpha_reference",
+    "ctc_beta_reference",
     "ctc_grad",
     "ctc_grad_reference",
     "ctc_loss_rows",
     "kernel_tolerance",
+    "log_space",
 ]
 
 NEG_INF = float("-inf")
+LN2 = math.log(2.0)
+ZERO_LIM = -(1 << 28)  # the kernels' m 2^k with k below this is 0 (csrc/ctc_loss.cu)
 _lib = None
 
 
@@ -78,9 +102,9 @@ def kernel_tolerance() -> Tuple[float, float]:
     versions on feasible rows: 1e-5 relative on the loss and 1e-6
     absolute on the logit gradient (each gradient entry lies in [-1, 1]),
     the limits the CPU tests hold the plain version to against optax and
-    ``F.ctc_loss``. Both run the same float64 recursion in the same order
-    of operations; what may differ is the last bit of an ``exp`` or a
-    ``log``, far below either limit."""
+    ``F.ctc_loss``. Both run the recursions in float64, the kernels on
+    mantissas and exponents, the plain versions in log space; they differ
+    by ~1e-15 relative, far below either limit."""
     return 1e-5, 1e-6
 
 
@@ -104,8 +128,8 @@ def _extended(labels: torch.Tensor, lb: torch.Tensor, blank: int) -> Tuple[torch
 
 
 def _lse3(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
-    """logsumexp of three, -inf where all three are (the kernel's order:
-    m + log((exp(a - m) + exp(b - m)) + exp(c - m)))."""
+    """logsumexp of three, -inf where all three are: m + log((exp(a - m) +
+    exp(b - m)) + exp(c - m)), the kernels' order of the sum."""
     m = torch.maximum(a, torch.maximum(b, c))
     m0 = torch.where(torch.isinf(m), torch.zeros_like(m), m)
     return m0 + torch.log(torch.exp(a - m0) + torch.exp(b - m0) + torch.exp(c - m0))
@@ -122,13 +146,28 @@ def _shift(x: torch.Tensor, k: int) -> torch.Tensor:
     return out
 
 
+def _emissions(lp, ext) -> torch.Tensor:
+    """lp[b, t, l'_s] [B, T, S'] in float64."""
+    b, t, _ = lp.shape
+    return lp.double().gather(2, ext[:, None, :].expand(b, t, ext.shape[1]))
+
+
+def log_space(x: torch.Tensor) -> torch.Tensor:
+    """log alpha (or beta) [...] float64 of the kernels' [..., 2] (m, k)
+    form (alpha = m 2^k), -inf where the value is 0: the plain versions'
+    form."""
+    m, k = x[..., 0], x[..., 1]
+    return torch.where(k < ZERO_LIM, torch.full_like(m, NEG_INF), torch.log(m) + k * LN2)
+
+
 def ctc_alpha_reference(lp, logit_lengths, labels, label_lengths, blank: int = 0):
-    """The plain version of ``ctc_alpha``: (alpha [B, T, S'] float64, -inf
-    outside each row's states; logp [B] float64)."""
+    """The plain version of ``ctc_alpha_beta``'s alpha chain: (log alpha
+    [B, T, S'] float64, -inf outside each row's states; logp [B]
+    float64)."""
     b, t, _ = lp.shape
     tb, lb = _lengths(logit_lengths, label_lengths, t, labels.shape[1], lp.device)
     ext, states, skip = _extended(labels, lb, blank)
-    emit = lp.double().gather(2, ext[:, None, :].expand(b, t, ext.shape[1]))  # lp[t, l'_s]
+    emit = _emissions(lp, ext)
     neg = torch.full_like(emit[:, 0], NEG_INF)
     alpha = torch.full_like(emit, NEG_INF)
     a = torch.where(states & (torch.arange(ext.shape[1], device=lp.device) < 2)[None], emit[:, 0], neg)
@@ -146,31 +185,43 @@ def ctc_alpha_reference(lp, logit_lengths, labels, label_lengths, blank: int = 0
     return alpha, logp
 
 
-def ctc_grad_reference(lp, alpha, logp, g, logit_lengths, labels, label_lengths, blank: int = 0):
-    """The plain version of ``ctc_grad``: the gradient [B, T, V] (``lp``'s
-    type) of sum_b g_b x nll_b with respect to the logits whose
-    log-softmax is ``lp``, from ``ctc_alpha``'s alpha and logp, computed in
-    float64 and rounded once."""
-    b, t, v = lp.shape
+def ctc_beta_reference(lp, logit_lengths, labels, label_lengths, blank: int = 0):
+    """The plain version of ``ctc_alpha_beta``'s beta chain: log beta [B,
+    T, S'] float64, -inf outside each row's frames and states."""
+    b, t, _ = lp.shape
     tb, lb = _lengths(logit_lengths, label_lengths, t, labels.shape[1], lp.device)
     ext, states, skip = _extended(labels, lb, blank)
-    lp64 = lp.double()
-    emit = lp64.gather(2, ext[:, None, :].expand(b, t, ext.shape[1]))
+    emit = _emissions(lp, ext)
     neg = torch.full_like(emit[:, 0], NEG_INF)
     pos = torch.arange(ext.shape[1], device=lp.device)
     end = (2 * lb)[:, None]
     init = torch.where(states & ((pos[None] == end) | (pos[None] == end - 1)), torch.zeros_like(neg), neg)
+    skip_up = torch.zeros_like(skip)  # the skip transition from s to s + 2
+    skip_up[:, :-2] = skip[:, 2:]
     beta = torch.full_like(emit, NEG_INF)
     nxt = neg
     for i in range(t - 1, -1, -1):
         if i + 1 < t:
             e = nxt + emit[:, i + 1]
-            rec = _lse3(e, _shift(e, -1), torch.where(_shift(skip.to(e.dtype), -2) > 0, _shift(e, -2), neg))
+            rec = _lse3(e, _shift(e, -1), torch.where(skip_up, _shift(e, -2), neg))
         else:
             rec = neg
         cur = torch.where((tb == i + 1)[:, None], init, torch.where((i < tb - 1)[:, None], rec, neg))
         nxt = torch.where(states, cur, neg)
         beta[:, i] = nxt
+    return beta
+
+
+def ctc_grad_reference(lp, alpha, beta, logp, g, logit_lengths, labels, label_lengths, blank: int = 0):
+    """The plain version of ``ctc_grad``: the gradient [B, T, V] (``lp``'s
+    type) of sum_b g_b x nll_b with respect to the logits whose
+    log-softmax is ``lp``, from the plain log alpha, log beta and logp:
+    each occupancy exp(alpha + beta - logp) in float64, summed in
+    ascending s, the gradient rounded once."""
+    b, t, v = lp.shape
+    tb, lb = _lengths(logit_lengths, label_lengths, t, labels.shape[1], lp.device)
+    ext, states, _ = _extended(labels, lb, blank)
+    lp64 = lp.double()
     live = torch.isfinite(logp)
     gamma = torch.exp(alpha + beta - torch.where(live, logp, torch.zeros_like(logp))[:, None, None])
     gamma = torch.where(states[:, None, :], gamma, torch.zeros_like(gamma))
@@ -187,9 +238,9 @@ def _kernels():
     global _lib
     if _lib is None:
         lib = _build.load("ctc_loss")
-        lib.ctc_alpha.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        lib.ctc_forward.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
         lib.ctc_grad.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-        lib.ctc_alpha.restype = lib.ctc_grad.restype = ctypes.c_int
+        lib.ctc_forward.restype = lib.ctc_grad.restype = ctypes.c_int
         lib.ctc_loss_error.argtypes = [ctypes.c_int]
         lib.ctc_loss_error.restype = ctypes.c_char_p
         _lib = lib
@@ -223,57 +274,61 @@ def _check_inputs(lp, logit_lengths, labels, label_lengths, name: str) -> None:
                          f"{tuple(logit_lengths.shape)}, {tuple(label_lengths.shape)}")
 
 
-def ctc_alpha(lp, logit_lengths, labels, label_lengths, blank: int = 0):
-    """(alpha [B, T, S'], logp [B]), float64, of log-probabilities ``lp``
-    [B, T, V] float32: the kernel ``ctc_alpha`` on a CUDA tensor (counted in
-    ``ctc_alpha.launches``; alpha is written only at each row's frames and
-    states), the plain version on a CPU tensor."""
-    _check_inputs(lp, logit_lengths, labels, label_lengths, "ctc_alpha")
-    if not _on_card(lp, "ctc_alpha"):
-        return ctc_alpha_reference(lp, logit_lengths, labels, label_lengths, blank)
-    b, t, v = lp.shape
+def ctc_alpha_beta(lp, logit_lengths, labels, label_lengths, blank: int = 0):
+    """The forward: (alpha, beta, logp [B] float64) of log-probabilities
+    ``lp`` [B, T, V] float32, for ``ctc_grad``. On a CUDA tensor one
+    launch of the chain kernel, the alpha and the beta chain of every row
+    side by side (counted in ``ctc_alpha_beta.launches``), alpha and beta
+    [B, T, S', 2] float64 (m, k) pairs written only at each row's frames
+    and states (``log_space`` gives log alpha); on a CPU tensor
+    ``ctc_alpha_reference`` and ``ctc_beta_reference``, log alpha and log
+    beta [B, T, S']."""
+    _check_inputs(lp, logit_lengths, labels, label_lengths, "ctc_alpha_beta")
+    if not _on_card(lp, "ctc_alpha_beta"):
+        alpha, logp = ctc_alpha_reference(lp, logit_lengths, labels, label_lengths, blank)
+        return alpha, ctc_beta_reference(lp, logit_lengths, labels, label_lengths, blank), logp
+    b, t, _ = lp.shape
     s = labels.shape[1]
     lp = lp.contiguous()
-    alpha = torch.empty((b, t, 2 * s + 1), dtype=torch.float64, device=lp.device)
+    alpha = torch.empty((b, t, 2 * s + 1, 2), dtype=torch.float64, device=lp.device)
+    beta = torch.empty_like(alpha)
     logp = torch.empty((b,), dtype=torch.float64, device=lp.device)
     ints = [_int32(x, lp.device) for x in (labels, logit_lengths, label_lengths)]
+    with torch.cuda.device(lp.device):
+        _check(_kernels().ctc_forward(
+            lp.data_ptr(), *(x.data_ptr() for x in ints), alpha.data_ptr(), beta.data_ptr(), logp.data_ptr(),
+            b, t, lp.shape[2], s, blank, torch.cuda.current_stream(lp.device).cuda_stream), "ctc_alpha_beta")
     if b:
-        with torch.cuda.device(lp.device):
-            _check(_kernels().ctc_alpha(
-                lp.data_ptr(), *(x.data_ptr() for x in ints), alpha.data_ptr(), logp.data_ptr(),
-                b, t, v, s, blank, torch.cuda.current_stream(lp.device).cuda_stream), "ctc_alpha")
-        ctc_alpha.launches += 1
-    return alpha, logp
+        ctc_alpha_beta.launches += 1
+    return alpha, beta, logp
 
 
-ctc_alpha.launches = 0
+ctc_alpha_beta.launches = 0
 
 
-def ctc_grad(lp, alpha, logp, g, logit_lengths, labels, label_lengths, blank: int = 0):
+def ctc_grad(lp, alpha, beta, logp, g, logit_lengths, labels, label_lengths, blank: int = 0):
     """The gradient [B, T, V] float32 of sum_b g_b nll_b with respect to the
-    logits (``ctc_grad_reference``'s function): the kernels on a CUDA
-    tensor (the beta pass and the gradient pass in one call of the
-    library, counted once in ``ctc_grad.launches``), the plain version on
-    a CPU tensor."""
+    logits (``ctc_grad_reference``'s function) from ``ctc_alpha_beta``'s
+    outputs on the same device: the gradient kernel on a CUDA tensor
+    (counted in ``ctc_grad.launches``), the plain version on a CPU
+    tensor."""
     _check_inputs(lp, logit_lengths, labels, label_lengths, "ctc_grad")
     if not _on_card(lp, "ctc_grad"):
-        return ctc_grad_reference(lp, alpha, logp, g, logit_lengths, labels, label_lengths, blank)
+        return ctc_grad_reference(lp, alpha, beta, logp, g, logit_lengths, labels, label_lengths, blank)
     b, t, v = lp.shape
     s = labels.shape[1]
-    if alpha.shape != (b, t, 2 * s + 1) or logp.shape != (b,) or g.shape != (b,):
-        raise ValueError(f"ctc_grad: alpha [B, T, 2S+1], logp [B] and g [B], got {tuple(alpha.shape)}, "
-                         f"{tuple(logp.shape)}, {tuple(g.shape)}")
-    lp, alpha = lp.contiguous(), alpha.to(torch.float64).contiguous()
-    f64 = [x.to(device=lp.device, dtype=torch.float64).contiguous() for x in (logp, g)]
+    if alpha.shape != (b, t, 2 * s + 1, 2) or beta.shape != alpha.shape or logp.shape != (b,) or g.shape != (b,):
+        raise ValueError(f"ctc_grad: alpha and beta [B, T, 2S+1, 2], logp [B] and g [B], got {tuple(alpha.shape)}, "
+                         f"{tuple(beta.shape)}, {tuple(logp.shape)}, {tuple(g.shape)}")
+    lp = lp.contiguous()
+    f64 = [x.to(device=lp.device, dtype=torch.float64).contiguous() for x in (alpha, beta, logp, g)]
     ints = [_int32(x, lp.device) for x in (labels, logit_lengths, label_lengths)]
-    beta = torch.empty_like(alpha)
     grad = torch.empty_like(lp)
     if b:
         with torch.cuda.device(lp.device):
             _check(_kernels().ctc_grad(
-                lp.data_ptr(), *(x.data_ptr() for x in ints), alpha.data_ptr(), *(x.data_ptr() for x in f64),
-                beta.data_ptr(), grad.data_ptr(), b, t, v, s, blank,
-                torch.cuda.current_stream(lp.device).cuda_stream), "ctc_grad")
+                lp.data_ptr(), *(x.data_ptr() for x in ints), *(x.data_ptr() for x in f64), grad.data_ptr(),
+                b, t, v, s, blank, torch.cuda.current_stream(lp.device).cuda_stream), "ctc_grad")
         ctc_grad.launches += 1
     return grad
 
@@ -283,22 +338,22 @@ ctc_grad.launches = 0
 
 class CTCLossFunction(torch.autograd.Function):
     """Each row's CTC loss (``zero_infinity``) of float32 ``logits`` [B, T,
-    V]: the forward runs ``log_softmax`` and ``ctc_alpha``, the backward
-    ``ctc_grad``. No atomics on either route."""
+    V]: the forward runs ``log_softmax`` and ``ctc_alpha_beta``, the
+    backward ``ctc_grad``. No atomics on either."""
 
     @staticmethod
     def forward(ctx, logits, logit_lengths, labels, label_lengths, blank):
         lp = F.log_softmax(logits, dim=-1)
-        alpha, logp = ctc_alpha(lp, logit_lengths, labels, label_lengths, blank)
-        ctx.save_for_backward(lp, alpha, logp, logit_lengths, labels, label_lengths)
+        alpha, beta, logp = ctc_alpha_beta(lp, logit_lengths, labels, label_lengths, blank)
+        ctx.save_for_backward(lp, alpha, beta, logp, logit_lengths, labels, label_lengths)
         ctx.blank = blank
         ctx.mark_non_differentiable(logit_lengths, labels, label_lengths)
         return torch.where(torch.isfinite(logp), -logp, torch.zeros_like(logp)).to(logits.dtype)
 
     @staticmethod
     def backward(ctx, g):
-        lp, alpha, logp, logit_lengths, labels, label_lengths = ctx.saved_tensors
-        grad = ctc_grad(lp, alpha, logp, g.contiguous(), logit_lengths, labels, label_lengths, ctx.blank)
+        lp, alpha, beta, logp, logit_lengths, labels, label_lengths = ctx.saved_tensors
+        grad = ctc_grad(lp, alpha, beta, logp, g.contiguous(), logit_lengths, labels, label_lengths, ctx.blank)
         return grad, None, None, None, None
 
 
