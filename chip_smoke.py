@@ -243,7 +243,10 @@ the run by raising:
    GEMM with its rescale epilogue) against their plain versions, bit for
    bit, at LARGE's five dense sites with M from phase 12's longest bucket
    batch, at BASE's at B=48 x 3 s and at a ragged M, N, K, each with
-   kernel, plain, bound and library (``torch._int_mm`` + the rescale) ms;
+   kernel, plain, bound and library (``torch._int_mm`` + the rescale) ms,
+   the share of the bound each kernel reaches and the GEMM's tile; the
+   bf16 ``F.linear`` of LARGE's five sites, what int8 serving competes
+   with;
 34. int8 serving end to end: ``predict.main`` with ``network.int8_matmuls=true``
    on phase 12's files at full LARGE width on the fused conv (scores within
    0.02 of phase 12's bf16 ones, 97 GEMMs, 194 quantizes, 24 attention
@@ -3572,11 +3575,21 @@ def check_int8(label: str, m: int, n: int, k: int, gen) -> dict:
                 "max_abs_err": qerr, "ops_ms": 0.0, "bytes_ms": 1e3 * (3 * m * k + 5 * n * k + 4 * (m + n)) / PEAK_BYTES,
                 "library_ms": None}
     lib = "n/a" if gemm["library_ms"] is None else f"{gemm['library_ms']:.4f}"
+    tile = "x".join(map(str, quant.gemm_tile(m, n)))
     print(f"int8 {label} M={m} N={n} K={k}: quantize x + w {quantize['ms']:.4f} ms (plain "
-          f"{quantize['plain_ms']:.4f}, bound {quantize['bytes_ms']:.4f} bytes); gemm {gemm['ms']:.4f} ms (plain "
+          f"{quantize['plain_ms']:.4f}, bound {quantize['bytes_ms']:.4f} bytes, "
+          f"{100 * quantize['bytes_ms'] / quantize['ms']:.1f} % of it); gemm {gemm['ms']:.4f} ms (plain "
           f"{gemm['plain_ms']:.4f}, _int_mm + rescale {lib}, bound max({gemm['ops_ms']:.4f} ops, "
-          f"{gemm['bytes_ms']:.4f} bytes), {2 * m * n * k / gemm['ms'] / 1e9:.1f} TOP/s); bit-equal", flush=True)
+          f"{gemm['bytes_ms']:.4f} bytes), {100 * max(gemm['ops_ms'], gemm['bytes_ms']) / gemm['ms']:.1f} % of "
+          f"the bound, {2 * m * n * k / gemm['ms'] / 1e9:.1f} TOP/s, tile {tile}); bit-equal", flush=True)
     return {"int8_quantize": quantize, "int8_gemm": gemm}
+
+
+def bf16_linear_ms(m: int, n: int, k: int, gen) -> float:
+    """The bf16 ``F.linear`` (bf16 x, w and bias) of a site: what int8
+    serving competes with, timed only."""
+    x, w, bias = (t.to(torch.bfloat16) for t in int8_inputs(m, n, k, gen))
+    return cuda_ms(lambda: F.linear(x, w, bias), 20)
 
 
 def int8_row(sites: list, name: str) -> dict:
@@ -3598,6 +3611,11 @@ def int8_kernel_phase(card: str, predicted: dict) -> dict:
     gen = torch.Generator(device="cuda").manual_seed(33)
     longest = max(int(sec * 16000) for sec in predicted["files"].values())
     m_large = PREDICT_BATCH * int(feat_extract_output_lengths(-(-longest // PREDICT_PAD) * PREDICT_PAD, LARGE_CONFIG))
+    lin_gen = torch.Generator(device="cuda").manual_seed(34)  # the checks' inputs stay those of seed 33
+    linear = [bf16_linear_ms(m_large, n, k, lin_gen) for n, k in INT8_LARGE_SITES]
+    print(f"bf16 F.linear (bf16 x, w, bias) at LARGE's five sites, M={m_large}: "
+          + ", ".join(f"site {i} {ms:.4f} ms" for i, ms in enumerate(linear))
+          + f"; summed {sum(linear):.4f} ms [{card}]", flush=True)
     large = [check_int8(f"LARGE site {i}", m_large, n, k, gen) for i, (n, k) in enumerate(INT8_LARGE_SITES)]
     m_base = INT8_BASE_BATCH * int(feat_extract_output_lengths(SAMPLES))
     for i, (n, k) in enumerate(INT8_BASE_SITES):

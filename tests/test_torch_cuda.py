@@ -5,8 +5,9 @@ K/V pipeline: LARGE's 16 heads, a key tile of one valid key, long rows
 whose ring wraps), the fused strided conv (f32 and bf16,
 ragged last tiles, bias + LayerNorm, with and without GELU, and its
 autograd Function), the int8 row quantize and GEMM (bit-equal to their
-plain versions, ragged M, N and K, bf16 and f32 outputs) under
-``QuantLinear``, and the CTC forward-backward (ragged frames and labels, a
+plain versions, ragged M, N and K, each tile width of the GEMM's launch
+rule, a persistent walk that wraps, bf16 and f32 outputs, bit-equal across
+launches) under ``QuantLinear``, and the CTC forward-backward (ragged frames and labels, a
 repeated letter, an infeasible and an empty-label row, labels wider than a
 block, the speaker CTC's V = 5995) within ``ops.ctc.kernel_tolerance``,
 bit-equal across launches.
@@ -313,8 +314,22 @@ def test_triplet_mining_stays_on_the_card(cuda):
     assert torch.equal(again[0], pos) and torch.equal(again[1], neg)
 
 
+# (M, N, K) of the GEMM's launch rule's four tile widths on an H100 (132 SMs)
+INT8_TILE_SHAPES = {64: (300, 768, 256), 128: (1280, 1536, 256), 192: (7152, 768, 128), 256: (5796, 4096, 128)}
+INT8_SHAPES = [
+    (300, 768, 768), (7, 96, 64), (129, 130, 40), (1, 3072, 4096),
+    (333, 1000, 512),  # M and N off every tile size
+    (200, 40, 128),  # N smaller than one tile
+    (130, 200, 16), (257, 300, 4096 + 16),  # K of one 16-byte step; K one step past 4096
+    (50, 64, 203),  # rows not 16-byte aligned: the quantize's element-wise loads, K padded to 208
+    (5, 70, 40000),  # rows longer than the quantize's registers hold (read in chunks)
+    (2000, 4096, 256),  # 256 tiles of 128 x 256 on 132 SMs: the persistent walk wraps
+    *INT8_TILE_SHAPES.values(),
+]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("m, n, k", [(300, 768, 768), (7, 96, 64), (129, 130, 40), (1, 3072, 4096)])
+@pytest.mark.parametrize("m, n, k", INT8_SHAPES)
 def test_int8_kernels_are_bit_equal_to_plain(cuda, dtype, m, n, k):
     """The row quantize (values and scales, with a zero row and rows that
     land on k + 0.5) and the GEMM with its rescale and bias: the int32 sums
@@ -344,6 +359,29 @@ def test_int8_kernels_are_bit_equal_to_plain(cuda, dtype, m, n, k):
         torch.cuda.synchronize()
         assert got.dtype == dtype and torch.equal(got, want), (got.float() - want.float()).abs().max()
     assert (quant.quantize_rows.launches, quant.int8_gemm.launches) == (before[0] + 2, before[1] + 2)
+
+
+def test_int8_kernels_repeat_bit_for_bit(cuda):
+    """Two launches of each kernel on the same inputs agree bit for bit (a
+    grid that wraps the persistent walk, both output types), and the
+    launch rule takes each of its four tile widths at INT8_TILE_SHAPES."""
+    from w2v2_speaker_tpu_torch.ops import quant
+
+    assert {bn: quant.gemm_tile(m, n) for bn, (m, n, _) in INT8_TILE_SHAPES.items()} == {
+        bn: (128, bn) for bn in INT8_TILE_SHAPES}
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    x = torch.randn(2000, 1024, generator=gen, device=cuda).to(torch.bfloat16)
+    w = torch.randn(4096, 1024, generator=gen, device=cuda) * 0.03
+    bias = torch.randn(4096, generator=gen, device=cuda)
+    first = [quant.quantize_rows(x), quant.quantize_rows(w)]
+    second = [quant.quantize_rows(x), quant.quantize_rows(w)]
+    for a, b in zip(first, second):
+        assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+    (xq, xs), (wq, ks) = first
+    for dtype in (torch.bfloat16, torch.float32):
+        got = [quant.int8_gemm(xq, wq, xs, ks, bias, dtype) for _ in range(2)]
+        torch.cuda.synchronize()
+        assert torch.equal(got[0], got[1])
 
 
 def test_quant_linear_on_the_card(cuda):

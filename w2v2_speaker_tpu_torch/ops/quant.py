@@ -24,7 +24,13 @@ Counterpart of ``w2v2_speaker_tpu/ops/quant.py``:
 
 The JAX package leaves its int8 dot and the passes around it to XLA (no
 ``pallas_call``); the kernels here are the port's own, so that the
-quantize is one pass and the rescale stays in the GEMM's registers.
+quantize is one pass and the rescale stays in the GEMM's registers. The
+GEMM is a warp-specialised ``wgmma`` s8 kernel over a TMA ring of
+128-byte-swizzled stages, persistent blocks walking 128 x N output tiles
+(N of 64-256 chosen per launch; ``gemm_tile`` reads the choice), its
+output stored by TMA from shared memory; the quantize reads each row once
+with 16-byte loads (``csrc/int8_matmul.cu`` has the design and what holds
+each kernel).
 
 On a CUDA tensor each wrapper launches its kernel (counted in
 ``quantize_rows.launches`` and ``int8_gemm.launches``) or raises; on a CPU
@@ -46,6 +52,7 @@ from ..device import DeviceError
 __all__ = [
     "INT8_AUTO_MIN_SAMPLES",
     "QuantLinear",
+    "gemm_tile",
     "int32_dot",
     "int8_auto_policy",
     "int8_enabled",
@@ -105,17 +112,22 @@ def int8_gemm_reference(
     return out.to(out_dtype)
 
 
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """A built ``int8_matmul`` library with its C entry points typed."""
+    lib.int8_quantize_rows.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+                                       ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    lib.int8_gemm.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    lib.int8_gemm_tile_n.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.int8_quantize_rows.restype = lib.int8_gemm.restype = lib.int8_gemm_tile_n.restype = ctypes.c_int
+    lib.int8_matmul_error.argtypes = [ctypes.c_int]
+    lib.int8_matmul_error.restype = ctypes.c_char_p
+    return lib
+
+
 def _kernels():
     global _lib
     if _lib is None:
-        lib = _build.load("int8_matmul")
-        lib.int8_quantize_rows.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-                                           ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-        lib.int8_gemm.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-        lib.int8_quantize_rows.restype = lib.int8_gemm.restype = ctypes.c_int
-        lib.int8_matmul_error.argtypes = [ctypes.c_int]
-        lib.int8_matmul_error.restype = ctypes.c_char_p
-        _lib = lib
+        _lib = bind(_build.load("int8_matmul"))
     return _lib
 
 
@@ -192,6 +204,13 @@ def int8_gemm(
 
 
 int8_gemm.launches = 0
+
+
+def gemm_tile(m: int, n: int) -> Tuple[int, int]:
+    """The output tile ``(rows, columns)`` that the ``int8_gemm`` kernel's
+    launch rule takes for ``[M, K] x [N, K]`` on the current card (read
+    from the kernel's library; needs the card)."""
+    return 128, _kernels().int8_gemm_tile_n(m, n)
 
 
 def int8_matmul(
