@@ -18,7 +18,11 @@ the run by raising:
    (B=48, bias + LN) training shapes and on ragged short inputs, in float32
    and bfloat16; each with kernel, plain, bound and library times, and at
    each attention shape the dq + dk/dv pair beside SDPA's backward (timed
-   alone on a retained graph, ``backward_ms``);
+   alone on a retained graph, ``backward_ms``); the pair launched twice
+   bit for bit, and in float32 each of dq, dk and dv within
+   ``ATTN_F64_FACTOR`` times the plain version's distance from a float64
+   evaluation (``fa.attention_bwd_float64``); float32 bounds count each
+   product as 3xTF32 (``product_s``), the SIMT time printed beside;
 4. serving main path: ``entry()`` (wav2vec2-BASE, mean pooling, FC head;
    bf16, B=48 x 48 000 samples), its launch counts, its speed, and a float32
    check of the same weights against the CPU on a small padded batch;
@@ -304,12 +308,23 @@ the run by raising:
    (losses and parameters bit-equal), ms/step beside the same runs without
    it; (c) phase 16's speech step at its longest batch through the kernels
    and through ``F.ctc_loss`` in one call (the route before this kernel);
-40. one JSON line with every kernel's numbers (the attention kernels and
+40. the float32 training path: ``speaker_wav2vec2_ce`` with
+   ``trainer.precision=f32`` at full BASE width (B=66 x 48 000 samples)
+   through the recipe entry (``_recipe_entry``): a warm-up dispatch, two
+   timed dispatches of 4 steps, each float32 attention kernel launched once
+   a kept layer in every step, finite losses, the parameters moved, ms/step,
+   peak memory, one profiled dispatch's device ms by category (the attention
+   backward's among them), and layer 0's q/k/v and upstream gradient from a
+   training step through the forward and dq + dk/dv against their plain
+   versions, twice bit for bit and within the float64 rule of phase 3;
+41. one JSON line with every kernel's numbers (the attention kernels and
    the conv at the LARGE training shapes, launches of the LARGE training
    run; the int8 kernels over LARGE's five sites, launches of phase 34's
    LARGE int8 predict run; the CTC kernels, the forward and the backward,
-   at phase 16's longest training batch, launches of phase 16's run), the
-   card line, then the result line.
+   at phase 16's longest training batch, launches of phase 16's run; the
+   float32 attention kernels at BASE's training shape, rate 0.1, launches
+   of phase 40's run, and the float32 conv at LARGE's, launches of phase
+   11's step), the card line, then the result line.
 
 Exits non-zero, printing no result, without a CUDA device or outside a
 checkout of the repository.
@@ -342,8 +357,8 @@ from w2v2_speaker_tpu_torch.data.trials import (
 )
 from w2v2_speaker_tpu_torch.device import set_float32_precision
 from w2v2_speaker_tpu_torch.entry import (
-    BATCH, NUM_SPEAKERS, SAMPLES, build_model, build_train_state, dryrun_multichip, entry, large_train_entry,
-    synthetic_batch, train_entry,
+    BATCH, NUM_SPEAKERS, SAMPLES, _recipe_entry, build_model, build_train_state, dryrun_multichip, entry,
+    large_train_entry, synthetic_batch, train_entry,
 )
 from w2v2_speaker_tpu_torch.models.frontend import FbankFrontend
 from w2v2_speaker_tpu_torch.models.wav2vec2 import (
@@ -369,10 +384,16 @@ from w2v2_speaker_tpu_torch.train.speech_task import SpeechTask
 from w2v2_speaker_tpu_torch.train.state import AdamTx, SgdTx, TrainState
 from w2v2_speaker_tpu_torch.train.steps import make_train_step
 
-# H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores, float32 and
-# float64 outside the tensor cores (the f32 kernels run scalar FMAs, the CTC
-# recursions float64), HBM3
+# H100 SXM peaks (NVIDIA data sheet, dense): bf16 and TF32 tensor cores,
+# float32 and float64 outside the tensor cores, HBM3. A float32 product that
+# keeps float32 accuracy on the tensor cores takes three TF32 products
+# (3xTF32: hi.lo + lo.hi + hi.hi, as the f32 attention backward kernels run
+# them), so the float32 products of the attention kernels and the conv are
+# bounded at 3 x FLOPs over the TF32 peak (`product_s`), the SIMT time at
+# PEAK_OPS[float32] printed beside it; PEAK_OPS[float32] stays the bound of
+# float32 elementwise work (the fbank), float64 that of the CTC recursions
 PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12, torch.float64: 34e12}
+PEAK_TF32 = 495e12
 PEAK_BYTES = 3.35e12
 H, D = 12, 64  # wav2vec2-BASE attention
 H_LARGE, LARGE_BATCH = 16, 48  # wav2vec2-LARGE attention; the LARGE recipe's batch
@@ -388,6 +409,10 @@ KERNELS = (  # (name in the kernels line, source, the TPU kernel it replaces)
     ("ctc_grad", "ctc_loss", "w2v2_speaker_tpu/objectives/losses.py:176 (optax, XLA, not Pallas)"),
 )
 ATTENTION = KERNELS[0][0], KERNELS[1][0], KERNELS[2][0]
+# the float32 kernels of the same sources (each source's f32 instantiation):
+# the attention kernels on phase 40's float32 BASE training path, the conv
+# on phase 11's float32 LARGE step
+KERNELS_F32 = tuple((f"{name}_f32", source, replaces) for name, source, replaces in KERNELS[:4])
 # the fused conv vs its plain version: ce.kernel_tolerance (f32: the JAX
 # kernel tests' 2e-4 / 2e-5; bf16: rtol 2e-2, atol 2^-5 of the RMS of the
 # plain output). Ragged short inputs (T_in, k) at C=512, B=2, bias + LN:
@@ -404,6 +429,13 @@ ATTN_SHAPES = [  # (name, B, T, lengths)
 RATES = (0.0, 0.1)
 DROPOUT_SEED = -123456789
 LSE_RTOL, LSE_ATOL = 2e-4, 2e-5
+# float32 dq, dk and dv against a float64 evaluation of the same formulas
+# (fa.attention_bwd_float64): the kernel's norm of the error over the norm
+# at most this many times the plain float32 version's (the float32
+# networks' rule, FAMILY_F64_FACTOR). It catches products short of float32
+# accuracy that kernel_tolerance passes at short rows (1xTF32:
+# tools/torch_fault_probe.py)
+ATTN_F64_FACTOR = 4.0
 ROOT = pathlib.Path(__file__).resolve().parent
 MEASURED = {}  # numbers a later phase prints beside its own
 UTTERANCE_S = [3.2, 4.0, 4.7, 6.1, 7.8, 8.4, 11.9, 15.3, 19.8, 26.5, 38.0, 64.0]
@@ -561,21 +593,34 @@ def backward_ms(out, inputs, grad, reps: int, warmup: int = 3) -> float:
     return start.elapsed_time(stop) / reps
 
 
-def attention_bound(kind: str, lengths, t: int, dtype, h: int = H):
-    """(ms, 'bytes' | 'operations'): the least time for this data. FLOPs:
-    4 (fwd), 6 (dq) or 8 (dkv) x H*D*sum(len^2) over the dtype's peak.
-    Bytes: the valid rows of each input read once (q, k, v; the backward
-    also dO and the f32 lse and D), every row of each output written once
-    (o and, in training, the f32 lse; dq; dk and dv)."""
+def product_s(flops: float, dtype) -> float:
+    """The least seconds for ``flops`` of matrix products in ``dtype``:
+    bf16 at the tensor cores' peak, float32 as 3xTF32 (3 x FLOPs at the
+    TF32 peak)."""
+    return 3 * flops / PEAK_TF32 if dtype == torch.float32 else flops / PEAK_OPS[dtype]
+
+
+def attention_flops(kind: str, lengths, h: int = H) -> float:
+    """4 (fwd), 6 (dq) or 8 (dkv) x H*D*sum(len^2)."""
     lens = np.asarray(lengths, np.float64)
-    flops = dict(zip(("fwd", "dq", "dkv"), (4, 6, 8)))[kind] * h * D * float((lens**2).sum())
+    return dict(zip(("fwd", "dq", "dkv"), (4, 6, 8)))[kind] * h * D * float((lens**2).sum())
+
+
+def attention_bound(kind: str, lengths, t: int, dtype, h: int = H):
+    """(ms, 'bytes' | 'operations'): the least time for this data. FLOPs
+    (``attention_flops``) as ``product_s`` counts them. Bytes: the valid
+    rows of each input read once (q, k, v; the backward also dO and the f32
+    lse and D), every row of each output written once (o and, in training,
+    the f32 lse; dq; dk and dv)."""
+    lens = np.asarray(lengths, np.float64)
+    flops = attention_flops(kind, lengths, h)
     esz = torch.tensor([], dtype=dtype).element_size()
     valid, rows = lens.sum(), len(lens) * t
     if kind == "fwd":
         nbytes = (3 * valid + rows) * h * D * esz + rows * h * 4
     else:
         nbytes = 4 * valid * h * D * esz + 2 * valid * h * 4 + (rows if kind == "dq" else 2 * rows) * h * D * esz
-    t_ops, t_bytes = flops / PEAK_OPS[dtype], nbytes / PEAK_BYTES
+    t_ops, t_bytes = product_s(flops, dtype), nbytes / PEAK_BYTES
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops > t_bytes else "bytes")
 
 
@@ -625,18 +670,35 @@ def kernel_errors(b, t, lengths, dtype, rate, gen, h: int = H, without_slack: bo
 def attention_pair_errors(q, k, v, lens, rate, seed, do, without_slack: bool = False):
     """``kernel_errors`` on given inputs: the forward (o, lse) and the dq,
     dk/dv pair under the upstream gradient ``do``, each against its plain
-    version."""
+    version; ``repeat``: a second launch of the pair bit-equal to the first
+    (its share 0, else inf); for float32 inputs ``dq_f64``, ``dk_f64`` and
+    ``dv_f64``: (the kernel's ``fa.norm_distance`` from
+    ``fa.attention_bwd_float64``, its share of ``ATTN_F64_FACTOR`` times
+    the plain version's, True)."""
     o, lse = fa.flash_attention_fwd(q, k, v, lens, rate, seed, return_lse=True)
     want_o, want_lse = fa.flash_attention_plain(q, k, v, lens, rate, seed, return_lse=True)
     errors = {"o": attention_error(o, want_o, lens), "lse": lse_error(lse, want_lse, lens)}
     args = (q, k, v, do, lse, fa.attention_delta(o, do), lens, rate, seed)
-    dq = fa.flash_attention_bwd_dq(*args)
-    dk, dv = fa.flash_attention_bwd_dkv(*args)
+    grads = (fa.flash_attention_bwd_dq(*args), *fa.flash_attention_bwd_dkv(*args))
+    plain = fa.flash_attention_bwd_plain(*args)
     slack = (None, *fa.backward_rounding_slack(*args))
-    for grad, got, want, extra in zip(("dq", "dk", "dv"), (dq, dk, dv), fa.flash_attention_bwd_plain(*args), slack):
+    for grad, got, want, extra in zip(("dq", "dk", "dv"), grads, plain, slack):
         errors[grad] = attention_error(got, want, lens, backward=True, slack=extra)
         if without_slack and grad != "dq":
             errors[f"{grad}_without_slack"] = attention_error(got, want, lens, backward=True)
+    again = (fa.flash_attention_bwd_dq(*args), *fa.flash_attention_bwd_dkv(*args))
+    diff = max(float((a.float() - b.float()).abs().max()) if a.numel() else 0.0 for a, b in zip(again, grads))
+    errors["repeat"] = (diff, 0.0 if all(map(torch.equal, again, grads)) else float("inf"), True)
+    if q.dtype == torch.float32:
+        readings = []
+        for grad, got, want, exact in zip(("dq", "dk", "dv"), grads, plain, fa.attention_bwd_float64(*args)):
+            got_d, plain_d = fa.norm_distance(got, exact), fa.norm_distance(want, exact)
+            limit = ATTN_F64_FACTOR * plain_d
+            errors[f"{grad}_f64"] = (got_d, got_d / limit if limit > 0 else (0.0 if got_d == 0 else float("inf")),
+                                     True)
+            readings.append(f"{grad} {got_d:.3e} (plain {plain_d:.3e})")
+        print(f"float64 distance B={q.shape[0]} T={q.shape[1]} H={q.shape[2]} rate {rate}: kernel "
+              + ", ".join(readings), flush=True)
     return errors, args, o
 
 
@@ -694,6 +756,8 @@ def attention_rows(tag, errors, args, common):
     }
     for kernel, kind in zip(rows, ("fwd", "dq", "dkv")):
         rows[kernel]["bound_ms"], rows[kernel]["bound_by"] = attention_bound(kind, lengths, t, dtype, h)
+        if dtype == torch.float32:  # the products at the SIMT float32 peak, beside the 3xTF32 bound
+            rows[kernel]["simt_ms"] = 1e3 * attention_flops(kind, lengths, h) / PEAK_OPS[torch.float32]
         print("kernel", kernel, json.dumps(rows[kernel]), flush=True)
     pair = rows["flash_attention_bwd_dq"]["ms"] + rows["flash_attention_bwd_dkv"]["ms"]
     print(f"backward pair {tag}: dq + dk/dv {pair:.4f} ms, SDPA backward {lib_bwd:.4f} ms "
@@ -728,7 +792,7 @@ def conv_stack_inputs(cfg, b, dtype, gen):
 
 def conv_bound(layers):
     """(ms, 'bytes' | 'operations', GFLOP, MB): per layer the larger of
-    2 B T_out k C^2 FLOPs over the peak of the type and x, w, the f32
+    2 B T_out k C^2 FLOPs as ``product_s`` counts them and x, w, the f32
     bias and LN parameters and y moved once over the memory rate, summed
     over the layers (one launch each)."""
     total, t_ops_all, t_bytes_all, flops_all, bytes_all = 0.0, 0.0, 0.0, 0.0, 0.0
@@ -739,7 +803,7 @@ def conv_bound(layers):
         esz = x.element_size()
         flops = 2.0 * b * t_out * k * c * c
         nbytes = esz * (b * t_in * c + k * c * c + b * t_out * c) + 4 * c * sum(e is not None for e in extra)
-        t_ops, t_bytes = flops / PEAK_OPS[x.dtype], nbytes / PEAK_BYTES
+        t_ops, t_bytes = product_s(flops, x.dtype), nbytes / PEAK_BYTES
         total += max(t_ops, t_bytes)
         t_ops_all, t_bytes_all = t_ops_all + t_ops, t_bytes_all + t_bytes
         flops_all, bytes_all = flops_all + flops, bytes_all + nbytes
@@ -800,6 +864,8 @@ def check_conv(name, layers) -> dict:
                                warmup=1),
            "library_ms": cuda_ms(conv_library_call(layers), 10),
            "bound_ms": bound_ms, "bound_by": bound_by}
+    if dtype == torch.float32:  # the products at the SIMT float32 peak, beside the 3xTF32 bound
+        row["simt_ms"] = 1e3 * gflop * 1e9 / PEAK_OPS[torch.float32]
     print("kernel conv_encoder", json.dumps(row), flush=True)
     return row
 
@@ -969,21 +1035,26 @@ def build_phase() -> None:
 
 def kernel_phase() -> dict:
     """Phase 3; returns the rows of the LARGE training shapes (attention
-    B=48, H=16, bf16, rate 0.1; the conv over layers 1-6 at B=48, bf16)."""
+    B=48, H=16, bf16, rate 0.1; the conv over layers 1-6 at B=48, bf16),
+    and under the names of ``KERNELS_F32`` the float32 attention rows at
+    BASE's training shape, rate 0.1, and the float32 conv at LARGE's."""
     gen = torch.Generator(device="cuda").manual_seed(0)
+    rows = {}
     for name, b, t, lengths in ATTN_SHAPES:
         for dtype in (torch.float32, torch.bfloat16):
             for rate in RATES:
-                check_kernels(name, b, t, lengths, dtype, rate, gen)
-    main = check_kernels("large_train_3s", LARGE_BATCH, 149, [149] * LARGE_BATCH, torch.bfloat16,
-                         0.1, gen, h=H_LARGE)
+                got = check_kernels(name, b, t, lengths, dtype, rate, gen)
+                if (name, dtype, rate) == ("train_3s", torch.float32, 0.1):
+                    rows.update({f"{kernel}_f32": row for kernel, row in got.items()})
+    rows.update(check_kernels("large_train_3s", LARGE_BATCH, 149, [149] * LARGE_BATCH, torch.bfloat16,
+                              0.1, gen, h=H_LARGE))
     for dtype in (torch.float32, torch.bfloat16):
         check_conv("ragged_short", [conv_inputs(2, t_in, 512, k, True, dtype, gen)
                                     for t_in, k in CONV_RAGGED])
         check_conv("base_train_3s", conv_stack_inputs(BASE_CONFIG, 66, dtype, gen))
         large = check_conv("large_train_3s", conv_stack_inputs(LARGE_CONFIG, LARGE_BATCH, dtype, gen))
-    main["conv_encoder"] = large  # bf16, the training main path's type
-    return main
+        rows["conv_encoder" if dtype == torch.bfloat16 else "conv_encoder_f32"] = large
+    return rows
 
 
 def serving_phase(card: str) -> None:
@@ -1061,14 +1132,16 @@ WATCHED = ("head.fc_out.weight", "aam.weights", "wav2vec2.encoder.layers.0.atten
 
 
 def train_phase(card: str, make_entry=train_entry, label: str = "train",
-                conv_per_step: int = 0) -> dict:
-    """Phases 6 and 10: warm-up, then ``TRAIN_DISPATCHES`` timed dispatches
+                conv_per_step: int = 0, dispatches: int = TRAIN_DISPATCHES, after=None) -> dict:
+    """Phases 6, 10 and 40: warm-up, then ``dispatches`` timed dispatches
     of ``make_entry()``'s step; each attention kernel launched once per kept
     layer (the forward twice where the recipe rematerialises its layers:
     the LARGE recipe's ``trainer.remat``) and the conv kernel
-    ``conv_per_step`` times in every step. Returns each kernel's launches
-    over the timed steps."""
+    ``conv_per_step`` times in every step; ``after(step, state, batch)``
+    runs before the peak-memory step. Returns each kernel's launches over
+    the timed steps."""
     step, (state, batch) = make_entry()
+    precision = "bf16 autocast" if state.model.cfg.w2v2.dtype == "bfloat16" else "float32"
     fwd_per_layer = 2 if state.model.wav2vec2.encoder.remat else 1
     b = batch["labels"].shape[1]
     steps = batch["labels"].shape[0]
@@ -1084,7 +1157,7 @@ def train_phase(card: str, make_entry=train_entry, label: str = "train",
     losses, kept, accuracy = [], [], []
     start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
-    for _ in range(TRAIN_DISPATCHES):
+    for _ in range(dispatches):
         state, metrics = step(state, batch)
         kept += metrics["layers_run"].tolist()
         losses.append(metrics["loss"])
@@ -1099,7 +1172,7 @@ def train_phase(card: str, make_entry=train_entry, label: str = "train",
         want = {**{k: run for k in ATTENTION}, "flash_attention_fwd": fwd_per_layer * run,
                 "conv_encoder": conv_per_step}
         assert got == want, f"{label}: a step kept {run} layers, launched {got}"
-    n_steps = TRAIN_DISPATCHES * steps
+    n_steps = dispatches * steps
     ms = start.elapsed_time(stop) / n_steps
     losses = torch.cat(losses).cpu()
     accuracy = torch.cat(accuracy).cpu()
@@ -1110,12 +1183,14 @@ def train_phase(card: str, make_entry=train_entry, label: str = "train",
     assert all(v > 0 for v in moved.values()), f"{label}: parameters did not move: {moved}"
     print(f"{label} layers kept per step {kept}; launches per step "
           f"{[list(c.values()) for c in per_step]} (fwd, dq, dk/dv, conv); total {total}", flush=True)
+    if after is not None:
+        after(step, state, batch)
     torch.cuda.reset_peak_memory_stats()
     step(state, batch)
     torch.cuda.synchronize()
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     remat = "on (full recompute)" if fwd_per_layer == 2 else "off"
-    print(f"{label} main_path B={b} x {SAMPLES} bf16 autocast, remat {remat}: {ms:.3f} ms/step, "
+    print(f"{label} main_path B={b} x {SAMPLES} {precision}, remat {remat}: {ms:.3f} ms/step, "
           f"{b / ms * 1e3:.1f} utt/s, peak {peak_gib:.2f} GiB, loss {losses[0]:.4f} -> "
           f"{losses[-1]:.4f}, accuracy {accuracy.tolist()}, max param change {moved} [{card}]",
           flush=True)
@@ -1141,11 +1216,12 @@ def worst_grad_error(card_model, cpu_model) -> tuple:
     return worst, worst_name
 
 
-def f32_train_phase(cfg=None, label: str = "BASE", conv_launches: int = 0) -> None:
+def f32_train_phase(cfg=None, label: str = "BASE", conv_launches: int = 0) -> dict:
     """Phases 7 and 11: one float32 step of the recipe ``cfg`` cut to 2
     layers, card against CPU, same weights and step generator seed,
     dropout, layerdrop and SpecAugment on; the card step launches the conv
-    kernel ``conv_launches`` times. ``cfg`` None is ``speaker_wav2vec2_ce``."""
+    kernel ``conv_launches`` times. ``cfg`` None is ``speaker_wav2vec2_ce``.
+    Returns the card step's launches."""
     cfg = load_recipe("speaker_wav2vec2_ce") if cfg is None else cfg
     state, task = build_train_state(torch.device("cuda"), "f32", cfg, seed=1, num_layers=2)
     cpu_model = copy.deepcopy(state.model).cpu()
@@ -1160,7 +1236,8 @@ def f32_train_phase(cfg=None, label: str = "BASE", conv_launches: int = 0) -> No
     reset_launches()
     _, on_card = make_train_step(task)(state, {k: v.cuda() for k, v in batch.items()})
     torch.cuda.synchronize()
-    card_launches = launches()["conv_encoder"]
+    step_launches = launches()
+    card_launches = step_launches["conv_encoder"]
     _, on_cpu = make_train_step(cpu_task)(cpu_state, batch)
     loss_rel = abs(float(on_card["loss"]) - float(on_cpu["loss"])) / abs(float(on_cpu["loss"]))
     worst, worst_name = worst_grad_error(state.model, cpu_model)
@@ -1171,6 +1248,7 @@ def f32_train_phase(cfg=None, label: str = "BASE", conv_launches: int = 0) -> No
     assert on_card["layers_run"] == on_cpu["layers_run"]
     assert card_launches == conv_launches, f"f32 {label} step: {card_launches} conv launches"
     assert loss_rel < F32_REL_TOL and worst < F32_REL_TOL, f"f32 {label} train step: card vs cpu differ"
+    return step_launches
 
 
 def overfit_losses(lr: float, seed: int = 2) -> list:
@@ -4580,6 +4658,75 @@ def ctc_deterministic_phase(card: str, tmp: pathlib.Path, wav_dir, trials, shard
           + "; ".join(report) + f" [{card}]", flush=True)
 
 
+# ------------------------------------------------ 40: the float32 BASE training path
+F32_DISPATCHES = 2  # timed dispatches of the recipe's 4 steps
+
+
+def layer0_backward(step, state, batch) -> dict:
+    """One more dispatch of ``step`` with layer 0's attention backward
+    recorded: q, k, v, its upstream gradient, lengths, rate and seed from
+    the dispatch's last step that kept layer 0 (its q is the first view of
+    that layer's fused projection, whose output a forward hook notes)."""
+    attn = state.model.wav2vec2.encoder.layers[0].attention
+    noted, kept = {}, {}
+    bwd = fa.flash_attention_bwd
+
+    def note(module, args, out):
+        if torch.is_grad_enabled():
+            noted["ptr"] = out.data_ptr()
+
+    def record(q, k, v, o, do, lse, lengths=None, dropout_rate=0.0, seed=None, coords=(0, 0, 0)):
+        if q.data_ptr() == noted.get("ptr"):
+            kept.update(q=q, k=k, v=v, do=do.to(q.dtype).contiguous(), lengths=lengths, rate=dropout_rate,
+                        seed=seed)
+        return bwd(q, k, v, o, do, lse, lengths, dropout_rate, seed, coords)
+
+    handle = attn.qkv_proj.register_forward_hook(note)
+    fa.flash_attention_bwd = record
+    try:
+        step(state, batch)
+        torch.cuda.synchronize()
+    finally:
+        fa.flash_attention_bwd = bwd
+        handle.remove()
+    assert kept, "no step of the dispatch kept layer 0"
+    return kept
+
+
+def f32_recipe_phase(card: str) -> dict:
+    """Phase 40: ``speaker_wav2vec2_ce`` with ``trainer.precision=f32`` at
+    full BASE width through the recipe entry (``_recipe_entry``, B=66 x
+    ``SAMPLES``, 4 steps a dispatch): ``train_phase``'s warm-up, then
+    ``F32_DISPATCHES`` timed dispatches, each float32 attention kernel
+    launched once a kept layer in every step (no conv kernel: BASE takes
+    cuDNN's route), finite losses, the parameters moved, ms/step, peak
+    memory and one profiled dispatch's device ms by category (the attention
+    backward's among them); then layer 0's q/k/v and upstream gradient from
+    a training step through the forward and the dq + dk/dv pair against
+    their plain versions, repeated bit for bit and within the float64 rule.
+    Returns each kernel's launches over the timed steps."""
+    cfg = load_recipe("speaker_wav2vec2_ce", ["trainer.precision=f32"])
+    checked = {}
+
+    def check(step, state, batch):
+        rec = layer0_backward(step, state, batch)
+        lens = rec["lengths"]
+        b, t = rec["q"].shape[:2]
+        lens = torch.full((b,), t, dtype=torch.int32, device="cuda") if lens is None else lens
+        errors, _, _ = attention_pair_errors(rec["q"], rec["k"], rec["v"], lens, rec["rate"], rec["seed"],
+                                             rec["do"])
+        for out, (err, share, zeros) in errors.items():
+            assert share <= 1 and zeros, f"f32 train attention {out}: err {err}, {share:.3f} of the limit"
+        checked["summary"] = (f"layer 0 B={b} T={t} float32 rate {rec['rate']} seed {rec['seed']}, the step's "
+                              "own upstream gradient: " + ", ".join(
+                                  f"{out} {share:.3f}" for out, (_, share, _) in errors.items()) + " of the limits")
+
+    total = train_phase(card, lambda: _recipe_entry(cfg, None, 66, SAMPLES), "f32 train",
+                        dispatches=F32_DISPATCHES, after=check)
+    print(f"f32 train attention vs plain: {checked['summary']} [{card}]", flush=True)
+    return total
+
+
 class Lap:
     """Prints the wall seconds (host clock) since the last lap under a
     phase's label, so that a run near its time limit shows where the time
@@ -4620,7 +4767,7 @@ def main() -> None:
     train_launches = train_phase(card, large_train_entry, "large train", conv_per_step=6)  # 10
     lap("10")
     large = load_recipe("speaker_wav2vec2_large_aam", ["network.conv_impl=fused_pallas"])
-    f32_train_phase(large, "LARGE", conv_launches=6)  # 11
+    f32_launches = f32_train_phase(large, "LARGE", conv_launches=6)  # 11
     lap("11")
     with tempfile.TemporaryDirectory() as tmp:
         tmp = pathlib.Path(tmp)
@@ -4676,13 +4823,19 @@ def main() -> None:
         ctc_deterministic_phase(card, tmp, wav_dir, trials, shards)  # 39 (b)
         lap("39 b")
         path_launches.update(MEASURED["speech_ctc_launches"])
+    f32_path = f32_recipe_phase(card)  # 40
+    lap("40")
+    path_launches.update({f"{name}_f32": n for name, n in f32_path.items() if name in ATTENTION})
+    path_launches["conv_encoder_f32"] = f32_launches["conv_encoder"]
 
-    # 40. kernels line, card line, result line: the attention kernels' and
+    # 41. kernels line, card line, result line: the attention kernels' and
     # the conv's launches from the LARGE training run (phase 10), the int8
     # kernels' from the LARGE int8 predict run (phase 34), the CTC kernels'
-    # from the speech run (phase 16)
+    # from the speech run (phase 16); the float32 attention kernels' from
+    # the float32 BASE training run (phase 40), the float32 conv's from the
+    # float32 LARGE step (phase 11)
     kernels = []
-    for name, source, replaces in KERNELS:
+    for name, source, replaces in KERNELS + KERNELS_F32:
         row = main_rows[name]
         assert path_launches[name] > 0, f"{name} was not launched on its main path"
         kernels.append({

@@ -2,7 +2,9 @@
 the attention forward (inference path, and with the LSE and dropout), the
 dq and dk/dv backward kernels (in bf16 also at the shapes that stress the
 K/V pipeline: LARGE's 16 heads, a key tile of one valid key, long rows
-whose ring wraps), the fused strided conv (f32 and bf16,
+whose ring wraps; in float32 also against a float64 evaluation, two
+launches bit-equal, and on row and head blocks bit-equal to the global
+launch), the fused strided conv (f32 and bf16,
 ragged last tiles, bias + LayerNorm, with and without GELU, and its
 autograd Function), the int8 row quantize and GEMM (bit-equal to their
 plain versions, ragged M, N and K, each tile width of the GEMM's launch
@@ -204,6 +206,64 @@ def test_autograd_through_the_kernels(cuda):
     args = (q, k, v, do, lse, fa.attention_delta(o, do), lens, 0.1, 5)
     for g, w, slack in zip(got, fa.flash_attention_bwd_plain(*args), (None, *fa.backward_rounding_slack(*args))):
         _close(g, w, valid, backward=True, slack=slack)
+
+
+# the float32 dq and dk/dv kernels (3xTF32 wgmma): (T, lengths, H), lengths
+# 0, 1, 64 and 65 (a key tile of one valid key), long rows, LARGE's heads
+F32_BWD_CASES = [
+    (149, [149, 64, 0], 2), (129, [129, 65, 1], 2), (65, [65, 64, 1], 16), (1100, [1100, 1037], 2),
+]
+# each float32 output's distance from the float64 evaluation (norm of the
+# error over the norm) at most this many times the plain float32 version's
+# (chip_smoke.ATTN_F64_FACTOR)
+F64_FACTOR = 4.0
+
+
+def _f32_backward(cuda, t, lengths, h, rate, seed):
+    q, k, v, do, lens, valid = _inputs(cuda, torch.float32, t, lengths, seed, h)
+    o, lse = fa.flash_attention_fwd(q, k, v, lens, rate, 29 if rate else None, return_lse=True)
+    args = (q, k, v, do, lse, fa.attention_delta(o, do), lens, rate, 29 if rate else None)
+    return args, valid
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("t, lengths, h", F32_BWD_CASES)
+def test_f32_backward_kernels_keep_float32_accuracy(cuda, t, lengths, h, rate):
+    """The float32 dq and dk/dv kernels against the plain version (within
+    fa.kernel_tolerance, rows past the length exactly 0), against a
+    float64 evaluation of the same formulas (within F64_FACTOR times the
+    plain version's distance: 1xTF32 products would miss it), and against
+    themselves (two launches bit-equal)."""
+    args, valid = _f32_backward(cuda, t, lengths, h, rate, t + h)
+    before = (fa.flash_attention_bwd_dq.launches, fa.flash_attention_bwd_dkv.launches)
+    got = (fa.flash_attention_bwd_dq(*args), *fa.flash_attention_bwd_dkv(*args))
+    again = (fa.flash_attention_bwd_dq(*args), *fa.flash_attention_bwd_dkv(*args))
+    torch.cuda.synchronize()
+    assert (fa.flash_attention_bwd_dq.launches, fa.flash_attention_bwd_dkv.launches) == (
+        before[0] + 2, before[1] + 2)
+    for name, g, a, want, exact in zip(("dq", "dk", "dv"), got, again, fa.flash_attention_bwd_plain(*args),
+                                       fa.attention_bwd_float64(*args)):
+        _close(g, want, valid, backward=True)
+        assert torch.equal(g, a), f"{name}: two launches differ"
+        kernel_d, plain_d = fa.norm_distance(g, exact), fa.norm_distance(want, exact)
+        assert kernel_d <= F64_FACTOR * plain_d, f"{name}: {kernel_d:.3e} from float64, plain {plain_d:.3e}"
+
+
+@pytest.mark.parametrize("t, lengths, h", [(149, [149, 64, 0, 65], 16), (1100, [1100, 1037, 1, 700], 4)])
+def test_f32_backward_kernels_on_row_and_head_blocks(cuda, t, lengths, h):
+    """At rate 0.1, the float32 dq and dk/dv kernels on a block of rows and
+    on a block of heads, at their global coordinates, give the bits of the
+    same rows and heads of the global launch."""
+    args, _ = _f32_backward(cuda, t, lengths, h, 0.1, t)
+    q, k, v, do, lse, delta, lens, rate, seed = args
+    want = (fa.flash_attention_bwd_dq(*args), *fa.flash_attention_bwd_dkv(*args))
+    b0, h0 = len(lengths) // 2, h // 2
+    for rows, heads, coords in ((slice(b0, None), slice(None), (b0, 0, 0)), (slice(None), slice(h0, None), (0, h0, h))):
+        block = (*(x[rows, :, heads] for x in (q, k, v, do)), *(x[rows, heads].contiguous() for x in (lse, delta)),
+                 lens[rows], rate, seed)
+        got = (fa.flash_attention_bwd_dq(*block, coords=coords), *fa.flash_attention_bwd_dkv(*block, coords=coords))
+        for g, w in zip(got, want):
+            assert torch.equal(g, w[rows, :, heads]), f"block {coords} differs from the global launch"
 
 
 # the fused strided conv (csrc/conv_encoder.cu): (B, T_in, C, k, bias + LN)

@@ -1,9 +1,10 @@
 """Where the planted faults of ``tools/torch_fault_probe.py`` land in the
 kernel sources: every edit's text occurs in its source, and each mutant
 changes the bf16 path (the main path's kernel, its launch code or a helper
-it calls) as well as the f32 kernel. The probe itself needs the
-card; this reads the sources only, and runs the dv bisection's one-flip
-analysis on the plain version."""
+it calls) as well as the f32 kernel; the mutants planted in the f32
+backward kernels alone (``f32_*``) change both of them. The probe itself
+needs the card; this reads the sources only, and runs the dv bisection's
+one-flip analysis on the plain version."""
 
 import importlib.util
 import pathlib
@@ -71,6 +72,19 @@ def test_mutant_reaches_the_bf16_and_f32_kernels(name):
         bodies = _path(src, roots)
         assert any(old in body for old, _ in edits for body in bodies), (
             f"{name} leaves {'/'.join(roots)} unchanged")
+
+
+@pytest.mark.parametrize("name", sorted(n for n in MUTANTS if n.startswith("f32_")))
+def test_f32_mutant_reaches_both_f32_backward_kernels(name):
+    source, edits = MUTANTS[name]
+    assert source == "flash_attention_bwd" and name in PROBE.F32_MUTANTS
+    src = (CSRC / f"{source}.cu").read_text()
+    for kernel in ("dq_f32_kernel", "dkv_f32_kernel"):
+        bodies = _path(src, (kernel,))
+        assert any(old in body for old, _ in edits for body in bodies), f"{name} leaves {kernel} unchanged"
+    for kernel in ("dq_bf16_kernel", "dkv_bf16_kernel"):
+        bodies = _path(src, (kernel,))
+        assert not any(old in body for old, _ in edits for body in bodies), f"{name} changes {kernel}"
 
 
 def test_one_flip_finds_the_p_whose_rounding_moved_dv():

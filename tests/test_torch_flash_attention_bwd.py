@@ -77,3 +77,36 @@ def test_grad_or_dropout_route_through_the_function():
     assert type(port.flash_attention(qg, q, q).grad_fn).__name__ == "FlashAttentionFunctionBackward"
     with torch.no_grad():
         assert port.flash_attention(qg, q, q).grad_fn is None
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_float64_evaluation_matches_jax_vjp_and_bounds_the_plain_backward(rate):
+    """``attention_bwd_float64`` (the yardstick of the float32 kernels'
+    accuracy) against ``jax.vjp`` of the JAX package's Pallas kernels in
+    interpret mode at the JAX tests' float32 limits, rows past the length
+    exactly 0; the plain float32 backward lies within 1e-5 of it (norm of
+    the error over the norm), and an output rounded to tf32 (~3 decimal
+    digits) far outside that."""
+    t, lengths = 100, [100, 64, 1]
+    b = len(lengths)
+    q, k, v, g = _inputs(b, t, seed=3)
+    valid = np.arange(t)[None, :] < np.asarray(lengths)[:, None]
+    kw = dict(block_q=128, block_k=128, interpret=True, dropout_rate=rate,
+              dropout_seed=jnp.asarray([SEED], jnp.int32) if rate else None)
+    _, vjp = jax.vjp(lambda *a: flash_attention_kernel(*a, jnp.asarray(valid), **kw),
+                     *(jnp.asarray(x) for x in (q, k, v)))
+    want = [np.asarray(x) for x in vjp(jnp.asarray(g))]
+
+    tq, tk, tv, tg = (torch.from_numpy(x) for x in (q, k, v, g))
+    lens = torch.tensor(lengths, dtype=torch.int32)
+    seed = SEED if rate else None
+    o, lse = port.flash_attention_fwd(tq, tk, tv, lens, rate, seed, return_lse=True)
+    args = (tq, tk, tv, tg, lse, port.attention_delta(o, tg), lens, rate, seed)
+    exact = port.attention_bwd_float64(*args)
+    for name, e, w, plain in zip(("dq", "dk", "dv"), exact, want, port.flash_attention_bwd_plain(*args)):
+        assert e.dtype == torch.float64
+        np.testing.assert_allclose(e.numpy(), w, rtol=RTOL, atol=ATOL, err_msg=name)
+        assert np.all(e.numpy()[~valid] == 0.0)
+        assert port.norm_distance(plain, e) < 1e-5, name
+        tf32 = (plain.view(torch.int32) & ~0x1FFF).view(torch.float32)  # 10 mantissa bits kept
+        assert port.norm_distance(tf32, e) > 100 * port.norm_distance(plain, e), name

@@ -21,7 +21,11 @@ first reading sits well under it and the second well over it.
   boundary handling (no key mask, and the boundary tile loaded up to T
   instead of the length: with the tile's keys past the length
   zero-filled, as the built kernel loads them, a missing mask alone
-  changes no dq, since those keys' rows of K are 0).
+  changes no dq, since those keys' rows of K are 0). Planted in the f32
+  kernels alone: the 3xTF32 products without their lo terms, and the
+  transposed staging tiles misindexed. In float32 each reading also holds
+  dq, dk and dv to the float64 rule and two launches to the same bits
+  (``chip_smoke.attention_pair_errors``).
 - The fused conv vs its plain version (``chip_smoke.conv_errors``: the
   share of ``ce.kernel_tolerance`` used by the worst element over the
   layers), at ``chip_smoke``'s ragged short inputs and the BASE (B=66) and
@@ -48,6 +52,12 @@ Prints one JSON line per reading. Needs ``nvcc`` and one card.
     python3 tools/torch_fault_probe.py --attention
 
 reads only the attention kernels, as built and for their mutants.
+
+    python3 tools/torch_fault_probe.py --f32
+
+reads only the float32 backward kernels (dq, dk/dv), as built (seeds 0-3)
+and for ``F32_MUTANTS``: the kernel limits, the float64 rule
+(``chip_smoke.ATTN_F64_FACTOR``) and the repeat check (~5 min).
 
     python3 tools/torch_fault_probe.py --families
 
@@ -90,6 +100,10 @@ from w2v2_speaker_tpu_torch.ops import flash_attention as fa  # noqa: E402
 from w2v2_speaker_tpu_torch.runtime.predict import extract_embeddings  # noqa: E402
 
 SEEDS = tuple(range(8))
+# the mutants that ``--f32`` reads: those planted in the float32 backward
+# kernels
+F32_MUTANTS = ("dkv_no_keep_mask_on_dp", "dkv_dk_not_divided_by_log2e", "dq_no_boundary_mask",
+               "f32_products_without_lo_terms", "f32_transposed_tile_misindexed")
 DIR_SHAPE = "ragged_30s"
 # (source, [(old, new)]): each old text must occur in the source; every
 # occurrence is replaced. Every mutant plants its fault in both the bf16
@@ -113,12 +127,10 @@ MUTANTS = {
         ("        rs += s[jj];\n", "        rs += kDrop ? p.drop.apply(s[jj], dbh, row, k0 + j0 + jj) : s[jj];\n"),
     ]),
     "dkv_no_keep_mask_on_dp": ("flash_attention_bwd", [
-        ("          dpv = kp ? dpv * p.drop.inv_keep : 0.f;\n", ""),
-        ("        dp = kp ? dp * p.drop.inv_keep : 0.f;\n", ""),
+        ("          dpv = kp ? dpv * p.drop.inv_keep : 0.f;\n", ""),  # the bf16 and the f32 kernel
     ]),
     "dkv_dk_not_divided_by_log2e": ("flash_attention_bwd", [
-        (" / kLog2e : 0.f", " : 0.f"),
-        ("acc_k[d] /= kLog2e;", ""),
+        (" / kLog2e : 0.f", " : 0.f"),  # the bf16 and the f32 kernel
     ]),
     "dq_no_boundary_mask": ("flash_attention_bwd", [
         ("const bool valid = live && rv[r] && (!boundary || key < len);", "const bool valid = live && rv[r];"),
@@ -126,10 +138,26 @@ MUTANTS = {
          "cp_async_tile(dst, kg + k0 * p.k_st, p.k_st, p.T - k0, tid);"),
         ("cp_async_tile(dst + kTileBytes, vg + k0 * p.v_st, p.v_st, len - k0, tid);",
          "cp_async_tile(dst + kTileBytes, vg + k0 * p.v_st, p.v_st, p.T - k0, tid);"),
-        ("    const int n_valid = min(kBlockK, len - k0);\n    __syncthreads();\n"
-         "    load_tile_f32(k_s,",
-         "    const int n_valid = min(kBlockK, p.T - k0);\n    __syncthreads();\n"
-         "    load_tile_f32(k_s,"),
+        ("const bool valid = rv[r] && (!boundary || key < len);", "const bool valid = rv[r];"),
+        ("cp_async_tile_f32(land, kg + k0 * p.k_st, p.k_st, len - k0, tid);",
+         "cp_async_tile_f32(land, kg + k0 * p.k_st, p.k_st, p.T - k0, tid);"),
+        ("cp_async_tile_f32(land + kF32Tile, vg + k0 * p.v_st, p.v_st, len - k0, tid);",
+         "cp_async_tile_f32(land + kF32Tile, vg + k0 * p.v_st, p.v_st, p.T - k0, tid);"),
+    ]),
+    # f32 only: the products in 1xTF32 (every lo part 0: ~3 decimal
+    # digits, which kernel_tolerance can pass on short rows and the float64
+    # rule should not), and the transposed staging tiles (K^T, qs^T, dO^T)
+    # filled from the even rows alone (every odd position reads the row
+    # before it)
+    "f32_products_without_lo_terms": ("flash_attention_bwd", [
+        ("    *reinterpret_cast<float4*>(lo + at) = l;",
+         "    *reinterpret_cast<float4*>(lo + at) = make_float4(0.f, 0.f, 0.f, 0.f);"),
+        ("    *reinterpret_cast<float4*>(lo_t + at) = make_float4(l[0], l[1], l[2], l[3]);",
+         "    *reinterpret_cast<float4*>(lo_t + at) = make_float4(0.f, 0.f, 0.f, 0.f);"),
+        ("      a_lo[s][j] = __float_as_uint(tf32_round(v - h));", "      a_lo[s][j] = 0u;"),
+    ]),
+    "f32_transposed_tile_misindexed": ("flash_attention_bwd", [
+        ("const int r0 = 8 * (q >> 1) + (q & 1);", "const int r0 = 8 * (q >> 1);"),
     ]),
     "conv_ln_no_mean_subtraction": ("conv_encoder", [
         ("  return (v - mean) * rstd * s + lb;", "  return v * rstd * s + lb;"),
@@ -364,9 +392,11 @@ def main() -> None:
     if sys.argv[1:2] == ["--families"]:
         family_readings()
         return
-    attention_only = sys.argv[1:2] == ["--attention"]
+    f32_only = sys.argv[1:2] == ["--f32"]
+    attention_only = f32_only or sys.argv[1:2] == ["--attention"]
     _build.build_all(chip_smoke.KERNEL_SOURCES)
-    kernel_readings("as_built", SEEDS)
+    kernel_readings("as_built", SEEDS[:4] if f32_only else SEEDS, (torch.float32,) if f32_only else
+                    (torch.float32, torch.bfloat16))
     if not attention_only:
         conv_readings("as_built", SEEDS[:4])
     with tempfile.TemporaryDirectory() as tmp:
@@ -376,10 +406,11 @@ def main() -> None:
                     continue
                 build_mutant(name, pathlib.Path(tmp))
                 conv_readings(name, SEEDS[:1])
-            else:
+            elif not f32_only or name in F32_MUTANTS:
                 build_mutant(name, pathlib.Path(tmp))
                 kernel_readings(name, SEEDS[:1], (torch.float32,))
-                kernel_readings(name, SEEDS, (torch.bfloat16,))
+                if not name.startswith("f32_"):
+                    kernel_readings(name, SEEDS, (torch.bfloat16,))
             fa._fwd_fn = fa._bwd_fns = ce._fn = None  # the kernels as built again
     if not attention_only:
         padding_readings()

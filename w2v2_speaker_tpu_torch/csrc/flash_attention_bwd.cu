@@ -18,11 +18,13 @@
 // D = 64 read through element strides; lse, D f32 [B*H, T]; dq, dk, dv
 // contiguous [B, T, H, D].
 //
-// Bound (H100 SXM: 989 TFLOP/s bf16, 67 TFLOP/s f32 outside the tensor
-// cores, 3.35 TB/s): dq 6 and dk/dv 8 x H * D * sum_b len_b^2 FLOPs; bytes
-// the valid rows of the inputs read once, the outputs written once. At the
-// training shape (B=66, T=149, bf16) both are bound by bytes (~0.02 ms);
-// at 30 s and longer by operations.
+// Bound (H100 SXM: 989 TFLOP/s bf16, 495 TF32, 3.35 TB/s): dq 6 and dk/dv 8
+// x H * D * sum_b len_b^2 FLOPs, in f32 three TF32 products each (3xTF32,
+// below: the least work that keeps f32 accuracy on the tensor cores, so 3 x
+// FLOPs / 495 TFLOP/s); bytes the valid rows of the inputs read once, the
+// outputs written once. At the training shape (B=66, T=149) both are bound
+// by bytes in bf16 (~0.02 ms) and about evenly in f32 (~0.05 ms); at 30 s
+// and longer by operations.
 //
 // Design. Two kernels and no atomics, so the gradients are deterministic.
 // Both bf16 kernels are Hopper designs on 128-byte-swizzled tiles filled by
@@ -57,9 +59,31 @@
 //   as the loop, two blocks share an SM (168 registers, 50 KB of shared
 //   memory), and each tile's dropout hash and exp2 run between its two
 //   pairs of products (their shares are not measured apart).
-// - f32 inputs: scalar f32 FMAs (TF32 would miss the f32 tolerance), two
-//   threads per row, each holding half of d, the dot products completed
-//   with one shuffle.
+// - f32 (redesigned for Hopper; the first version, two threads a row
+//   walking shared tiles with scalar FMAs, ran at 1.3-1.9x SDPA's f32
+//   backward at 3 s and 64 s on an H100 80GB HBM3 at 700 W, PERF.md): the
+//   bf16 designs' products and loops, each product in 3xTF32 on wgmma
+//   m64n64k8 (each float split once into tf32 hi and lo tiles, lo.hi +
+//   hi.lo + hi.hi accumulated in f32). The tensor
+//   cores truncate each k8 step's sum, so every product issues its small
+//   terms before its hi.hi terms, and the products summed over the loop
+//   (dQ, dK, dV) sum each tile apart and add it in registers, rounded to
+//   nearest (PERF.md has their distance from a float64 evaluation beside
+//   the plain f32 version's). tf32 wgmma reads both shared-memory operands
+//   K-major only, so the products that contract over the tile's rows (dQ
+//   += dZ K over keys, dV += P~^T dO and dK += dZ^T qs over queries) take B
+//   from transposed copies K^T, dO^T, qs^T split from the landed tile,
+//   their rows in the order that lets the first product's accumulators,
+//   split in registers, be the A operand unshuffled (split_tile_t). A
+//   64 x 64 float tile is 16 KB, its hi and lo 32 KB: tiles land raw by
+//   cp.async into a landing area (the next tile's while this one computes)
+//   and are split into single-buffered hi/lo tiles, 193 KB (dq) and 226 KB
+//   (dk/dv) of shared memory, one block of 128 threads an SM. With no
+//   second block to fill the gaps, each tile overlaps what it can with its
+//   own products: P (exp2 on the special-function unit) and the dropout
+//   keep bits while dP is in flight, and the next tile's split into the
+//   tiles the running product does not read (dq: K and V under dQ, then
+//   K^T; dk/dv: qs and dO under dV, then qs^T and dO^T).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -396,183 +420,535 @@ __global__ void __launch_bounds__(128) dkv_bf16_kernel(BwdParams p) {
 }
 
 // -------------------------------------------------------------------- f32
-// 128 threads per 64-row tile: thread pairs share a row, each owning 32 of
-// the 64 head dims.
+// 3xTF32 on the tensor cores: each float a = hi + lo with hi = tf32(a) and
+// lo = tf32(a - hi), both exact tf32 values (22 of a's 24 significant bits),
+// and a b = lo_a hi_b + hi_a lo_b + hi_a hi_b (lo_a lo_b, ~2^-22 of |a b|,
+// left out), accumulated in f32.
 
-constexpr int kHalf = kD / 2;
+constexpr int kF32Tile = 64 * kD * 4;   // 16 KB: 64 rows of 64 floats
+constexpr int kF32Half = kF32Tile / 2;  // one 128-byte-swizzled tile of 32 floats a row
+// qs, dO (hi, lo); the K/V landing tiles; K, V, K^T (hi, lo); 1 KB alignment slack
+constexpr int kDqF32Smem = 12 * kF32Tile + 1024;
+// K, V (hi, lo); the q/dO landing tiles; qs, dO, qs^T, dO^T (hi, lo); lse and
+// D landed and in use; 1 KB alignment slack
+constexpr int kDkvF32Smem = 14 * kF32Tile + 4 * kBlockQ * 4 + 1024;
 
-// this thread's half of a row of a [B, T, H, D] f32 tensor (0 past n_rows)
-__device__ __forceinline__ void load_half_row(float x[kHalf], const float* row,
-                                              bool ok, float scale) {
+__device__ __forceinline__ float tf32_round(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
+  return __uint_as_float(r);
+}
+
+// Byte offset of element (row, col) of a 64 x 64 float tile in the wgmma
+// K-major layout: columns 0-31 in the first 8 KB, 32-63 in the second, each
+// a stack of 128-byte swizzled rows.
+__device__ __forceinline__ uint32_t f32_offset(int row, int col) {
+  return (col >> 5) * kF32Half + sw128_offset(row, (col & 31) >> 2) + (col & 3) * 4;
+}
+
+// 64 rows x 64 floats (row stride `st` elements) by cp.async into a tile of
+// that layout; rows >= n_rows (>= 1) zero-filled. Thread tid moves the
+// 16-byte chunks tid + 128 i (row c / 16, floats 4 (c % 16) ...).
+__device__ __forceinline__ void cp_async_tile_f32(uint8_t* dst, const float* src, long long st,
+                                                  int n_rows, int tid) {
 #pragma unroll
-  for (int j = 0; j < kHalf / 4; ++j) {
-    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (ok) v = reinterpret_cast<const float4*>(row)[j];
-    x[4 * j] = v.x * scale;
-    x[4 * j + 1] = v.y * scale;
-    x[4 * j + 2] = v.z * scale;
-    x[4 * j + 3] = v.w * scale;
+  for (int i = 0; i < 8; ++i) {
+    const int c = tid + i * 128;
+    const int r = c >> 4, j = c & 15;
+    const bool ok = r < n_rows;
+    cp_async_16(dst + (j >> 3) * kF32Half + sw128_offset(r, j & 7), ok ? src + r * st + j * 4 : src, ok);
   }
 }
 
-// 64 rows x 64 f32 from global into shared memory (row stride kD), rows >=
-// n_rows zero-filled, each value times `scale`
-__device__ __forceinline__ void load_tile_f32(float* dst, const float* src,
-                                              long long st, int n_rows, int tid,
-                                              float scale) {
-  for (int c = tid; c < 64 * kD / 4; c += 128) {
-    const int r = c / (kD / 4), j = c % (kD / 4);
-    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (r < n_rows) v = reinterpret_cast<const float4*>(src + r * st)[j];
-    reinterpret_cast<float4*>(dst)[c] =
-        make_float4(v.x * scale, v.y * scale, v.z * scale, v.w * scale);
+// The unroll of the splits that run while a product is in flight: two
+// chunks in registers at a time beside the product's operands (8 spilled
+// more and ran slower: PERF.md)
+constexpr int kSplitUnderProduct = 2;
+
+// raw * scale split into the hi and lo tiles, at the same places: the
+// chunks thread tid copied with cp_async_tile_f32 (so no barrier is needed
+// after its own cp_async_wait); kUnroll chunks at a time
+template <int kUnroll = 8>
+__device__ __forceinline__ void split_tile(const uint8_t* raw, uint8_t* hi, uint8_t* lo, float scale,
+                                           int tid) {
+#pragma unroll 1
+  for (int i0 = 0; i0 < 8; i0 += kUnroll)
+#pragma unroll
+  for (int i = i0; i < i0 + kUnroll; ++i) {
+    const int c = tid + i * 128;
+    const int j = c & 15;
+    const uint32_t at = (j >> 3) * kF32Half + sw128_offset(c >> 4, j & 7);
+    float4 x = *reinterpret_cast<const float4*>(raw + at), h, l;
+    x = make_float4(x.x * scale, x.y * scale, x.z * scale, x.w * scale);
+    h = make_float4(tf32_round(x.x), tf32_round(x.y), tf32_round(x.z), tf32_round(x.w));
+    l = make_float4(tf32_round(x.x - h.x), tf32_round(x.y - h.y), tf32_round(x.z - h.z),
+                    tf32_round(x.w - h.w));
+    *reinterpret_cast<float4*>(hi + at) = h;
+    *reinterpret_cast<float4*>(lo + at) = l;
   }
 }
 
-__device__ __forceinline__ float half_dot(const float x[kHalf], const float* y) {
-  float acc = 0.f;
+// raw * scale transposed and split: row d of hi_t / lo_t holds column d of
+// raw, its 64 rows in the order the register A operand of a later product
+// takes them. That operand holds a thread's accumulator columns 2 t4 and
+// 2 t4 + 1 of each 8-column step as its k = t4 and t4 + 4 (wgmma_rs_tf32),
+// so position 8 s + l of a transposed row holds raw row 8 s + 2 (l % 4) +
+// l / 4. Item (d, chunk q of 4 positions) reads raw rows 8 (q / 2) + 2 m +
+// q % 2, m = 0..3, and stores one 16-byte chunk; a warp takes 32 columns d
+// of one chunk q (conflict-free reads along a row, 4-wavefront stores);
+// kUnroll items at a time.
+template <int kUnroll = 8>
+__device__ __forceinline__ void split_tile_t(const uint8_t* raw, uint8_t* hi_t, uint8_t* lo_t,
+                                             float scale, int tid) {
+  const int warp = tid >> 5, lane = tid & 31;
+#pragma unroll 1
+  for (int i0 = 0; i0 < 8; i0 += kUnroll)
 #pragma unroll
-  for (int d = 0; d < kHalf; ++d) acc = fmaf(x[d], y[d], acc);
-  return acc + __shfl_xor_sync(0xffffffffu, acc, 1);
+  for (int i = i0; i < i0 + kUnroll; ++i) {
+    const int item = warp + 4 * i;  // 0..31
+    const int d = lane + 32 * (item & 1), q = item >> 1;
+    const int r0 = 8 * (q >> 1) + (q & 1);
+    float x[4], h[4], l[4];
+#pragma unroll
+    for (int m = 0; m < 4; ++m) {
+      x[m] = *reinterpret_cast<const float*>(raw + f32_offset(r0 + 2 * m, d)) * scale;
+      h[m] = tf32_round(x[m]);
+      l[m] = tf32_round(x[m] - h[m]);
+    }
+    const uint32_t at = (q >> 3) * kF32Half + sw128_offset(d, q & 7);
+    *reinterpret_cast<float4*>(hi_t + at) = make_float4(h[0], h[1], h[2], h[3]);
+    *reinterpret_cast<float4*>(lo_t + at) = make_float4(l[0], l[1], l[2], l[3]);
+  }
 }
 
-__device__ __forceinline__ void store_half_row(float* row, const float x[kHalf],
-                                               float scale) {
-#pragma unroll
-  for (int j = 0; j < kHalf / 4; ++j)
-    reinterpret_cast<float4*>(row)[j] =
-        make_float4(x[4 * j] * scale, x[4 * j + 1] * scale,
-                    x[4 * j + 2] * scale, x[4 * j + 3] * scale);
+// the descriptor of k8 step s (0..7) of a K-major float tile: 32 bytes
+// along the row, the second 8 KB from step 4 on (16-byte units)
+__device__ __forceinline__ uint64_t k8_step(uint64_t desc, int s) {
+  return desc + (s >> 2) * (kF32Half >> 4) + 2 * (s & 3);
 }
 
+// The tensor cores add each k8 step's products to the accumulator and
+// truncate the sum to float32, an error of up to an ulp of the running sum
+// each step. So a 3xTF32 product issues its small terms (lo.hi and hi.lo,
+// ~2^-11 of the result) of all 8 steps first, while the sum is small, then
+// the 8 hi.hi steps: 8 truncations at the result's size instead of 24.
+
+// d (=, where scale_d = 0) + the small terms of k8 step s, A and B K-major
+// tiles (hi and lo descriptors)
+__device__ __forceinline__ void small_ss(float (&d)[32], uint64_t a_hi, uint64_t a_lo, uint64_t b_hi,
+                                         uint64_t b_lo, int s, int scale_d) {
+  wgmma_ss_tf32(d, k8_step(a_lo, s), k8_step(b_hi, s), scale_d);
+  wgmma_ss_tf32(d, k8_step(a_hi, s), k8_step(b_lo, s), 1);
+}
+
+// d = A B over the 8 k8 steps, A from registers (hi, lo), B a K-major tile
+__device__ __forceinline__ void product_rs(float (&d)[32], const uint32_t (&a_hi)[8][4],
+                                           const uint32_t (&a_lo)[8][4], uint64_t b_hi, uint64_t b_lo) {
+#pragma unroll
+  for (int s = 0; s < 8; ++s) {
+    wgmma_rs_tf32(d, a_lo[s], k8_step(b_hi, s), s);
+    wgmma_rs_tf32(d, a_hi[s], k8_step(b_lo, s), 1);
+  }
+#pragma unroll
+  for (int s = 0; s < 8; ++s) wgmma_rs_tf32(d, a_hi[s], k8_step(b_hi, s), 1);
+}
+
+// The register A operands (hi, lo) of the 8 k8 steps of `dQ += dZ K` (or
+// `dV += P~^T dO`, `dK += dZ^T qs`) from the first product's accumulators
+// x: step s's k = t4 is accumulator column 8 s + 2 t4, k = t4 + 4 column
+// 8 s + 2 t4 + 1 (split_tile_t orders B's rows to match); all steps split
+// before the first product
+__device__ __forceinline__ void split_a_operands(uint32_t (&a_hi)[8][4], uint32_t (&a_lo)[8][4],
+                                                 const float (&x)[32]) {
+#pragma unroll
+  for (int s = 0; s < 8; ++s)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float v = x[4 * s + ((j & 1) << 1) + (j >> 1)];  // j = 0..3: e = 0, 2, 1, 3
+      const float h = tf32_round(v);
+      a_hi[s][j] = __float_as_uint(h);
+      a_lo[s][j] = __float_as_uint(tf32_round(v - h));
+    }
+}
+
+// 64 rows of 64 floats of a [B, T, H, D] output from row `row0` set to 0
+// (rows >= T left alone)
+__device__ __forceinline__ void zero_rows_f32(float* out, long long st, int row0, int T, int tid) {
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int c = tid + i * 128;
+    const int r = c >> 4;
+    if (row0 + r < T)
+      *reinterpret_cast<float4*>(out + r * st + (c & 15) * 4) = make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+}
+
+// One warpgroup per (batch*head, 64-row q tile), looping over the K/V
+// tiles up to len. qs and dO land once (beside K/V tile 0) and are split;
+// each K/V tile lands raw (the next one by cp.async while this one
+// computes), then K, V and K^T are split into their own tiles.
+// Accumulator element i of every product is (q row 16 warp + g + 8
+// acc_half(i), column acc_col(i, t4)).
 template <bool kDrop>
-__global__ void __launch_bounds__(128) dq_f32_kernel(BwdParams p) {
-  __shared__ __align__(16) float k_s[kBlockK * kD];
-  __shared__ __align__(16) float v_s[kBlockK * kD];
+__global__ void __launch_bounds__(128, 1) dq_f32_kernel(BwdParams p) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = align_1024(smem_raw);
+  uint8_t* qs_hi = smem;
+  uint8_t* qs_lo = smem + kF32Tile;
+  uint8_t* do_hi = smem + 2 * kF32Tile;
+  uint8_t* do_lo = smem + 3 * kF32Tile;
+  uint8_t* land = smem + 4 * kF32Tile;  // K, then V
+  uint8_t* k_hi = smem + 6 * kF32Tile;  // then k_lo, v_hi, v_lo, kt_hi, kt_lo (raw q, dO in the prologue)
 
   const int tid = threadIdx.x;
-  const int half = (tid & 1) * kHalf;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3;
   const int bh = blockIdx.x / p.n_t;
   const int q0 = (blockIdx.x % p.n_t) * kBlockQ;
   const int b = bh / p.H, h = bh % p.H;
   const int dbh = p.drop.row(b, h);  // the hash's global row
   const int len = clamp_length(p.lengths, b, p.T);
-  const int row = q0 + (tid >> 1);
-  const bool rv = row < len;
-  float* out = static_cast<float*>(p.dq) +
-               (static_cast<long long>(b) * p.T + row) * p.H * kD +
-               static_cast<long long>(h) * kD + half;
-  float acc[kHalf];
-#pragma unroll
-  for (int d = 0; d < kHalf; ++d) acc[d] = 0.f;
-  if (q0 >= len) {
-    if (row < p.T) store_half_row(out, acc, 0.f);
+  const long long o_st = static_cast<long long>(p.H) * kD;
+  float* dq = static_cast<float*>(p.dq) + (static_cast<long long>(b) * p.T + q0) * o_st +
+              static_cast<long long>(h) * kD;
+
+  if (q0 >= len) {  // fully padded q tile: zero gradients, no K/V traffic
+    zero_rows_f32(dq, o_st, q0, p.T, tid);
     return;
   }
 
-  float qr[kHalf], dr[kHalf];
-  load_half_row(qr, at<float>(p.q, p.q_sb, p.q_sh, b, h) + row * p.q_st + half,
-                rv, p.scale);
-  load_half_row(dr, at<float>(p.dout, p.do_sb, p.do_sh, b, h) + row * p.do_st + half,
-                rv, 1.f);
-  const long long stat = static_cast<long long>(bh) * p.T + row;
-  const float lse = rv ? p.lse[stat] : 0.f;
-  const float dlt = rv ? p.delta[stat] : 0.f;
-
   const float* kg = at<float>(p.k, p.k_sb, p.k_sh, b, h);
   const float* vg = at<float>(p.v, p.v_sb, p.v_sh, b, h);
-  for (int k0 = 0; k0 < len; k0 += kBlockK) {
-    const int n_valid = min(kBlockK, len - k0);
-    __syncthreads();
-    load_tile_f32(k_s, kg + k0 * p.k_st, p.k_st, n_valid, tid, 1.f);
-    load_tile_f32(v_s, vg + k0 * p.v_st, p.v_st, n_valid, tid, 1.f);
-    __syncthreads();
-    for (int j = 0; j < n_valid; ++j) {
-      const float* kr = k_s + j * kD + half;
-      const float s = half_dot(qr, kr);
-      float dp = half_dot(dr, v_s + j * kD + half);
-      if (kDrop) dp = p.drop.apply(dp, dbh, row, k0 + j);
-      const float dz = rv ? exp2f(s - lse) * (dp - dlt) : 0.f;
+  auto load_kv = [&](int k0) {
+    cp_async_tile_f32(land, kg + k0 * p.k_st, p.k_st, len - k0, tid);
+    cp_async_tile_f32(land + kF32Tile, vg + k0 * p.v_st, p.v_st, len - k0, tid);
+  };
+  // q and dO land raw in the K/V split tiles (free until the loop), K/V
+  // tile 0 in the landing tiles, all at once
+  cp_async_tile_f32(k_hi, at<float>(p.q, p.q_sb, p.q_sh, b, h) + q0 * p.q_st, p.q_st, len - q0, tid);
+  cp_async_tile_f32(k_hi + kF32Tile, at<float>(p.dout, p.do_sb, p.do_sh, b, h) + q0 * p.do_st,
+                    p.do_st, len - q0, tid);
+  load_kv(0);
+  cp_async_commit();
+
+  int q_abs[2];
+  bool rv[2];
+  float lse[2], dlt[2];
 #pragma unroll
-      for (int d = 0; d < kHalf; ++d) acc[d] = fmaf(dz, kr[d], acc[d]);
+  for (int r = 0; r < 2; ++r) {
+    q_abs[r] = q0 + warp * 16 + g + r * 8;
+    rv[r] = q_abs[r] < len;
+    const long long i = static_cast<long long>(bh) * p.T + q_abs[r];
+    lse[r] = rv[r] ? p.lse[i] : 0.f;
+    dlt[r] = rv[r] ? p.delta[i] : 0.f;
+  }
+  float acc[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+
+  cp_async_wait<0>();
+  // the chunks this thread copied
+  split_tile(k_hi, qs_hi, qs_lo, p.scale, tid);  // qs = q * scale in f32
+  split_tile(k_hi + kF32Tile, do_hi, do_lo, 1.f, tid);
+  __syncthreads();  // K/V tile 0 landed; the raw q and dO read
+  split_tile(land, k_hi, k_hi + kF32Tile, 1.f, tid);
+  split_tile(land + kF32Tile, k_hi + 2 * kF32Tile, k_hi + 3 * kF32Tile, 1.f, tid);
+  split_tile_t(land, k_hi + 4 * kF32Tile, k_hi + 5 * kF32Tile, 1.f, tid);
+  fence_proxy_async();
+  __syncthreads();  // the split tiles are complete; the landing tiles are free
+  const int n_k = (len + kBlockK - 1) / kBlockK;
+  if (n_k > 1) load_kv(kBlockK);
+  cp_async_commit();
+
+  const uint64_t qh = desc_k_major(qs_hi), ql = desc_k_major(qs_lo);
+  const uint64_t dh = desc_k_major(do_hi), dl = desc_k_major(do_lo);
+  const uint64_t kh = desc_k_major(k_hi), kl = desc_k_major(k_hi + kF32Tile);
+  const uint64_t vh = desc_k_major(k_hi + 2 * kF32Tile), vl = desc_k_major(k_hi + 3 * kF32Tile);
+  const uint64_t kth = desc_k_major(k_hi + 4 * kF32Tile), ktl = desc_k_major(k_hi + 5 * kF32Tile);
+  for (int it = 0; it < n_k; ++it) {
+    const int k0 = it * kBlockK;
+    const bool more = it + 1 < n_k;
+    // S = qs K^T, then dP = dO V^T, both operands K-major, each product's
+    // small terms first (the first step overwrites s and dp); P is taken
+    // from S while dP is in flight
+    float s[32], dp[32];
+    wgmma_fence();
+#pragma unroll
+    for (int k8 = 0; k8 < 8; ++k8) small_ss(s, qh, ql, kh, kl, k8, k8);
+#pragma unroll
+    for (int k8 = 0; k8 < 8; ++k8) wgmma_ss_tf32(s, k8_step(qh, k8), k8_step(kh, k8), 1);
+    wgmma_commit();
+#pragma unroll
+    for (int k8 = 0; k8 < 8; ++k8) small_ss(dp, dh, dl, vh, vl, k8, k8);
+#pragma unroll
+    for (int k8 = 0; k8 < 8; ++k8) wgmma_ss_tf32(dp, k8_step(dh, k8), k8_step(vh, k8), 1);
+    wgmma_commit();
+    wgmma_wait<1>();
+    fence_regs(s);
+    const bool boundary = k0 + kBlockK > len;
+    uint32_t kept = 0;  // bit i: element i's dropout keep
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {  // P; 0 off the valid (q, k) pairs
+      const int r = acc_half(i), key = k0 + acc_col(i, t4);
+      const bool valid = rv[r] && (!boundary || key < len);
+      s[i] = valid ? exp2_approx(s[i] - lse[r]) : 0.f;
+      if (kDrop && p.drop.keep(dbh, q_abs[r], key)) kept |= 1u << i;
+    }
+    wgmma_wait<0>();
+    fence_regs(dp);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {  // dZ = P (dP keep / (1 - rate) - D)
+      const float dpv = !kDrop ? dp[i] : (kept >> i & 1u) ? dp[i] * p.drop.inv_keep : 0.f;
+      s[i] *= dpv - dlt[acc_half(i)];
+    }
+
+    // dQ += dZ K: dZ from registers, K^T (keys in the operand's order)
+    // K-major; the tile's product summed apart and added in registers
+    // (rounded to nearest: the sum over len keys takes no truncation).
+    // While it runs, the next K/V tile is split into the K and V tiles
+    // (read only by S and dP), after it into K^T.
+    uint32_t zh[8][4], zl[8][4];
+    split_a_operands(zh, zl, s);
+    float part[32];
+    wgmma_fence();
+    product_rs(part, zh, zl, kth, ktl);
+    wgmma_commit();
+    if (more) {
+      cp_async_wait<0>();
+      __syncthreads();  // tile it + 1 landed; S and dP of tile it are done
+      split_tile<kSplitUnderProduct>(land, k_hi, k_hi + kF32Tile, 1.f, tid);
+      split_tile<kSplitUnderProduct>(land + kF32Tile, k_hi + 2 * kF32Tile, k_hi + 3 * kF32Tile, 1.f, tid);
+    }
+    wgmma_wait<0>();
+    fence_regs(part);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[i] += part[i];
+    if (more) {
+      __syncthreads();  // dQ of tile it is done: K^T is free
+      split_tile_t(land, k_hi + 4 * kF32Tile, k_hi + 5 * kF32Tile, 1.f, tid);
+      fence_proxy_async();
+      __syncthreads();  // the split tiles are complete; the landing tiles are free
+      if (it + 2 < n_k) load_kv(k0 + 2 * kBlockK);
+      cp_async_commit();
     }
   }
-  if (row < p.T) store_half_row(out, acc, rv ? kDqScale : 0.f);
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = warp * 16 + g + r * 8;
+    if (q0 + row >= p.T) continue;
+    float* out = dq + row * o_st + t4 * 2;
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+      *reinterpret_cast<float2*>(out + n * 8) =
+          make_float2(rv[r] ? acc[4 * n + 2 * r] * kDqScale : 0.f,
+                      rv[r] ? acc[4 * n + 2 * r + 1] * kDqScale : 0.f);
+  }
 }
 
+// One warpgroup per (batch*head, 64-key tile), looping over the q tiles up
+// to len. K and V land once (beside q tile 0) and are split; each q tile's
+// q, dO, lse and D land raw (the next tile's by cp.async while this one
+// computes), then qs, dO, qs^T and dO^T are split into their own tiles.
+// Accumulator element 4 n + e of every product is (key row 16 warp + g +
+// 8 (e / 2), column 8 n + 2 t4 + e % 2).
 template <bool kDrop>
-__global__ void __launch_bounds__(128) dkv_f32_kernel(BwdParams p) {
-  __shared__ __align__(16) float qs_s[kBlockQ * kD];
-  __shared__ __align__(16) float do_s[kBlockQ * kD];
-  __shared__ float lse_s[kBlockQ], dlt_s[kBlockQ];
+__global__ void __launch_bounds__(128, 1) dkv_f32_kernel(BwdParams p) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = align_1024(smem_raw);
+  uint8_t* k_hi = smem;                 // then k_lo, v_hi, v_lo
+  uint8_t* land = smem + 4 * kF32Tile;  // q, then dO
+  // then qs_lo, do_hi, do_lo, qst_hi, qst_lo, dot_hi, dot_lo (raw K, V in the prologue)
+  uint8_t* qs_hi = smem + 6 * kF32Tile;
+  float* lse_land = reinterpret_cast<float*>(smem + 14 * kF32Tile);
+  float* dlt_land = lse_land + kBlockQ;
+  float* lse_t = lse_land + 2 * kBlockQ;
+  float* dlt_t = lse_land + 3 * kBlockQ;
 
   const int tid = threadIdx.x;
-  const int half = (tid & 1) * kHalf;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3;
   const int bh = blockIdx.x / p.n_t;
   const int k0 = (blockIdx.x % p.n_t) * kBlockK;
   const int b = bh / p.H, h = bh % p.H;
   const int dbh = p.drop.row(b, h);  // the hash's global row
   const int len = clamp_length(p.lengths, b, p.T);
-  const int key = k0 + (tid >> 1);
-  const bool kv = key < len;
-  const long long off = (static_cast<long long>(b) * p.T + key) * p.H * kD +
-                        static_cast<long long>(h) * kD + half;
+  const long long o_st = static_cast<long long>(p.H) * kD;
+  const long long off = (static_cast<long long>(b) * p.T + k0) * o_st + static_cast<long long>(h) * kD;
   float* dk = static_cast<float*>(p.dk) + off;
   float* dv = static_cast<float*>(p.dv) + off;
-  float acc_k[kHalf], acc_v[kHalf];
-#pragma unroll
-  for (int d = 0; d < kHalf; ++d) acc_k[d] = acc_v[d] = 0.f;
-  if (k0 >= len) {
-    if (key < p.T) {
-      store_half_row(dk, acc_k, 0.f);
-      store_half_row(dv, acc_v, 0.f);
-    }
+
+  if (k0 >= len) {  // key tile past the length: zero gradients
+    zero_rows_f32(dk, o_st, k0, p.T, tid);
+    zero_rows_f32(dv, o_st, k0, p.T, tid);
     return;
   }
-
-  float kr[kHalf], vr[kHalf];
-  load_half_row(kr, at<float>(p.k, p.k_sb, p.k_sh, b, h) + key * p.k_st + half, kv, 1.f);
-  load_half_row(vr, at<float>(p.v, p.v_sb, p.v_sh, b, h) + key * p.v_st + half, kv, 1.f);
 
   const float* qg = at<float>(p.q, p.q_sb, p.q_sh, b, h);
   const float* dog = at<float>(p.dout, p.do_sb, p.do_sh, b, h);
   const long long stat = static_cast<long long>(bh) * p.T;
-  for (int q0 = 0; q0 < len; q0 += kBlockQ) {
-    const int n_valid = min(kBlockQ, len - q0);
-    __syncthreads();
-    load_tile_f32(qs_s, qg + q0 * p.q_st, p.q_st, n_valid, tid, p.scale);
-    load_tile_f32(do_s, dog + q0 * p.do_st, p.do_st, n_valid, tid, 1.f);
+  auto load_q_tile = [&](int q0) {  // raw q, dO, lse and D of q tile q0
+    cp_async_tile_f32(land, qg + q0 * p.q_st, p.q_st, len - q0, tid);
+    cp_async_tile_f32(land + kF32Tile, dog + q0 * p.do_st, p.do_st, len - q0, tid);
     if (tid < kBlockQ) {
-      const bool ok = tid < n_valid;
-      lse_s[tid] = ok ? p.lse[stat + q0 + tid] : 0.f;
-      dlt_s[tid] = ok ? p.delta[stat + q0 + tid] : 0.f;
+      const bool ok = q0 + tid < len;
+      const long long i = stat + (ok ? q0 + tid : 0);
+      cp_async_4(lse_land + tid, p.lse + i, ok);
+      cp_async_4(dlt_land + tid, p.delta + i, ok);
     }
-    __syncthreads();
-    for (int i = 0; i < n_valid; ++i) {
-      const float* qrow = qs_s + i * kD + half;
-      const float* drow = do_s + i * kD + half;
-      const float s = half_dot(kr, qrow);
-      float dp = half_dot(vr, drow);
-      const float pv = kv ? exp2f(s - lse_s[i]) : 0.f;
-      float ptv = pv;
-      if (kDrop) {
-        const bool kp = p.drop.keep(dbh, q0 + i, key);
-        ptv = kp ? pv * p.drop.inv_keep : 0.f;
-        dp = kp ? dp * p.drop.inv_keep : 0.f;
-      }
-      const float dz = pv * (dp - dlt_s[i]);
+  };
+  // K and V land raw in the q tile's split tiles (free until the loop), q
+  // tile 0 in the landing tiles, all at once
+  cp_async_tile_f32(qs_hi, at<float>(p.k, p.k_sb, p.k_sh, b, h) + k0 * p.k_st, p.k_st, len - k0, tid);
+  cp_async_tile_f32(qs_hi + kF32Tile, at<float>(p.v, p.v_sb, p.v_sh, b, h) + k0 * p.v_st, p.v_st,
+                    len - k0, tid);
+  load_q_tile(0);
+  cp_async_commit();
+
+  int key[2];
+  bool kv[2];
 #pragma unroll
-      for (int d = 0; d < kHalf; ++d) {
-        acc_v[d] = fmaf(ptv, drow[d], acc_v[d]);
-        acc_k[d] = fmaf(dz, qrow[d], acc_k[d]);
+  for (int r = 0; r < 2; ++r) {
+    key[r] = k0 + warp * 16 + g + r * 8;
+    kv[r] = key[r] < len;
+  }
+  float acc_k[32], acc_v[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc_k[i] = acc_v[i] = 0.f;
+
+  cp_async_wait<0>();
+  // the chunks this thread copied
+  split_tile(qs_hi, k_hi, k_hi + kF32Tile, 1.f, tid);
+  split_tile(qs_hi + kF32Tile, k_hi + 2 * kF32Tile, k_hi + 3 * kF32Tile, 1.f, tid);
+  __syncthreads();  // q tile 0 landed; the raw K and V read
+  split_tile(land, qs_hi, qs_hi + kF32Tile, p.scale, tid);  // qs = q * scale in f32
+  split_tile(land + kF32Tile, qs_hi + 2 * kF32Tile, qs_hi + 3 * kF32Tile, 1.f, tid);
+  split_tile_t(land, qs_hi + 4 * kF32Tile, qs_hi + 5 * kF32Tile, p.scale, tid);
+  split_tile_t(land + kF32Tile, qs_hi + 6 * kF32Tile, qs_hi + 7 * kF32Tile, 1.f, tid);
+  if (tid < kBlockQ) {
+    lse_t[tid] = lse_land[tid];
+    dlt_t[tid] = dlt_land[tid];
+  }
+  fence_proxy_async();
+  __syncthreads();  // the split tiles are complete; the landing tiles are free
+  const int n_q = (len + kBlockQ - 1) / kBlockQ;
+  if (n_q > 1) load_q_tile(kBlockQ);
+  cp_async_commit();
+
+  const uint64_t kh = desc_k_major(k_hi), kl = desc_k_major(k_hi + kF32Tile);
+  const uint64_t vh = desc_k_major(k_hi + 2 * kF32Tile), vl = desc_k_major(k_hi + 3 * kF32Tile);
+  const uint64_t qh = desc_k_major(qs_hi), ql = desc_k_major(qs_hi + kF32Tile);
+  const uint64_t dh = desc_k_major(qs_hi + 2 * kF32Tile), dl = desc_k_major(qs_hi + 3 * kF32Tile);
+  const uint64_t qth = desc_k_major(qs_hi + 4 * kF32Tile), qtl = desc_k_major(qs_hi + 5 * kF32Tile);
+  const uint64_t dth = desc_k_major(qs_hi + 6 * kF32Tile), dtl = desc_k_major(qs_hi + 7 * kF32Tile);
+  for (int it = 0; it < n_q; ++it) {
+    const int q0 = it * kBlockQ;
+    const bool more = it + 1 < n_q;
+    // transposed tiles: rows are the keys, columns the 64 queries. S^T =
+    // K qs^T, then dP^T = V dO^T, each product's small terms first (the
+    // first step overwrites st and dpt); P^T is taken from S^T while dP^T
+    // is in flight
+    float st[32], dpt[32];
+    wgmma_fence();
+#pragma unroll
+    for (int k8 = 0; k8 < 8; ++k8) small_ss(st, kh, kl, qh, ql, k8, k8);
+#pragma unroll
+    for (int k8 = 0; k8 < 8; ++k8) wgmma_ss_tf32(st, k8_step(kh, k8), k8_step(qh, k8), 1);
+    wgmma_commit();
+#pragma unroll
+    for (int k8 = 0; k8 < 8; ++k8) small_ss(dpt, vh, vl, dh, dl, k8, k8);
+#pragma unroll
+    for (int k8 = 0; k8 < 8; ++k8) wgmma_ss_tf32(dpt, k8_step(vh, k8), k8_step(dh, k8), 1);
+    wgmma_commit();
+    wgmma_wait<1>();
+    fence_regs(st);
+    uint32_t kept = 0;  // bit 4 n + e: element 4 n + e's dropout keep
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = e >> 1, qc = n * 8 + t4 * 2 + (e & 1);
+        const bool valid = kv[r] && q0 + qc < len;
+        st[4 * n + e] = valid ? exp2_approx(st[4 * n + e] - lse_t[qc]) : 0.f;  // P^T
+        if (kDrop && p.drop.keep(dbh, q0 + qc, key[r])) kept |= 1u << (4 * n + e);
       }
+    wgmma_wait<0>();
+    fence_regs(dpt);
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int qc = n * 8 + t4 * 2 + (e & 1);
+        const float pv = st[4 * n + e];
+        float ptv = pv, dpv = dpt[4 * n + e];
+        if (kDrop) {
+          const bool kp = kept >> (4 * n + e) & 1u;
+          ptv = kp ? pv * p.drop.inv_keep : 0.f;
+          dpv = kp ? dpv * p.drop.inv_keep : 0.f;
+        }
+        st[4 * n + e] = ptv;                     // P~^T
+        dpt[4 * n + e] = pv * (dpv - dlt_t[qc]);  // dZ^T
+      }
+
+    // dV += P~^T dO, then dK += dZ^T qs: A from registers, B the transposed
+    // tiles dO^T and qs^T (queries in the operand's order) K-major; each
+    // tile's product summed apart and added in registers (rounded to
+    // nearest), one product at a time (the registers hold one pair of A
+    // operands). While dV runs, the next q tile is split into the qs and
+    // dO tiles (read only by S^T and dP^T); after dK, into qs^T and dO^T
+    // (under dK the registers hold no more).
+    uint32_t ah[8][4], al[8][4];
+    float part[32];
+    split_a_operands(ah, al, st);
+    wgmma_fence();
+    product_rs(part, ah, al, dth, dtl);
+    wgmma_commit();
+    if (more) {
+      cp_async_wait<0>();
+      __syncthreads();  // tile it + 1 landed; S^T and dP^T of tile it are done
+      split_tile<kSplitUnderProduct>(land, qs_hi, qs_hi + kF32Tile, p.scale, tid);  // qs = q * scale
+      split_tile<kSplitUnderProduct>(land + kF32Tile, qs_hi + 2 * kF32Tile, qs_hi + 3 * kF32Tile, 1.f,
+                                     tid);
+    }
+    wgmma_wait<0>();
+    fence_regs(part);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc_v[i] += part[i];
+    split_a_operands(ah, al, dpt);
+    wgmma_fence();
+    product_rs(part, ah, al, qth, qtl);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(part);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc_k[i] += part[i];
+    if (more) {
+      __syncthreads();  // dK of tile it is done: qs^T, lse and D are free
+      split_tile_t(land, qs_hi + 4 * kF32Tile, qs_hi + 5 * kF32Tile, p.scale, tid);
+      split_tile_t(land + kF32Tile, qs_hi + 6 * kF32Tile, qs_hi + 7 * kF32Tile, 1.f, tid);
+      if (tid < kBlockQ) {
+        lse_t[tid] = lse_land[tid];
+        dlt_t[tid] = dlt_land[tid];
+      }
+      fence_proxy_async();
+      __syncthreads();  // the split tiles are complete; the landing tiles are free
+      if (it + 2 < n_q) load_q_tile(q0 + 2 * kBlockQ);
+      cp_async_commit();
     }
   }
-  if (key < p.T) {
+
 #pragma unroll
-    for (int d = 0; d < kHalf; ++d) acc_k[d] /= kLog2e;
-    store_half_row(dk, acc_k, kv ? 1.f : 0.f);
-    store_half_row(dv, acc_v, kv ? 1.f : 0.f);
+  for (int r = 0; r < 2; ++r) {
+    const int row = warp * 16 + g + r * 8;
+    if (k0 + row >= p.T) continue;
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      const long long c = row * o_st + n * 8 + t4 * 2;
+      *reinterpret_cast<float2*>(dk + c) = make_float2(kv[r] ? acc_k[4 * n + 2 * r] / kLog2e : 0.f,
+                                                       kv[r] ? acc_k[4 * n + 2 * r + 1] / kLog2e : 0.f);
+      *reinterpret_cast<float2*>(dv + c) =
+          make_float2(kv[r] ? acc_v[4 * n + 2 * r] : 0.f, kv[r] ? acc_v[4 * n + 2 * r + 1] : 0.f);
+    }
   }
 }
 
@@ -626,8 +1002,11 @@ extern "C" int flash_attention_bwd_dq(BWD_ARGS, void* dq, BWD_TAIL) {
     if (attr != cudaSuccess) return static_cast<int>(attr);
     kernel<<<grid, 128, kDqSmem, s>>>(p);
   } else {
-    if (dropout) dq_f32_kernel<true><<<grid, 128, 0, s>>>(p);
-    else dq_f32_kernel<false><<<grid, 128, 0, s>>>(p);
+    void (*kernel)(BwdParams) = dropout ? dq_f32_kernel<true> : dq_f32_kernel<false>;
+    const cudaError_t attr =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kDqF32Smem);
+    if (attr != cudaSuccess) return static_cast<int>(attr);
+    kernel<<<grid, 128, kDqF32Smem, s>>>(p);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -649,8 +1028,11 @@ extern "C" int flash_attention_bwd_dkv(BWD_ARGS, void* dk, void* dv, BWD_TAIL) {
     if (attr != cudaSuccess) return static_cast<int>(attr);
     kernel<<<grid, 128, kDkvSmem, s>>>(p);
   } else {
-    if (dropout) dkv_f32_kernel<true><<<grid, 128, 0, s>>>(p);
-    else dkv_f32_kernel<false><<<grid, 128, 0, s>>>(p);
+    void (*kernel)(BwdParams) = dropout ? dkv_f32_kernel<true> : dkv_f32_kernel<false>;
+    const cudaError_t attr =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kDkvF32Smem);
+    if (attr != cudaSuccess) return static_cast<int>(attr);
+    kernel<<<grid, 128, kDkvF32Smem, s>>>(p);
   }
   return static_cast<int>(cudaGetLastError());
 }

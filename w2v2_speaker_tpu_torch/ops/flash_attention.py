@@ -17,8 +17,9 @@ Counterpart of ``w2v2_speaker_tpu/ops/flash_attention.py``:
 - dk/dv kernel  ``csrc/flash_attention_bwd.cu`` <- ``_bwd_dkv_kernel`` (:465,
   ``pallas_call`` at :623)
 
-Bounds (H100 SXM: 989 TFLOP/s bf16, 67 TFLOP/s f32 outside the tensor cores,
-3.35 TB/s): FLOPs 4 (forward), 6 (dq) and 8 (dk/dv) x H * d * sum(len^2);
+Bounds (H100 SXM: 989 TFLOP/s bf16, 495 TF32, 3.35 TB/s): FLOPs 4 (forward),
+6 (dq) and 8 (dk/dv) x H * d * sum(len^2), in f32 three TF32 products each
+(3xTF32, the least work that keeps f32 accuracy on the tensor cores);
 bytes the valid input rows read once and the outputs written once. At the
 training shape (B=66, T=149, H=12, d=64, bf16) every kernel is bound by
 bytes (~0.02-0.03 ms); on full utterances by operations. Design, shared by
@@ -28,12 +29,13 @@ masked); in bf16 the tiles arrive by ``cp.async`` into 128-byte-swizzled
 shared memory, the next tile in flight while this one computes, and the
 products are Hopper's ``wgmma`` (f32 accumulate), the first with both
 operands in shared memory, the second with the first's accumulators,
-rounded to bf16 in registers, as its A operand; f32 inputs run scalar f32
-FMAs. The keep mask of the dropout is regenerated in every kernel from
-(seed, batch*head, q, k) by the same murmur3 finalizer, so no [T, T] mask
-exists anywhere. Two
-backward kernels and no atomics, as in the JAX package: gradients are
-deterministic.
+rounded to bf16 in registers, as its A operand. With f32 inputs dq and
+dk/dv run the same loops with each product as three TF32 products on
+``wgmma`` (3xTF32: every float split into tf32 hi and lo parts), and the
+forward scalar f32 FMAs. The keep mask of the dropout is regenerated in
+every kernel from (seed, batch*head, q, k) by the same murmur3 finalizer,
+so no [T, T] mask exists anywhere. Two backward kernels and no atomics, as
+in the JAX package: gradients are deterministic.
 
 On a CUDA tensor every call launches a kernel (each wrapper counts its
 launches in ``.launches``) or raises; on a CPU tensor it runs the plain
@@ -59,6 +61,7 @@ from ..device import DeviceError
 
 __all__ = [
     "FlashAttentionFunction",
+    "attention_bwd_float64",
     "attention_dropout_keep",
     "attention_delta",
     "draw_seed",
@@ -72,6 +75,7 @@ __all__ = [
     "flash_attention_plain",
     "keep_threshold",
     "kernel_tolerance",
+    "norm_distance",
     "reference_attention",
     "HEAD_DIM",
 ]
@@ -322,6 +326,52 @@ def flash_attention_bwd_plain(
     dk = torch.where(rows, dk, 0.0)
     dv = torch.where(rows, dv, 0.0)
     return dq.to(dtype), dk.to(dtype), dv.to(dtype)
+
+
+@_autocast_off
+@torch.no_grad()
+def attention_bwd_float64(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Tensor, lse: torch.Tensor,
+    delta: torch.Tensor, lengths: Optional[torch.Tensor] = None, dropout_rate: float = 0.0,
+    seed: Optional[int] = None, coords: Coords = (0, 0, 0),
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The formulas of ``flash_attention_bwd_plain`` for float32 inputs
+    evaluated in float64 (from the same float32 lse and D, qs = q times the
+    float32 scale, no rounding to the input type): the yardstick of the
+    float32 routes' accuracy. float64 (dq, dk, dv), rows past the length 0.
+    ``norm_distance`` of a float32 route's output from it measures that
+    route's rounding."""
+    _check_dropout(dropout_rate, seed)
+    b, t, h, d = q.shape
+    lens = _lengths(lengths, b, t, q.device)
+    valid = torch.arange(t, device=q.device)[None, :] < lens[:, None]
+    qs = q.double() * float(_scale(d, torch.float32))
+    s = torch.einsum("bqhd,bkhd->bhqk", qs, k.double())
+    pairs = valid[:, None, :, None] & valid[:, None, None, :]
+    p = torch.where(pairs, torch.exp2(s - lse.double()[..., None]), 0.0)
+    del s
+    dp = torch.einsum("bqhd,bkhd->bhqk", do.double(), v.double())
+    pv = p
+    if dropout_rate > 0.0:
+        keep = attention_dropout_keep(seed, b, h, t, t, dropout_rate, q.device, coords)
+        inv = _keep_scale(dropout_rate)
+        pv = torch.where(keep, p * inv, 0.0)
+        dp = torch.where(keep, dp * inv, 0.0)
+        del keep
+    dz = p * (dp - delta.double()[..., None])
+    del p, dp
+    rows = valid[:, :, None, None]
+    dq = torch.where(rows, torch.einsum("bhqk,bkhd->bqhd", dz, k.double()) * d**-0.5, 0.0)
+    dk = torch.where(rows, torch.einsum("bhqk,bqhd->bkhd", dz, qs) / LOG2E, 0.0)
+    dv = torch.where(rows, torch.einsum("bhqk,bqhd->bkhd", pv, do.double()), 0.0)
+    return dq, dk, dv
+
+
+def norm_distance(got: torch.Tensor, exact: torch.Tensor) -> float:
+    """|got - exact| / |exact| (L2 norms over the whole tensor, float64); 0
+    where both are 0."""
+    err, norm = float((got.double() - exact).norm()), float(exact.norm())
+    return err / norm if norm > 0 else (0.0 if err == 0 else float("inf"))
 
 
 def kernel_tolerance(want: torch.Tensor, backward: bool = False) -> Tuple[float, float]:
